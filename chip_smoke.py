@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
+                                     # (phases 1-3 and 6)
 
 Phases (any failure exits non-zero):
 1. device: name, count, power limit (nvidia-smi);
@@ -12,11 +13,26 @@ Phases (any failure exits non-zero):
    and backward (fused_edge_mega), K2 forward and backward
    (fused_node_ffn), each against its plain PyTorch version on the card,
    with its time, the plain version's time and its bound;
-4. the main path: make_uma_calculator(model="escn-md", device="cuda") and
-   Calculator.get_forces on the 300-atom cluster (ms per call, peak
+4. the escn main path: make_uma_calculator(model="escn-md", device="cuda")
+   and Calculator.get_forces on the 300-atom cluster (ms per call, peak
    memory, kernel launch counts), plus card forces against the plain path
    on the CPU in float64 on a 64-atom cluster with the same weights;
-5. the opt workflow (run_opt, L-BFGS) on the 300-atom cluster.
+5. the opt workflow (run_opt, L-BFGS) on the 300-atom cluster;
+6. K5 parity at the uma-s-1p1 pallas-mode shapes (P = 4096, F = 1024,
+   R + 1 = 25) on the 4096-atom system: forward, feats gradient and
+   coordinate gradient of radial_contract against its plain version, for
+   a seeded stream A (div_d False) and the real first-layer stream B
+   (div_d True); the bound counts the pairs inside the cutoff (the work
+   the function needs), the dense FLOP count the work the kernels do;
+7. the PaiNN kernel path: uma-s-1p1 in mp_mode="pallas" through
+   Calculator.get_forces on the 4096-atom system (ms per call, peak
+   memory, K5 launch counts) and a 5-cycle run_opt; the dense mode of
+   the same weights on the card (ms per call, peak memory, forces
+   against the pallas mode);
+8. the default path: make_uma_calculator(device="cuda") with no model
+   (uma-s-1p1, dense) on the 300-atom cluster;
+9. uma-s-1p1 pallas mode on the card against the CPU float64 dense plain
+   path on the 64-atom cluster with the same weights.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -48,10 +64,14 @@ REPLACES = {
     "fused_edge_mega_bwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:1274",
     "fused_node_ffn_fwd": "pdb2reaction_tpu/mlip/escn_ffn_kernel.py:68",
     "fused_node_ffn_bwd": "pdb2reaction_tpu/mlip/escn_ffn_kernel.py:82",
+    "radial_contract_fwd": "pdb2reaction_tpu/mlip/pallas_ops.py:129",
+    "radial_contract_bwd_feats": "pdb2reaction_tpu/mlip/pallas_ops.py:352",
+    "radial_contract_bwd_coords": "pdb2reaction_tpu/mlip/pallas_ops.py:256",
 }
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
     "fused_node_ffn": "pdb2reaction_tpu_torch/csrc/escn_ffn.cu",
+    "radial_contract": "pdb2reaction_tpu_torch/csrc/radial_contract.cu",
 }
 
 
@@ -162,7 +182,8 @@ def phase_device():
 def phase_build():
     from pdb2reaction_tpu_torch.mlip import cuda_build
     t0 = time.perf_counter()
-    times = cuda_build.build(["escn_edge", "escn_ffn"], verbose=True)
+    times = cuda_build.build(["escn_edge", "escn_ffn", "radial_contract"],
+                             verbose=True)
     for name, rec in cuda_build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -355,6 +376,275 @@ def phase_opt(calc, cycles):
     return res, wall
 
 
+# ---------------------------------------------------------------------------
+# PaiNN-class uma-s-1p1: K5 and the pallas-mode path
+# ---------------------------------------------------------------------------
+
+def k5_pairs(x, mask, cutoff):
+    """Ordered pairs (i != j, both atoms real) inside the cutoff: the only
+    pairs whose adjacency is not zero."""
+    import torch
+    d = torch.sqrt(torch.clamp(
+        ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1), min=1e-12))
+    real = mask > 0
+    within = (d <= cutoff) & real[:, None] & real[None, :]
+    within.fill_diagonal_(False)
+    return int(within.sum())
+
+
+def k5_flops(pairs, P, R1, F):
+    """(forward, feats gradient, coordinate gradient) FLOP per launch:
+    what the function needs, 2 R1 F per pair inside the cutoff (one S
+    product for the coordinate gradient: S2[i, j] = S1[j, i]), and what
+    the kernels compute, every pair (both S products)."""
+    need = 2 * pairs * R1 * F
+    dense = 2 * P * P * R1 * F
+    return (need, need, need), (dense, dense, 2 * dense)
+
+
+def pallas_calculator(st, cfg, w):
+    from pdb2reaction_tpu_torch.mlip.calculator import Calculator
+    from pdb2reaction_tpu_torch.mlip.escn import tree_to
+    from pdb2reaction_tpu_torch.mlip.model import make_energy_fn
+    calc = Calculator(st, make_energy_fn(cfg),
+                      params=tree_to(w, device="cuda"), device="cuda",
+                      weights_source="surrogate-seeded")
+    calc.cfg = cfg
+    return calc
+
+
+def k5_streams(calc):
+    """Coordinates, mask, a seeded stream A [P, 4C] and the real
+    first-layer stream B = [x_k phi_vs]_k | phi_vs of the pallas model."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import model as tm
+    cfg, p = calc.cfg, calc.params
+    x = calc._to_pad_ang(calc.structure.coords_bohr).float()
+    mask = calc.system.atom_mask.float()
+    with torch.no_grad():
+        _, s = tm._embed_nodes(calc.system, p, cfg, mask)
+        phi_vs = tm._apply_mlp(p["layers"][0]["phi"], s).chunk(3, -1)[2]
+        featsB = torch.cat([x[:, k:k + 1] * phi_vs for k in range(3)]
+                           + [phi_vs], -1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    featsA = torch.randn(featsB.shape, generator=gen, device="cuda")
+    return x, mask, featsA, featsB
+
+
+def phase_k5(calc, quick):
+    """K5 forward / feats gradient / coordinate gradient against the plain
+    version at the pallas path's shapes, for both streams."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    reps = 2 if quick else 5
+    cfg = calc.cfg
+    rc, R = cfg.cutoff, cfg.n_radial
+    x, mask, featsA, featsB = k5_streams(calc)
+    P, F = featsA.shape
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = torch.randn(P, R + 1, F, generator=gen, device="cuda")
+    names = ("radial_contract_fwd", "radial_contract_bwd_feats",
+             "radial_contract_bwd_coords")
+    got = {k: [] for k in names}
+    for label, feats, div_d in (("A", featsA, False), ("B", featsB, True)):
+        outs = []
+        for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+            c = x.clone().requires_grad_(True)
+            f = feats.clone().requires_grad_(True)
+            T = fn(c, mask, f, rc, R, div_d)
+            df, dc = torch.autograd.grad(T, [f, c], g)
+            outs.append((T.detach(), df, dc))
+            del T
+        torch.cuda.synchronize()
+        errs = [(abs_err(a, b), rel_err(a, b)) for a, b in zip(*outs)]
+        del outs
+        log(f"[K5] stream {label} (div_d={div_d}, P={P}, F={F}, "
+            f"R+1={R + 1}): rel err fwd {errs[0][1]:.3e}, feats "
+            f"{errs[1][1]:.3e}, coords {errs[2][1]:.3e} (tol {KERNEL_TOL})")
+        if max(e[1] for e in errs) > KERNEL_TOL:
+            fail(f"K5 stream {label} disagrees with its plain version")
+        with torch.no_grad():
+            t = [cuda_ms(lambda: rcm.radial_contract(
+                    x, mask, feats, rc, R, div_d), reps, warm=1),
+                 cuda_ms(lambda: rcm.radial_contract_plain(
+                    x, mask, feats, rc, R, div_d), reps, warm=1)]
+        for wrt in ("feats", "coords"):
+            for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+                c = x.clone().requires_grad_(wrt == "coords")
+                f = feats.clone().requires_grad_(wrt == "feats")
+                T = fn(c, mask, f, rc, R, div_d)
+                leaf = c if wrt == "coords" else f
+                t.append(cuda_ms(lambda: torch.autograd.grad(
+                    T, [leaf], g, retain_graph=True), reps, warm=1))
+                del T
+        for i, k in enumerate(names):
+            got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
+        log(f"[K5] stream {label}: kernel / plain ms fwd {t[0]:.2f} / "
+            f"{t[1]:.2f}, feats {t[2]:.2f} / {t[3]:.2f}, coords "
+            f"{t[4]:.2f} / {t[5]:.2f}")
+    pairs = k5_pairs(x, mask, rc)
+    flops, computed = k5_flops(pairs, P, R + 1, F)
+    log(f"[K5] {pairs} ordered pairs inside {rc} A of {P * (P - 1)} "
+        f"({100 * pairs / (P * (P - 1)):.2f}%, {pairs / P:.1f} per atom)")
+    c_b, m_b, f_b, g_b = (nbytes(x), nbytes(mask), nbytes(featsA),
+                          nbytes(g))
+    byts = (c_b + m_b + f_b + g_b, c_b + m_b + g_b + f_b,
+            c_b + m_b + f_b + g_b + c_b)
+    rows = {}
+    for k, fl, fc, nb in zip(names, flops, computed, byts):
+        v = got[k]
+        rows[k] = (max(e for e, _, _ in v), sum(t for _, t, _ in v) / len(v),
+                   sum(tp for _, _, tp in v) / len(v), fl, nb)
+        b32, bbf, by = bound_ms(fl, nb)
+        log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
+            f" mean of streams A and B), needed {fl / 1e9:.1f} GFLOP "
+            f"(pairs inside the cutoff), computed {fc / 1e9:.1f} GFLOP "
+            f"(every pair), {nb / 1e6:.1f} MB, bound f32 {b32:.3f} ms / "
+            f"bf16 {bbf:.3f} ms ({by}); computed at "
+            f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s")
+    return rows
+
+
+def phase_pallas(st, w, reps, cycles):
+    """The PaiNN kernel path: uma-s-1p1 pallas mode, force calls and opt;
+    K5 counts set to 0 just before and read just after."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS
+    from pdb2reaction_tpu_torch.workflows.opt import run_opt
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    calc = pallas_calculator(st, cfg, w)
+    cb = st.coords_bohr.reshape(-1)
+    for k in rcm.launches:
+        rcm.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = calc.get_forces(cb)                # first call (warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = calc.get_forces(cb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    f = res["forces"]
+    if f.shape != (3 * calc.n_atoms,) or not np.all(np.isfinite(f)) \
+            or not np.isfinite(res["energy"]):
+        fail("pallas force call returned non-finite or mis-shaped output")
+    per_call = {k: v / calc.force_calls for k, v in rcm.launches.items()}
+    log(f"[pallas] uma-s-1p1 pallas, {calc.n_atoms} atoms "
+        f"(P={calc.n_pad}): {ms:.1f} ms per get_forces over {reps} calls, "
+        f"peak memory {peak:.2f} GiB, E = {res['energy']:.8f} Ha, max|F| "
+        f"= {np.abs(f).max():.3e} Ha/Bohr; K5 launches per force call "
+        f"{per_call}")
+
+    out = os.path.join(HERE, "result_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"cluster{calc.n_atoms}.xyz")
+    write_xyz(path, st)
+    e0 = res["energy"]
+    final = os.path.join(out, "final_geometry.xyz")
+    if os.path.exists(final):
+        os.remove(final)
+    t0 = time.perf_counter()
+    ro = run_opt(path, charge=0, spin=1, model="uma-s-1p1", device="cuda",
+                 max_cycles=cycles, out_dir=out, calc=calc, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = dict(rcm.launches)            # read just after the path
+    log(f"[pallas-opt] uma-s-1p1 pallas L-BFGS, {calc.n_atoms} atoms: E "
+        f"{e0:.8f} -> {ro['energy']:.8f} Ha in {ro['cycles']} cycles, "
+        f"{ro['force_calls']} force calls, {wall:.2f} s wall "
+        f"({wall / max(ro['force_calls'], 1) * 1e3:.1f} ms per force "
+        f"call); K5 launches on the path {launches}")
+    if not (np.isfinite(ro["energy"]) and ro["energy"] < e0):
+        fail("pallas opt did not lower the energy")
+    if not os.path.exists(final):
+        fail("pallas opt wrote no final_geometry.xyz")
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        fail(f"K5 kernels never launched on the pallas path: {never}")
+
+    # the dense mode of the same weights, timed and its peak memory read
+    # the same way, with the pallas calculator freed first
+    n_atoms = calc.n_atoms
+    del calc, ro
+    torch.cuda.empty_cache()
+    dense = pallas_calculator(st, dataclasses.replace(cfg, mp_mode="dense"),
+                              w)
+    torch.cuda.reset_peak_memory_stats()
+    rd = dense.get_forces(cb)                # first call (warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rd = dense.get_forces(cb)
+    torch.cuda.synchronize()
+    ms_d = (time.perf_counter() - t0) / reps * 1e3
+    peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = float(np.abs(f - rd["forces"]).max() / np.abs(rd["forces"]).max())
+    log(f"[dense] uma-s-1p1 dense, {n_atoms} atoms, same weights: "
+        f"{ms_d:.1f} ms per get_forces over {reps} calls, peak memory "
+        f"{peak_d:.2f} GiB (pallas: {ms:.1f} ms, {peak:.2f} GiB)")
+    log(f"[pallas-vs-dense] {n_atoms} atoms on the card, same weights:"
+        f" max|dF|/max|F| = {err:.3e} (tol {FORCE_TOL}), |dE| = "
+        f"{abs(res['energy'] - rd['energy']):.3e} Ha")
+    if not err <= FORCE_TOL:
+        fail("pallas-mode forces disagree with the dense mode")
+    return launches
+
+
+def phase_default(st, reps):
+    """make_uma_calculator with no model: uma-s-1p1, dense."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    calc = make_uma_calculator(st, device="cuda")
+    if calc.cfg != CONFIGS["uma-s-1p1"]:
+        fail(f"the default model is not uma-s-1p1 (dense): {calc.cfg}")
+    cb = st.coords_bohr.reshape(-1)
+    res = calc.get_forces(cb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = calc.get_forces(cb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    if not np.all(np.isfinite(res["forces"])):
+        fail("default-path forces are not finite")
+    log(f"[default] make_uma_calculator() -> uma-s-1p1 dense, "
+        f"{calc.n_atoms} atoms (P={calc.n_pad}): {ms:.2f} ms per "
+        f"get_forces over {reps} calls")
+
+
+def phase_reference_painn(seed):
+    """uma-s-1p1 pallas mode on the card against the CPU float64 dense
+    plain path, same weights."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, init_params
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    zs, xyz = cluster(64, seed=1)
+    st = Structure(zs, xyz)
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    w = init_params(cfg, seed=seed)
+    w["charge"], w["spin"] = torch.tensor(0.0), torch.tensor(1.0)
+    gpu = pallas_calculator(st, cfg, w)
+    cpu = make_uma_calculator(st, model="uma-s-1p1", device="cpu",
+                              dtype=torch.float64, params=w)
+    cb = st.coords_bohr.reshape(-1)
+    rc, rg = cpu.get_forces(cb), gpu.get_forces(cb)
+    err = float(np.abs(rg["forces"] - rc["forces"]).max()
+                / np.abs(rc["forces"]).max())
+    log(f"[reference] 64 atoms uma-s-1p1: card pallas f32 kernels vs CPU "
+        f"f64 dense plain path: max|dF|/max|F| = {err:.3e} (tol "
+        f"{FORCE_TOL}), |dE| = {abs(rg['energy'] - rc['energy']):.3e} Ha")
+    if not err <= FORCE_TOL:
+        fail("pallas-mode card forces disagree with the CPU float64 path")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -386,21 +676,34 @@ def main():
         f"cudnn TF32 {torch.backends.cudnn.allow_tf32}")
     rows = phase_kernels(calc, calc.cfg, args.quick)
 
+    import dataclasses
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
+    zs4, xyz4 = cluster(4096, seed=0)
+    st4 = Structure(zs4, xyz4)                # P = 4096, no padding
+    cfg_p = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    _, w4, _ = make_model(cfg_p, seed=0)
+    rows.update(phase_k5(pallas_calculator(st4, cfg_p, w4), args.quick))
+
     launches = {k: 0 for k in rows}
     if not args.quick:
-        # ---- the main path: counts set to 0 just before, read just after
+        # ---- the escn main path: counts set to 0 just before, read just
+        # after
         ms, peak, _ = phase_force(calc, reps=5)
         phase_opt(calc, cycles=10)
-        launches = {**ek.launches, **fk.launches}
-        never = [k for k, v in launches.items() if v == 0]
+        launches.update({**ek.launches, **fk.launches})
+        never = [k for k in (*ek.launches, *fk.launches) if launches[k] == 0]
         if never:
             fail(f"kernels never launched on the main path: {never}")
         phase_reference(seed=0)
+        # ---- the PaiNN kernel path (its own counts), default path, check
+        launches.update(phase_pallas(st4, w4, reps=3, cycles=5))
+        phase_default(st, reps=3)
+        phase_reference_painn(seed=0)
 
     kern = []
     for k, (err, t, tp, fl, nb) in rows.items():
         b32, _, by = bound_ms(fl, nb)
-        base = k.rsplit("_", 1)[0]
+        base = next(b for b in SOURCES if k.startswith(b))
         kern.append({"name": k, "route": "cuda", "source": SOURCES[base],
                      "replaces": REPLACES[k], "launches": launches[k],
                      "max_abs_err": err, "ms": t, "plain_ms": tp,

@@ -5,7 +5,7 @@ Same flags as the JAX package's ``opt`` (``pdb2reaction_tpu/cli.py``) plus
 Flags whose features are not ported yet are accepted and raise when used
 with a non-default value. The other subcommands are later port items.
 
-    python -m pdb2reaction_tpu_torch opt -i x.xyz -q 0 --model escn-md
+    python -m pdb2reaction_tpu_torch opt -i x.xyz -q 0      # uma-s-1p1
 """
 
 from __future__ import annotations
@@ -65,8 +65,10 @@ def _opt_parser(sub):
     p.add_argument("--dump", type=_bool, default=False)
     p.add_argument("--calc-mode", default="uma",
                    choices=["uma", "morse", "lj"])
-    p.add_argument("--model", default="escn-md",
-                   help="eSCN config name (escn-md, escn-test, ...).")
+    p.add_argument("--model", default="uma-s-1p1",
+                   help="Model config name: PaiNN-class uma-s-1p1 "
+                        "(default), uma-m-1p1, small, uma-s-1p1-bf16, or "
+                        "eSCN escn-md, escn-test, ....")
     p.add_argument("--hessian-calc-mode", default="Analytical",
                    choices=["Analytical", "FiniteDifference"])
     p.add_argument("--workers", type=int, default=1)

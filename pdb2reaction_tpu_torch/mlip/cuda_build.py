@@ -87,13 +87,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def call(lib: ctypes.CDLL, fn: str, *args) -> None:
-    """Call a C entry: ``int`` arguments go as C ints, ``ptr(...)``
-    arguments as pointers. Raises if the entry returns a CUDA error."""
+    """Call a C entry: ``int`` arguments go as C ints, ``float`` ones as C
+    floats, ``ptr(...)`` arguments as pointers. Raises if the entry
+    returns a CUDA error."""
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p if isinstance(a, _Ptr) else ctypes.c_int
-                  for a in args]
-    rc = f(*[a.value if isinstance(a, _Ptr) else int(a) for a in args])
+    f.argtypes = [ctypes.c_void_p if isinstance(a, _Ptr)
+                  else ctypes.c_float if isinstance(a, float)
+                  else ctypes.c_int for a in args]
+    rc = f(*[a.value if isinstance(a, _Ptr) else a if isinstance(a, float)
+             else int(a) for a in args])
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed with cudaError {rc}")
 

@@ -36,7 +36,7 @@ from .escn_ffn_kernel import fused_node_ffn
 from .so3 import (_const, edge_rot_mat, num_coeffs, s2_grid_tables,
                   s2_grid_tables_midpoint, wigner_full)
 
-_TODO = "see ROADMAP.md queue 0 item 2 (eSCN full and gate branches)"
+_TODO = "see ROADMAP.md queue 0 item 4 (eSCN full and gate branches)"
 
 
 @dataclass(frozen=True)

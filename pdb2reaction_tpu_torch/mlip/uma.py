@@ -1,17 +1,19 @@
-"""UMA-class calculator factory: the eSCN branch of the JAX package's
-``make_uma_calculator``.
+"""UMA-class calculator factory: the port of the JAX package's
+``make_uma_calculator`` for both backbones.
 
-Weights: the caller's ``params`` (for example JAX weights carried across
-with ``from_jax.params_from_jax``), else the deterministic seeded
-surrogate, announced by a loud warning because its energies mean nothing
-chemically. The MoLE expert banks are merged once with the system's
-(task, charge, spin) routing (exact). Only eSCN configurations
-(``escn*``) are ported; the PaiNN-class default ``uma-s-1p1`` is a later
-port item.
+``model`` names a PaiNN-class configuration (``mlip/model.py``:
+``uma-s-1p1``, the default as in the JAX package, ``uma-m-1p1``,
+``small``, ``uma-s-1p1-bf16``) or an eSCN one (``escn*``). Weights: the
+caller's ``params`` (for example JAX weights carried across with
+``from_jax.params_from_jax``), else the deterministic seeded surrogate,
+announced by a loud warning because its energies mean nothing
+chemically. For eSCN the MoLE expert banks are merged once with the
+system's (task, charge, spin) routing (exact).
 
 The device defaults to CUDA, where the force path runs the hand-written
-K1/K2 kernels. Asking for CUDA without a card raises; CPU runs only when
-the caller asks for it and takes the plain PyTorch versions.
+kernels. Asking for CUDA without a card raises; CPU runs only when the
+caller asks for it and takes the plain PyTorch versions. Atom-axis
+sharding (``spatial > 1``) needs several GPUs and is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from ..core.structure import Structure
 from .calculator import Calculator
 from .escn import (ESCN_CONFIGS, escn_energy_fn, init_escn_params,
                    premerge_escn_params, tree_to)
+from .model import CONFIGS, init_params, make_energy_fn
+
 
 def _warn_surrogate(model: str, seed: int) -> str:
     """Loud warning when the weights are the seeded surrogate; returns the
@@ -57,45 +61,61 @@ def resolve_device(device) -> torch.device:
 def make_uma_calculator(
     structure: Structure,
     *,
-    model: str = "escn-md",
+    model: str = "uma-s-1p1",
     charge: int = 0,
     spin: int = 1,
     freeze_atoms: Optional[Sequence[int]] = None,
     params: Optional[dict] = None,
     seed: int = 0,
     device="cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: Optional[torch.dtype] = None,
     max_neigh: Optional[int] = None,
     radius: Optional[float] = None,
     weights_source: Optional[str] = None,
     pad_multiple: int = 8,
+    spatial: Optional[int] = None,
 ) -> Calculator:
-    """Calculator for a named eSCN configuration. ``dtype`` is the model's
-    compute type (the CUDA kernels take float32; float64 runs the plain
-    path). ``params`` may be raw or premerged."""
-    if not model.startswith("escn"):
+    """Calculator for a named configuration. ``dtype`` is the model's
+    compute type (None: the configuration's own; the CUDA kernels take
+    float32, and the PaiNN pallas mode computes in float32 whatever it
+    is). ``params`` may be raw or premerged (eSCN)."""
+    if spatial is not None and int(spatial) > 1:
         raise NotImplementedError(
-            f"model {model!r}: only the eSCN configurations are ported; the "
-            "PaiNN-class model is ROADMAP.md queue 1 item 11")
+            f"spatial={spatial}: atom-axis sharding needs several GPUs "
+            "(ROADMAP.md queue 1 item 15)")
+    if model.startswith("escn"):
+        cfg = ESCN_CONFIGS[model]
+    elif model in CONFIGS:
+        cfg = CONFIGS[model]
+    else:
+        raise KeyError(f"unknown model {model!r}: one of "
+                       f"{sorted(CONFIGS) + sorted(ESCN_CONFIGS)}")
     dev = resolve_device(device)
-    cfg = dataclasses.replace(ESCN_CONFIGS[model], dtype=dtype)
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
     if max_neigh or radius:
         cfg = dataclasses.replace(
             cfg, max_neighbors=int(max_neigh) if max_neigh
             else cfg.max_neighbors,
             cutoff=float(radius) if radius else cfg.cutoff)
+    escn = model.startswith("escn")
     if params is None:
-        params = init_escn_params(cfg, seed=seed, device=dev)
+        params = (init_escn_params(cfg, seed=seed, device=dev) if escn
+                  else init_params(cfg, seed=seed))
         source = _warn_surrogate(model, seed)
     else:
-        params = tree_to(params, device=dev)
         source = weights_source or "given"
-    params = tree_to(dict(params), dtype=dtype)
+    params = tree_to(dict(params), device=dev)
+    params = tree_to(params, dtype=cfg.dtype)
     params["charge"] = torch.as_tensor(float(charge))
     params["spin"] = torch.as_tensor(float(spin))
-    params["task"] = torch.as_tensor(float(params.get("task", 0)))
-    params = premerge_escn_params(params, cfg)
-    calc = Calculator(structure, escn_energy_fn(cfg), params=params,
+    if escn:
+        params["task"] = torch.as_tensor(float(params.get("task", 0)))
+        params = premerge_escn_params(params, cfg)
+        fn = escn_energy_fn(cfg)
+    else:
+        params["atom_ref"] = params["atom_ref"].float()
+        fn = make_energy_fn(cfg)
+    calc = Calculator(structure, fn, params=params,
                       freeze_atoms=freeze_atoms, pad_multiple=pad_multiple,
                       device=dev, weights_source=source)
     calc.cfg = cfg

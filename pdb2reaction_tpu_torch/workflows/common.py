@@ -45,7 +45,7 @@ def merge_freeze(struct: Structure, extra: Sequence[int]) -> List[int]:
 def make_calculator(struct: Structure, *, calc_mode: str = "uma",
                     charge: int = 0, spin: int = 1,
                     freeze_atoms: Sequence[int] = (),
-                    model: str = "escn-md", device="cuda",
+                    model: str = "uma-s-1p1", device="cuda",
                     **calc_kw) -> Calculator:
     mode = (calc_mode or "uma").lower()
     if mode != "uma":

@@ -51,7 +51,7 @@ def run_opt(
     max_cycles: int = 10000,
     freeze_atoms: Sequence = (),
     calc_mode: str = "uma",
-    model: str = "escn-md",
+    model: str = "uma-s-1p1",
     device="cuda",
     out_dir="./result_opt/",
     verbose: bool = True,

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Device time of every CUDA kernel inside one escn-md force call of the
+"""Device time of every CUDA kernel inside one force call of the
 PyTorch/CUDA port, by kernel name (torch.profiler, CUDA activity).
 
-    python3 scripts/gpu_kernel_breakdown.py      # needs one CUDA card
+    python3 scripts/gpu_kernel_breakdown.py [cell ...]   # one CUDA card
 
-Builds the escn-md calculator on the 300-atom cluster of chip_smoke.py
-(padded to 320), warms it up, profiles three get_forces calls and prints
-the device time per call of each kernel (the port's own: sgemm_nn,
-rotate_in, act_fwd, back_ksum, rot_out_bwd, act_bwd, gdp_bwd, gx_bwd,
-ffn_fwd, ffn_bwd; everything else is the plain PyTorch glue), then the
+Cells (default: all three):
+  escn-md       escn-md on the 300-atom cluster of chip_smoke.py (padded
+                to 320): K1 (sgemm_nn, rotate_in, act_fwd, back_ksum,
+                rot_out_bwd, act_bwd, gdp_bwd, gx_bwd) and K2 (ffn_fwd,
+                ffn_bwd);
+  painn-pallas  uma-s-1p1 in mp_mode="pallas" on the 4096-atom system:
+                K5 (rc_fwd, rc_bwd_feats, rc_bwd_coords);
+  painn-dense   the default uma-s-1p1 (dense) on the 300-atom cluster.
+
+For each cell: builds the calculator, warms it up, profiles ``n`` force
+calls (3, or 2 for painn-pallas), prints the device time per call of each
+kernel (everything not named above is the plain PyTorch glue) and the
 device-busy share of the profiled window. Exits non-zero without a card.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -19,29 +27,36 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+CELLS = ("escn-md", "painn-pallas", "painn-dense")
 
 
-def main():
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def build(cell):
     import chip_smoke
     from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    if cell == "escn-md":
+        zs, xyz = chip_smoke.cluster(300, seed=0)
+        return make_uma_calculator(Structure(zs, xyz), model="escn-md",
+                                   device="cuda", seed=0, pad_multiple=64), 3
+    if cell == "painn-dense":
+        zs, xyz = chip_smoke.cluster(300, seed=0)
+        return make_uma_calculator(Structure(zs, xyz), device="cuda",
+                                   seed=0), 3
+    zs, xyz = chip_smoke.cluster(4096, seed=0)
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    _, w, _ = make_model(cfg, seed=0)
+    return chip_smoke.pallas_calculator(Structure(zs, xyz), cfg, w), 2
 
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    zs, xyz = chip_smoke.cluster(300, seed=0)
-    calc = make_uma_calculator(Structure(zs, xyz), model="escn-md",
-                               device="cuda", seed=0, pad_multiple=64)
+
+def profile_cell(cell, smi):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    calc, n = build(cell)
     cb = calc.structure.coords_bohr.reshape(-1)
     for _ in range(2):
         calc.get_forces(cb)
     torch.cuda.synchronize()
-    n = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -57,11 +72,29 @@ def main():
             rows.append((dev / n / 1e3, ev.count // n, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"# {smi}; escn-md, 300 atoms (P=320), per force call")
+    print(f"# {smi}; {cell}, {calc.n_atoms} atoms (P={calc.n_pad}), per "
+          f"force call over {n} profiled calls")
     print(f"# wall {wall / n * 1e3:.2f} ms, device busy {busy:.2f} ms "
           f"({busy / (wall / n * 1e3):.1%})")
     for ms, cnt, name in rows[:30]:
         print(f"{ms:9.3f} ms  x{cnt:<4d} {name[:90]}")
+    del calc
+    torch.cuda.empty_cache()
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    cells = sys.argv[1:] or list(CELLS)
+    bad = [c for c in cells if c not in CELLS]
+    if bad:
+        sys.exit(f"unknown cells {bad}: choose from {CELLS}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    for cell in cells:
+        profile_cell(cell, smi)
 
 
 if __name__ == "__main__":

@@ -77,8 +77,8 @@ def test_cuda_without_card_raises():
     st = Structure(np.array([1, 1], np.int32), [[0, 0, 0], [0.7, 0, 0]])
     with pytest.raises(RuntimeError, match="cuda"):
         make_uma_calculator(st, model="escn-test")      # default: cuda
-    with pytest.raises(NotImplementedError):
-        make_uma_calculator(st, model="uma-s-1p1", device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_uma_calculator(st, model="uma-s-1p1")      # default: cuda
 
 
 def test_seeded_surrogate_is_deterministic(capsys):

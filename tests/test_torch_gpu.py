@@ -1,5 +1,6 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version, and the escn calculator on the card against the CPU plain path.
+version, and the escn and PaiNN pallas-mode calculators on the card
+against the CPU plain path.
 
 Every test is marked ``gpu`` and skips without a CUDA card (decided
 inside the test). The file imports no JAX, so it also runs on a machine
@@ -18,8 +19,11 @@ import torch
 from pdb2reaction_tpu_torch.core.structure import Structure
 from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
 from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
+from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+from pdb2reaction_tpu_torch.mlip.calculator import Calculator
 from pdb2reaction_tpu_torch.mlip.escn import ESCN_CONFIGS, _edge_grid_tables
-from pdb2reaction_tpu_torch.mlip.escn import init_escn_params
+from pdb2reaction_tpu_torch.mlip.escn import init_escn_params, tree_to
+from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
 from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
 
 pytestmark = pytest.mark.gpu
@@ -127,3 +131,66 @@ def test_calculator_on_card_matches_cpu_f64():
         <= TOL * np.abs(rc["forces"]).max()
     assert all(ek.launches[k] > n0[0][k] for k in ek.launches)
     assert all(fk.launches[k] > n0[1][k] for k in fk.launches)
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("P,F,R", [(300, 72, 24), (77, 16, 32),
+                                   (50, 16, 62)])
+def test_radial_contract_kernels_match_plain(div_d, P, F, R):
+    """Ragged atom and feature tiles, masked atoms, both j-tile widths of
+    the coordinate gradient (R + 1 <= 32 and > 32, up to the limit of 63
+    radial channels; 64 is refused)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(P + R)
+    side = round(P ** (1 / 3)) + 1
+    grid = torch.stack(torch.meshgrid(*[torch.arange(side)] * 3,
+                                      indexing="ij"), -1).reshape(-1, 3)
+    coords = (grid[:P] * 1.8 + 0.15 * torch.randn(P, 3, generator=gen))
+    mask = (torch.rand(P, generator=gen) > 0.1).float()
+    coords[mask == 0] = 0.0
+    coords, mask = coords.to(**F32), mask.to(**F32)
+    feats = torch.randn(P, F, generator=gen).to(**F32)
+    g = torch.randn(P, R + 1, F, generator=gen).to(**F32)
+    n0 = dict(rcm.launches)
+    outs = []
+    for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+        c = coords.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        T = fn(c, mask, f, 6.0, R, div_d)
+        outs.append([T, *torch.autograd.grad(T, [c, f], g)])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert _close(a, b)
+    assert all(rcm.launches[k] == n0[k] + 1 for k in n0)
+    # no atomics: a second run repeats every result bit for bit
+    c = coords.clone().requires_grad_(True)
+    f = feats.clone().requires_grad_(True)
+    T = rcm.radial_contract(c, mask, f, 6.0, R, div_d)
+    again = [T, *torch.autograd.grad(T, [c, f], g)]
+    assert all(torch.equal(a, b) for a, b in zip(again, outs[0]))
+    with pytest.raises(TypeError):
+        rcm.radial_contract(coords.double(), mask, feats, 6.0, R, div_d)
+    with pytest.raises(ValueError):
+        rcm.radial_contract(coords, mask, feats[:, :5], 6.0, R, div_d)
+    with pytest.raises(ValueError):
+        rcm.radial_contract(coords, mask, feats, 6.0, 63, div_d)
+
+
+def test_pallas_calculator_on_card_matches_cpu_f64():
+    _need_card()
+    rng = np.random.default_rng(5)
+    st = Structure(rng.choice([1, 6, 8], size=40).astype(np.int32),
+                   rng.normal(scale=2.5, size=(40, 3)))
+    cfg = dataclasses.replace(CONFIGS["small"], mp_mode="pallas")
+    fn, w, _ = make_model(cfg, seed=2)
+    gpu = Calculator(st, fn, params=tree_to(w, device="cuda"),
+                     device="cuda")
+    cpu = make_uma_calculator(st, model="small", params=w, device="cpu",
+                              dtype=torch.float64)
+    cb = st.coords_bohr.reshape(-1)
+    n0 = dict(rcm.launches)
+    rg, rc = gpu.get_forces(cb), cpu.get_forces(cb)
+    assert np.abs(rg["forces"] - rc["forces"]).max() \
+        <= TOL * np.abs(rc["forces"]).max()
+    assert abs(rg["energy"] - rc["energy"]) <= TOL * abs(rc["energy"])
+    assert all(rcm.launches[k] > n0[k] for k in n0)
