@@ -11,13 +11,21 @@ Phases (any failure exits non-zero):
    all started together, with -Xptxas -v;
 3. kernel parity at escn-md shapes on the 300-atom cluster: K1 forward
    and backward (fused_edge_mega), K2 forward and backward
-   (fused_node_ffn), each against its plain PyTorch version on the card,
-   with its time, the plain version's time and its bound;
+   (fused_node_ffn), K3 (fused_edge_block) and K4 (fused_edge_chain)
+   forward and backward at the first-layer inputs of the "pallas-full"
+   and "pallas" layouts, each against its plain PyTorch version on the
+   card, with its time, the plain version's time and its bound;
 4. the escn main path: make_uma_calculator(model="escn-md", device="cuda")
    and Calculator.get_forces on the 300-atom cluster (ms per call, peak
-   memory, kernel launch counts), plus card forces against the plain path
-   on the CPU in float64 on a 64-atom cluster with the same weights;
-5. the opt workflow (run_opt, L-BFGS) on the 300-atom cluster;
+   memory, kernel launch counts, two calls bit for bit equal), then the
+   opt workflow (run_opt, L-BFGS) on it;
+5. the escn-md force call in the edge_kernel="pallas-full" (K3) and
+   "pallas" (K4) layouts on the same cluster and weights, each its own
+   path with its own launch counts (ms per call, peak memory, forces
+   against the "pallas-mega" path, two calls bit for bit equal; a
+   5-cycle opt on the "pallas-full" one), and all three layouts on the
+   card against the plain path on the CPU in float64 on a 64-atom
+   cluster with the same weights;
 6. K5 parity at the uma-s-1p1 pallas-mode shapes (P = 4096, F = 1024,
    R + 1 = 25) on the 4096-atom system: forward, feats gradient and
    coordinate gradient of radial_contract against its plain version, for
@@ -62,6 +70,10 @@ FORCE_TOL = 1e-4          # max|F_card - F_cpu64| / max|F_cpu64|
 REPLACES = {
     "fused_edge_mega_fwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:1147",
     "fused_edge_mega_bwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:1274",
+    "fused_edge_block_fwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:594",
+    "fused_edge_block_bwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:657",
+    "fused_edge_chain_fwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:198",
+    "fused_edge_chain_bwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:238",
     "fused_node_ffn_fwd": "pdb2reaction_tpu/mlip/escn_ffn_kernel.py:68",
     "fused_node_ffn_bwd": "pdb2reaction_tpu/mlip/escn_ffn_kernel.py:82",
     "radial_contract_fwd": "pdb2reaction_tpu/mlip/pallas_ops.py:129",
@@ -70,6 +82,8 @@ REPLACES = {
 }
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
+    "fused_edge_block": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
+    "fused_edge_chain": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
     "fused_node_ffn": "pdb2reaction_tpu_torch/csrc/escn_ffn.cu",
     "radial_contract": "pdb2reaction_tpu_torch/csrc/radial_contract.cu",
 }
@@ -127,20 +141,21 @@ def nbytes(*ts) -> int:
 # work counts (FLOP) from the shapes
 # ---------------------------------------------------------------------------
 
-def k1_flops(cfg, P):
+def edge_flops(cfg, E, rotations=True):
+    """(forward, backward) FLOP of one edge-kernel launch over E edges:
+    the conv products and the S2 grid, plus the block-sparse rotations for
+    K1 and K3 (``rotations``); K4 runs the chain alone."""
     from pdb2reaction_tpu_torch.mlip.escn_edge_kernel import _dims, _rot_nz
     nl0, nls, U, G = _dims(cfg)
-    C, H, Ce, K = (cfg.sphere_channels, cfg.hidden_channels,
-                   cfg.edge_channels, cfg.max_neighbors)
+    C, H, Ce = cfg.sphere_channels, cfg.hidden_channels, cfg.edge_channels
     nnz = len(_rot_nz(cfg.lmax, cfg.mmax)[0])
     rows = [nl0] + [2 * nl for nl in nls]
     conv1 = sum(2 * (r * 2 * C + (Ce if i == 0 else 0)) * r * H
                 for i, r in enumerate(rows))
     conv2 = sum(2 * (r * H) * (r * C) for r in rows)
     grid = 2 * 2 * G * U * H
-    rot_f = 2 * nnz * C * 3                  # source, target, back
-    rot_b = 2 * nnz * C * 6                  # g_out, gDpe, gDp (x2), gx (x2)
-    E = P * K
+    rot_f = 2 * nnz * C * 3 if rotations else 0   # source, target, back
+    rot_b = 2 * nnz * C * 6 if rotations else 0   # g_out, gDpe, gDp x2, gx x2
     return (E * (conv1 + conv2 + grid + rot_f),
             E * (conv1 + conv2 + 3 * grid // 2 + rot_b))
 
@@ -195,65 +210,119 @@ def _leaves(ts):
     return [t.detach().clone().requires_grad_(True) for t in ts]
 
 
+def edge_parity(tag, kern, plain, args, at, names, reps, gen):
+    """An edge kernel against its plain version on ``args``, whose entries
+    at positions ``at`` (named ``names``) are the differentiable inputs:
+    values and input cotangents, then CUDA-event times of the forward and
+    the backward. Returns (abs err fwd, abs err bwd, ms fwd, plain ms fwd,
+    ms bwd, plain ms bwd, output cotangent, plain output and cotangents).
+    """
+    import torch
+
+    def put(leaves):
+        a = list(args)
+        for i, t in zip(at, leaves):
+            a[i] = t
+        return a
+
+    lv = _leaves([args[i] for i in at])
+    lp = _leaves([args[i] for i in at])
+    y_k = kern(*put(lv))
+    y_p = plain(*put(lp))
+    torch.cuda.synchronize()
+    g = torch.randn(y_p.shape, generator=gen, device=y_p.device)
+    gk = torch.autograd.grad(y_k, lv, g, retain_graph=True)
+    gp = torch.autograd.grad(y_p, lp, g, retain_graph=True)
+    torch.cuda.synchronize()
+    e_fwd = rel_err(y_k, y_p)
+    e_bwd = {n: rel_err(a, b) for n, a, b in zip(names, gk, gp)}
+    eb = ", ".join(f"{n} {v:.3e}" for n, v in e_bwd.items())
+    log(f"[{tag}] fwd rel err {e_fwd:.3e}, abs {abs_err(y_k, y_p):.3e} "
+        f"(max|ref| {float(y_p.detach().abs().max()):.3e}); bwd rel err {eb} "
+        f"(tol {KERNEL_TOL})")
+    if not (e_fwd <= KERNEL_TOL and max(e_bwd.values()) <= KERNEL_TOL):
+        fail(f"{tag} disagrees with its plain version")
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: kern(*args), reps)
+        t_fwd_p = cuda_ms(lambda: plain(*args), reps)
+    t_bwd = cuda_ms(lambda: torch.autograd.grad(y_k, lv, g,
+                                                retain_graph=True), reps)
+    t_bwd_p = cuda_ms(lambda: torch.autograd.grad(y_p, lp, g,
+                                                  retain_graph=True), reps)
+    a_fwd = abs_err(y_k, y_p)
+    a_bwd = max(abs_err(a, b) for a, b in zip(gk, gp))
+    return (a_fwd, a_bwd, t_fwd, t_fwd_p, t_bwd, t_bwd_p, g,
+            y_p.detach(), [t.detach() for t in gp])
+
+
 def phase_kernels(calc, cfg, quick):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes:
+    K1 and K2 at the first-layer inputs of the default layout, K3 and K4
+    at those of the "pallas-full" and "pallas" layouts (same system and
+    weights)."""
+    import dataclasses
+
     import torch
     from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
     from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
     from pdb2reaction_tpu_torch.mlip.escn import first_layer_kernel_args
     reps = 3 if quick else 20
     c = calc._to_pad_ang(calc.structure.coords_bohr)
-    with torch.no_grad():
-        edge_args, ffn_args = first_layer_kernel_args(c, calc.system,
-                                                      calc.params, cfg)
+
+    def first_layer(edge_kernel):
+        with torch.no_grad():
+            return first_layer_kernel_args(
+                c, calc.system, calc.params,
+                dataclasses.replace(cfg, edge_kernel=edge_kernel))
+
+    edge_args, ffn_args = first_layer("pallas-mega")
     rows = {}
+    nl0, nls, U, G = ek._dims(cfg)
+    H, C = cfg.hidden_channels, cfg.sphere_channels
+    dev = c.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def add_rows(base, res, flops, b_fwd, b_bwd):
+        a_f, a_b, t_f, t_fp, t_b, t_bp = res[:6]
+        rows[f"{base}_fwd"] = (a_f, t_f, t_fp, flops[0], b_fwd)
+        rows[f"{base}_bwd"] = (a_b, t_b, t_bp, flops[1], b_bwd)
 
     # ---- K1 --------------------------------------------------------------
-    cfg_, x_t, src, es, Dp, Dpe, weights, tables = edge_args
-    P = x_t.shape[1]
-    dev = x_t.device
-    gen = torch.Generator(device=dev).manual_seed(0)
-    lv = _leaves([x_t, es, Dp, Dpe])
-    lp = _leaves([x_t, es, Dp, Dpe])
-    y_k = ek.fused_edge_mega(cfg_, lv[0], src, lv[1], lv[2], lv[3], weights,
-                             tables)
-    y_p = ek.fused_edge_mega_plain(cfg_, lp[0], src, lp[1], lp[2], lp[3],
-                                   weights, tables)
-    torch.cuda.synchronize()
-    g = torch.randn(y_p.shape, generator=gen, device=dev)
-    gk = torch.autograd.grad(y_k, lv, g, retain_graph=True)
-    gp = torch.autograd.grad(y_p, lp, g, retain_graph=True)
-    torch.cuda.synchronize()
-    e_fwd = rel_err(y_k, y_p)
-    e_bwd = {n: rel_err(a, b) for n, a, b in
-             zip(("x", "es", "Dp", "Dpe"), gk, gp)}
-    a_fwd = abs_err(y_k, y_p)
-    a_bwd = max(abs_err(a, b) for a, b in zip(gk, gp))
-    log(f"[K1] fwd rel err {e_fwd:.3e}, abs {float((y_k - y_p).abs().max()):.3e}"
-        f" (max|ref| {float(y_p.abs().max()):.3e}); bwd rel err {e_bwd} "
-        f"(tol {KERNEL_TOL})")
-    if not (e_fwd <= KERNEL_TOL and max(e_bwd.values()) <= KERNEL_TOL):
-        fail("K1 disagrees with its plain version")
-    with torch.no_grad():
-        t_fwd = cuda_ms(lambda: ek.fused_edge_mega(
-            cfg_, x_t, src, es, Dp, Dpe, weights, tables), reps)
-        t_fwd_p = cuda_ms(lambda: ek.fused_edge_mega_plain(
-            cfg_, x_t, src, es, Dp, Dpe, weights, tables), reps)
-    t_bwd = cuda_ms(lambda: torch.autograd.grad(y_k, lv, g,
-                                                retain_graph=True), reps)
-    t_bwd_p = cuda_ms(lambda: torch.autograd.grad(y_p, lp, g,
-                                                  retain_graph=True), reps)
-    f_fwd, f_bwd = k1_flops(cfg_, P)
-    wts = [w for w in ek._flat_weights(weights)]
-    from pdb2reaction_tpu_torch.mlip.escn_edge_kernel import _dims
-    nl0, nls, U, G = _dims(cfg_)
+    _, x_t, src, es, Dp, Dpe, weights, tables = edge_args
+    wts = [*ek._flat_weights(weights), *tables]
     E = src.numel()
-    saved = E * U * (cfg_.hidden_channels + cfg_.sphere_channels) * 4
-    b_fwd = nbytes(x_t, src, es, Dp, Dpe, *wts, *tables, y_p) + saved
-    b_bwd = nbytes(x_t, g, src, Dp, Dpe, *wts, *tables, *gp) + saved
-    rows["fused_edge_mega_fwd"] = (a_fwd, t_fwd, t_fwd_p, f_fwd, b_fwd)
-    rows["fused_edge_mega_bwd"] = (a_bwd, t_bwd, t_bwd_p, f_bwd, b_bwd)
-    del y_k, y_p, gk, gp, lv, lp
+    saved = E * U * (H + C) * 4                     # msg, conv-2 output
+    res = edge_parity("K1", ek.fused_edge_mega, ek.fused_edge_mega_plain,
+                      edge_args, (1, 3, 4, 5), ("x", "es", "Dp", "Dpe"),
+                      reps, gen)
+    g, y_p, gp = res[6:]
+    add_rows("fused_edge_mega", res, edge_flops(cfg, E),
+             nbytes(x_t, src, es, Dp, Dpe, *wts, y_p) + saved,
+             nbytes(x_t, g, src, Dp, Dpe, *wts, *gp) + saved)
+    del res, g, y_p, gp
+
+    # ---- K3: per-edge source and target rows of "pallas-full" -------------
+    args3, _ = first_layer("pallas-full")
+    _, xs_t, xt_t, es, Dp, Dpe, _, _ = args3
+    res = edge_parity("K3", ek.fused_edge_block, ek.fused_edge_block_plain,
+                      args3, (1, 2, 3, 4, 5), ("xs", "xt", "es", "Dp", "Dpe"),
+                      reps, gen)
+    g, y_p, gp = res[6:]
+    add_rows("fused_edge_block", res, edge_flops(cfg, E),
+             nbytes(xs_t, xt_t, es, Dp, Dpe, *wts, y_p) + saved,
+             nbytes(xs_t, xt_t, g, Dp, Dpe, *wts, *gp) + saved)
+    del res, g, y_p, gp, args3, xs_t, xt_t
+
+    # ---- K4: rotated pair rows of "pallas" --------------------------------
+    args4, _ = first_layer("pallas")
+    _, pr, es, _, _ = args4
+    res = edge_parity("K4", ek.fused_edge_chain, ek.fused_edge_chain_plain,
+                      args4, (1, 2), ("pr", "es"), reps, gen)
+    g, y_p, gp = res[6:]
+    add_rows("fused_edge_chain", res, edge_flops(cfg, E, rotations=False),
+             nbytes(pr, es, *wts, y_p) + E * U * H * 4,
+             nbytes(g, *wts, *gp) + E * U * H * 4)
+    del res, g, y_p, gp, args4, pr
 
     # ---- K2 --------------------------------------------------------------
     cfg_, xn2, fw, ftab = ffn_args
@@ -294,15 +363,29 @@ def phase_kernels(calc, cfg, quick):
     return rows
 
 
-def phase_force(calc, reps):
-    import torch
+def zero_escn_counts():
     from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
     from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
-    cb = calc.structure.coords_bohr.reshape(-1)
     for d in (ek.launches, fk.launches):
         for k in d:
             d[k] = 0
+
+
+def escn_counts():
+    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
+    from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
+    return {**ek.launches, **fk.launches}
+
+
+def phase_force(calc, reps):
+    """ms per force call over ``reps`` synchronised calls after one
+    warm-up, peak memory, and a further call that must repeat the forces
+    bit for bit. Returns the forces."""
+    import torch
+    cb = calc.structure.coords_bohr.reshape(-1)
+    layout = calc.cfg.edge_kernel
     calc.force_calls = 0
+    base = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     res = calc.get_forces(cb)                # first call (warm-up)
     torch.cuda.synchronize()
@@ -315,65 +398,106 @@ def phase_force(calc, reps):
     f = res["forces"]
     if f.shape != (3 * calc.n_atoms,) or not np.all(np.isfinite(f)) \
             or not np.isfinite(res["energy"]):
-        fail("force call returned non-finite or mis-shaped output")
-    log(f"[force] escn-md, {calc.n_atoms} atoms (P={calc.n_pad}): "
+        fail(f"{layout} force call returned non-finite or mis-shaped output")
+    same = np.array_equal(calc.get_forces(cb)["forces"], f)
+    log(f"[force] escn-md {layout}, {calc.n_atoms} atoms (P={calc.n_pad}): "
         f"{ms:.2f} ms per get_forces over {reps} calls, peak memory "
-        f"{peak:.2f} GiB, E = {res['energy']:.8f} Ha, max|F| = "
-        f"{np.abs(f).max():.3e} Ha/Bohr; launches after "
-        f"{calc.force_calls} calls: {dict(ek.launches)} {dict(fk.launches)}")
-    return ms, peak, res["energy"]
+        f"{peak:.2f} GiB ({peak - base:.2f} above the {base:.2f} GiB held "
+        f"before), E = {res['energy']:.8f} Ha, max|F| = "
+        f"{np.abs(f).max():.3e} Ha/Bohr; next call bit for bit equal: "
+        f"{same}; launches after {calc.force_calls} calls: {escn_counts()}")
+    if not same:
+        fail(f"{layout}: two force calls gave different forces")
+    return f
 
 
 def phase_reference(seed):
-    """Card forces against the plain path on the CPU in float64."""
+    """Card forces of each edge-kernel layout against the plain path on
+    the CPU in float64, same weights."""
     import torch
     from pdb2reaction_tpu_torch.core.structure import Structure
-    from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+    from pdb2reaction_tpu_torch.mlip.escn import (EDGE_KERNELS, ESCN_CONFIGS,
                                                   init_escn_params)
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
     zs, xyz = cluster(64, seed=1)
     st = Structure(zs, xyz)
     w = init_escn_params(ESCN_CONFIGS["escn-md"], seed=seed, device="cpu")
-    gpu = make_uma_calculator(st, model="escn-md", device="cuda", params=w)
     cpu = make_uma_calculator(st, model="escn-md", device="cpu",
                               dtype=torch.float64, params=w)
     cb = st.coords_bohr.reshape(-1)
     t0 = time.perf_counter()
     rc = cpu.get_forces(cb)
     t_cpu = time.perf_counter() - t0
-    rg = gpu.get_forces(cb)
-    err = float(np.abs(rg["forces"] - rc["forces"]).max()
-                / np.abs(rc["forces"]).max())
-    de = abs(rg["energy"] - rc["energy"])
-    log(f"[reference] 64 atoms escn-md: card f32 kernels vs CPU f64 plain "
-        f"path: max|dF|/max|F| = {err:.3e} (tol {FORCE_TOL}), |dE| = "
-        f"{de:.3e} Ha (CPU call {t_cpu:.1f} s)")
-    if not err <= FORCE_TOL:
-        fail("card forces disagree with the CPU float64 plain path")
-    return err, de
+    for layout in EDGE_KERNELS:
+        gpu = make_uma_calculator(st, model="escn-md", device="cuda",
+                                  params=w, edge_kernel=layout)
+        rg = gpu.get_forces(cb)
+        err = float(np.abs(rg["forces"] - rc["forces"]).max()
+                    / np.abs(rc["forces"]).max())
+        de = abs(rg["energy"] - rc["energy"])
+        log(f"[reference] 64 atoms escn-md {layout}: card f32 kernels vs "
+            f"CPU f64 plain path: max|dF|/max|F| = {err:.3e} (tol "
+            f"{FORCE_TOL}), |dE| = {de:.3e} Ha (CPU call {t_cpu:.1f} s)")
+        if not err <= FORCE_TOL:
+            fail(f"{layout} card forces disagree with the CPU float64 plain "
+                 "path")
 
 
 def phase_opt(calc, cycles):
     from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
     from pdb2reaction_tpu_torch.workflows.opt import run_opt
+    layout = calc.cfg.edge_kernel
     out = os.path.join(HERE, "result_smoke")
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, "cluster300.xyz")
+    final = os.path.join(out, "final_geometry.xyz")
+    if os.path.exists(final):
+        os.remove(final)
     write_xyz(path, calc.structure)
     e0 = calc.get_energy(calc.structure.coords_bohr)["energy"]
     t0 = time.perf_counter()
     res = run_opt(path, charge=0, spin=1, model="escn-md", device="cuda",
                   max_cycles=cycles, out_dir=out, calc=calc, verbose=False)
     wall = time.perf_counter() - t0
-    log(f"[opt] escn-md L-BFGS, 300 atoms: E {e0:.8f} -> {res['energy']:.8f}"
-        f" Ha in {res['cycles']} cycles, {res['force_calls']} force calls, "
-        f"{wall:.2f} s wall ({wall / max(res['force_calls'], 1) * 1e3:.1f} "
-        f"ms per force call)")
+    log(f"[opt] escn-md {layout} L-BFGS, 300 atoms: E {e0:.8f} -> "
+        f"{res['energy']:.8f} Ha in {res['cycles']} cycles, "
+        f"{res['force_calls']} force calls, {wall:.2f} s wall "
+        f"({wall / max(res['force_calls'], 1) * 1e3:.1f} ms per force call)")
     if not (np.isfinite(res["energy"]) and res["energy"] < e0):
-        fail("opt did not lower the energy")
-    if not os.path.exists(os.path.join(out, "final_geometry.xyz")):
-        fail("opt wrote no final_geometry.xyz")
+        fail(f"{layout} opt did not lower the energy")
+    if not os.path.exists(final):
+        fail(f"{layout} opt wrote no final_geometry.xyz")
     return res, wall
+
+
+def phase_layout(st, layout, ref_forces, reps, cycles):
+    """The escn-md force call in another edge-kernel layout, its own path:
+    counts set to 0 just before and read just after. Forces against the
+    "pallas-mega" path's, and the layout's kernels and K2 must launch."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    base = {"pallas-full": "fused_edge_block", "pallas": "fused_edge_chain"}
+    calc = make_uma_calculator(st, model="escn-md", device="cuda", seed=0,
+                               pad_multiple=64, edge_kernel=layout)
+    zero_escn_counts()
+    f = phase_force(calc, reps)
+    if cycles:
+        phase_opt(calc, cycles)
+    launches = escn_counts()                 # read just after the path
+    err = float(np.abs(f - ref_forces).max() / np.abs(ref_forces).max())
+    log(f"[layout] escn-md {layout} vs pallas-mega on the card, same "
+        f"weights: max|dF|/max|F| = {err:.3e} (tol {FORCE_TOL}); launches "
+        f"on the path {launches}")
+    if not err <= FORCE_TOL:
+        fail(f"{layout} forces disagree with the pallas-mega path")
+    need = [f"{base[layout]}_fwd", f"{base[layout]}_bwd",
+            "fused_node_ffn_fwd", "fused_node_ffn_bwd"]
+    never = [k for k in need if launches[k] == 0]
+    if never:
+        fail(f"kernels never launched on the {layout} path: {never}")
+    del calc
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in need[:2]}
 
 
 # ---------------------------------------------------------------------------
@@ -664,8 +788,6 @@ def main():
     phase_build()
 
     from pdb2reaction_tpu_torch.core.structure import Structure
-    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
-    from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
     zs, xyz = cluster(300, seed=0)
     st = Structure(zs, xyz)
@@ -688,12 +810,20 @@ def main():
     if not args.quick:
         # ---- the escn main path: counts set to 0 just before, read just
         # after
-        ms, peak, _ = phase_force(calc, reps=5)
+        zero_escn_counts()
+        f_mega = phase_force(calc, reps=5)
         phase_opt(calc, cycles=10)
-        launches.update({**ek.launches, **fk.launches})
-        never = [k for k in (*ek.launches, *fk.launches) if launches[k] == 0]
+        main_path = ("fused_edge_mega_fwd", "fused_edge_mega_bwd",
+                     "fused_node_ffn_fwd", "fused_node_ffn_bwd")
+        launches.update({k: escn_counts()[k] for k in main_path})
+        never = [k for k in main_path if launches[k] == 0]
         if never:
             fail(f"kernels never launched on the main path: {never}")
+        # ---- the K3 and K4 layouts, each its own path and counts
+        launches.update(phase_layout(st, "pallas-full", f_mega, reps=5,
+                                     cycles=5))
+        launches.update(phase_layout(st, "pallas", f_mega, reps=5,
+                                     cycles=0))
         phase_reference(seed=0)
         # ---- the PaiNN kernel path (its own counts), default path, check
         launches.update(phase_pallas(st4, w4, reps=3, cycles=5))

@@ -1,9 +1,19 @@
-// K1: the eSCN node-resident edge-message layer ("mega" kernel), forward
-// and backward, f32, for Hopper (sm_90a).
+// The eSCN edge-message kernels, forward and backward, f32, for Hopper
+// (sm_90a). Three entry pairs share one chain of stages:
+//   K1 k1_fwd / k1_bwd: the node-resident layer ("mega"). Replaces
+//      pdb2reaction_tpu/mlip/escn_edge_kernel.py _fwd_kernel_mega and
+//      _bwd_kernel_mega (fused_edge_mega).
+//   K3 k3_fwd / k3_bwd: the same chain on per-edge source and target rows
+//      that the caller gathered, with a per-edge output that the caller
+//      K-sums. Replaces _fwd_kernel_full and _bwd_kernel_full
+//      (fused_edge_block, edge_kernel="pallas-full").
+//   K4 k4_fwd / k4_bwd: conv 1 -> S2 activation -> conv 2 alone, on
+//      rotated pair rows the caller built. Replaces _fwd_kernel and
+//      _bwd_kernel (fused_edge_chain, edge_kernel="pallas").
+// src_scatter is the deterministic backward of the callers' source
+// gather on the K3/K4 paths (no TPU kernel: XLA's scatter there).
 //
-// Replaces pdb2reaction_tpu/mlip/escn_edge_kernel.py: _fwd_kernel_mega
-// (forward) and _bwd_kernel_mega (input cotangents), reached from
-// fused_edge_mega through _fwd_call_mega / _bwd_call_mega.
+// K1 in detail (K3 and K4 drop stages of it, as said at their entries):
 //
 // What it computes, per edge e = p*K + k (target atom p, source src[e]):
 //   rotate the source and target node rows into the reduced |m| <= mmax
@@ -15,8 +25,10 @@
 //
 // What bounds it: arithmetic. At escn-md (C = h = 128, K = 32, P = 320)
 // one layer is ~132 GFLOP forward against ~45 MB of inputs; the conv
-// products are 95% of it. The design therefore spends its effort on the
-// products and keeps the rest simple:
+// products are 95% of it. K3 and K4 do the same conv products against
+// 0.4-0.9 GB of per-edge inputs and outputs, still far below the bytes
+// the card moves in that time. The design therefore spends its effort on
+// the products and keeps the rest simple:
 //   - the conv products run as a shared-memory tiled SGEMM (128x128
 //     tiles, 8x8 outputs per thread, register-prefetched double-buffered
 //     k slices) over all E edges at once, one launch per |m| block,
@@ -194,20 +206,22 @@ __device__ __forceinline__ int rot_col(int u, int C, int Ce, int nl0) {
 // forward stages
 // --------------------------------------------------------------------------
 
-// one warp per edge: gather + block-sparse rotation into abuf; copy es
+// one warp per edge: gather + block-sparse rotation into abuf; copy es.
+// The source row of edge e is row src[e] of x_s (row e when src is
+// null), its target row is row e / K of x_t (K = 1: row e).
 __global__ void rotate_in(int E, int K, int C, int Ce, int U, int nl0,
                           int nnz, int MC, int Dtot,
-                          const float* __restrict__ x,
+                          const float* __restrict__ x_s,
                           const int64_t* __restrict__ src,
+                          const float* __restrict__ x_t,
                           const float* __restrict__ es,
                           const float* __restrict__ dp, Tabs tb,
                           float* __restrict__ abuf) {
   const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= E) return;
-  const int p = e / K;
-  const float* xs = x + (size_t)src[e] * MC;
-  const float* xt = x + (size_t)p * MC;
+  const float* xs = x_s + (size_t)(src ? src[e] : e) * MC;
+  const float* xt = x_t + (size_t)(e / K) * MC;
   const float* d = dp + (size_t)e * nnz;
   float* row = abuf + (size_t)e * Dtot;
   for (int u = 0; u < U; ++u) {
@@ -276,6 +290,7 @@ __global__ void act_fwd(int E, int H, int U, int G,
 }
 
 // one block per target atom: rotate back with Dpe and sum its K edges
+// (K = 1, one block per edge: the per-edge back-rotation of K3)
 __global__ void back_ksum(int K, int C, int U, int M, int nnz,
                           const float* __restrict__ outsv,
                           const float* __restrict__ dpe, Tabs tb,
@@ -303,7 +318,8 @@ __global__ void back_ksum(int K, int C, int U, int M, int nnz,
 // backward stages
 // --------------------------------------------------------------------------
 
-// one warp per edge: back-rotation transpose (g_out) and g_Dpe
+// one warp per edge: back-rotation transpose (g_out) and g_Dpe; the
+// cotangent of edge e is row e / K of gnode (K = 1: per-edge rows)
 __global__ void rot_out_bwd(int E, int K, int C, int U, int nnz, int MC,
                             const float* __restrict__ gnode,
                             const float* __restrict__ dpe,
@@ -389,17 +405,19 @@ __global__ void act_bwd(int E, int H, int U, int G,
     if (u < U) grow[(size_t)u * H] = gm[u];
 }
 
-// one warp per edge: g_Dp from the rotated-pair cotangent
+// one warp per edge: g_Dp from the rotated-pair cotangent (rows of x_s
+// and x_t picked as in rotate_in)
 __global__ void gdp_bwd(int E, int K, int C, int Ce, int nl0, int nnz,
-                        int MC, int Dtot, const float* __restrict__ x,
+                        int MC, int Dtot, const float* __restrict__ x_s,
                         const int64_t* __restrict__ src,
+                        const float* __restrict__ x_t,
                         const float* __restrict__ gpr, Tabs tb,
                         float* __restrict__ gdp) {
   const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= E) return;
-  const float* xs = x + (size_t)src[e] * MC;
-  const float* xt = x + (size_t)(e / K) * MC;
+  const float* xs = x_s + (size_t)(src ? src[e] : e) * MC;
+  const float* xt = x_t + (size_t)(e / K) * MC;
   const float* gr = gpr + (size_t)e * Dtot;
   for (int j = 0; j < nnz; ++j) {
     const int col = rot_col(tb.u_of_j[j], C, Ce, nl0);
@@ -452,6 +470,47 @@ __global__ void gx_bwd(int K, int C, int Ce, int M, int nl0, int nnz,
   }
 }
 
+// one block per edge: rotation transpose of K3, the source and target
+// halves of the rotated-pair cotangent back to per-edge node rows (the
+// caller's gather and repeat reduce them; no scatter here)
+__global__ void rot_in_bwd(int C, int Ce, int M, int nl0, int nnz, int Dtot,
+                           const float* __restrict__ dp,
+                           const float* __restrict__ gpr, Tabs tb,
+                           float* __restrict__ gxs, float* __restrict__ gxt) {
+  const size_t e = blockIdx.x;
+  const int MC = M * C;
+  const float* d = dp + e * nnz;
+  const float* gr = gpr + e * Dtot;
+  for (int idx = threadIdx.x; idx < MC; idx += blockDim.x) {
+    const int m = idx / C, c = idx - m * C;
+    const int q0 = tb.bym_ptr[m], q1 = tb.bym_ptr[m + 1];
+    float as = 0.f, at = 0.f;
+    for (int q = q0; q < q1; ++q) {
+      const int j = tb.bym_idx[q];
+      const int col = rot_col(tb.u_of_j[j], C, Ce, nl0);
+      as = fmaf(d[j], gr[col + c], as);
+      at = fmaf(d[j], gr[col + C + c], at);
+    }
+    gxs[e * MC + idx] = as;
+    gxt[e * MC + idx] = at;
+  }
+}
+
+// one block per atom: out[p] = sum of the rows g[perm[t]] over
+// t in [ptr[p], ptr[p+1]), in that order (deterministic, no atomics)
+__global__ void csr_rows_sum(int F, const int* __restrict__ ptr,
+                             const int* __restrict__ perm,
+                             const float* __restrict__ g,
+                             float* __restrict__ out) {
+  const int p = blockIdx.x;
+  const int t0 = ptr[p], t1 = ptr[p + 1];
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    float acc = 0.f;
+    for (int t = t0; t < t1; ++t) acc += g[(size_t)perm[t] * F + f];
+    out[(size_t)p * F + f] = acc;
+  }
+}
+
 template <bool BWD>
 cudaError_t launch_act(cudaStream_t st, int E, int H, int U, int G,
                        const float* msg, const float* tg, const float* fg,
@@ -477,9 +536,11 @@ cudaError_t launch_act(cudaStream_t st, int E, int H, int U, int G,
 // --------------------------------------------------------------------------
 struct Geo {
   int nb;                  // number of |m| blocks (mmax + 1)
+  int U;                   // reduced rows in all
   int nl[MAXMB];           // rows of the reduced basis per half-block
   int inC[MAXMB];          // conv-1 input width per block
   int in_col[MAXMB];       // column of block b in abuf / gpr
+  int pr_col[MAXMB];       // column of block b in K4's pair rows (no es)
   int hid_col[MAXMB];      // column of block b in msg / act  (x H)
   int out_col[MAXMB];      // column of block b in outsv      (x C)
   size_t w1_off[MAXMB], b1_off[MAXMB], w2_off[MAXMB], b2_off[MAXMB];
@@ -491,11 +552,14 @@ Geo make_geo(int C, int H, int Ce, int lmax, int mmax) {
   const int nl0 = lmax + 1;
   int in_col = 0, hid = 0, out = 0;
   size_t w1 = 0, b1 = 0, w2 = 0, b2 = 0;
-  for (int b = 0; b < g.nb; ++b) {
+  g.U = 0;
+  for (int b = 0; b < g.nb && b < MAXMB; ++b) {
     const int rows = b == 0 ? nl0 : 2 * (lmax + 1 - b);   // U rows in block
     g.nl[b] = rows;
+    g.U += rows;
     g.inC[b] = rows * 2 * C + (b == 0 ? Ce : 0);
     g.in_col[b] = in_col;
+    g.pr_col[b] = in_col - (b == 0 ? 0 : Ce);
     g.hid_col[b] = hid;
     g.out_col[b] = out;
     g.w1_off[b] = w1;
@@ -513,6 +577,78 @@ Geo make_geo(int C, int H, int Ce, int lmax, int mmax) {
   return g;
 }
 
+bool bad_geo(const Geo& g, int mmax) {
+  return mmax + 1 > MAXMB || g.U > MAXU;
+}
+
+// conv 1 -> S2 activation -> conv 2 over E edges. Block b of conv 1
+// reads its input columns at a[b] with row stride lda[b].
+cudaError_t chain_fwd(cudaStream_t st, const Geo& g, int E, int C, int H,
+                      int G, const float* const* a, const int* lda,
+                      const float* w1, const float* b1, const float* w2,
+                      const float* b2, const float* tg, const float* fg,
+                      float* msg, float* act, float* outsv) {
+  const int U = g.U;
+  cudaError_t err;
+  for (int b = 0; b < g.nb; ++b) {
+    err = gemm(st, E, g.nl[b] * H, g.inC[b], a[b], lda[b], w1 + g.w1_off[b],
+               g.nl[b] * H, b1 + g.b1_off[b], msg + g.hid_col[b], U * H);
+    if (err) return err;
+  }
+  if ((err = launch_act<false>(st, E, H, U, G, msg, tg, fg, act))) return err;
+  for (int b = 0; b < g.nb; ++b) {
+    err = gemm(st, E, g.nl[b] * C, g.nl[b] * H, act + g.hid_col[b], U * H,
+               w2 + g.w2_off[b], g.nl[b] * C, b2 + g.b2_off[b],
+               outsv + g.out_col[b], U * C);
+    if (err) return err;
+  }
+  return cudaSuccess;
+}
+
+// conv2^T -> S2 activation VJP -> conv1^T from the conv-2 output
+// cotangent gout [E, U*C]. Block b of the conv-1 input cotangent goes to
+// c[b] with row stride ldc[b].
+cudaError_t chain_bwd(cudaStream_t st, const Geo& g, int E, int C, int H,
+                      int G, const float* gout, const float* msg,
+                      const float* w1t, const float* w2t, const float* tg,
+                      const float* fg, float* gact, float* const* c,
+                      const int* ldc) {
+  const int U = g.U;
+  cudaError_t err;
+  // conv2^T: block b of w2t is [nl*C, nl*H]
+  for (int b = 0; b < g.nb; ++b) {
+    err = gemm(st, E, g.nl[b] * H, g.nl[b] * C, gout + g.out_col[b], U * C,
+               w2t + g.w2_off[b], g.nl[b] * H, nullptr, gact + g.hid_col[b],
+               U * H);
+    if (err) return err;
+  }
+  if ((err = launch_act<true>(st, E, H, U, G, msg, tg, fg, gact))) return err;
+  // conv1^T: block b of w1t is [nl*H, inC]
+  for (int b = 0; b < g.nb; ++b) {
+    err = gemm(st, E, g.inC[b], g.nl[b] * H, gact + g.hid_col[b], U * H,
+               w1t + g.w1_off[b], g.inC[b], nullptr, c[b], ldc[b]);
+    if (err) return err;
+  }
+  return cudaSuccess;
+}
+
+// abuf-layout operand pointers: block b at column in_col[b], stride Dtot
+void abuf_cols(const Geo& g, float* base, int Dtot, float** p, int* ld) {
+  for (int b = 0; b < g.nb; ++b) {
+    p[b] = base + g.in_col[b];
+    ld[b] = Dtot;
+  }
+}
+
+// [rows, w] column block copy between two row-major matrices
+cudaError_t copy_cols(cudaStream_t st, float* dst, int ldd, const float* src,
+                      int lds, int w, int rows) {
+  return cudaMemcpy2DAsync(dst, (size_t)ldd * sizeof(float), src,
+                           (size_t)lds * sizeof(float),
+                           (size_t)w * sizeof(float), rows,
+                           cudaMemcpyDeviceToDevice, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -528,30 +664,20 @@ int k1_fwd(int P, int K, int C, int H, int Ce, int lmax, int mmax, int nnz,
   const int M = (lmax + 1) * (lmax + 1);
   const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  int U = 0;
-  for (int b = 0; b < g.nb; ++b) U += g.nl[b];
-  if (U > MAXU || mmax + 1 > MAXMB) return (int)cudaErrorInvalidValue;
-  const int E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int U = g.U, E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
   const Tabs tb = make_tabs(tabs, nnz, U, M);
   cudaError_t err;
 
   rotate_in<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, K, C, Ce, U, nl0, nnz, MC, Dtot, x, src, es, dp, tb, abuf);
+      E, K, C, Ce, U, nl0, nnz, MC, Dtot, x, src, x, es, dp, tb, abuf);
   if ((err = cudaGetLastError())) return (int)err;
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * H, g.inC[b], abuf + g.in_col[b], Dtot,
-               w1 + g.w1_off[b], g.nl[b] * H, b1 + g.b1_off[b],
-               msg + g.hid_col[b], U * H);
-    if (err) return (int)err;
-  }
-  if ((err = launch_act<false>(st, E, H, U, G, msg, tg, fg, act)))
+  float* a[MAXMB];
+  int lda[MAXMB];
+  abuf_cols(g, abuf, Dtot, a, lda);
+  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+                       msg, act, outsv)))
     return (int)err;
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * C, g.nl[b] * H, act + g.hid_col[b], U * H,
-               w2 + g.w2_off[b], g.nl[b] * C, b2 + g.b2_off[b],
-               outsv + g.out_col[b], U * C);
-    if (err) return (int)err;
-  }
   back_ksum<<<P, 256, 0, st>>>(K, C, U, M, nnz, outsv, dpe, tb, y);
   return (int)cudaGetLastError();
 }
@@ -569,37 +695,153 @@ int k1_bwd(int P, int K, int C, int H, int Ce, int lmax, int mmax, int nnz,
   const int M = (lmax + 1) * (lmax + 1);
   const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  int U = 0;
-  for (int b = 0; b < g.nb; ++b) U += g.nl[b];
-  if (U > MAXU || mmax + 1 > MAXMB) return (int)cudaErrorInvalidValue;
-  const int E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int U = g.U, E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
   const Tabs tb = make_tabs(tabs, nnz, U, M);
   cudaError_t err;
 
   rot_out_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
       E, K, C, U, nnz, MC, gnode, dpe, outsv, tb, gout, gdpe);
   if ((err = cudaGetLastError())) return (int)err;
-  // conv2^T: block b of w2t is [nl*C, nl*H]
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * H, g.nl[b] * C, gout + g.out_col[b], U * C,
-               w2t + g.w2_off[b], g.nl[b] * H, nullptr,
-               gact + g.hid_col[b], U * H);
-    if (err) return (int)err;
-  }
-  if ((err = launch_act<true>(st, E, H, U, G, msg, tg, fg, gact)))
+  float* c[MAXMB];
+  int ldc[MAXMB];
+  abuf_cols(g, gpr, Dtot, c, ldc);
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+                       c, ldc)))
     return (int)err;
-  // conv1^T: block b of w1t is [nl*H, inC]
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.inC[b], g.nl[b] * H, gact + g.hid_col[b], U * H,
-               w1t + g.w1_off[b], g.inC[b], nullptr, gpr + g.in_col[b],
-               Dtot);
-    if (err) return (int)err;
-  }
-  gdp_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(E, K, C, Ce, nl0, nnz, MC,
-                                                Dtot, x, src, gpr, tb, gdp);
+  gdp_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
+      E, K, C, Ce, nl0, nnz, MC, Dtot, x, src, x, gpr, tb, gdp);
   if ((err = cudaGetLastError())) return (int)err;
   gx_bwd<<<P, 256, 0, st>>>(K, C, Ce, M, nl0, nnz, Dtot, dp, gpr, src_ptr,
                             src_perm, tb, gx);
+  return (int)cudaGetLastError();
+}
+
+// K3 forward: K1's stages on per-edge rows xs, xt [E, M*C] (edge e reads
+// row e of each), back-rotated per edge into y [E, M*C] with no K-sum.
+int k3_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
+           const float* xs, const float* xt, const float* es,
+           const float* dp, const float* dpe, const float* w1,
+           const float* b1, const float* w2, const float* b2,
+           const float* tg, const float* fg, const int* tabs, float* abuf,
+           float* msg, float* act, float* outsv, float* y, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int M = (lmax + 1) * (lmax + 1);
+  const int nl0 = lmax + 1;
+  const Geo g = make_geo(C, H, Ce, lmax, mmax);
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int U = g.U, MC = M * C, Dtot = U * 2 * C + Ce;
+  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  cudaError_t err;
+
+  rotate_in<<<(E * 32 + 255) / 256, 256, 0, st>>>(
+      E, 1, C, Ce, U, nl0, nnz, MC, Dtot, xs, nullptr, xt, es, dp, tb, abuf);
+  if ((err = cudaGetLastError())) return (int)err;
+  float* a[MAXMB];
+  int lda[MAXMB];
+  abuf_cols(g, abuf, Dtot, a, lda);
+  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+                       msg, act, outsv)))
+    return (int)err;
+  back_ksum<<<E, 256, 0, st>>>(1, C, U, M, nnz, outsv, dpe, tb, y);
+  return (int)cudaGetLastError();
+}
+
+// K3 backward: from the per-edge output cotangent gy [E, M*C], the
+// per-edge input cotangents gxs, gxt [E, M*C], g_Dp / g_Dpe [E, nnz]; the
+// edge-scalar cotangent is columns [nl0*2C, nl0*2C + Ce) of gpr.
+int k3_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
+           const float* xs, const float* xt, const float* gy,
+           const float* dp, const float* dpe, const float* msg,
+           const float* outsv, const float* w1t, const float* w2t,
+           const float* tg, const float* fg, const int* tabs, float* gout,
+           float* gact, float* gpr, float* gxs, float* gxt, float* gdp,
+           float* gdpe, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int M = (lmax + 1) * (lmax + 1);
+  const int nl0 = lmax + 1;
+  const Geo g = make_geo(C, H, Ce, lmax, mmax);
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int U = g.U, MC = M * C, Dtot = U * 2 * C + Ce;
+  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  cudaError_t err;
+
+  rot_out_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
+      E, 1, C, U, nnz, MC, gy, dpe, outsv, tb, gout, gdpe);
+  if ((err = cudaGetLastError())) return (int)err;
+  float* c[MAXMB];
+  int ldc[MAXMB];
+  abuf_cols(g, gpr, Dtot, c, ldc);
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+                       c, ldc)))
+    return (int)err;
+  gdp_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
+      E, 1, C, Ce, nl0, nnz, MC, Dtot, xs, nullptr, xt, gpr, tb, gdp);
+  if ((err = cudaGetLastError())) return (int)err;
+  rot_in_bwd<<<E, 256, 0, st>>>(C, Ce, M, nl0, nnz, Dtot, dp, gpr, tb, gxs,
+                                gxt);
+  return (int)cudaGetLastError();
+}
+
+// K4 forward: conv 1 -> S2 activation -> conv 2 on rotated pair rows
+// pr [E, U*2C] (u-major, source C then target C) and es [E, Ce], into
+// out [E, U*C]. The m0 block's input (its pair rows, then es) is staged
+// into x0 [E, nl0*2C + Ce]; the m > 0 blocks read pr in place.
+int k4_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
+           const float* pr, const float* es, const float* w1,
+           const float* b1, const float* w2, const float* b2,
+           const float* tg, const float* fg, float* x0, float* msg,
+           float* act, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nl0 = lmax + 1;
+  const Geo g = make_geo(C, H, Ce, lmax, mmax);
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int PR = g.U * 2 * C, W0 = nl0 * 2 * C;
+  cudaError_t err;
+  if ((err = copy_cols(st, x0, g.inC[0], pr, PR, W0, E))) return (int)err;
+  if ((err = copy_cols(st, x0 + W0, g.inC[0], es, Ce, Ce, E)))
+    return (int)err;
+  const float* a[MAXMB];
+  int lda[MAXMB];
+  for (int b = 0; b < g.nb; ++b) {
+    a[b] = b == 0 ? x0 : pr + g.pr_col[b];
+    lda[b] = b == 0 ? g.inC[0] : PR;
+  }
+  return (int)chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+                        msg, act, out);
+}
+
+// K4 backward: from the output cotangent gout [E, U*C], gpr [E, U*2C] and
+// ges [E, Ce]. The m0 block's cotangent lands in g0 [E, nl0*2C + Ce] and
+// is split into gpr and ges.
+int k4_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
+           const float* msg, const float* gout, const float* w1t,
+           const float* w2t, const float* tg, const float* fg, float* gact,
+           float* g0, float* gpr, float* ges, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nl0 = lmax + 1;
+  const Geo g = make_geo(C, H, Ce, lmax, mmax);
+  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  const int PR = g.U * 2 * C, W0 = nl0 * 2 * C;
+  cudaError_t err;
+  float* c[MAXMB];
+  int ldc[MAXMB];
+  for (int b = 0; b < g.nb; ++b) {
+    c[b] = b == 0 ? g0 : gpr + g.pr_col[b];
+    ldc[b] = b == 0 ? g.inC[0] : PR;
+  }
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+                       c, ldc)))
+    return (int)err;
+  if ((err = copy_cols(st, gpr, PR, g0, g.inC[0], W0, E))) return (int)err;
+  return (int)copy_cols(st, ges, Ce, g0 + W0, g.inC[0], Ce, E);
+}
+
+// Deterministic backward of a row gather: out [P, F] row p = sum of the
+// rows g[perm[t]] for t in [ptr[p], ptr[p+1]) (a source-sorted CSR).
+int src_scatter(int P, int F, const int* ptr, const int* perm,
+                const float* g, float* out, void* stream) {
+  csr_rows_sum<<<P, 256, 0, (cudaStream_t)stream>>>(F, ptr, perm, g, out);
   return (int)cudaGetLastError();
 }
 

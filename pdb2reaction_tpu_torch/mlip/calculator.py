@@ -9,8 +9,11 @@ Same contract as ``pdb2reaction_tpu/mlip/calculator.py``:
 
 The potential is ``energy_fn(coords_ang [P, 3], system, params) -> eV``
 over a padded system on the calculator's device; forces are autograd
-gradients. ``force_calls`` counts every force evaluation, batched images
-included. The analytic Hessian is not ported yet (``get_hessian`` raises).
+gradients. The device defaults to the card, as the JAX calculator runs
+on its accelerator: without one it raises, and the CPU runs only when
+the caller passes ``device="cpu"``. ``force_calls`` counts every force
+evaluation, batched images included. The analytic Hessian is not ported
+yet (``get_hessian`` raises).
 """
 
 from __future__ import annotations
@@ -24,6 +27,21 @@ from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU
 from ..core.structure import Structure, pad_to
 
 
+def resolve_device(device) -> torch.device:
+    """The requested device; CUDA without a card raises (no fallback).
+    On CUDA both TF32 switches are turned off, so the plain f32 paths
+    around the kernels (edge MLP, Wigner recursion) stay full f32."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run the plain CPU path")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
 class Calculator:
     """Freeze-aware, unit-converting calculator over a padded potential."""
 
@@ -35,7 +53,7 @@ class Calculator:
         params: Any = None,
         freeze_atoms=None,
         pad_multiple: int = 8,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float64,
         weights_source: str = "analytic",
     ):
@@ -43,7 +61,7 @@ class Calculator:
             structure = structure.copy()
             structure.freeze = sorted(set(int(i) for i in freeze_atoms))
         self.structure = structure
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.system = pad_to(structure, multiple=pad_multiple,
                              device=self.device)
         self.n_atoms = structure.n_atoms

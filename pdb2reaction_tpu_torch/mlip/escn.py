@@ -11,13 +11,18 @@ package's tree layout (linears ``{"w": [in, out], "b": [out]}``, MoLE
 banks ``w: [experts, in, out]``), so JAX weights carry across by name
 (``from_jax.py``).
 
-This slice ports the reduced (mmax < lmax) branch with the separable S2
+The port covers the reduced (mmax < lmax) branch with the separable S2
 edge activation, the configuration of every checkpoint-shaped model
-(escn-md, escn-uma-s, escn-test). Each message layer is one call of the
-K1 kernel (``fused_edge_mega``) and each node FFN one call of K2
-(``fused_node_ffn``); both take their CUDA kernels on CUDA tensors and
-their plain PyTorch versions on CPU tensors. Forces are autograd
-gradients of the energy.
+(escn-md, escn-uma-s, escn-test). ``ESCNConfig.edge_kernel`` picks the
+layout of each message layer, with the JAX package's names:
+"pallas-mega" (the default) is one call of K1 (``fused_edge_mega``);
+"pallas-full" gathers per-edge rows, calls K3 (``fused_edge_block``) and
+K-sums its per-edge output; "pallas" rotates the pair rows with einsums,
+calls K4 (``fused_edge_chain``) and rotates back, envelope and K-sum in
+one contraction. Each node FFN is one call of K2 (``fused_node_ffn``).
+Every kernel takes its CUDA version on CUDA tensors and its plain
+PyTorch version on CPU tensors. Forces are autograd gradients of the
+energy.
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ import torch
 
 from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
-from .escn_edge_kernel import fused_edge_mega, pack_d, _rot_nz
+from .escn_edge_kernel import (fused_edge_block, fused_edge_chain,
+                               fused_edge_mega, gather_src, pack_d, _rot_nz)
 from .escn_ffn_kernel import fused_node_ffn
 from .so3 import (_const, edge_rot_mat, num_coeffs, s2_grid_tables,
                   s2_grid_tables_midpoint, wigner_full)
 
 _TODO = "see ROADMAP.md queue 0 item 4 (eSCN full and gate branches)"
+EDGE_KERNELS = ("pallas-mega", "pallas-full", "pallas")
 
 
 @dataclass(frozen=True)
@@ -63,6 +70,7 @@ class ESCNConfig:
     remat_blocks: bool = False
     edge_act: str = "s2"            # "s2" (ported) or "gate" (not yet)
     edge_grid_scale: int = 1
+    edge_kernel: str = "pallas-mega"    # one of EDGE_KERNELS
     dtype: Any = torch.float32
 
     @property
@@ -263,17 +271,21 @@ def _l_of_m(lmax: int):
 
 def _equi_rms_norm(x, gamma, cfg: ESCNConfig, eps=1e-6):
     """Per-l RMS norm over (m, C) with learned per-(l, C) scales;
-    x [..., M, C], gamma [lmax+1, C]. Vectorised: one segment sum."""
+    x [..., M, C], gamma [lmax+1, C]. Vectorised: the per-l sums and the
+    broadcast back to m are products with the [M, L] indicator (as in the
+    JAX package), not ``index_add``, whose CUDA atomics would make forces
+    differ from call to call."""
     C = x.shape[-1]
     L = cfg.lmax + 1
     l_of_m = _const(("l_of_m", cfg.lmax), lambda: _l_of_m(cfg.lmax),
                     torch.long, x.device)
+    ind = _const(("l_indicator", cfg.lmax),
+                 lambda: np.eye(L)[_l_of_m(cfg.lmax)], x.dtype, x.device)
     counts = _const(("counts", L, C), lambda: (2 * np.arange(L) + 1) * C,
                     x.dtype, x.device)
     sq = (x * x).sum(-1)                                    # [..., M]
-    sums = sq.new_zeros(sq.shape[:-1] + (L,)).index_add(-1, l_of_m, sq)
-    rms = torch.sqrt(sums / counts + eps)                   # [..., L]
-    inv_m = (1.0 / rms)[..., l_of_m]                        # [..., M]
+    rms = torch.sqrt(sq @ ind / counts + eps)               # [..., L]
+    inv_m = (1.0 / rms) @ ind.T                             # [..., M]
     return x * inv_m[..., None] * gamma[l_of_m]
 
 
@@ -302,10 +314,23 @@ def _edge_grid_tables(lmax: int, mmax: int, scale: int = 1):
     return tg[:, used], fg[used, :]
 
 
+def check_edge_kernel(cfg: ESCNConfig):
+    """Raise for an edge-kernel layout the port does not run."""
+    if cfg.edge_kernel == "xla":
+        raise NotImplementedError(
+            'edge_kernel="xla" (the all-plain variant the JAX package uses '
+            "for Hessians) comes with the Hessian port: see ROADMAP.md "
+            "queue 0 item 3")
+    if cfg.edge_kernel not in EDGE_KERNELS:
+        raise ValueError(f"edge_kernel={cfg.edge_kernel!r}: one of "
+                         f"{EDGE_KERNELS}")
+
+
 def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
     """Everything before the message-passing blocks: routing, radius
     graph, edge frames, edge scalars, initial node features and the
-    per-edge inputs every layer's K1 call shares."""
+    per-edge inputs every layer's edge-kernel call shares."""
+    check_edge_kernel(cfg)
     if cfg.mmax >= cfg.lmax:
         raise NotImplementedError(f"full eSCN branch (mmax == lmax); {_TODO}")
     if cfg.edge_act != "s2":
@@ -376,17 +401,56 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
                lambda i=i: s2_grid_tables(cfg.lmax, *cfg.grid)[i], dt, dev)
         for i in range(2))
     return dict(alpha=alpha, x=x, z=z, atom_mask=atom_mask, src=src,
+                live=env.reshape(E) > 0, D_sel=D_sel, env=env[..., 0],
                 es_t=es_t, Dp_t=Dp_t, Dpe_t=Dpe_t, edge_tabs=edge_tabs,
                 node_tabs=node_tabs)
 
 
+_EDGE_FN = {"pallas-mega": fused_edge_mega, "pallas-full": fused_edge_block,
+            "pallas": fused_edge_chain}
+
+
 def _block_edge_args(s, blk, cfg: ESCNConfig, x):
-    """Arguments of one layer's K1 call."""
+    """Arguments of one layer's edge-kernel call (``_EDGE_FN``)."""
     P, M, C = x.shape
+    K = cfg.max_neighbors
+    E = P * K
     xn = _equi_rms_norm(x, blk["norm_1"], cfg)
-    return (cfg, xn.permute(1, 2, 0).reshape(M * C, P), s["src"], s["es_t"],
-            s["Dp_t"], s["Dpe_t"], _pack_conv_weights(blk, s["alpha"], cfg),
-            s["edge_tabs"])
+    w = _pack_conv_weights(blk, s["alpha"], cfg)
+    if cfg.edge_kernel == "pallas-mega":
+        return (cfg, xn.permute(1, 2, 0).reshape(M * C, P), s["src"],
+                s["es_t"], s["Dp_t"], s["Dpe_t"], w, s["edge_tabs"])
+    rows = xn.reshape(P, M * C)
+    xs = gather_src(rows, s["src"], s["live"])                # [E, M*C]
+    if cfg.edge_kernel == "pallas-full":
+        # target rows per edge; the expand's backward is the K-sum
+        xt = rows[:, None].expand(P, K, M * C).reshape(E, M * C)
+        return (cfg, xs.T, xt.T, s["es_t"], s["Dp_t"], s["Dpe_t"], w,
+                s["edge_tabs"])
+    # "pallas": rotated pair rows [U*2C, E], u-major, source channels then
+    # target channels (escn.py:743-748 of the JAX package), held
+    # edge-major so the kernel reads them without a copy
+    D = s["D_sel"]
+    rot_s = torch.einsum("pkum,pkmc->pkuc", D, xs.reshape(P, K, M, C))
+    rot_t = torch.einsum("pkum,pmc->pkuc", D, xn)
+    pr = torch.cat([rot_s, rot_t], -1).reshape(E, -1)
+    return (cfg, pr.T, s["es_t"], w, s["edge_tabs"])
+
+
+def _edge_message(s, cfg: ESCNConfig, args):
+    """The K-summed message [P, M, C] of one layer from its edge-kernel
+    call (not yet divided by avg_degree)."""
+    out = _EDGE_FN[cfg.edge_kernel](*args)
+    P, K = s["env"].shape
+    if cfg.edge_kernel == "pallas-mega":
+        return out.reshape(-1, cfg.sphere_channels, P).permute(2, 0, 1)
+    if cfg.edge_kernel == "pallas-full":
+        return out.reshape(-1, cfg.sphere_channels, P, K).sum(-1) \
+            .permute(2, 0, 1)
+    # rotate back x envelope x K-sum in one contraction
+    U = s["D_sel"].shape[2]
+    out4 = out.reshape(U, cfg.sphere_channels, P, K) * s["env"][None, None]
+    return torch.einsum("pkum,ucpk->pmc", s["D_sel"], out4)
 
 
 def _block_ffn_args(s, blk, cfg: ESCNConfig, x):
@@ -398,23 +462,21 @@ def _block_ffn_args(s, blk, cfg: ESCNConfig, x):
 
 
 def _block(s, blk, cfg: ESCNConfig, x):
-    P, M, C = x.shape
     mask = s["atom_mask"][:, None, None]
-    msum_t = fused_edge_mega(*_block_edge_args(s, blk, cfg, x))
-    x = (x + msum_t.reshape(M, C, P).permute(2, 0, 1) / cfg.avg_degree) * mask
+    msg = _edge_message(s, cfg, _block_edge_args(s, blk, cfg, x))
+    x = (x + msg / cfg.avg_degree) * mask
     return (x + fused_node_ffn(*_block_ffn_args(s, blk, cfg, x))) * mask
 
 
 def first_layer_kernel_args(coords_ang, system, params, cfg: ESCNConfig):
-    """(K1 args, K2 args) of the first message layer, exactly as the
-    force call builds them — the inputs a kernel check runs at."""
+    """(edge-kernel args, K2 args) of the first message layer, exactly as
+    the force call builds them for ``cfg.edge_kernel`` — the inputs a
+    kernel check runs at."""
     s = _setup(coords_ang, system, params, cfg)
     blk = params["blocks"][0]
-    P, M, C = s["x"].shape
     edge_args = _block_edge_args(s, blk, cfg, s["x"])
-    msum_t = fused_edge_mega(*edge_args)
-    x = (s["x"] + msum_t.reshape(M, C, P).permute(2, 0, 1)
-         / cfg.avg_degree) * s["atom_mask"][:, None, None]
+    msg = _edge_message(s, cfg, edge_args)
+    x = (s["x"] + msg / cfg.avg_degree) * s["atom_mask"][:, None, None]
     return edge_args, _block_ffn_args(s, blk, cfg, x)
 
 

@@ -1,24 +1,33 @@
-"""K1: the eSCN node-resident edge-message layer (``fused_edge_mega``).
+"""The eSCN edge-message kernels K1, K3 and K4.
 
-Counterpart of ``pdb2reaction_tpu/mlip/escn_edge_kernel.py``
-``fused_edge_mega`` with the same public layout:
+Counterparts of ``pdb2reaction_tpu/mlip/escn_edge_kernel.py`` with the
+same public layouts (features x edges, edges target-major: ``E = P*K``,
+edge ``p*K + k``):
 
     fused_edge_mega(cfg, x_t [M*C, P], src [E], es [Ce, E], Dp [nnz, E],
                     Dpe [nnz, E], weights (12-tuple), (tg, fg)) -> [M*C, P]
+    fused_edge_block(cfg, xs_t [M*C, E], xt_t [M*C, E], es, Dp, Dpe,
+                     weights, tables) -> [M*C, E]
+    fused_edge_chain(cfg, pr [U*2C, E], es, weights, tables) -> [U*C, E]
 
-Edges are target-major (``E = P*K``, edge ``p*K + k``). For each edge it
-gathers the source and target node rows, rotates them into the reduced
-|m| <= mmax edge-frame basis with the packed Wigner nonzeros ``Dp``, runs
-SO(2) conv 1 -> separable S2 activation -> SO(2) conv 2, rotates back with
-``Dpe`` (envelope folded in) and sums the K edges of each target atom.
+K1 (``edge_kernel="pallas-mega"``) gathers the source and target node
+rows of each edge, rotates them into the reduced |m| <= mmax edge-frame
+basis with the packed Wigner nonzeros ``Dp``, runs SO(2) conv 1 ->
+separable S2 activation -> SO(2) conv 2, rotates back with ``Dpe``
+(envelope folded in) and sums the K edges of each target atom. K3
+(``"pallas-full"``) runs the same chain on per-edge source and target
+rows the caller gathered and returns the back-rotated message per edge
+(the caller K-sums it). K4 (``"pallas"``) runs only conv 1 -> S2
+activation -> conv 2 on pair rows the caller rotated.
 
 The device picks the implementation: CPU tensors take the plain PyTorch
-version (``fused_edge_mega_plain``, differentiable by autograd), CUDA
-tensors the hand-written kernel (``csrc/escn_edge.cu``) behind
-``torch.autograd.Function`` with a kernel backward too. The kernel runs
-f32 and raises on anything else, and it computes input cotangents only:
-it raises if a weight requires grad (weight gradients belong to the
-training port).
+versions (``*_plain``, differentiable by autograd), CUDA tensors the
+hand-written kernels (``csrc/escn_edge.cu``) behind
+``torch.autograd.Function`` with a kernel backward too. The kernels run
+f32 and raise on anything else, and they compute input cotangents only:
+they raise if a weight requires grad (weight gradients belong to the
+training port). ``gather_src`` is the callers' source gather on the
+K3/K4 paths, with a deterministic backward on CUDA.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ import torch
 from .so3 import _const
 
 # launches of the CUDA kernels, counted where each is launched
-launches = {"fused_edge_mega_fwd": 0, "fused_edge_mega_bwd": 0}
+launches = {"fused_edge_mega_fwd": 0, "fused_edge_mega_bwd": 0,
+            "fused_edge_block_fwd": 0, "fused_edge_block_bwd": 0,
+            "fused_edge_chain_fwd": 0, "fused_edge_chain_bwd": 0}
 
 
 def _dims(cfg):
@@ -120,32 +131,62 @@ def s2_act_plain(msg, tg, fg):
     return torch.cat([_silu(msg[:, :1]), back[:, 1:]], dim=1)
 
 
+def _chain_plain(pr, es_e, weights, tables, nl0, nls):
+    """conv 1 -> S2 act -> conv 2: pr [E, U, 2C], es_e [E, Ce] -> [E, U, C]."""
+    (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
+    tg, fg = tables
+    msg = conv_plain(pr, es_e, W0, Wrs, Wis, b0, brs, bis, nl0, nls)
+    act = s2_act_plain(msg, tg, fg)
+    return conv_plain(act, None, V0, Vrs, Vis, c0, crs, cis, nl0, nls)
+
+
+def _block_plain(cfg, xs, xt, es, Dp, Dpe, weights, tables):
+    """Rotate per-edge rows xs, xt [E, M, C], run the chain and rotate
+    back: [E, M, C]."""
+    nl0, nls, U, G = _dims(cfg)
+    Dd = _unpack_d(cfg, Dp)
+    pr = torch.cat([torch.einsum("eum,emc->euc", Dd, xs),
+                    torch.einsum("eum,emc->euc", Dd, xt)], dim=-1)
+    out = _chain_plain(pr, es.T, weights, tables, nl0, nls)
+    return torch.einsum("eum,euc->emc", _unpack_d(cfg, Dpe), out)
+
+
 def fused_edge_mega_plain(cfg, x_t, src, es, Dp, Dpe, weights, tables):
     """Plain PyTorch K1 (any dtype, any device, autograd-differentiable)."""
-    nl0, nls, U, G = _dims(cfg)
     M = (cfg.lmax + 1) ** 2
     C = cfg.sphere_channels
     K = cfg.max_neighbors
     P = x_t.shape[1]
-    (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
-    tg, fg = tables
     xn = x_t.reshape(M, C, P).permute(2, 0, 1)               # [P, M, C]
-    Dd = _unpack_d(cfg, Dp)
-    Dde = _unpack_d(cfg, Dpe)
-    xs = xn[src]                                             # [E, M, C]
-    xt = xn.repeat_interleave(K, dim=0)
-    pr = torch.cat([torch.einsum("eum,emc->euc", Dd, xs),
-                    torch.einsum("eum,emc->euc", Dd, xt)], dim=-1)
-    msg = conv_plain(pr, es.T, W0, Wrs, Wis, b0, brs, bis, nl0, nls)
-    act = s2_act_plain(msg, tg, fg)
-    out = conv_plain(act, None, V0, Vrs, Vis, c0, crs, cis, nl0, nls)
-    back = torch.einsum("eum,euc->emc", Dde, out)            # [E, M, C]
+    back = _block_plain(cfg, xn[src], xn.repeat_interleave(K, dim=0), es,
+                        Dp, Dpe, weights, tables)            # [E, M, C]
     y = back.reshape(P, K, M, C).sum(1)
     return y.permute(1, 2, 0).reshape(M * C, P)
 
 
+def fused_edge_block_plain(cfg, xs_t, xt_t, es, Dp, Dpe, weights, tables):
+    """Plain PyTorch K3: per-edge back-rotated messages [M*C, E]."""
+    M = (cfg.lmax + 1) ** 2
+    C = cfg.sphere_channels
+    E = xs_t.shape[1]
+    back = _block_plain(cfg, xs_t.reshape(M, C, E).permute(2, 0, 1),
+                        xt_t.reshape(M, C, E).permute(2, 0, 1), es, Dp, Dpe,
+                        weights, tables)
+    return back.permute(1, 2, 0).reshape(M * C, E)
+
+
+def fused_edge_chain_plain(cfg, pr, es, weights, tables):
+    """Plain PyTorch K4: pr [U*2C, E] (u-major rotated pair rows, source
+    channels then target channels) -> [U*C, E]."""
+    nl0, nls, U, G = _dims(cfg)
+    E = pr.shape[1]
+    out = _chain_plain(pr.reshape(U, -1, E).permute(2, 0, 1), es.T, weights,
+                       tables, nl0, nls)                     # [E, U, C]
+    return out.permute(1, 2, 0).reshape(-1, E)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/escn_edge.cu)
+# CUDA kernels (csrc/escn_edge.cu)
 # ---------------------------------------------------------------------------
 
 def _merge(A, B):
@@ -190,12 +231,60 @@ def _tables_dev(cfg, device):
 
 def _check_cuda(name, *ts):
     for t in ts:
-        if not t.is_cuda:
+        if not t.is_cuda or t.device != ts[0].device:
             raise ValueError(f"{name}: all inputs must be on the same CUDA "
                              "device")
         if t.dtype not in (torch.float32, torch.int64):
             raise TypeError(f"{name}: the CUDA kernel runs float32; got "
                             f"{t.dtype}")
+
+
+def _src_csr(src, live, P):
+    """Source-sorted edge permutation (CSR) for a deterministic source
+    scatter: (ptr [P+1], perm) int32, the edges of atom p in
+    perm[ptr[p]:ptr[p+1]] in edge order. Edges with ``live`` False go to
+    a bucket past the last atom: masked slots all point at atom 0 and
+    carry exactly zero cotangent, so atom 0 does not walk them."""
+    key = torch.where(live, src, torch.full_like(src, P))
+    order = torch.argsort(key, stable=True)
+    ptr = torch.searchsorted(
+        key[order], torch.arange(P + 1, device=src.device)
+    ).to(torch.int32)              # (bincount would wait on the host)
+    return ptr, order.to(torch.int32)
+
+
+class _GatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, live):
+        ctx.save_for_backward(src, live)
+        ctx.P = x.shape[0]
+        return x.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .cuda_build import call, load, ptr, stream_ptr
+        src, live = ctx.saved_tensors
+        g = g.contiguous()
+        src_ptr, perm = _src_csr(src, live, ctx.P)
+        gx = g.new_empty(ctx.P, g.shape[1])
+        call(load("escn_edge"), "src_scatter", ctx.P, g.shape[1],
+             ptr(src_ptr), ptr(perm), ptr(g), ptr(gx), stream_ptr())
+        return gx, None, None
+
+
+def gather_src(x, src, live):
+    """Rows ``x[src]`` [E, F] of node rows x [P, F]. On CUDA the backward
+    sums each atom's edge cotangents in edge order over a source-sorted
+    CSR (``src_scatter``; no atomics, so forces repeat bit for bit) and
+    leaves out the edges with ``live`` False, whose cotangents must be
+    exactly zero (masked slots). On the CPU it is plain ``x[src]``."""
+    if not x.is_cuda:
+        return x[src]
+    _check_cuda("gather_src", x, src)
+    if live.device != x.device or src.shape != live.shape:
+        raise ValueError("gather_src: live must be one flag per edge on "
+                         "the device of x")
+    return _GatherFn.apply(x, src, live)
 
 
 class _MegaFn(torch.autograd.Function):
@@ -252,18 +341,9 @@ class _MegaFn(torch.autograd.Function):
         E = P * K
         nnz = dp_e.shape[1]
         g_node = g.T.contiguous().float()
-        # source-sorted edge permutation (CSR) for the deterministic
-        # source scatter. Edges whose Dpe row is all zero (masked slots,
-        # which all point at atom 0) contribute exactly nothing: they go
-        # to a bucket past the last atom, so atom 0's block does not walk
-        # every masked edge of the system.
-        key = torch.where(dpe_e.abs().amax(1) > 0, src,
-                          torch.full_like(src, P))
-        order = torch.argsort(key, stable=True)
-        src_ptr = torch.searchsorted(
-            key[order], torch.arange(P + 1, device=src.device)
-        ).to(torch.int32)          # (bincount would wait on the host)
-        perm = order.to(torch.int32)
+        # edges whose Dpe row is all zero (masked slots) contribute
+        # exactly nothing to the source scatter
+        src_ptr, perm = _src_csr(src, dpe_e.abs().amax(1) > 0, P)
         tabs = _tables_dev(cfg, x_node.device)
         dev = dict(device=x_node.device, dtype=torch.float32)
         gout = torch.empty(E, U * C, **dev)
@@ -283,9 +363,142 @@ class _MegaFn(torch.autograd.Function):
         return None, gx.T, None, ges, gdp.T, gdpe.T, None, None, None
 
 
+class _BlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, xs_t, xt_t, es, Dp, Dpe, packed, tg, fg):
+        from .cuda_build import call, load, ptr, stream_ptr
+        nl0, nls, U, G = _dims(cfg)
+        C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
+                    cfg.edge_channels)
+        MC, E = xs_t.shape
+        nnz = Dp.shape[0]
+        w1, b1, w2, b2, w1t, w2t = packed
+        # edge-major rows; no copy when the caller built [E, M*C] rows
+        xs, xt = xs_t.T.contiguous(), xt_t.T.contiguous()
+        es_e, dp_e, dpe_e = (t.T.contiguous() for t in (es, Dp, Dpe))
+        tg, fg = tg.contiguous(), fg.contiguous()
+        dev = dict(device=xs.device, dtype=torch.float32)
+        abuf = torch.empty(E, U * 2 * C + Ce, **dev)
+        msg = torch.empty(E, U * H, **dev)
+        act = torch.empty(E, U * H, **dev)
+        outsv = torch.empty(E, U * C, **dev)
+        y = torch.empty(E, MC, **dev)
+        call(load("escn_edge"), "k3_fwd", E, C, H, Ce, cfg.lmax, cfg.mmax,
+             nnz, G, ptr(xs), ptr(xt), ptr(es_e), ptr(dp_e), ptr(dpe_e),
+             ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(tg), ptr(fg),
+             ptr(_tables_dev(cfg, xs.device)), ptr(abuf), ptr(msg), ptr(act),
+             ptr(outsv), ptr(y), stream_ptr())
+        launches["fused_edge_block_fwd"] += 1
+        ctx.cfg = cfg
+        ctx.save_for_backward(xs, xt, dp_e, dpe_e, msg, outsv, w1t, w2t, tg,
+                              fg)
+        return y.T
+
+    @staticmethod
+    def backward(ctx, g):
+        from .cuda_build import call, load, ptr, stream_ptr
+        cfg = ctx.cfg
+        xs, xt, dp_e, dpe_e, msg, outsv, w1t, w2t, tg, fg = \
+            ctx.saved_tensors
+        nl0, nls, U, G = _dims(cfg)
+        C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
+                    cfg.edge_channels)
+        E, MC = xs.shape
+        nnz = dp_e.shape[1]
+        gy = g.T.contiguous().float()
+        dev = dict(device=xs.device, dtype=torch.float32)
+        gout = torch.empty(E, U * C, **dev)
+        gact = torch.empty(E, U * H, **dev)
+        gpr = torch.empty(E, U * 2 * C + Ce, **dev)
+        gxs = torch.empty(E, MC, **dev)
+        gxt = torch.empty(E, MC, **dev)
+        gdp = torch.empty(E, nnz, **dev)
+        gdpe = torch.empty(E, nnz, **dev)
+        call(load("escn_edge"), "k3_bwd", E, C, H, Ce, cfg.lmax, cfg.mmax,
+             nnz, G, ptr(xs), ptr(xt), ptr(gy), ptr(dp_e), ptr(dpe_e),
+             ptr(msg), ptr(outsv), ptr(w1t), ptr(w2t), ptr(tg), ptr(fg),
+             ptr(_tables_dev(cfg, xs.device)), ptr(gout), ptr(gact),
+             ptr(gpr), ptr(gxs), ptr(gxt), ptr(gdp), ptr(gdpe), stream_ptr())
+        launches["fused_edge_block_bwd"] += 1
+        ges = gpr[:, nl0 * 2 * C:nl0 * 2 * C + Ce].T
+        return (None, gxs.T, gxt.T, ges, gdp.T, gdpe.T, None, None, None)
+
+
+class _ChainFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, pr, es, packed, tg, fg):
+        from .cuda_build import call, load, ptr, stream_ptr
+        nl0, nls, U, G = _dims(cfg)
+        C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
+                    cfg.edge_channels)
+        E = pr.shape[1]
+        w1, b1, w2, b2, w1t, w2t = packed
+        pr_e, es_e = pr.T.contiguous(), es.T.contiguous()
+        tg, fg = tg.contiguous(), fg.contiguous()
+        dev = dict(device=pr.device, dtype=torch.float32)
+        x0 = torch.empty(E, nl0 * 2 * C + Ce, **dev)
+        msg = torch.empty(E, U * H, **dev)
+        act = torch.empty(E, U * H, **dev)
+        out = torch.empty(E, U * C, **dev)
+        call(load("escn_edge"), "k4_fwd", E, C, H, Ce, cfg.lmax, cfg.mmax, G,
+             ptr(pr_e), ptr(es_e), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+             ptr(tg), ptr(fg), ptr(x0), ptr(msg), ptr(act), ptr(out),
+             stream_ptr())
+        launches["fused_edge_chain_fwd"] += 1
+        ctx.cfg = cfg
+        ctx.save_for_backward(msg, w1t, w2t, tg, fg)
+        return out.T
+
+    @staticmethod
+    def backward(ctx, g):
+        from .cuda_build import call, load, ptr, stream_ptr
+        cfg = ctx.cfg
+        msg, w1t, w2t, tg, fg = ctx.saved_tensors
+        nl0, nls, U, G = _dims(cfg)
+        C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
+                    cfg.edge_channels)
+        E = msg.shape[0]
+        gout = g.T.contiguous().float()
+        dev = dict(device=msg.device, dtype=torch.float32)
+        gact = torch.empty(E, U * H, **dev)
+        g0 = torch.empty(E, nl0 * 2 * C + Ce, **dev)
+        gpr = torch.empty(E, U * 2 * C, **dev)
+        ges = torch.empty(E, Ce, **dev)
+        call(load("escn_edge"), "k4_bwd", E, C, H, Ce, cfg.lmax, cfg.mmax, G,
+             ptr(msg), ptr(gout), ptr(w1t), ptr(w2t), ptr(tg), ptr(fg),
+             ptr(gact), ptr(g0), ptr(gpr), ptr(ges), stream_ptr())
+        launches["fused_edge_chain_bwd"] += 1
+        return None, gpr.T, ges.T, None, None, None
+
+
 def _flat_weights(weights):
     (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
     return [W0, *Wrs, *Wis, b0, *brs, *bis, V0, *Vrs, *Vis, c0, *crs, *cis]
+
+
+def _kernel_guard(name, cfg, weights, tables, *ts):
+    """The CUDA kernels' limits: float32 on one card, U <= 32 reduced rows,
+    mmax <= 4, and no weight that requires grad."""
+    flat = _flat_weights(weights)
+    if any(w.requires_grad for w in flat):
+        raise NotImplementedError(
+            f"{name}'s CUDA kernel computes input cotangents only; weight "
+            "gradients (training) are a later port item")
+    _check_cuda(name, *ts, *tables, *flat)
+    nl0, nls, U, G = _dims(cfg)
+    if U > 32 or cfg.mmax > 4:
+        raise ValueError(f"{name}'s CUDA kernel takes U <= 32 reduced rows "
+                         "and mmax <= 4")
+
+
+def _check_shapes(name, **shapes):
+    """Raise unless each named (tensor, shape) pair matches: the kernels
+    take their sizes from the configuration and read out of bounds on
+    anything else."""
+    for arg, (t, want) in shapes.items():
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
 
 
 def fused_edge_mega(cfg, x_t, src, es, Dp, Dpe, weights, tables):
@@ -294,18 +507,42 @@ def fused_edge_mega(cfg, x_t, src, es, Dp, Dpe, weights, tables):
     if not x_t.is_cuda:
         return fused_edge_mega_plain(cfg, x_t, src, es, Dp, Dpe, weights,
                                      tables)
-    flat = _flat_weights(weights)
-    if any(w.requires_grad for w in flat):
-        raise NotImplementedError(
-            "fused_edge_mega's CUDA kernel computes input cotangents only; "
-            "weight gradients (training) are a later port item")
-    tg, fg = tables
-    _check_cuda("fused_edge_mega", x_t, src, es, Dp, Dpe, tg, fg, *flat)
+    _kernel_guard("fused_edge_mega", cfg, weights, tables, x_t, src, es, Dp,
+                  Dpe)
     if src.dtype != torch.int64:
         raise TypeError("fused_edge_mega: src must be int64 atom indices")
-    nl0, nls, U, G = _dims(cfg)
-    if U > 32 or cfg.mmax > 4:
-        raise ValueError("fused_edge_mega's CUDA kernel takes U <= 32 "
-                         "reduced rows and mmax <= 4")
     return _MegaFn.apply(cfg, x_t, src, es, Dp, Dpe, _pack_weights(weights),
-                         tg, fg)
+                         *tables)
+
+
+def fused_edge_block(cfg, xs_t, xt_t, es, Dp, Dpe, weights, tables):
+    """K3: per-edge back-rotated, envelope-weighted messages [M*C, E] from
+    the gathered source rows xs_t and the repeated target rows xt_t
+    [M*C, E] (the caller K-sums them)."""
+    if not xs_t.is_cuda:
+        return fused_edge_block_plain(cfg, xs_t, xt_t, es, Dp, Dpe, weights,
+                                      tables)
+    _kernel_guard("fused_edge_block", cfg, weights, tables, xs_t, xt_t, es,
+                  Dp, Dpe)
+    E = xs_t.shape[1]
+    MC = (cfg.lmax + 1) ** 2 * cfg.sphere_channels
+    nnz = len(_rot_nz(cfg.lmax, cfg.mmax)[0])
+    _check_shapes("fused_edge_block", xs_t=(xs_t, (MC, E)),
+                  xt_t=(xt_t, (MC, E)), es=(es, (cfg.edge_channels, E)),
+                  Dp=(Dp, (nnz, E)), Dpe=(Dpe, (nnz, E)))
+    return _BlockFn.apply(cfg, xs_t, xt_t, es, Dp, Dpe,
+                          _pack_weights(weights), *tables)
+
+
+def fused_edge_chain(cfg, pr, es, weights, tables):
+    """K4: conv 1 -> S2 activation -> conv 2 on rotated pair rows
+    pr [U*2C, E] and edge scalars es [Ce, E] -> [U*C, E]."""
+    if not pr.is_cuda:
+        return fused_edge_chain_plain(cfg, pr, es, weights, tables)
+    _kernel_guard("fused_edge_chain", cfg, weights, tables, pr, es)
+    nl0, nls, U, G = _dims(cfg)
+    E = pr.shape[1]
+    _check_shapes("fused_edge_chain",
+                  pr=(pr, (U * 2 * cfg.sphere_channels, E)),
+                  es=(es, (cfg.edge_channels, E)))
+    return _ChainFn.apply(cfg, pr, es, _pack_weights(weights), *tables)

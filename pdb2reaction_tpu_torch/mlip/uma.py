@@ -8,7 +8,10 @@ caller's ``params`` (for example JAX weights carried across with
 ``from_jax.params_from_jax``), else the deterministic seeded surrogate,
 announced by a loud warning because its energies mean nothing
 chemically. For eSCN the MoLE expert banks are merged once with the
-system's (task, charge, spin) routing (exact).
+system's (task, charge, spin) routing (exact), and ``edge_kernel`` (else
+the ``PDB2R_TPU_ESCN_KERNEL`` variable, else "pallas-mega") picks the
+message layout: "pallas-mega" (K1), "pallas-full" (K3) or "pallas" (K4),
+as in the JAX factory.
 
 The device defaults to CUDA, where the force path runs the hand-written
 kernels. Asking for CUDA without a card raises; CPU runs only when the
@@ -19,15 +22,16 @@ sharding (``spatial > 1``) needs several GPUs and is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 from typing import Optional, Sequence
 
 import torch
 
 from ..core.structure import Structure
-from .calculator import Calculator
-from .escn import (ESCN_CONFIGS, escn_energy_fn, init_escn_params,
-                   premerge_escn_params, tree_to)
+from .calculator import Calculator, resolve_device
+from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
+                   init_escn_params, premerge_escn_params, tree_to)
 from .model import CONFIGS, init_params, make_energy_fn
 
 
@@ -41,21 +45,6 @@ def _warn_surrogate(model: str, seed: int) -> str:
           "and\nforces are NOT chemically meaningful. Pass real weights as "
           "params=.\n" + "=" * 70, file=sys.stderr)
     return tag
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device; CUDA without a card raises (no fallback).
-    On CUDA both TF32 switches are turned off, so the plain f32 paths
-    around the kernels (edge MLP, Wigner recursion) stay full f32."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' was requested but torch.cuda.is_available() "
-                "is False; pass device='cpu' to run the plain CPU path")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 def make_uma_calculator(
@@ -74,6 +63,7 @@ def make_uma_calculator(
     weights_source: Optional[str] = None,
     pad_multiple: int = 8,
     spatial: Optional[int] = None,
+    edge_kernel: Optional[str] = None,
 ) -> Calculator:
     """Calculator for a named configuration. ``dtype`` is the model's
     compute type (None: the configuration's own; the CUDA kernels take
@@ -98,6 +88,10 @@ def make_uma_calculator(
             else cfg.max_neighbors,
             cutoff=float(radius) if radius else cfg.cutoff)
     escn = model.startswith("escn")
+    ek = edge_kernel or os.environ.get("PDB2R_TPU_ESCN_KERNEL")
+    if escn and ek:
+        cfg = dataclasses.replace(cfg, edge_kernel=str(ek))
+        check_edge_kernel(cfg)
     if params is None:
         params = (init_escn_params(cfg, seed=seed, device=dev) if escn
                   else init_params(cfg, seed=seed))

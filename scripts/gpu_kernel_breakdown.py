@@ -4,11 +4,18 @@ PyTorch/CUDA port, by kernel name (torch.profiler, CUDA activity).
 
     python3 scripts/gpu_kernel_breakdown.py [cell ...]   # one CUDA card
 
-Cells (default: all three):
+Cells (default: all five):
   escn-md       escn-md on the 300-atom cluster of chip_smoke.py (padded
                 to 320): K1 (sgemm_nn, rotate_in, act_fwd, back_ksum,
                 rot_out_bwd, act_bwd, gdp_bwd, gx_bwd) and K2 (ffn_fwd,
                 ffn_bwd);
+  escn-md-full  the same with edge_kernel="pallas-full": K3 (sgemm_nn,
+                rotate_in, act_fwd, back_ksum, rot_out_bwd, act_bwd,
+                gdp_bwd, rot_in_bwd), the source gather's backward
+                (csr_rows_sum) and K2;
+  escn-md-chain the same with edge_kernel="pallas": K4 (sgemm_nn, act_fwd,
+                act_bwd and its column copies), K2, and the rotations as
+                plain PyTorch einsums (cuBLAS batched products);
   painn-pallas  uma-s-1p1 in mp_mode="pallas" on the 4096-atom system:
                 K5 (rc_fwd, rc_bwd_feats, rc_bwd_coords);
   painn-dense   the default uma-s-1p1 (dense) on the 300-atom cluster.
@@ -27,7 +34,10 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-CELLS = ("escn-md", "painn-pallas", "painn-dense")
+CELLS = ("escn-md", "escn-md-full", "escn-md-chain", "painn-pallas",
+         "painn-dense")
+LAYOUT = {"escn-md": "pallas-mega", "escn-md-full": "pallas-full",
+          "escn-md-chain": "pallas"}
 
 
 def build(cell):
@@ -35,10 +45,11 @@ def build(cell):
     from pdb2reaction_tpu_torch.core.structure import Structure
     from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
-    if cell == "escn-md":
+    if cell in LAYOUT:
         zs, xyz = chip_smoke.cluster(300, seed=0)
         return make_uma_calculator(Structure(zs, xyz), model="escn-md",
-                                   device="cuda", seed=0, pad_multiple=64), 3
+                                   device="cuda", seed=0, pad_multiple=64,
+                                   edge_kernel=LAYOUT[cell]), 3
     if cell == "painn-dense":
         zs, xyz = chip_smoke.cluster(300, seed=0)
         return make_uma_calculator(Structure(zs, xyz), device="cuda",

@@ -1,6 +1,6 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version, and the escn and PaiNN pallas-mode calculators on the card
-against the CPU plain path.
+version, and the escn calculator in each edge-kernel layout and the
+PaiNN pallas-mode calculator on the card against the CPU plain path.
 
 Every test is marked ``gpu`` and skips without a CUDA card (decided
 inside the test). The file imports no JAX, so it also runs on a machine
@@ -94,6 +94,103 @@ def test_edge_mega_kernel_matches_plain(name, over, P):
                            ins[3], w, tabs)
 
 
+# ragged edge counts: E = 23 * 8 = 184 and 37 * 16 = 592, neither a
+# multiple of the 128-edge GEMM tile nor of a warp block
+VARIANT_CASES = [
+    ("escn-md", dict(sphere_channels=16, hidden_channels=16,
+                     edge_channels=8, max_neighbors=8), 23),
+    ("escn-test", {}, 37)]
+
+
+def _kernel_vs_plain(kern, plain, cfg, ins, w, tabs, key):
+    """Values and every input cotangent of the kernel against its plain
+    version; the kernel's backward launch is counted once. Returns the
+    kernel's [value, cotangents...] and the output cotangent used."""
+    n0 = ek.launches[key]
+    outs, g = [], None
+    for fn in (kern, plain):
+        lv = [t.clone().requires_grad_(True) for t in ins]
+        y = fn(cfg, *lv, w, tabs)
+        if g is None:
+            g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                9)).to(**F32)
+        outs.append([y, *torch.autograd.grad(y, lv, g)])
+    torch.cuda.synchronize()
+    assert len(outs[0]) == len(ins) + 1
+    for a, b in zip(*outs):
+        assert _close(a, b)
+    assert ek.launches[key] == n0 + 1
+    return outs[0], g
+
+
+@pytest.mark.parametrize("name,over,P", VARIANT_CASES)
+def test_edge_block_kernel_matches_plain(name, over, P):
+    """K3 at ragged E with masked (all-zero Dpe) edges: values and the
+    cotangents of xs, xt, es, Dp and Dpe; a second run repeats bit for
+    bit; guards raise."""
+    _need_card()
+    cfg = dataclasses.replace(ESCN_CONFIGS[name], **over)
+    w, tabs, src, (x, es, dp, dpe), _ = _edge_inputs(cfg, P, seed=5)
+    xs = x[:, src].contiguous()
+    xt = x.repeat_interleave(cfg.max_neighbors, dim=1)
+    ins = (xs, xt, es, dp, dpe)
+    first, g = _kernel_vs_plain(ek.fused_edge_block,
+                                ek.fused_edge_block_plain, cfg, ins, w, tabs,
+                                "fused_edge_block_bwd")
+    lv = [t.clone().requires_grad_(True) for t in ins]
+    y = ek.fused_edge_block(cfg, *lv, w, tabs)
+    again = [y, *torch.autograd.grad(y, lv, g)]
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+    w_g = (w[0].clone().requires_grad_(True),) + w[1:]
+    with pytest.raises(NotImplementedError):
+        ek.fused_edge_block(cfg, *ins, w_g, tabs)
+    with pytest.raises(TypeError):
+        ek.fused_edge_block(cfg, xs.double(), *ins[1:], w, tabs)
+    with pytest.raises(ValueError):
+        ek.fused_edge_block(cfg, xs[:, :-1], *ins[1:], w, tabs)
+
+
+@pytest.mark.parametrize("name,over,P", VARIANT_CASES)
+def test_edge_chain_kernel_matches_plain(name, over, P):
+    """K4 at ragged E: values and the cotangents of pr and es; guards
+    raise."""
+    _need_card()
+    cfg = dataclasses.replace(ESCN_CONFIGS[name], **over)
+    w, tabs, src, (x, es, dp, dpe), _ = _edge_inputs(cfg, P, seed=6)
+    nl0, nls, U, G = ek._dims(cfg)
+    gen = torch.Generator().manual_seed(7)
+    pr = torch.randn(U * 2 * cfg.sphere_channels, src.numel(),
+                     generator=gen).to(**F32)
+    _kernel_vs_plain(ek.fused_edge_chain, ek.fused_edge_chain_plain, cfg,
+                     (pr, es), w, tabs, "fused_edge_chain_bwd")
+    w_g = (w[0].clone().requires_grad_(True),) + w[1:]
+    with pytest.raises(NotImplementedError):
+        ek.fused_edge_chain(cfg, pr, es, w_g, tabs)
+    with pytest.raises(ValueError):
+        ek.fused_edge_chain(cfg, pr[:-1], es, w, tabs)
+
+
+def test_gather_src_backward_is_a_deterministic_scatter():
+    """The K3/K4 paths' source gather: its backward equals index_add over
+    the live edges and repeats bit for bit."""
+    _need_card()
+    gen = torch.Generator().manual_seed(8)
+    P, E, F = 53, 53 * 16, 200
+    x = torch.randn(P, F, generator=gen).to(**F32)
+    src = torch.randint(0, P, (E,), generator=gen).cuda()
+    live = torch.rand(E, generator=gen).cuda() > 0.2
+    g = torch.randn(E, F, generator=gen).to(**F32) * live[:, None]
+    got = []
+    for _ in range(2):
+        xv = x.clone().requires_grad_(True)
+        y = ek.gather_src(xv, src, live)
+        assert torch.equal(y, x[src])
+        got.append(torch.autograd.grad(y, [xv], g)[0])
+    ref = torch.zeros_like(x).index_add_(0, src, g)
+    assert torch.equal(got[0], got[1])
+    assert _close(got[0], ref)
+
+
 def test_node_ffn_kernel_matches_plain():
     _need_card()
     gen = torch.Generator().manual_seed(4)
@@ -115,13 +212,22 @@ def test_node_ffn_kernel_matches_plain():
         assert _close(a, b)
 
 
-def test_calculator_on_card_matches_cpu_f64():
+EDGE_FN = {"pallas-mega": "fused_edge_mega", "pallas-full": "fused_edge_block",
+           "pallas": "fused_edge_chain"}
+
+
+@pytest.mark.parametrize("edge_kernel", list(EDGE_FN))
+def test_calculator_on_card_matches_cpu_f64(edge_kernel):
+    """Each edge-kernel layout on the card against the CPU float64 plain
+    path: forces within TOL, only that layout's edge kernels launched,
+    and a second call repeats the forces bit for bit."""
     _need_card()
     rng = np.random.default_rng(2)
     st = Structure(rng.choice([1, 6, 8], size=20).astype(np.int32),
                    rng.normal(scale=2.0, size=(20, 3)))
     w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=1)
-    gpu = make_uma_calculator(st, model="escn-test", params=w)
+    gpu = make_uma_calculator(st, model="escn-test", params=w,
+                              edge_kernel=edge_kernel)
     cpu = make_uma_calculator(st, model="escn-test", params=w, device="cpu",
                               dtype=torch.float64)
     cb = st.coords_bohr.reshape(-1)
@@ -129,8 +235,11 @@ def test_calculator_on_card_matches_cpu_f64():
     rg, rc = gpu.get_forces(cb), cpu.get_forces(cb)
     assert np.abs(rg["forces"] - rc["forces"]).max() \
         <= TOL * np.abs(rc["forces"]).max()
-    assert all(ek.launches[k] > n0[0][k] for k in ek.launches)
+    ran = {k for k in ek.launches if ek.launches[k] > n0[0][k]}
+    base = EDGE_FN[edge_kernel]
+    assert ran == {f"{base}_fwd", f"{base}_bwd"}
     assert all(fk.launches[k] > n0[1][k] for k in fk.launches)
+    assert np.array_equal(gpu.get_forces(cb)["forces"], rg["forces"])
 
 
 @pytest.mark.parametrize("div_d", [False, True])
