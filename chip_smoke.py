@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
-                                     # (phases 1-3 and 6)
+                                     # (phases 1-3, 6 and 10)
 
 Phases (any failure exits non-zero):
 1. device: name, count, power limit (nvidia-smi);
@@ -40,7 +40,25 @@ Phases (any failure exits non-zero):
 8. the default path: make_uma_calculator(device="cuda") with no model
    (uma-s-1p1, dense) on the 300-atom cluster;
 9. uma-s-1p1 pallas mode on the card against the CPU float64 dense plain
-   path on the 64-atom cluster with the same weights.
+   path on the 64-atom cluster with the same weights;
+10. K6 parity at the sharded path's shapes (the 4096-atom system in four
+   row blocks of 1024 against all 4096 columns, F = 1024, R + 1 = 25):
+   forward, feats gradient and the row and column coordinate gradients of
+   radial_contract_rect against its plain version at each offset
+   0/1024/2048/3072 for streams A and B, and the four forward blocks
+   stacked against K5's kernel output; the bound counts the pairs inside
+   the cutoff with one atom in the block;
+11. the sharded path: four ranks started with "spawn" on the one card
+   (gloo collectives staged through host memory), each building
+   make_uma_calculator(uma-s-1p1, mp_mode="pallas", spatial=4) with the
+   weights of phase 7: energy and forces against phase 7's unsharded
+   call, bit for bit equal on all ranks and across two calls, 8 / 7 / 8 /
+   8 K6 launches and no K5 launch per rank and force call, ms per call
+   and peak memory per rank (four ranks time-sharing one card), a 5-cycle
+   run_opt with the same force calls on every rank; then, in the same
+   group, the factory default make_uma_calculator(st, spatial=4)
+   (uma-s-1p1, switched to the sharded gather layout) on the 300-atom
+   cluster against the unsharded gather mode.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -66,6 +84,9 @@ HBM_RATE = 3.35e12        # H100 SXM HBM3, bytes/s
 KERNEL_TOL = 1e-4         # max|kernel - plain| / max|plain| (f32 sums
                           # reordered against the plain path)
 FORCE_TOL = 1e-4          # max|F_card - F_cpu64| / max|F_cpu64|
+SHARD_TOL = 1e-5          # sharded against unsharded on the card (f32,
+                          # the same kernels' sums split over four ranks)
+RANKS = 4                 # the sharded phase: four ranks on one card
 
 REPLACES = {
     "fused_edge_mega_fwd": "pdb2reaction_tpu/mlip/escn_edge_kernel.py:1147",
@@ -79,6 +100,11 @@ REPLACES = {
     "radial_contract_fwd": "pdb2reaction_tpu/mlip/pallas_ops.py:129",
     "radial_contract_bwd_feats": "pdb2reaction_tpu/mlip/pallas_ops.py:352",
     "radial_contract_bwd_coords": "pdb2reaction_tpu/mlip/pallas_ops.py:256",
+    "radial_contract_rect_fwd": "pdb2reaction_tpu/mlip/pallas_ops.py:474",
+    "radial_contract_rect_bwd_feats":
+        "pdb2reaction_tpu/mlip/pallas_ops.py:568",
+    "radial_contract_rect_bwd_rows": "pdb2reaction_tpu/mlip/pallas_ops.py:594",
+    "radial_contract_rect_bwd_cols": "pdb2reaction_tpu/mlip/pallas_ops.py:623",
 }
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
@@ -631,7 +657,8 @@ def phase_k5(calc, quick):
 
 def phase_pallas(st, w, reps, cycles):
     """The PaiNN kernel path: uma-s-1p1 pallas mode, force calls and opt;
-    K5 counts set to 0 just before and read just after."""
+    K5 counts set to 0 just before and read just after. Returns the K5
+    launches and the first calls' (energy, forces)."""
     import dataclasses
 
     import torch
@@ -715,7 +742,9 @@ def phase_pallas(st, w, reps, cycles):
         f"{abs(res['energy'] - rd['energy']):.3e} Ha")
     if not err <= FORCE_TOL:
         fail("pallas-mode forces disagree with the dense mode")
-    return launches
+    del dense
+    torch.cuda.empty_cache()
+    return launches, (res["energy"], f)
 
 
 def phase_default(st, reps):
@@ -769,6 +798,330 @@ def phase_reference_painn(seed):
         fail("pallas-mode card forces disagree with the CPU float64 path")
 
 
+# ---------------------------------------------------------------------------
+# atom-axis sharding: K6 and the sharded path
+# ---------------------------------------------------------------------------
+
+K6_NAMES = ("radial_contract_rect_fwd", "radial_contract_rect_bwd_feats",
+            "radial_contract_rect_bwd_rows", "radial_contract_rect_bwd_cols")
+
+
+def k6_pairs(x, mask, cutoff, off, n):
+    """Ordered pairs (row i of the block off .. off + n - 1, any column j
+    != i, both atoms real) inside the cutoff: the pairs whose adjacency in
+    the block is not zero."""
+    import torch
+    d = torch.sqrt(torch.clamp(
+        ((x[off:off + n, None, :] - x[None, :, :]) ** 2).sum(-1), min=1e-12))
+    real = mask > 0
+    within = (d <= cutoff) & real[off:off + n, None] & real[None, :]
+    idx = torch.arange(n, device=x.device)
+    within[idx, off + idx] = False
+    return int(within.sum())
+
+
+def phase_k6(calc, quick):
+    """K6 forward / feats gradient / row and column coordinate gradients
+    against the plain version at the sharded path's shapes, for both
+    streams at every offset; the four forward blocks stacked against K5's
+    kernel output on the whole system."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    reps = 1 if quick else 3
+    cfg = calc.cfg
+    rc, R = cfg.cutoff, cfg.n_radial
+    x, mask, featsA, featsB = k5_streams(calc)
+    P, F = featsA.shape
+    Pr = P // RANKS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(Pr, R + 1, F, generator=gen, device="cuda")
+    got = {k: [] for k in K6_NAMES}        # (abs err, ms, plain ms)
+    fns = (rcm.radial_contract_rect, rcm.radial_contract_rect_plain)
+    for label, feats, div_d in (("A", featsA, False), ("B", featsB, True)):
+        with torch.no_grad():
+            T_sq = rcm.radial_contract(x, mask, feats, rc, R, div_d)
+        blocks = []
+        for off in range(0, P, Pr):
+            rows = slice(off, off + Pr)
+            outs = []
+            for fn in fns:
+                cr = x[rows].clone().requires_grad_(True)
+                cc = x.clone().requires_grad_(True)
+                f = feats.clone().requires_grad_(True)
+                T = fn(cr, mask[rows], off, cc, mask, f, rc, R, div_d)
+                outs.append((T.detach(),
+                             *torch.autograd.grad(T, [f, cr, cc], g)))
+                del T
+            torch.cuda.synchronize()
+            errs = [(abs_err(a, b), rel_err(a, b)) for a, b in zip(*outs)]
+            blocks.append(outs[0][0])
+            del outs
+            log(f"[K6] stream {label} (div_d={div_d}), rows {off}..."
+                f"{off + Pr - 1} of {P}: rel err fwd {errs[0][1]:.3e}, "
+                f"feats {errs[1][1]:.3e}, rows {errs[2][1]:.3e}, cols "
+                f"{errs[3][1]:.3e} (tol {KERNEL_TOL})")
+            if max(e[1] for e in errs) > KERNEL_TOL:
+                fail(f"K6 stream {label} at offset {off} disagrees with its "
+                     "plain version")
+            args = (x[rows], mask[rows], off, x, mask, feats, rc, R, div_d)
+            with torch.no_grad():
+                t = [cuda_ms(lambda: fn(*args), reps, warm=1) for fn in fns]
+            for leaf_at in (5, 0, 3):           # feats, rows, columns
+                for fn in fns:
+                    a = list(args)
+                    a[leaf_at] = a[leaf_at].clone().requires_grad_(True)
+                    T = fn(*a)
+                    t.append(cuda_ms(lambda: torch.autograd.grad(
+                        T, [a[leaf_at]], g, retain_graph=True), reps,
+                        warm=1))
+                    del T
+            for i, k in enumerate(K6_NAMES):
+                got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
+        stacked = torch.cat(blocks)
+        e_sq = rel_err(stacked, T_sq)
+        log(f"[K6] stream {label}: the four forward blocks stacked against "
+            f"K5's kernel output: rel err {e_sq:.3e} (tol 1e-5)")
+        if not e_sq <= 1e-5:
+            fail(f"K6 blocks of stream {label} disagree with K5")
+        del blocks, stacked, T_sq
+    pairs = [k6_pairs(x, mask, rc, off, Pr) for off in range(0, P, Pr)]
+    need = 2 * (sum(pairs) / len(pairs)) * (R + 1) * F
+    computed = 2 * Pr * P * (R + 1) * F
+    log(f"[K6] ordered pairs inside {rc} A with one atom in the block, per "
+        f"block: {pairs} (mean {sum(pairs) / len(pairs):.0f} of "
+        f"{Pr * (P - 1)})")
+    geo = 16 * (Pr + P)                     # rows and columns: xyz + mask
+    f_b, t_b = nbytes(featsA), nbytes(g)
+    byts = (geo + f_b + t_b, geo + t_b + f_b, geo + f_b + t_b + 12 * Pr,
+            geo + f_b + t_b + 12 * P)
+    rows = {}
+    for k, nb in zip(K6_NAMES, byts):
+        v = got[k]
+        rows[k] = (max(e for e, _, _ in v), sum(t for _, t, _ in v) / len(v),
+                   sum(tp for _, _, tp in v) / len(v), need, nb)
+        b32, bbf, by = bound_ms(need, nb)
+        log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
+            f" mean of 4 offsets x streams A and B), needed "
+            f"{need / 1e9:.2f} GFLOP (pairs inside the cutoff), computed "
+            f"{computed / 1e9:.1f} GFLOP (every pair), {nb / 1e6:.1f} MB, "
+            f"bound f32 {b32:.3f} ms / bf16 {bbf:.3f} ms ({by}); computed "
+            f"at {computed / rows[k][1] / 1e9:.2f} TFLOP/s")
+    return rows
+
+
+def spatial_rank(group, out_dir):
+    """This rank's part of the sharded phase; returns its numbers and
+    writes its forces."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.opt import run_opt
+    zs4, xyz4 = cluster(4096, seed=0)
+    st4 = Structure(zs4, xyz4)
+    _, w4, _ = make_model(dataclasses.replace(CONFIGS["uma-s-1p1"],
+                                              mp_mode="pallas"), seed=0)
+    calc = make_uma_calculator(st4, model="uma-s-1p1", mp_mode="pallas",
+                               spatial=RANKS, params=w4,
+                               weights_source="surrogate-seeded")
+    cb = st4.coords_bohr.reshape(-1)
+    for d in (rcm.launches, rcm.rect_launches):   # just before the path
+        for k in d:
+            d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = calc.get_forces(cb)                # first call (warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        res = calc.get_forces(cb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_call = {k: v / calc.force_calls
+                for k, v in {**rcm.rect_launches, **rcm.launches}.items()}
+    again = calc.get_forces(cb)["forces"]
+    # the collectives of one force call alone, as the model calls them:
+    # 8 all-gathers of this rank's [P/4, 4C] stream, 7 of them also
+    # backward (the reduce-scatter built from an all-gather)
+    t = torch.randn(calc.n_pad // RANKS, 4 * CONFIGS["uma-s-1p1"].hidden,
+                    device=group.device, requires_grad=True)
+    g = torch.randn(calc.n_pad, t.shape[1], device=group.device)
+    for timed in (False, True):              # a warm-up round first
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        group.all_gather_rows(t.detach())
+        for _ in range(7):
+            torch.autograd.grad(group.all_gather_rows(t), [t], g)
+        torch.cuda.synchronize()
+    comm_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, "cluster4096.xyz")
+    if group.rank == 0:
+        write_xyz(path, st4)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    ro = run_opt(path, charge=0, spin=1, model="uma-s-1p1", calc=calc,
+                 max_cycles=5, out_dir=os.path.join(out_dir, "opt"),
+                 verbose=False)
+    opt_wall = time.perf_counter() - t0
+    launches = {**rcm.rect_launches, **rcm.launches}   # just after
+    np.save(os.path.join(out_dir, f"forces{group.rank}.npy"), res["forces"])
+    del calc
+    torch.cuda.empty_cache()
+
+    # the factory default in the same group: uma-s-1p1 (dense), switched
+    # to the sharded gather layout, against the unsharded gather mode
+    zs, xyz = cluster(300, seed=0)
+    st = Structure(zs, xyz)
+    c1 = make_uma_calculator(st, spatial=RANKS)
+    c0 = make_uma_calculator(st, mp_mode="gather")
+    cb3 = st.coords_bohr.reshape(-1)
+    r1, r0 = c1.get_forces(cb3), c0.get_forces(cb3)
+    err_g = float(np.abs(r1["forces"] - r0["forces"]).max()
+                  / np.abs(r0["forces"]).max())
+    err_ge = abs(r1["energy"] - r0["energy"]) / abs(r0["energy"])
+    return {"rank": group.rank, "device": str(group.device),
+            "backend": group.backend, "energy": res["energy"], "ms": ms,
+            "comm_ms": comm_ms,
+            "peak_gib": peak, "per_call": per_call,
+            "repeat": bool(np.array_equal(again, res["forces"])),
+            "opt": [ro["energy"], ro["force_calls"],
+                                      ro["cycles"], opt_wall,
+                                      [str(q) for q in ro["outputs"]]],
+            "launches": launches, "e0": res["energy"],
+            "factory": [c1.cfg.mp_mode, c1.n_pad, err_g,
+                        abs(r1["energy"] - r0["energy"]), err_ge]}
+
+
+def spatial_worker(rank, port, out_dir):
+    """One rank of the sharded phase (started with "spawn"); an exception
+    goes to rank<r>.err and a non-zero exit code."""
+    import traceback
+    try:
+        sys.path.insert(0, HERE)
+        from pdb2reaction_tpu_torch.parallel import init_spatial, shutdown
+        group = init_spatial(RANKS, rank, device="cuda",
+                             init_method=f"tcp://127.0.0.1:{port}",
+                             timeout_s=300)
+        out = spatial_rank(group, out_dir)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        shutdown()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def phase_spatial(ref, k6_ms):
+    """Four ranks of the sharded path on the card; any rank that fails
+    fails the run. ``k6_ms``: K6's ms per launch from phase 10, alone on
+    the card. Returns the K6 launches on the path, over all ranks."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    e_ref, f_ref = ref
+    out = os.path.join(HERE, "result_smoke", "spatial")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=spatial_worker, args=(r, port, out))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + 600
+    for p in procs:
+        p.join(timeout=max(deadline - time.perf_counter(), 1))
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = [open(os.path.join(out, f)).read() for f in sorted(os.listdir(out))
+            if f.endswith(".err")]
+    if errs or any(p.exitcode != 0 for p in procs):
+        fail(f"sharded phase: exit codes {[p.exitcode for p in procs]}; "
+             + "\n".join(errs))
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+             for r in range(RANKS)]
+    forces = [np.load(os.path.join(out, f"forces{r}.npy"))
+              for r in range(RANKS)]
+    err = float(np.abs(forces[0] - f_ref).max() / np.abs(f_ref).max())
+    de = abs(ranks[0]["energy"] - e_ref)
+    err_e = de / abs(e_ref)
+    same = all(np.array_equal(forces[0], f) for f in forces) \
+        and len({r["energy"] for r in ranks}) == 1
+    log(f"[spatial] uma-s-1p1 pallas, 4096 atoms, {RANKS} ranks on one card "
+        f"({ranks[0]['backend']} collectives staged through host memory, "
+        f"{ranks[0]['device']}), {wall:.1f} s for the phase: against the "
+        f"unsharded pallas call max|dF|/max|F| = {err:.3e} (tol "
+        f"{SHARD_TOL}), |dE| = {de:.3e} Ha, |dE|/|E| = {err_e:.3e} (tol "
+        f"{SHARD_TOL}); forces bit for bit equal on all "
+        f"ranks: {same}; two calls bit for bit equal on every rank: "
+        f"{all(r['repeat'] for r in ranks)}")
+    for r in ranks:
+        log(f"[spatial] rank {r['rank']}: {r['ms']:.1f} ms per get_forces "
+            f"(four ranks time-sharing one card), peak memory "
+            f"{r['peak_gib']:.2f} GiB, the collectives of one call alone "
+            f"{r['comm_ms']:.1f} ms; launches per force call "
+            f"{r['per_call']}")
+    # the four contexts time-slice the card, so a rank's kernel spans
+    # overlap the others': the card work is counted from phase 10's times
+    work = RANKS * sum(ranks[0]["per_call"][k] * k6_ms[k] for k in K6_NAMES)
+    log(f"[spatial] K6 work of the {RANKS} ranks at the kernels' times alone "
+        f"on the card: {work:.1f} ms per force call, "
+        f"{100 * work / ranks[0]['ms']:.1f}% of the {ranks[0]['ms']:.1f} ms "
+        "wall time per call; the rest is the host-staged gathers, "
+        "context switching between the ranks and the glue")
+    if not (err <= SHARD_TOL and err_e <= SHARD_TOL and same
+            and all(r["repeat"] for r in ranks)):
+        fail("the sharded force call (energy or forces) disagrees with the "
+             "unsharded one, between ranks or between calls")
+    want = dict(zip(K6_NAMES, (8, 7, 8, 8)))
+    for r in ranks:
+        pc = r["per_call"]
+        if any(pc[k] != v for k, v in want.items()) or any(
+                pc[k] != 0 for k in pc if k not in want):
+            fail(f"rank {r['rank']}: launches per force call {pc}, want "
+                 f"{want} and no K5 launch")
+    opts = [r["opt"] for r in ranks]
+    log(f"[spatial-opt] 5-cycle L-BFGS on every rank: E {ranks[0]['e0']:.8f}"
+        f" -> {opts[0][0]:.8f} Ha in {opts[0][2]} cycles, force calls per "
+        f"rank {[o[1] for o in opts]}, {opts[0][3]:.2f} s wall on rank 0; "
+        f"written by rank 0 alone: {[o[4] for o in opts]}")
+    if len({(o[0], o[1], o[2]) for o in opts}) != 1 \
+            or not opts[0][0] < ranks[0]["e0"] or not opts[0][4] \
+            or any(o[4] for o in opts[1:]):
+        fail("the sharded opt differs between ranks, did not lower the "
+             "energy, or was written by another rank than 0")
+    fac = [r["factory"] for r in ranks]
+    log(f"[spatial-default] make_uma_calculator(st, spatial={RANKS}) on "
+        f"300 atoms: mode {fac[0][0]}, P = {fac[0][1]}; against the "
+        f"unsharded gather mode max|dF|/max|F| = "
+        f"{max(f[2] for f in fac):.3e} (tol {SHARD_TOL}), |dE| = "
+        f"{max(f[3] for f in fac):.3e} Ha, |dE|/|E| = "
+        f"{max(f[4] for f in fac):.3e} (tol {SHARD_TOL})")
+    if fac[0][0] != "gather" or max(max(f[2], f[4]) for f in fac) > SHARD_TOL:
+        fail("the sharded factory default (energy or forces) disagrees with "
+             "the unsharded gather mode")
+    never = [k for k in K6_NAMES if any(r["launches"][k] == 0
+                                        for r in ranks)]
+    if never:
+        fail(f"K6 kernels never launched on the sharded path: {never}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in K6_NAMES}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -804,7 +1157,12 @@ def main():
     st4 = Structure(zs4, xyz4)                # P = 4096, no padding
     cfg_p = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
     _, w4, _ = make_model(cfg_p, seed=0)
-    rows.update(phase_k5(pallas_calculator(st4, cfg_p, w4), args.quick))
+    calc4 = pallas_calculator(st4, cfg_p, w4)
+    rows.update(phase_k5(calc4, args.quick))
+    k6_rows = phase_k6(calc4, args.quick)
+    rows.update(k6_rows)
+    del calc4
+    torch.cuda.empty_cache()
 
     launches = {k: 0 for k in rows}
     if not args.quick:
@@ -826,9 +1184,13 @@ def main():
                                      cycles=0))
         phase_reference(seed=0)
         # ---- the PaiNN kernel path (its own counts), default path, check
-        launches.update(phase_pallas(st4, w4, reps=3, cycles=5))
+        k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
+        launches.update(k5_launches)
         phase_default(st, reps=3)
         phase_reference_painn(seed=0)
+        # ---- the sharded path: four ranks, their own counts
+        launches.update(phase_spatial(
+            ref4, {k: v[1] for k, v in k6_rows.items()}))
 
     kern = []
     for k, (err, t, tp, fl, nb) in rows.items():

@@ -6,11 +6,20 @@ Flags whose features are not ported yet are accepted and raise when used
 with a non-default value. The other subcommands are later port items.
 
     python -m pdb2reaction_tpu_torch opt -i x.xyz -q 0      # uma-s-1p1
+
+``--spatial N`` shards the atom axis over N ranks, one process each,
+launched by ``torchrun`` (WORLD_SIZE must equal N). Every rank runs the
+same L-BFGS loop on the same forces; rank 0 alone logs and writes
+``result_opt/``:
+
+    torchrun --nproc-per-node 4 -m pdb2reaction_tpu_torch opt -i x.xyz \
+        -q 0 --spatial 4 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -73,7 +82,9 @@ def _opt_parser(sub):
                    choices=["Analytical", "FiniteDifference"])
     p.add_argument("--workers", type=int, default=1)
     p.add_argument("--workers-per-node", type=int, default=1)
-    p.add_argument("--spatial", type=int, default=1)
+    p.add_argument("--spatial", type=int, default=1,
+                   help="Shard the atom axis over N ranks (PaiNN-class "
+                        "models; launch under torchrun --nproc-per-node N).")
     p.add_argument("--ligand-charge", default=None)
     p.add_argument("--args-yaml", type=Path, default=None)
     p.add_argument("--out-dir", type=Path, default=None)
@@ -92,7 +103,6 @@ def _reject_unported(a) -> None:
         "--ref-pdb": a.ref_pdb is not None,
         "--dump": a.dump,
         "--workers": a.workers != 1,
-        "--spatial": a.spatial != 1,
         "--ligand-charge": a.ligand_charge is not None,
         "--args-yaml": a.args_yaml is not None,
         "--profile": a.profile is not None,
@@ -103,18 +113,30 @@ def _reject_unported(a) -> None:
 
 
 def opt_cmd(a) -> int:
+    from .parallel import init_spatial, shutdown
     from .workflows.opt import run_opt
     _reject_unported(a)
     spin = a.spin if a.spin is not None else a.multiplicity
     # an .xyz carries no charge: 0 unless -q is given
     charge = a.charge if a.charge is not None else 0
-    res = run_opt(
-        a.input_path, charge=charge, spin=spin,
-        opt_mode=normalize_choice(a.opt_mode), coord_type=a.coord_type,
-        thresh=a.thresh, max_cycles=a.max_cycles,
-        freeze_atoms=parse_freeze(a.freeze_atoms),
-        calc_mode=a.calc_mode, model=a.model, device=a.device,
-        out_dir=a.out_dir or "./result_opt/")
+    if a.spatial > 1:
+        ws = int(os.environ.get("WORLD_SIZE", "1"))
+        if ws != a.spatial:
+            raise SystemExit(
+                f"--spatial {a.spatial} runs one process per shard: launch "
+                f"with `torchrun --nproc-per-node {a.spatial} -m "
+                f"pdb2reaction_tpu_torch opt ...` (WORLD_SIZE is {ws})")
+        init_spatial(device=a.device)
+    try:
+        res = run_opt(
+            a.input_path, charge=charge, spin=spin,
+            opt_mode=normalize_choice(a.opt_mode), coord_type=a.coord_type,
+            thresh=a.thresh, max_cycles=a.max_cycles,
+            freeze_atoms=parse_freeze(a.freeze_atoms),
+            calc_mode=a.calc_mode, model=a.model, device=a.device,
+            spatial=a.spatial, out_dir=a.out_dir or "./result_opt/")
+    finally:
+        shutdown()
     return 0 if res["converged"] else 3
 
 

@@ -17,6 +17,13 @@ Three message-passing layouts compute the same function:
 - ``pallas``: every radial contraction through K5 (``radial_contract``),
   which on CUDA never stores the adjacency: O(P) device memory, the
   large-system path. It computes in float32 whatever ``cfg.dtype`` is.
+
+``energy_fn_gather`` and ``energy_fn_pallas`` also run atom-axis sharded
+(``shard``, a ``parallel.SpatialGroup``; ``parallel/spatial.py`` builds the
+closure): each rank owns P/n rows, the coordinates come in through
+``replicate_in``, the node features are all-gathered per stream and
+layer, the pallas mode contracts its rows against all columns through K6
+(``radial_contract_rect``), and the energy goes out through ``sum_out``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
-from .radial_contract import radial_contract
+from .radial_contract import radial_contract, radial_contract_rect
 
 
 @dataclass(frozen=True)
@@ -161,6 +168,19 @@ def _readout(params, s, z, atom_mask, coords_dtype):
     return e.double() if coords_dtype == torch.float64 else e
 
 
+def _shard_rows(P, shard):
+    """(first row, row count, row slicer, all-gather of rows) of this
+    rank; the whole system and identities without a shard."""
+    if shard is None:
+        return 0, P, (lambda t: t), (lambda t: t)
+    if P % shard.size:
+        raise ValueError(f"padded atoms {P} not divisible by {shard.size} "
+                         "shards")
+    n = P // shard.size
+    i0 = shard.rank * n
+    return i0, n, (lambda t: t[i0:i0 + n]), shard.all_gather_rows
+
+
 def _radial_weights(lp, dt):
     """[R+1, 3C] radial filter (bias as the env-only channel's row)."""
     return torch.cat([lp["w_radial"]["w"], lp["w_radial"]["b"][None, :]],
@@ -171,40 +191,48 @@ def _radial_weights(lp, dt):
 # the three layouts
 # ---------------------------------------------------------------------------
 
-def energy_fn_gather(coords_ang, system, params, cfg) -> torch.Tensor:
-    """[P, K] neighbour-matrix formulation (single device)."""
+def energy_fn_gather(coords_ang, system, params, cfg,
+                     shard=None) -> torch.Tensor:
+    """[P, K] neighbour-matrix formulation; with ``shard`` this rank's
+    rows gather their neighbours from the all-gathered node features
+    (neighbour indices are global)."""
     dt = cfg.dtype
     P = coords_ang.shape[0]
     C = cfg.hidden
-    atom_mask = system.atom_mask.to(dt)
-    z = torch.clamp(system.numbers, 0, cfg.max_z)
+    if shard is not None:
+        coords_ang = shard.replicate_in(coords_ang)
+    i0, n, rows, allg = _shard_rows(P, shard)
+    atom_mask = rows(system.atom_mask).to(dt)
+    z = torch.clamp(rows(system.numbers), 0, cfg.max_z)
     idx, nbr_mask = dense_neighbors_rows(coords_ang.detach(),
                                          system.atom_mask, cfg.cutoff,
-                                         cfg.max_neighbors, 0, P)
+                                         cfg.max_neighbors, i0, n)
     nbr_mask = nbr_mask.to(dt)
-    vec, dist = neighbor_vectors(coords_ang, idx, nbr_mask)
+    vec, dist = neighbor_vectors(coords_ang, idx, nbr_mask,
+                                 origin=rows(coords_ang))
     vec, dist = vec.to(dt), dist.to(dt)
-    unit = vec / dist[..., None]                          # [P,K,3]
-    env = cosine_envelope(dist, cfg.cutoff) * nbr_mask    # [P,K]
+    unit = vec / dist[..., None]                          # [n,K,3]
+    env = cosine_envelope(dist, cfg.cutoff) * nbr_mask    # [n,K]
     # the trailing channel carries the env itself, so the filter bias is
     # env-gated too
     rad = torch.cat(
         [bessel_basis(dist, cfg.cutoff, cfg.n_radial) * env[..., None],
-         env[..., None]], -1)                             # [P,K,R+1]
+         env[..., None]], -1)                             # [n,K,R+1]
     s = _embed_z(z, params, cfg, atom_mask)
-    v = torch.zeros(P, 3, C, dtype=dt, device=coords_ang.device)
+    v = torch.zeros(n, 3, C, dtype=dt, device=coords_ang.device)
     for lp in params["layers"]:
         W = _radial_weights(lp, dt)
-        phi = _apply_mlp(lp["phi"], s)                    # [P,3C]
-        m = phi[idx] * (rad @ W)                          # [P,K,3C]
+        phi = _apply_mlp(lp["phi"], s)                    # [n,3C]
+        m = allg(phi)[idx] * (rad @ W)                    # [n,K,3C]
         m_s, m_vv, m_vs = m.chunk(3, -1)
         ds = m_s.sum(1)
-        dv = (m_vv[:, :, None, :] * v[idx]).sum(1)
+        dv = (m_vv[:, :, None, :] * allg(v)[idx]).sum(1)
         dv = dv + (m_vs[:, :, None, :] * unit[..., None]).sum(1)
         s = s + ds * atom_mask[:, None]
         v = v + dv * atom_mask[:, None, None]
         s, v = _update_block(lp, s, v, atom_mask)
-    return _readout(params, s, z, atom_mask, coords_ang.dtype)
+    e = _readout(params, s, z, atom_mask, coords_ang.dtype)
+    return e if shard is None else shard.sum_out(e)
 
 
 def energy_fn_dense(coords_ang, system, params, cfg) -> torch.Tensor:
@@ -270,39 +298,51 @@ def energy_fn_dense(coords_ang, system, params, cfg) -> torch.Tensor:
     return _readout(params, s, z, atom_mask, coords_ang.dtype)
 
 
-def energy_fn_pallas(coords_ang, system, params, cfg) -> torch.Tensor:
+def energy_fn_pallas(coords_ang, system, params, cfg,
+                     shard=None) -> torch.Tensor:
     """Every radial contraction through K5 (``radial_contract``): on CUDA
     the adjacency is built tile by tile inside the kernels and never
     stored. Computes in float32 whatever ``cfg.dtype`` is. The
     edge-direction stream uses the u = (x_i - x_j)/d split:
-    sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d."""
+    sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d. With ``shard``
+    this rank's rows contract against the all-gathered streams of every
+    atom through K6 (``radial_contract_rect``): O(P/n) memory a rank."""
     dt = torch.float32
     P = coords_ang.shape[0]
     C = cfg.hidden
     params = tree_to(params, dtype=dt)
-    x = coords_ang.to(dt)
-    atom_mask = system.atom_mask.to(dt)
+    if shard is not None:
+        coords_ang = shard.replicate_in(coords_ang)
+    i0, n, rows, allg = _shard_rows(P, shard)
+    x_full = coords_ang.to(dt)
+    mask_full = system.atom_mask.to(dt)
+    x, atom_mask = rows(x_full), rows(mask_full)
 
     def contract(feats, div_d=False):
-        return radial_contract(x, atom_mask, feats, cfg.cutoff,
-                               cfg.n_radial, div_d)
+        if shard is None:
+            return radial_contract(x_full, mask_full, feats, cfg.cutoff,
+                                   cfg.n_radial, div_d)
+        return radial_contract_rect(x, atom_mask, i0, x_full, mask_full,
+                                    allg(feats), cfg.cutoff, cfg.n_radial,
+                                    div_d)
 
-    z, s = _embed_nodes(system, params, cfg, atom_mask)
-    v = torch.zeros(P, 3, C, dtype=dt, device=coords_ang.device)
+    z = torch.clamp(rows(system.numbers), 0, cfg.max_z)
+    s = _embed_z(z, params, cfg, atom_mask)
+    v = torch.zeros(n, 3, C, dtype=dt, device=coords_ang.device)
     for lp in params["layers"]:
         W_s, W_vv, W_vs = _radial_weights(lp, dt).chunk(3, -1)
         phi_s, phi_vv, phi_vs = _apply_mlp(lp["phi"], s).chunk(3, -1)
         # scalar and vector A-streams in one call: F = C + 3C
-        feats_v = (phi_vv[:, None, :] * v).reshape(P, 3 * C)
-        T_sv = contract(torch.cat([phi_s, feats_v], 1))   # [P,R+1,4C]
+        feats_v = (phi_vv[:, None, :] * v).reshape(n, 3 * C)
+        T_sv = contract(torch.cat([phi_s, feats_v], 1))   # [n,R+1,4C]
         T_s = T_sv[..., :C]
-        T_v = T_sv[..., C:].reshape(P, -1, 3, C)
+        T_v = T_sv[..., C:].reshape(n, -1, 3, C)
         ds = torch.einsum("irc,rc->ic", T_s, W_s)
         dv = torch.einsum("irkc,rc->ikc", T_v, W_vv)
         featsB = torch.cat([x[:, k:k + 1] * phi_vs for k in range(3)]
                            + [phi_vs], -1)
-        Q = contract(featsB, div_d=True)                  # [P,R+1,4C]
-        Q1 = Q[..., :3 * C].reshape(P, -1, 3, C)
+        Q = contract(featsB, div_d=True)                  # [n,R+1,4C]
+        Q1 = Q[..., :3 * C].reshape(n, -1, 3, C)
         Q2 = Q[..., 3 * C:]
         # u = (x_i - x_j)/d, as in the dense mode
         dv2 = torch.einsum("irc,rc->ic", Q2, W_vs)[:, None, :] \
@@ -310,7 +350,8 @@ def energy_fn_pallas(coords_ang, system, params, cfg) -> torch.Tensor:
         s = s + ds * atom_mask[:, None]
         v = v + (dv + dv2) * atom_mask[:, None, None]
         s, v = _update_block(lp, s, v, atom_mask)
-    return _readout(params, s, z, atom_mask, coords_ang.dtype)
+    e = _readout(params, s, z, atom_mask, coords_ang.dtype)
+    return e if shard is None else shard.sum_out(e)
 
 
 def energy_fn(coords_ang: torch.Tensor, system: PaddedSystem,

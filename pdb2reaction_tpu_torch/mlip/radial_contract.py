@@ -1,7 +1,7 @@
-"""K5: the radial contraction of the PaiNN-class model's pallas mode.
+"""K5 and K6: the radial contraction of the PaiNN-class model's pallas mode.
 
-Counterpart of ``radial_contract`` in ``pdb2reaction_tpu/mlip/pallas_ops.py``
-with the same public layout:
+Counterpart of ``radial_contract`` (K5) and ``radial_contract_rect`` (K6)
+in ``pdb2reaction_tpu/mlip/pallas_ops.py`` with the same public layouts:
 
     T[i, r, f] = sum_j A[i, j, r] feats[j, f]
     A[i, j, r] = sqrt(2/rc) sin((r+1) pi d/rc) / d * env(d) * mask   r < R
@@ -19,6 +19,13 @@ autograd); CUDA tensors the hand-written kernels of
 forward, the feats gradient (the transposed contraction; A is symmetric)
 and the fused coordinate gradient, none of which stores the adjacency.
 The kernels take float32 only.
+
+K6 (``radial_contract_rect``) is the same contraction for one block of
+rows against all columns, the form atom-axis sharding runs: rows
+coords_rows [Pr, 3] with global indices ``row_offset`` .. and columns
+coords_cols [Pc, 3], feats [Pc, F] -> [Pr, R+1, F]; self-pairs are
+excluded by global index. Its kernels give the feats gradient and the
+coordinate gradients of the rows and of the columns separately.
 """
 
 from __future__ import annotations
@@ -28,21 +35,37 @@ import torch
 
 from .radial import cosine_envelope
 
-# launches of the CUDA kernels, counted where each is launched
+# launches of the CUDA kernels, counted where each is launched: K5's and
+# K6's
 launches = {"radial_contract_fwd": 0, "radial_contract_bwd_feats": 0,
             "radial_contract_bwd_coords": 0}
+rect_launches = {"radial_contract_rect_fwd": 0,
+                 "radial_contract_rect_bwd_feats": 0,
+                 "radial_contract_rect_bwd_rows": 0,
+                 "radial_contract_rect_bwd_cols": 0}
 
 
 def radial_contract_plain(coords, mask, feats, cutoff, n_radial,
                           div_d=False):
     """Plain PyTorch K5 (any dtype, any device, autograd-differentiable):
     the port of ``radial_contract_reference``."""
-    P = coords.shape[0]
-    diff = coords[:, None, :] - coords[None, :, :]
+    return radial_contract_rect_plain(coords, mask, 0, coords, mask, feats,
+                                      cutoff, n_radial, div_d)
+
+
+def radial_contract_rect_plain(coords_rows, mask_rows, row_offset,
+                               coords_cols, mask_cols, feats, cutoff,
+                               n_radial, div_d=False):
+    """Plain PyTorch K6 (any dtype, any device, autograd-differentiable):
+    the port of ``radial_contract_rect_reference``; K5 is its square case
+    (the same rows and columns, offset 0)."""
+    dev, dt = coords_rows.device, coords_rows.dtype
+    diff = coords_rows[:, None, :] - coords_cols[None, :, :]
     d = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-12))
-    eye = torch.eye(P, dtype=torch.bool, device=coords.device)
-    within = ((d <= cutoff) & ~eye & (mask[:, None] > 0)
-              & (mask[None, :] > 0))
+    gi = torch.arange(coords_rows.shape[0], device=dev) + int(row_offset)
+    gj = torch.arange(coords_cols.shape[0], device=dev)
+    within = ((d <= cutoff) & (gi[:, None] != gj[None, :])
+              & (mask_rows[:, None] > 0) & (mask_cols[None, :] > 0))
     d_safe = torch.where(within, d, torch.ones_like(d))
     env = torch.where(within, cosine_envelope(d, cutoff),
                       torch.zeros_like(d))
@@ -52,8 +75,8 @@ def radial_contract_plain(coords, mask, feats, cutoff, n_radial,
     if div_d:
         scale = scale * inv
         env_ch = env * inv
-    freqs = torch.arange(1, n_radial + 1, dtype=coords.dtype,
-                         device=coords.device) * (np.pi / cutoff)
+    freqs = torch.arange(1, n_radial + 1, dtype=dt, device=dev) \
+        * (np.pi / cutoff)
     A = torch.cat([torch.sin(d_safe[..., None] * freqs) * scale[..., None],
                    env_ch[..., None]], -1)
     return torch.einsum("ijr,jf->irf", A, feats.to(A.dtype))
@@ -105,22 +128,97 @@ class _RadialContractFn(torch.autograd.Function):
         return dcoords, None, dfeats, None, None, None
 
 
+def _check(name, tensors, F, n_radial):
+    """What the CUDA kernels take: float32 on one card, F % 8 == 0, at
+    most 63 radial channels."""
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise TypeError(f"{name}'s CUDA kernels take float32 tensors on "
+                            "one CUDA device")
+    if F % 8:
+        raise ValueError(f"{name}'s CUDA kernels need F % 8 == 0, got "
+                         f"F = {F}")
+    if n_radial + 1 > 63:
+        # the coordinate gradients' narrow tiles fill the 227 KB of shared
+        # memory a block may have at R + 1 = 64
+        raise ValueError(f"{name}'s CUDA kernels take at most 63 radial "
+                         f"channels, got {n_radial + 1}")
+
+
 def radial_contract(coords, mask, feats, cutoff, n_radial, div_d=False):
     """K5 on coords [P, 3], mask [P], feats [P, F]; returns [P, R+1, F]."""
     if not coords.is_cuda:
         return radial_contract_plain(coords, mask, feats, cutoff, n_radial,
                                      div_d)
-    for t in (coords, mask, feats):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError("radial_contract's CUDA kernels take float32 "
-                            "tensors on one CUDA device")
-    if feats.shape[1] % 8:
-        raise ValueError(f"radial_contract's CUDA kernels need F % 8 == 0, "
-                         f"got F = {feats.shape[1]}")
-    if n_radial + 1 > 63:
-        # the coordinate gradient's 16-column tile fills the 227 KB of
-        # shared memory a block may have at R + 1 = 64
-        raise ValueError(f"radial_contract's CUDA kernels take at most 63 "
-                         f"radial channels, got {n_radial + 1}")
+    _check("radial_contract", (coords, mask, feats), feats.shape[1],
+           n_radial)
     return _RadialContractFn.apply(coords, mask, feats, cutoff, n_radial,
                                    div_d)
+
+
+class _RadialContractRectFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cr, mr, row_offset, cc, mc, feats, cutoff, n_radial,
+                div_d):
+        from .cuda_build import call, load, ptr, stream_ptr
+        cr, mr, cc, mc, feats = (_aligned(t) for t in (cr, mr, cc, mc, feats))
+        Pr, (Pc, F) = cr.shape[0], feats.shape
+        out = torch.empty(Pr, n_radial + 1, F, device=feats.device,
+                          dtype=torch.float32)
+        ctx.args = (Pr, Pc, int(row_offset), F, int(n_radial), int(div_d),
+                    float(cutoff))
+        call(load("radial_contract"), "rc_rect_fwd_launch", *ctx.args,
+             ptr(cr), ptr(mr), ptr(cc), ptr(mc), ptr(feats), ptr(out),
+             stream_ptr())
+        rect_launches["radial_contract_rect_fwd"] += 1
+        ctx.save_for_backward(cr, mr, cc, mc, feats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from .cuda_build import call, load, ptr, stream_ptr
+        cr, mr, cc, mc, feats = ctx.saved_tensors
+        geo = (*ctx.args, ptr(cr), ptr(mr), ptr(cc), ptr(mc))
+        g = _aligned(g.float())
+        lib = load("radial_contract")
+        dcr = dcc = dfeats = None
+        if ctx.needs_input_grad[5]:
+            dfeats = torch.empty_like(feats)
+            call(lib, "rc_rect_bwd_feats_launch", *geo, ptr(g), ptr(dfeats),
+                 stream_ptr())
+            rect_launches["radial_contract_rect_bwd_feats"] += 1
+        if ctx.needs_input_grad[0]:
+            dcr = torch.empty_like(cr)
+            call(lib, "rc_rect_bwd_rows_launch", *geo, ptr(feats), ptr(g),
+                 ptr(dcr), stream_ptr())
+            rect_launches["radial_contract_rect_bwd_rows"] += 1
+        if ctx.needs_input_grad[3]:
+            dcc = torch.empty_like(cc)
+            call(lib, "rc_rect_bwd_cols_launch", *geo, ptr(feats), ptr(g),
+                 ptr(dcc), stream_ptr())
+            rect_launches["radial_contract_rect_bwd_cols"] += 1
+        return dcr, None, None, dcc, None, dfeats, None, None, None
+
+
+def radial_contract_rect(coords_rows, mask_rows, row_offset, coords_cols,
+                         mask_cols, feats, cutoff, n_radial, div_d=False):
+    """K6 on rows [Pr, 3] (global indices ``row_offset`` ..), mask_rows
+    [Pr], columns [Pc, 3], mask_cols [Pc], feats [Pc, F]; returns
+    [Pr, R+1, F]. ``row_offset`` is a Python int."""
+    if not coords_rows.is_cuda:
+        return radial_contract_rect_plain(coords_rows, mask_rows, row_offset,
+                                          coords_cols, mask_cols, feats,
+                                          cutoff, n_radial, div_d)
+    _check("radial_contract_rect",
+           (coords_rows, mask_rows, coords_cols, mask_cols, feats),
+           feats.shape[1], n_radial)
+    if coords_cols.shape[0] != feats.shape[0] \
+            or mask_cols.shape[0] != feats.shape[0] \
+            or mask_rows.shape[0] != coords_rows.shape[0]:
+        raise ValueError("radial_contract_rect: rows and their mask, and "
+                         "columns, their mask and feats, must agree in "
+                         "length")
+    return _RadialContractRectFn.apply(coords_rows, mask_rows,
+                                       int(row_offset), coords_cols,
+                                       mask_cols, feats, cutoff, n_radial,
+                                       div_d)

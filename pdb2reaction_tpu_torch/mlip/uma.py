@@ -15,13 +15,21 @@ as in the JAX factory.
 
 The device defaults to CUDA, where the force path runs the hand-written
 kernels. Asking for CUDA without a card raises; CPU runs only when the
-caller asks for it and takes the plain PyTorch versions. Atom-axis
-sharding (``spatial > 1``) needs several GPUs and is not ported yet.
+caller asks for it and takes the plain PyTorch versions.
+
+``spatial=n > 1`` shards the atom axis of a PaiNN-class model over the n
+ranks of the process group ``parallel.init_spatial`` joined (for example
+under ``torchrun --nproc-per-node n``), as the JAX factory shards it over
+its mesh: ``mp_mode="pallas"`` runs K6 on each rank's rows, the other
+modes switch to the sharded gather layout, the padding multiple becomes
+lcm(pad_multiple, n) and the device is the group's. Every rank builds the
+same calculator and gets the same forces. eSCN under sharding raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 from typing import Optional, Sequence
@@ -29,10 +37,30 @@ from typing import Optional, Sequence
 import torch
 
 from ..core.structure import Structure
+from ..parallel.distributed import current_group
+from ..parallel.spatial import make_spatial_energy_fn
 from .calculator import Calculator, resolve_device
 from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
                    init_escn_params, premerge_escn_params, tree_to)
 from .model import CONFIGS, init_params, make_energy_fn
+
+
+def _spatial_group(spatial: int, device):
+    """The process group of ``spatial`` ranks, checked against the
+    requested device type."""
+    group = current_group()
+    if group is None or group.size != spatial:
+        have = "none" if group is None else f"{group.size} ranks"
+        raise RuntimeError(
+            f"spatial={spatial} needs a process group of {spatial} ranks "
+            f"(have {have}): launch with `torchrun --nproc-per-node "
+            f"{spatial} -m pdb2reaction_tpu_torch opt ... --spatial "
+            f"{spatial}`, or call pdb2reaction_tpu_torch.parallel."
+            "init_spatial(...) in every rank first")
+    if torch.device(device).type != group.device.type:
+        raise ValueError(f"device={device!r}, but the process group runs "
+                         f"on {group.device}")
+    return group
 
 
 def _warn_surrogate(model: str, seed: int) -> str:
@@ -64,30 +92,43 @@ def make_uma_calculator(
     pad_multiple: int = 8,
     spatial: Optional[int] = None,
     edge_kernel: Optional[str] = None,
+    mp_mode: Optional[str] = None,
 ) -> Calculator:
     """Calculator for a named configuration. ``dtype`` is the model's
     compute type (None: the configuration's own; the CUDA kernels take
     float32, and the PaiNN pallas mode computes in float32 whatever it
-    is). ``params`` may be raw or premerged (eSCN)."""
-    if spatial is not None and int(spatial) > 1:
+    is). ``params`` may be raw or premerged (eSCN). ``mp_mode`` picks the
+    PaiNN-class layout (None: the configuration's own)."""
+    spatial = int(spatial or 1)
+    escn = model.startswith("escn")
+    if escn and spatial > 1:
         raise NotImplementedError(
-            f"spatial={spatial}: atom-axis sharding needs several GPUs "
-            "(ROADMAP.md queue 1 item 15)")
-    if model.startswith("escn"):
+            f"spatial={spatial} with eSCN model {model!r}: eSCN under "
+            "atom-axis sharding is not ported yet (ROADMAP.md queue 0 "
+            "item 4)")
+    if escn and mp_mode:
+        raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
+                         "take edge_kernel")
+    group = _spatial_group(spatial, device) if spatial > 1 else None
+    if escn:
         cfg = ESCN_CONFIGS[model]
     elif model in CONFIGS:
         cfg = CONFIGS[model]
     else:
         raise KeyError(f"unknown model {model!r}: one of "
                        f"{sorted(CONFIGS) + sorted(ESCN_CONFIGS)}")
-    dev = resolve_device(device)
+    dev = resolve_device(group.device if group else device)
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+    if mp_mode:
+        cfg = dataclasses.replace(cfg, mp_mode=str(mp_mode))
+    if group and cfg.mp_mode != "pallas":
+        # the sharded layouts: K6 for pallas, the gather layout otherwise
+        cfg = dataclasses.replace(cfg, mp_mode="gather")
     if max_neigh or radius:
         cfg = dataclasses.replace(
             cfg, max_neighbors=int(max_neigh) if max_neigh
             else cfg.max_neighbors,
             cutoff=float(radius) if radius else cfg.cutoff)
-    escn = model.startswith("escn")
     ek = edge_kernel or os.environ.get("PDB2R_TPU_ESCN_KERNEL")
     if escn and ek:
         cfg = dataclasses.replace(cfg, edge_kernel=str(ek))
@@ -108,7 +149,10 @@ def make_uma_calculator(
         fn = escn_energy_fn(cfg)
     else:
         params["atom_ref"] = params["atom_ref"].float()
-        fn = make_energy_fn(cfg)
+        fn = (make_spatial_energy_fn(cfg, group) if group
+              else make_energy_fn(cfg))
+    if group:
+        pad_multiple = math.lcm(int(pad_multiple), spatial)
     calc = Calculator(structure, fn, params=params,
                       freeze_atoms=freeze_atoms, pad_multiple=pad_multiple,
                       device=dev, weights_source=source)

@@ -1,0 +1,37 @@
+"""Spatial partitioning: atom-axis sharding of one big structure.
+
+Port of ``pdb2reaction_tpu/parallel/spatial.py`` on ``torch.distributed``:
+each rank owns a contiguous block of P/n atom rows (its embeddings, its
+message rows, its node features); the coordinates are replicated; every
+layer all-gathers the feature streams once; the energy is a sum over
+ranks (``distributed.py``). The closure has the unsharded closures'
+signature ``fn(coords, system, params)``, so ``Calculator`` is unchanged:
+every rank runs the same force call and gets the same forces.
+
+- PaiNN-class ``mp_mode="pallas"``: each rank contracts its rows against
+  all columns through K6 (``radial_contract_rect``), O(P/n) memory;
+- the other PaiNN-class modes: the sharded [P, K] gather layout;
+- eSCN: not ported yet (ROADMAP.md queue 0 item 4).
+"""
+
+from __future__ import annotations
+
+from ..mlip.model import ModelConfig, energy_fn_gather, energy_fn_pallas
+from .distributed import SpatialGroup
+
+
+def make_spatial_energy_fn(cfg, group: SpatialGroup):
+    """``fn(coords_ang, system, params) -> eV`` with the atom axis sharded
+    over ``group``. The padded atom count must be divisible by the group
+    size (``make_uma_calculator(spatial=n)`` pads to lcm(8, n))."""
+    if not isinstance(cfg, ModelConfig):
+        raise NotImplementedError(
+            "eSCN under atom-axis sharding (K3 with the row gather, "
+            "pdb2reaction_tpu/mlip/escn.py:554-820) is not ported yet: "
+            "ROADMAP.md queue 0 item 4")
+    body = energy_fn_pallas if cfg.mp_mode == "pallas" else energy_fn_gather
+
+    def fn(coords, system, params):
+        return body(coords, system, params, cfg, shard=group)
+
+    return fn

@@ -15,6 +15,7 @@ import numpy as np
 
 from ..engines.lbfgs import lbfgs_minimize
 from ..mlip.calculator import Calculator
+from ..parallel.distributed import is_main_rank
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 
@@ -61,8 +62,12 @@ def run_opt(
     """Optimize the structure in ``input_path`` and write
     ``final_geometry.xyz`` under ``out_dir``. ``calc`` reuses a prepared
     calculator for that structure (weights, device) instead of building
-    one from ``model``."""
+    one from ``model``. Under atom-axis sharding (``spatial=n`` in
+    ``calc_kw``, or a sharded ``calc``) every rank runs the same loop on
+    the same forces, and rank 0 alone logs and writes."""
     t0 = time.time()
+    writer = is_main_rank()
+    verbose = verbose and writer
     struct = common.load_structure(input_path)
     q, s = common.resolve_charge_spin(struct, charge, spin)
     freeze = common.merge_freeze(struct, [int(i) for i in freeze_atoms])
@@ -92,8 +97,8 @@ def run_opt(
     coords, e, conv, cycles = optimize_structure(
         struct, calc, opt_mode=opt_mode, coord_type=coord_type,
         thresh=thresh, max_cycles=max_cycles, callback=cb, **engine_kw)
-    paths = common.write_outputs(Path(out_dir), "final_geometry", struct,
-                                 coords, energy=e)
+    paths = (common.write_outputs(Path(out_dir), "final_geometry", struct,
+                                  coords, energy=e) if writer else [])
     if verbose:
         print(f"[opt] {'converged' if conv else 'NOT converged'} in "
               f"{cycles} cycles; E = {e:.8f} Ha; "

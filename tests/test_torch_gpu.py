@@ -303,3 +303,93 @@ def test_pallas_calculator_on_card_matches_cpu_f64():
         <= TOL * np.abs(rc["forces"]).max()
     assert abs(rg["energy"] - rc["energy"]) <= TOL * abs(rc["energy"])
     assert all(rcm.launches[k] > n0[k] for k in n0)
+
+
+def _rc_system(P, seed):
+    """Jittered lattice with ~10% masked atoms (at the origin)."""
+    gen = torch.Generator().manual_seed(seed)
+    side = round(P ** (1 / 3)) + 1
+    grid = torch.stack(torch.meshgrid(*[torch.arange(side)] * 3,
+                                      indexing="ij"), -1).reshape(-1, 3)
+    coords = (grid[:P] * 1.8 + 0.15 * torch.randn(P, 3, generator=gen))
+    mask = (torch.rand(P, generator=gen) > 0.1).float()
+    coords[mask == 0] = 0.0
+    return coords.to(**F32), mask.to(**F32), gen
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("Pc,Pr,off,F,R", [
+    (600, 184, 0, 72, 24), (600, 184, 184, 72, 24), (600, 184, 416, 16, 24),
+    (300, 184, 116, 16, 40)])
+def test_radial_contract_rect_kernels_match_plain(div_d, Pc, Pr, off, F, R):
+    """K6 at a ragged row block (Pr = 184) with masked atoms at nonzero
+    offsets: values and the feats, row and column coordinate gradients
+    against the plain version; both tilings of the coordinate gradients
+    (R + 1 <= 32 and > 32); a second run repeats bit for bit; guards."""
+    _need_card()
+    coords, mask, gen = _rc_system(Pc, Pc + Pr + off)
+    feats = torch.randn(Pc, F, generator=gen).to(**F32)
+    g = torch.randn(Pr, R + 1, F, generator=gen).to(**F32)
+    rows = slice(off, off + Pr)
+    n0 = dict(rcm.rect_launches)
+
+    def run(fn):
+        cr = coords[rows].clone().requires_grad_(True)
+        cc = coords.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        T = fn(cr, mask[rows], off, cc, mask, f, 6.0, R, div_d)
+        return [T, *torch.autograd.grad(T, [f, cr, cc], g)]
+
+    got = run(rcm.radial_contract_rect)
+    ref = run(rcm.radial_contract_rect_plain)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _close(a, b)
+    assert all(rcm.rect_launches[k] == n0[k] + 1 for k in n0)
+    assert all(torch.equal(a, b)
+               for a, b in zip(run(rcm.radial_contract_rect), got))
+    args = (coords[rows], mask[rows], off, coords, mask, feats, 6.0, R,
+            div_d)
+    with pytest.raises(TypeError):
+        rcm.radial_contract_rect(coords[rows].double(), *args[1:])
+    with pytest.raises(ValueError):
+        rcm.radial_contract_rect(*args[:5], feats[:, :5], *args[6:])
+    with pytest.raises(ValueError):
+        rcm.radial_contract_rect(*args[:5], feats[:-1], *args[6:])
+    with pytest.raises(ValueError):
+        rcm.radial_contract_rect(*args[:7], 63, div_d)
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+def test_radial_contract_rect_blocks_stack_to_square(div_d):
+    """Four K6 row blocks of a system stacked: the forward equals K5's
+    kernel output, and the summed gradients (the rows' and columns'
+    coordinate gradients, the feats gradients) equal K5's."""
+    _need_card()
+    P, F, R, n = 512, 64, 24, 4
+    coords, mask, gen = _rc_system(P, 17)
+    feats = torch.randn(P, F, generator=gen).to(**F32)
+    g = torch.randn(P, R + 1, F, generator=gen).to(**F32)
+    c = coords.clone().requires_grad_(True)
+    f = feats.clone().requires_grad_(True)
+    T = rcm.radial_contract(c, mask, f, 6.0, R, div_d)
+    dc, df = torch.autograd.grad(T, [c, f], g)
+    T = T.detach()
+    b = P // n
+    blocks, dc_sum, df_sum = [], torch.zeros_like(c), torch.zeros_like(f)
+    for k in range(n):
+        cr = coords[k * b:(k + 1) * b].clone().requires_grad_(True)
+        cc = coords.clone().requires_grad_(True)
+        fk = feats.clone().requires_grad_(True)
+        Tk = rcm.radial_contract_rect(cr, mask[k * b:(k + 1) * b], k * b, cc,
+                                      mask, fk, 6.0, R, div_d)
+        dfk, dcr, dcc = torch.autograd.grad(Tk, [fk, cr, cc],
+                                            g[k * b:(k + 1) * b])
+        blocks.append(Tk.detach())
+        dc_sum += dcc
+        dc_sum[k * b:(k + 1) * b] += dcr
+        df_sum += dfk
+    torch.cuda.synchronize()
+    stacked = torch.cat(blocks)
+    assert float((stacked - T).abs().max()) <= 1e-5 * float(T.abs().max())
+    assert _close(dc_sum, dc) and _close(df_sum, df)

@@ -172,7 +172,8 @@ def test_default_model_is_uma_s_1p1(capsys):
     assert "SURROGATE" in capsys.readouterr().err
     r = calc.get_forces(st.coords_bohr.reshape(-1))
     assert np.all(np.isfinite(r["forces"])) and np.isfinite(r["energy"])
-    with pytest.raises(NotImplementedError):
+    # atom-axis sharding needs a process group of that many ranks
+    with pytest.raises(RuntimeError, match="torchrun"):
         make_uma_calculator(st, device="cpu", spatial=2)
 
 
