@@ -29,14 +29,22 @@ Phases (any failure exits non-zero):
 6. K5 parity at the uma-s-1p1 pallas-mode shapes (P = 4096, F = 1024,
    R + 1 = 25) on the 4096-atom system: forward, feats gradient and
    coordinate gradient of radial_contract against its plain version, for
-   a seeded stream A (div_d False) and the real first-layer stream B
-   (div_d True); the bound counts the pairs inside the cutoff (the work
-   the function needs), the dense FLOP count the work the kernels do;
+   a seeded stream A (div_d False), the real first-layer stream B
+   (div_d True) and stream A on the same atoms shuffled; the tile plan's
+   statistics (tiles, listed tile pairs and their share, which must not
+   pass 25%, pairs per listed tile pair, the plan's build time) in both
+   atom orders; the forward's time is the call with its tile plan, the
+   kernel alone on a plan beside it; the bound counts the pairs inside
+   the cutoff (the work the function needs) at the peak of each kernel's
+   route to f32 accuracy (3xTF32 for the forward and the coordinate
+   gradient: ROUTE_PEAK), beside the FLOP the kernels compute (the listed
+   tile pairs; every pair for the feats gradient), with the rate on each;
 7. the PaiNN kernel path: uma-s-1p1 in mp_mode="pallas" through
    Calculator.get_forces on the 4096-atom system (ms per call, peak
-   memory, K5 launch counts) and a 5-cycle run_opt; the dense mode of
-   the same weights on the card (ms per call, peak memory, forces
-   against the pallas mode);
+   memory, 8 / 7 / 8 K5 launches and the tile plans per call, two calls
+   bit for bit equal) and a 5-cycle run_opt; the dense mode of the same
+   weights on the card (ms per call, peak memory, forces against the
+   pallas mode);
 8. the default path: make_uma_calculator(device="cuda") with no model
    (uma-s-1p1, dense) on the 300-atom cluster;
 9. uma-s-1p1 pallas mode on the card against the CPU float64 dense plain
@@ -79,6 +87,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12          # H100 SXM FP32 outside the tensor cores, FLOP/s
+TF32_PEAK = 495e12        # H100 SXM dense TF32 tensor cores, FLOP/s
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12        # H100 SXM HBM3, bytes/s
 KERNEL_TOL = 1e-4         # max|kernel - plain| / max|plain| (f32 sums
@@ -106,6 +115,12 @@ REPLACES = {
     "radial_contract_rect_bwd_rows": "pdb2reaction_tpu/mlip/pallas_ops.py:594",
     "radial_contract_rect_bwd_cols": "pdb2reaction_tpu/mlip/pallas_ops.py:623",
 }
+# the peak of the route each kernel takes to f32 accuracy at the shapes
+# this script runs, FLOP/s of needed work: K5's forward and coordinate
+# gradient (R + 1 = 25 <= 32) form each product in 3xTF32, three TF32
+# products per f32 one; every other kernel runs f32 on CUDA cores
+ROUTE_PEAK = {"radial_contract_fwd": TF32_PEAK / 3,
+              "radial_contract_bwd_coords": TF32_PEAK / 3}
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
     "fused_edge_block": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
@@ -191,10 +206,14 @@ def k2_flops(M, C, H, G, P):
             P * (2 * G * M * C * 3 + 2 * G * C * H * 3))
 
 
-def bound_ms(flops, nb):
-    t32 = max(flops / F32_PEAK, nb / HBM_RATE) * 1e3
+def bound_ms(flops, nb, name=None):
+    """(f32 bound, bf16 bound, what bounds f32) in ms: the larger of the
+    bytes over HBM_RATE and the FLOP over the kernel's f32 route's peak
+    (``ROUTE_PEAK``, else the CUDA-core peak) or the bf16 peak."""
+    rate = ROUTE_PEAK.get(name, F32_PEAK)
+    t32 = max(flops / rate, nb / HBM_RATE) * 1e3
     tbf = max(flops / BF16_PEAK, nb / HBM_RATE) * 1e3
-    by = "operations" if flops / F32_PEAK >= nb / HBM_RATE else "bytes"
+    by = "operations" if flops / rate >= nb / HBM_RATE else "bytes"
     return t32, tbf, by
 
 
@@ -542,14 +561,17 @@ def k5_pairs(x, mask, cutoff):
     return int(within.sum())
 
 
-def k5_flops(pairs, P, R1, F):
+def k5_flops(pairs, P, R1, F, plan):
     """(forward, feats gradient, coordinate gradient) FLOP per launch:
     what the function needs, 2 R1 F per pair inside the cutoff (one S
     product for the coordinate gradient: S2[i, j] = S1[j, i]), and what
-    the kernels compute, every pair (both S products)."""
+    the kernels compute: the forward and the coordinate gradient on the
+    tile plan's listed tile pairs (``plan``: TilePlan.stats), the feats
+    gradient on every pair."""
     need = 2 * pairs * R1 * F
     dense = 2 * P * P * R1 * F
-    return (need, need, need), (dense, dense, 2 * dense)
+    return ((need, need, need),
+            (plan["fwd_flop"], dense, plan["coords_flop"]))
 
 
 def pallas_calculator(st, cfg, w):
@@ -589,14 +611,27 @@ def phase_k5(calc, quick):
     reps = 2 if quick else 5
     cfg = calc.cfg
     rc, R = cfg.cutoff, cfg.n_radial
-    x, mask, featsA, featsB = k5_streams(calc)
+    x0, mask0, featsA, featsB = k5_streams(calc)
     P, F = featsA.shape
     gen = torch.Generator(device="cuda").manual_seed(2)
     g = torch.randn(P, R + 1, F, generator=gen, device="cuda")
     names = ("radial_contract_fwd", "radial_contract_bwd_feats",
              "radial_contract_bwd_coords")
+    # the same system in a shuffled atom order: the tile plan restores it
+    sh = torch.randperm(P, generator=torch.Generator().manual_seed(4)).cuda()
+    plans = {}
+    for label, xx, mm in (("lattice order", x0, mask0),
+                          ("shuffled", x0[sh], mask0[sh])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = rcm.tile_plan(xx, mm, rc)
+        torch.cuda.synchronize()
+        plans[label] = plan.stats(R + 1, F)
+        plans[label]["ms"] = (time.perf_counter() - t0) * 1e3
     got = {k: [] for k in names}
-    for label, feats, div_d in (("A", featsA, False), ("B", featsB, True)):
+    for label, feats, div_d, x, mask in (
+            ("A", featsA, False, x0, mask0), ("B", featsB, True, x0, mask0),
+            ("A shuffled", featsA[sh], False, x0[sh], mask0[sh])):
         outs = []
         for fn in (rcm.radial_contract, rcm.radial_contract_plain):
             c = x.clone().requires_grad_(True)
@@ -613,11 +648,17 @@ def phase_k5(calc, quick):
             f"{errs[1][1]:.3e}, coords {errs[2][1]:.3e} (tol {KERNEL_TOL})")
         if max(e[1] for e in errs) > KERNEL_TOL:
             fail(f"K5 stream {label} disagrees with its plain version")
+        # the forward's time is the call: its tile plan and the kernel;
+        # the kernel alone on a plan built beforehand beside it
+        plan = rcm.tile_plan(x, mask, rc)
         with torch.no_grad():
             t = [cuda_ms(lambda: rcm.radial_contract(
                     x, mask, feats, rc, R, div_d), reps, warm=1),
                  cuda_ms(lambda: rcm.radial_contract_plain(
                     x, mask, feats, rc, R, div_d), reps, warm=1)]
+            t_kern = cuda_ms(lambda: rcm.contract_on_plan(
+                plan, feats, rc, R, div_d), reps, warm=1)
+        del plan
         for wrt in ("feats", "coords"):
             for fn in (rcm.radial_contract, rcm.radial_contract_plain):
                 c = x.clone().requires_grad_(wrt == "coords")
@@ -627,16 +668,27 @@ def phase_k5(calc, quick):
                 t.append(cuda_ms(lambda: torch.autograd.grad(
                     T, [leaf], g, retain_graph=True), reps, warm=1))
                 del T
-        for i, k in enumerate(names):
-            got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
+        if label in ("A", "B"):       # the rows' times: streams A and B
+            for i, k in enumerate(names):
+                got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
         log(f"[K5] stream {label}: kernel / plain ms fwd {t[0]:.2f} / "
-            f"{t[1]:.2f}, feats {t[2]:.2f} / {t[3]:.2f}, coords "
+            f"{t[1]:.2f} (the call with its tile plan; the kernel alone "
+            f"{t_kern:.2f}, the plan {t[0] - t_kern:.2f} a call, 8 calls "
+            f"a force call), feats {t[2]:.2f} / {t[3]:.2f}, coords "
             f"{t[4]:.2f} / {t[5]:.2f}")
-    pairs = k5_pairs(x, mask, rc)
-    flops, computed = k5_flops(pairs, P, R + 1, F)
+    pairs = k5_pairs(x0, mask0, rc)
     log(f"[K5] {pairs} ordered pairs inside {rc} A of {P * (P - 1)} "
         f"({100 * pairs / (P * (P - 1)):.2f}%, {pairs / P:.1f} per atom)")
-    c_b, m_b, f_b, g_b = (nbytes(x), nbytes(mask), nbytes(featsA),
+    for label, st in plans.items():
+        log(f"[K5-plan] {label}: {st['tiles']} tiles of 32, "
+            f"{st['listed']} listed tile pairs of {st['tiles'] ** 2} "
+            f"({100 * st['share']:.2f}%; {st['listed_upper']} with I <= J), "
+            f"{pairs / st['listed']:.1f} pairs inside the cutoff per listed "
+            f"tile pair (of 1024); plan built in {st['ms']:.2f} ms")
+        if st["share"] > 0.25:
+            fail(f"the tile plan ({label}) lists more than 25% of tile pairs")
+    flops, computed = k5_flops(pairs, P, R + 1, F, plans["lattice order"])
+    c_b, m_b, f_b, g_b = (nbytes(x0), nbytes(mask0), nbytes(featsA),
                           nbytes(g))
     byts = (c_b + m_b + f_b + g_b, c_b + m_b + g_b + f_b,
             c_b + m_b + f_b + g_b + c_b)
@@ -645,13 +697,16 @@ def phase_k5(calc, quick):
         v = got[k]
         rows[k] = (max(e for e, _, _ in v), sum(t for _, t, _ in v) / len(v),
                    sum(tp for _, _, tp in v) / len(v), fl, nb)
-        b32, bbf, by = bound_ms(fl, nb)
+        b32, bbf, by = bound_ms(fl, nb, k)
+        route = "3xTF32" if k in ROUTE_PEAK else "f32 CUDA cores"
         log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
             f" mean of streams A and B), needed {fl / 1e9:.1f} GFLOP "
             f"(pairs inside the cutoff), computed {fc / 1e9:.1f} GFLOP "
-            f"(every pair), {nb / 1e6:.1f} MB, bound f32 {b32:.3f} ms / "
-            f"bf16 {bbf:.3f} ms ({by}); computed at "
-            f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s")
+            f"({'every pair' if k.endswith('feats') else 'listed tile pairs'}"
+            f"), {nb / 1e6:.1f} MB, bound at f32 accuracy {b32:.3f} ms "
+            f"({route}, {by}) / bf16 {bbf:.3f} ms; computed at "
+            f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s, needed at "
+            f"{fl / rows[k][1] / 1e9:.2f} TFLOP/s")
     return rows
 
 
@@ -671,6 +726,7 @@ def phase_pallas(st, w, reps, cycles):
     cb = st.coords_bohr.reshape(-1)
     for k in rcm.launches:
         rcm.launches[k] = 0
+    rcm.plans["built"] = 0
     torch.cuda.reset_peak_memory_stats()
     res = calc.get_forces(cb)                # first call (warm-up)
     torch.cuda.synchronize()
@@ -689,7 +745,16 @@ def phase_pallas(st, w, reps, cycles):
         f"(P={calc.n_pad}): {ms:.1f} ms per get_forces over {reps} calls, "
         f"peak memory {peak:.2f} GiB, E = {res['energy']:.8f} Ha, max|F| "
         f"= {np.abs(f).max():.3e} Ha/Bohr; K5 launches per force call "
-        f"{per_call}")
+        f"{per_call}; tile plans per force call "
+        f"{rcm.plans['built'] / calc.force_calls:g} (their statistics: "
+        f"[K5-plan], lattice order)")
+    want = dict(zip(rcm.launches, (8, 7, 8)))
+    if per_call != want:
+        fail(f"K5 launches per force call {per_call}, want {want}")
+    again = calc.get_forces(cb)["forces"]
+    log(f"[pallas] next call bit for bit equal: {np.array_equal(again, f)}")
+    if not np.array_equal(again, f):
+        fail("pallas: two force calls gave different forces")
 
     out = os.path.join(HERE, "result_smoke")
     os.makedirs(out, exist_ok=True)
@@ -1194,7 +1259,7 @@ def main():
 
     kern = []
     for k, (err, t, tp, fl, nb) in rows.items():
-        b32, _, by = bound_ms(fl, nb)
+        b32, _, by = bound_ms(fl, nb, k)
         base = next(b for b in SOURCES if k.startswith(b))
         kern.append({"name": k, "route": "cuda", "source": SOURCES[base],
                      "replaces": REPLACES[k], "launches": launches[k],

@@ -1,50 +1,67 @@
 // K5: the radial contraction of the PaiNN-class model's pallas mode,
-// forward and both gradients, f32 on CUDA cores, for Hopper (sm_90a).
+// forward and both gradients, f32, for Hopper (sm_90a).
 //
 //   T[i, r, f] = sum_j A[i, j, r] feats[j, f]                 (rc_fwd)
 //   A[i, j, r] = sqrt(2/rc) sin((r+1) pi d/rc) / d^p * env(d)   r < R
 //   A[i, j, R] = env(d) / d^(p-1)            p = 2 with div_d, else 1
 //
 // over pairs inside the cutoff, both atoms real (mask > 0), i != j by
-// global index; d = sqrt(max(d^2, 1e-12)), and d = 1 outside the cutoff.
+// index; d = sqrt(max(d^2, 1e-12)), and d = 1 outside the cutoff.
 //
 // Replaces pdb2reaction_tpu/mlip/pallas_ops.py, reached from
 // radial_contract through radial_contract_tpu / _radial_contract_impl:
-//   rc_fwd          <- _fwd_kernel:129
+//   rc_fwd_tc, rc_fwd_fma  <- _fwd_kernel:129
 //   rc_bwd_feats    <- _transpose_kernel:352 (via _grad_feats)
 //                      dfeats[j, f] = sum_{i, r} A[j, i, r] g[i, r, f]
-//   rc_bwd_coords   <- _grad_coords_fused_kernel:256 (via _grad_coords_fused)
-//                      dx_i = sum_j (G1 + G2^T)[i, j] (x_i - x_j) / d,
-//                      G = sum_r dA_r/dd S_r, S1 = g_I feats_J^T,
-//                      S2 = g_J feats_I^T (receiver and sender sides)
+//   rc_coords_pairs, rc_coords_reduce
+//                   <- _grad_coords_fused_kernel:256 (via _grad_coords_fused)
+//                      dx_i = sum_j C_ij (x_i - x_j) / d,
+//                      C_ij = sum_r dA_r/dd (S1[r, i, j] + S1[r, j, i]),
+//                      S1 = g_I feats_J^T; C is symmetric
 //
 // What bounds them: arithmetic over the pairs inside the cutoff,
-// 2 (R + 1) F FLOP per pair and launch (one S product for the coordinate
-// gradient, since S2[i, j] = S1[j, i]); at the slice's shapes (P = 4096,
-// F = 1024, R + 1 = 25, ~3% of pairs inside 6 A) that is ~26 GFLOP,
-// about 0.4 ms at the f32 peak, against ~0.4 GB of device memory
-// traffic. These kernels compute every pair instead: a dense
-// [P*25, P] x [P, F] product (0.86 TFLOP; the coordinate gradient forms
-// both S products, twice that). The adjacency itself (1.7 GB per stream
-// at that size) never reaches device memory: every block builds its
-// [25, TI, TJ] tile in shared memory from the coordinates (one sincosf
-// per pair; the sin((r+1) t) ladder by the coupled rotation recurrence,
-// whose f32 error grows linearly in r) and contracts it at once with a
-// register-tiled
-// product (8 x 8 outputs a thread, float4 shared-memory loads, 64
-// multiply-adds per 4 loads). The coordinate gradient accumulates both S
-// products over all of F in registers for a [25, 32, 32] pair tile, then
-// applies the radial derivative once per pair. A block owns its output
-// tile and loops over the contraction axis itself (the TPU's sequential
-// grid axis); nothing is reduced across blocks and no atomics are used,
-// so every result repeats bit for bit.
+// 2 (R + 1) F FLOP per pair and launch; at the slice's shapes (P = 4096,
+// F = 1024, R + 1 = 25, ~3% of pairs inside 6 A) ~26 GFLOP, about 0.4 ms
+// at the f32 peak, against ~0.4 GB of device memory traffic. The
+// adjacency itself (1.7 GB per stream at that size) never reaches device
+// memory: every block builds its tile of it in shared memory from the
+// coordinates (one sincosf per pair; the sin((r+1) t) ladder by the
+// coupled rotation recurrence, whose f32 error grows linearly in r) and
+// contracts it at once.
 //
-// Every tile is computed, as on the TPU, though only ~3% of pairs lie
-// inside the cutoff at the slice's density. Later redesigns: a
-// coordinate gradient with one S product (each (I, J) tile writes the
-// partial dx of both sides to a [P/TI, P, 3] buffer that a second pass
-// reduces in a fixed order), then skipping tiles with no pair inside the
-// cutoff.
+// Which pairs: the forward and the coordinate gradient run on a tile plan
+// that the wrapper builds from the call's coordinates
+// (mlip/radial_contract.py: tile_plan): atoms in a spatial order (Xp:
+// coordinates and mask in plan order, perm: their original rows), tiles
+// of 32, and for each row tile the list of column tiles whose boxes lie
+// within the cutoff. Only listed tile pairs are computed (~22% of them at
+// the slice's density, against every pair before); rows and columns of
+// feats, g and out are read and written through perm, whole rows at a
+// time. Indices are plan positions, so i != j holds as before. What
+// bounds the two kernels then is the work on the listed tile pairs, ~7x
+// what the function needs (14% of a listed tile's pairs lie inside the
+// cutoff at the slice's density), and the throughput of its products.
+//
+// rc_fwd: a block owns 16 (tensor cores) or 8 (CUDA cores) rows of one
+// row tile and 64 features, and loops over its row's column tiles; the
+// next tile's feats rows and coordinates arrive by double-buffered
+// cp.async while the current [R+1, rows, 32] adjacency tile is built and
+// contracted. Rows whose tile reaches nothing (no real atom) get zeros.
+// rc_bwd_coords: one block per listed tile pair I <= J forms
+// Ssym = S1[i, j] + S1[j, i] over all of F for its 32 x 32 pair tile (the
+// g and feats rows k-contiguous, double-buffered by cp.async), applies
+// dA/dd once per pair, and writes the I side's partial dx to the slot of
+// (I, J) and, off the diagonal, the J side's to the slot of (J, I): one
+// product per ordered tile pair, half what the dense kernel formed. A
+// second pass sums each atom's slots in the order of its reach list.
+// Up to R + 1 = 32 the products run on the tensor cores in the 3xTF32
+// split (a = hi + lo, hi*hi + hi*lo + lo*hi, each k step's products added
+// to the f32 accumulator on CUDA cores: f32 accuracy), which beat the
+// CUDA-core loops on both kernels on an H100; above, where the tiles no
+// longer fit, on CUDA cores with register tiles of 8 x 8. Nothing is
+// reduced across blocks except through those slots, and no atomics are
+// used, so every result repeats bit for bit.
+// rc_bwd_feats still computes every pair, in the original order.
 //
 // K6: the same contraction for one block of Pr rows against all Pc
 // columns (atom-axis sharding: each rank owns rows off .. off + Pr - 1 of
@@ -167,71 +184,276 @@ __device__ __forceinline__ float4 ld4_or_zero(const float* p, bool ok) {
             : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// ---------------------------------------------------------------------------
-// forward: block = 8 rows i x 64 features, one thread per (r, 8 features)
-// owning 8 i x 8 f outputs; loops over j in tiles of 32
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : v.z;
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !ok (src is
+// then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 3xTF32: x = hi + lo, each exact in TF32; a b ~ ah bh + ah bl + al bh
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8], the small cross terms first. The
+// tensor cores round their accumulator toward zero, a bias that grows with
+// the number of k steps summed into it; so the three products of one step
+// go into a zeroed fragment, which is added to c on CUDA cores (rounded
+// to nearest).
+__device__ __forceinline__ void mma3(float* c, const unsigned* ah,
+                                     const unsigned* al, const unsigned* bh,
+                                     const unsigned* bl) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, al, bh);
+  mma_tf32(p, ah, bl);
+  mma_tf32(p, ah, bh);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] += p[q];
+}
+
+// A fragment (16 x 8, row-major, k contiguous) of rows p[0..15] at
+// stride ld, and B fragment (8 x 8, n-major, k contiguous) of columns
+// p[0..7] at stride ld; lane = 4 g + t
+__device__ __forceinline__ void frag_a(const float* p, int ld, int g, int t,
+                                       unsigned* hi, unsigned* lo) {
+  split_tf32(p[g * ld + t], hi[0], lo[0]);
+  split_tf32(p[(g + 8) * ld + t], hi[1], lo[1]);
+  split_tf32(p[g * ld + t + 4], hi[2], lo[2]);
+  split_tf32(p[(g + 8) * ld + t + 4], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void frag_b(const float* p, int ld, int g, int t,
+                                       unsigned* hi, unsigned* lo) {
+  split_tf32(p[g * ld + t], hi[0], lo[0]);
+  split_tf32(p[g * ld + t + 4], hi[1], lo[1]);
+}
+
+constexpr int TILE = 32;                 // the tile plan's tile
 constexpr int F_TI = 8, F_TJ = 32, F_FT = 64;
 
+// stages column tile cols[kb + k] of the plan: its coordinates and mask
+// into xj[TILE], its feats rows (features fb .. fb + F_FT) into fs at
+// pitch fp; rows past P are zeros
+__device__ __forceinline__ void stage_cols(int P, int F, int fb, int j0,
+                                           const float4* Xp, const int* perm,
+                                           const float* feats, float* fs,
+                                           int fp, float4* xj) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  for (int q = t; q < TILE * F_FT / 4; q += nt) {
+    const int jj = q / (F_FT / 4), c = (q % (F_FT / 4)) * 4, pj = j0 + jj;
+    const bool ok = pj < P && fb + c < F;
+    cp_async16(fs + jj * fp + c,
+               ok ? feats + (size_t)perm[pj] * F + fb + c : feats, ok);
+  }
+  for (int q = t; q < TILE; q += nt) {
+    const bool ok = j0 + q < P;
+    cp_async16(xj + q, ok ? Xp + j0 + q : Xp, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on CUDA cores: block = 8 plan rows x 64 features, one thread
+// per (r, 8 features) owning 8 rows x 8 features; loops over the row
+// tile's listed column tiles
+// ---------------------------------------------------------------------------
 template <bool DIVD>
 __global__ void __launch_bounds__(512)
-rc_fwd(int P, int F, int R, float rc, const float* __restrict__ X,
-       const float* __restrict__ M, const float* __restrict__ feats,
-       float* __restrict__ out) {
+rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+           const int* __restrict__ perm, const int* __restrict__ row_ptr,
+           const int* __restrict__ cols, const float* __restrict__ feats,
+           float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ float Xi[F_TI][4];
+  __shared__ float4 Xi[F_TI];
+  __shared__ float4 Xj[2][TILE];
   const int R1 = R + 1;
-  float* As = sm;                          // [F_TJ][R1][F_TI]
-  float* Fs = sm + F_TJ * R1 * F_TI;       // [F_TJ][F_FT]
+  float* As = sm;                          // [TILE][R1][F_TI]
+  float* Fs = sm + TILE * R1 * F_TI;       // [2][TILE][F_FT]
   const int t = threadIdx.x, nt = blockDim.x;
   const int i0 = blockIdx.x * F_TI, fb = blockIdx.y * F_FT;
   const int r = t / (F_FT / 8), fo = (t % (F_FT / 8)) * 8;
-  if (t < F_TI) {
-    const int gi = i0 + t;
-    const bool ok = gi < P;
-    Xi[t][0] = ok ? X[3 * gi] : 0.f;
-    Xi[t][1] = ok ? X[3 * gi + 1] : 0.f;
-    Xi[t][2] = ok ? X[3 * gi + 2] : 0.f;
-    Xi[t][3] = ok ? M[gi] : 0.f;
-  }
+  const int kb = row_ptr[i0 / TILE], nJ = row_ptr[i0 / TILE + 1] - kb;
+  if (t < F_TI)
+    Xi[t] = i0 + t < P ? Xp[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
   float acc[F_TI][8];
 #pragma unroll
   for (int a = 0; a < F_TI; ++a)
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
 
-  for (int j0 = 0; j0 < P; j0 += F_TJ) {
-    __syncthreads();
-    for (int p = t; p < F_TI * F_TJ; p += nt) {
-      const int ii = p % F_TI, jj = p / F_TI, gj = j0 + jj;
-      const bool ok = gj < P;
-      const Geo g = pair_geo(Xi[ii][0], Xi[ii][1], Xi[ii][2], Xi[ii][3],
-                             i0 + ii, ok ? X[3 * gj] : 0.f,
-                             ok ? X[3 * gj + 1] : 0.f,
-                             ok ? X[3 * gj + 2] : 0.f, ok ? M[gj] : 0.f, gj,
-                             rc);
+  if (nJ > 0)
+    stage_cols(P, F, fb, cols[kb] * TILE, Xp, perm, feats, Fs, F_FT, Xj[0]);
+  cp_commit();
+  for (int k = 0; k < nJ; ++k) {
+    const int buf = k & 1;
+    if (k + 1 < nJ)
+      stage_cols(P, F, fb, cols[kb + k + 1] * TILE, Xp, perm, feats,
+                 Fs + (buf ^ 1) * TILE * F_FT, F_FT, Xj[buf ^ 1]);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();                      // tile k has landed for all
+    const int j0 = cols[kb + k] * TILE;
+    for (int p = t; p < F_TI * TILE; p += nt) {
+      const int ii = p % F_TI, jj = p / F_TI;
+      const float4 a = Xi[ii], b = Xj[buf][jj];
+      const Geo g = pair_geo(a.x, a.y, a.z, a.w, i0 + ii, b.x, b.y, b.z, b.w,
+                             j0 + jj, rc);
       a_column<DIVD>(g, R, rc, As + jj * R1 * F_TI + ii, F_TI);
     }
-    for (int q = t; q < F_TJ * F_FT / 4; q += nt) {
-      const int jj = q / (F_FT / 4), c = (q % (F_FT / 4)) * 4, gj = j0 + jj;
-      reinterpret_cast<float4*>(Fs + jj * F_FT + c)[0] = ld4_or_zero(
-          feats + (size_t)gj * F + fb + c, gj < P && fb + c < F);
-    }
     __syncthreads();
-    for (int jj = 0; jj < F_TJ; ++jj) {
+    const float* Fb = Fs + buf * TILE * F_FT;
+    for (int jj = 0; jj < TILE; ++jj) {
       float a[8], b[8];
       ld8(As + (jj * R1 + r) * F_TI, a);
-      ld8(Fs + jj * F_FT + fo, b);
+      ld8(Fb + jj * F_FT + fo, b);
 #pragma unroll
       for (int x = 0; x < F_TI; ++x)
 #pragma unroll
         for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
     }
+    __syncthreads();                      // As and buffer buf are free
   }
   if (fb + fo < F) {
     for (int x = 0; x < F_TI; ++x) {
-      const int gi = i0 + x;
-      if (gi < P) st8(out + ((size_t)gi * R1 + r) * F + fb + fo, acc[x]);
+      const int pi = i0 + x;
+      if (pi < P)
+        st8(out + ((size_t)perm[pi] * R1 + r) * F + fb + fo, acc[x]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (R + 1 <= 32): block = 16 plan rows x 64
+// features; the adjacency tile A[r][i][j] is the A operand (m = 16 rows
+// for one r, k = j), feats the B operand (n = features); warp w owns
+// r = 2w, 2w + 1 against all 8 feature tiles of 8, in 3xTF32
+// ---------------------------------------------------------------------------
+constexpr int T_RB = 16, T_AP = TILE + 4, T_FP = F_FT + 8;
+
+template <bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+          const int* __restrict__ perm, const int* __restrict__ row_ptr,
+          const int* __restrict__ cols, const float* __restrict__ feats,
+          float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float4 Xi[T_RB];
+  __shared__ float4 Xj[2][TILE];
+  const int R1 = R + 1;
+  float* As = sm;                          // [R1][T_RB][T_AP]
+  float* Fs = sm + R1 * T_RB * T_AP;       // [2][TILE][T_FP]
+  const int t = threadIdx.x, nt = blockDim.x, w = t >> 5;
+  const int gq = (t & 31) >> 2, tq = t & 3;
+  const int i0 = blockIdx.x * T_RB, fb = blockIdx.y * F_FT;
+  const int kb = row_ptr[i0 / TILE], nJ = row_ptr[i0 / TILE + 1] - kb;
+  if (t < T_RB)
+    Xi[t] = i0 + t < P ? Xp[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  if (nJ > 0)
+    stage_cols(P, F, fb, cols[kb] * TILE, Xp, perm, feats, Fs, T_FP, Xj[0]);
+  cp_commit();
+  for (int k = 0; k < nJ; ++k) {
+    const int buf = k & 1;
+    if (k + 1 < nJ)
+      stage_cols(P, F, fb, cols[kb + k + 1] * TILE, Xp, perm, feats,
+                 Fs + (buf ^ 1) * TILE * T_FP, T_FP, Xj[buf ^ 1]);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();                      // tile k has landed for all
+    const int j0 = cols[kb + k] * TILE;
+    for (int p = t; p < T_RB * TILE; p += nt) {
+      const int jj = p % TILE, ii = p / TILE;
+      const float4 a = Xi[ii], b = Xj[buf][jj];
+      const Geo g = pair_geo(a.x, a.y, a.z, a.w, i0 + ii, b.x, b.y, b.z, b.w,
+                             j0 + jj, rc);
+      a_column<DIVD>(g, R, rc, As + ii * T_AP + jj, T_RB * T_AP);
+    }
+    __syncthreads();
+    // B[k = j][n = f] = Fs[j][f]: n-major at stride 1, so the fragment
+    // reads Fs transposed: b0 = Fs[k0 + t][n0 + g]
+    const float* Fb = Fs + buf * TILE * T_FP;
+#pragma unroll
+    for (int k0 = 0; k0 < TILE; k0 += 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned bh[4][2], bl[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* q = Fb + (k0 + tq) * T_FP + (h * 4 + n) * 8 + gq;
+          split_tf32(q[0], bh[n][0], bl[n][0]);
+          split_tf32(q[4 * T_FP], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = 2 * w + rr;
+          if (r < R1) {                   // warp-uniform
+            unsigned ah[4], al[4];
+            frag_a(As + r * T_RB * T_AP + k0, T_AP, gq, tq, ah, al);
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              mma3(acc[rr][h * 4 + n], ah, al, bh[n], bl[n]);
+          }
+        }
+      }
+    }
+    __syncthreads();                      // As and buffer buf are free
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = 2 * w + rr;
+    if (r >= R1) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int f = fb + n * 8 + 2 * tq;
+      if (f >= F) continue;
+#pragma unroll
+      for (int hrow = 0; hrow < 2; ++hrow) {
+        const int pi = i0 + gq + 8 * hrow;
+        if (pi < P)
+          *reinterpret_cast<float2*>(out + ((size_t)perm[pi] * R1 + r) * F +
+                                     f) =
+              make_float2(acc[rr][n][2 * hrow], acc[rr][n][2 * hrow + 1]);
+      }
     }
   }
 }
@@ -308,171 +530,270 @@ rc_bwd_feats(int P, int F, int R, float rc, const float* __restrict__ X,
 }
 
 // ---------------------------------------------------------------------------
-// coordinate gradient: block = 32 rows i; loops over j tiles of TJ; one
-// thread per (r, 8 i, 8 j) accumulates S1 + S2 over all of F (chunks of
-// 16 features staged k-major in shared memory), then the pair phase
-// applies dA/dd once per pair and sums (x_i - x_j)/d-weighted terms in a
-// fixed order
+// coordinate gradient: one block per listed tile pair (I, J), I <= J (the
+// plan's pairs: I, J, slot of (I, J), slot of (J, I)). Per column
+// sub-tile of TJH, Ssym[r][i][j] = sum_f g[i, r, f] feats[j, f] +
+// g[j, r, f] feats[i, f] over all of F, chunks of FC features staged
+// k-contiguous ([atom][r][f], as g lies in memory) by double-buffered
+// cp.async; then w_ij = sum_r dA_r/dd Ssym / d once per pair, the I
+// side's sums over j kept in shared memory and the J side's over i
+// written to slot (J, I). On a diagonal tile (I = J) Ssym already holds
+// both orders, so only the I side is written.
+//   TJH = 32, FC = 8 (R + 1 <= 32): tensor cores; warp w owns
+//     r = 2w, 2w + 1, each a 32 x 32 tile of 2 x 4 mma tiles, in 3xTF32;
+//   TJH = 16, FC = 4 (R + 1 <= 63): CUDA cores; one thread per
+//     (r, 8 i, 8 j), two features a step.
 // ---------------------------------------------------------------------------
-constexpr int C_TI = 32, C_FC = 16;
+constexpr int C_FC = 16;                 // K6's feature chunk
 
-template <int TJ>
-__host__ __device__ constexpr int coords_gemm_floats(int R1) {
-  return C_FC * R1 * (C_TI + 4) + C_FC * R1 * (TJ + 4) + C_FC * C_TI +
-         C_FC * TJ;
+template <int TJH, int FC>
+__host__ __device__ constexpr int cg_stage_floats(int R1) {
+  return (TILE + TJH) * (R1 + 1) * (FC + 4);
 }
 
-template <int TJ>
-__host__ __device__ constexpr int coords_s_floats(int R1) {
-  return R1 * C_TI * (TJ + 1);
+template <int TJH>
+__host__ __device__ constexpr int cg_s_floats(int R1) {
+  return R1 * TILE * (TJH + 1);
 }
 
-template <int TJ, bool DIVD>
+template <int TJH, int FC, bool DIVD>
 __global__ void __launch_bounds__(512)
-rc_bwd_coords(int P, int F, int R, float rc, const float* __restrict__ X,
-              const float* __restrict__ M, const float* __restrict__ feats,
-              const float* __restrict__ g, float* __restrict__ dx) {
+rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+                const int* __restrict__ perm, const int4* __restrict__ pairs,
+                const float* __restrict__ feats, const float* __restrict__ g,
+                float* __restrict__ part) {
+  constexpr bool TC = TJH == TILE;        // tensor cores on the full tile
+  static_assert(TC ? FC == 8 : (TJH == 16 && FC == 4), "tiling");
+  constexpr int FCP = FC + 4, TJS = TJH + 1, CH = FC / 4;
+  constexpr int NJG = TJH / 8;
   extern __shared__ __align__(16) float sm[];
-  constexpr int TIP = C_TI + 4, TJP = TJ + 4, TJS = TJ + 1;
-  constexpr int NIG = C_TI / 8, NJG = TJ / 8, NQ = TJ / 4;
-  __shared__ float Xi[C_TI][4], Xj[TJ][4];
-  __shared__ float red[C_TI][NQ][3];
+  __shared__ float4 Xi[TILE], Xj[TJH];
+  __shared__ float Ws[TILE][TJS];
+  __shared__ float red[TILE][3];
   const int R1 = R + 1;
-  float* gIs = sm;                         // [C_FC][R1][TIP]
-  float* gJs = gIs + C_FC * R1 * TIP;      // [C_FC][R1][TJP]
-  float* fIs = gJs + C_FC * R1 * TJP;      // [C_FC][C_TI]
-  float* fJs = fIs + C_FC * C_TI;          // [C_FC][TJ]
-  float* Ss = sm;                          // [R1][C_TI][TJS], aliases them
+  const int st = cg_stage_floats<TJH, FC>(R1);
+  float* Ss = sm;                  // [R1][TILE][TJS], aliases the stages
   const int t = threadIdx.x, nt = blockDim.x;
-  const int i0 = blockIdx.x * C_TI;
-  const int r = t / (NIG * NJG);
-  const int io = ((t / NJG) % NIG) * 8, jo = (t % NJG) * 8;
-  for (int q = t; q < C_TI; q += nt) {
-    const int gi = i0 + q;
-    const bool ok = gi < P;
-    Xi[q][0] = ok ? X[3 * gi] : 0.f;
-    Xi[q][1] = ok ? X[3 * gi + 1] : 0.f;
-    Xi[q][2] = ok ? X[3 * gi + 2] : 0.f;
-    Xi[q][3] = ok ? M[gi] : 0.f;
-  }
-  for (int q = t; q < C_TI * NQ * 3; q += nt) (&red[0][0][0])[q] = 0.f;
+  const int w = t >> 5, gq = (t & 31) >> 2, tq = t & 3;
+  const int r = t / (4 * NJG), io = ((t / NJG) % 4) * 8, jo = (t % NJG) * 8;
+  const int4 pr = pairs[blockIdx.x];
+  const int i0 = pr.x * TILE;
+  const bool diag = pr.x == pr.y;
+  for (int q = t; q < TILE; q += nt)
+    Xi[q] = i0 + q < P ? Xp[i0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = t; q < TILE * 3; q += nt) (&red[0][0])[q] = 0.f;
+  const int nF = F / FC;
 
-  for (int j0 = 0; j0 < P; j0 += TJ) {
-    __syncthreads();                      // the last pair phase is done
-    for (int q = t; q < TJ; q += nt) {
-      const int gj = j0 + q;
-      const bool ok = gj < P;
-      Xj[q][0] = ok ? X[3 * gj] : 0.f;
-      Xj[q][1] = ok ? X[3 * gj + 1] : 0.f;
-      Xj[q][2] = ok ? X[3 * gj + 2] : 0.f;
-      Xj[q][3] = ok ? M[gj] : 0.f;
+  for (int js = 0; js < TILE / TJH; ++js) {
+    const int j0 = pr.y * TILE + js * TJH;
+    __syncthreads();                      // the last sub-tile is done
+    for (int q = t; q < TJH; q += nt)
+      Xj[q] = j0 + q < P ? Xp[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    // chunk c into buffer b: gI [TILE][R1][FCP], gJ [TJH][R1][FCP],
+    // fI [TILE][FCP], fJ [TJH][FCP]
+    auto stage = [&](int c, int b) {
+      float* gIs = sm + b * st;
+      float* gJs = gIs + TILE * R1 * FCP;
+      float* fIs = gJs + TJH * R1 * FCP;
+      float* fJs = fIs + TILE * FCP;
+      const int fc = c * FC;
+      for (int q = t; q < (TILE + TJH) * R1 * CH; q += nt) {
+        const int ch = q % CH, row = q / CH;
+        const bool isI = row < TILE * R1;
+        const int rw = isI ? row : row - TILE * R1;
+        const int a = rw / R1, rr = rw - a * R1;
+        const int pa = (isI ? i0 : j0) + a;
+        const bool ok = pa < P;
+        cp_async16((isI ? gIs : gJs) + rw * FCP + ch * 4,
+                   ok ? g + ((size_t)perm[pa] * R1 + rr) * F + fc + ch * 4
+                      : g,
+                   ok);
+      }
+      for (int q = t; q < (TILE + TJH) * CH; q += nt) {
+        const int ch = q % CH, a = q / CH;
+        const bool isI = a < TILE;
+        const int aa = isI ? a : a - TILE;
+        const int pa = (isI ? i0 : j0) + aa;
+        const bool ok = pa < P;
+        cp_async16((isI ? fIs : fJs) + aa * FCP + ch * 4,
+                   ok ? feats + (size_t)perm[pa] * F + fc + ch * 4 : feats,
+                   ok);
+      }
+    };
+
+    float acc[2][2][4][4];                // TC: [r][m][n][fragment]
+    float S[8][8];                        // CUDA cores: 8 i x 8 j
+    if constexpr (TC) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[a][m][n][c] = 0.f;
+    } else {
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) S[a][b] = 0.f;
     }
-    float S[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) S[a][b] = 0.f;
 
-    for (int fc = 0; fc < F; fc += C_FC) {
-      __syncthreads();
-      for (int q = t; q < C_TI * R1 * (C_FC / 4); q += nt) {
-        const int c = (q % (C_FC / 4)) * 4, row = q / (C_FC / 4);
-        const int rr = row % R1;
-        const float4 v = ld4_or_zero(g + ((size_t)i0 * R1 + row) * F + fc + c,
-                                     i0 + row / R1 < P && fc + c < F);
-        float* d = gIs + (c * R1 + rr) * TIP + row / R1;
-        d[0] = v.x;
-        d[R1 * TIP] = v.y;
-        d[2 * R1 * TIP] = v.z;
-        d[3 * R1 * TIP] = v.w;
-      }
-      for (int q = t; q < TJ * R1 * (C_FC / 4); q += nt) {
-        const int c = (q % (C_FC / 4)) * 4, row = q / (C_FC / 4);
-        const int rr = row % R1;
-        const float4 v = ld4_or_zero(g + ((size_t)j0 * R1 + row) * F + fc + c,
-                                     j0 + row / R1 < P && fc + c < F);
-        float* d = gJs + (c * R1 + rr) * TJP + row / R1;
-        d[0] = v.x;
-        d[R1 * TJP] = v.y;
-        d[2 * R1 * TJP] = v.z;
-        d[3 * R1 * TJP] = v.w;
-      }
-      for (int q = t; q < (C_TI + TJ) * (C_FC / 4); q += nt) {
-        const int c = (q % (C_FC / 4)) * 4, row = q / (C_FC / 4);
-        const bool isI = row < C_TI;
-        const int a = isI ? row : row - C_TI;
-        const int ga = (isI ? i0 : j0) + a;
-        const float4 v = ld4_or_zero(feats + (size_t)ga * F + fc + c,
-                                     ga < P && fc + c < F);
-        const int ld = isI ? C_TI : TJ;
-        float* d = (isI ? fIs : fJs) + c * ld + a;
-        d[0] = v.x;
-        d[ld] = v.y;
-        d[2 * ld] = v.z;
-        d[3 * ld] = v.w;
-      }
-      __syncthreads();
-      if (r < R1) {
-        for (int f = 0; f < C_FC; ++f) {
-          float a[8], b[8];
-          ld8(gIs + (f * R1 + r) * TIP + io, a);
-          ld8(fJs + f * TJ + jo, b);
+    stage(0, 0);
+    cp_commit();
+    for (int c = 0; c < nF; ++c) {
+      const int buf = c & 1;
+      if (c + 1 < nF) stage(c + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();                    // chunk c has landed for all
+      const float* gIs = sm + buf * st;
+      const float* gJs = gIs + TILE * R1 * FCP;
+      const float* fIs = gJs + TJH * R1 * FCP;
+      const float* fJs = fIs + TILE * FCP;
+      if constexpr (TC) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int rv = 2 * w + rr;
+          if (rv < R1) {                  // warp-uniform
+            unsigned ah[2][4], al[2][4], bh[2], bl[2];
+            // S1[i, j] += sum_f g[i, r, f] feats[j, f]
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              frag_a(gIs + (m * 16 * R1 + rv) * FCP, R1 * FCP, gq, tq,
+                     ah[m], al[m]);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              frag_b(fJs + n * 8 * FCP, FCP, gq, tq, bh, bl);
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                mma3(acc[rr][m][n], ah[m], al[m], bh, bl);
+            }
+            // S2[i, j] = S1[j, i] += sum_f feats[i, f] g[j, r, f]
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              frag_a(fIs + m * 16 * FCP, FCP, gq, tq, ah[m], al[m]);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              frag_b(gJs + (n * 8 * R1 + rv) * FCP, R1 * FCP, gq, tq, bh,
+                     bl);
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                mma3(acc[rr][m][n], ah[m], al[m], bh, bl);
+            }
+          }
+        }
+      } else if (r < R1) {
+#pragma unroll
+        for (int f = 0; f < FC; f += 2) {
+          float2 a[8], b[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            a[x] = *reinterpret_cast<const float2*>(
+                gIs + ((io + x) * R1 + r) * FCP + f);
+#pragma unroll
+          for (int y = 0; y < 8; ++y)
+            b[y] = *reinterpret_cast<const float2*>(fJs + (jo + y) * FCP + f);
 #pragma unroll
           for (int x = 0; x < 8; ++x)
 #pragma unroll
-            for (int y = 0; y < 8; ++y) S[x][y] = fmaf(a[x], b[y], S[x][y]);
-          ld8(fIs + f * C_TI + io, a);
-          ld8(gJs + (f * R1 + r) * TJP + jo, b);
+            for (int y = 0; y < 8; ++y)
+              S[x][y] = fmaf(a[x].y, b[y].y, fmaf(a[x].x, b[y].x, S[x][y]));
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            a[x] = *reinterpret_cast<const float2*>(fIs + (io + x) * FCP + f);
+#pragma unroll
+          for (int y = 0; y < 8; ++y)
+            b[y] = *reinterpret_cast<const float2*>(
+                gJs + ((jo + y) * R1 + r) * FCP + f);
 #pragma unroll
           for (int x = 0; x < 8; ++x)
 #pragma unroll
-            for (int y = 0; y < 8; ++y) S[x][y] = fmaf(a[x], b[y], S[x][y]);
+            for (int y = 0; y < 8; ++y)
+              S[x][y] = fmaf(a[x].y, b[y].y, fmaf(a[x].x, b[y].x, S[x][y]));
         }
       }
+      __syncthreads();                    // buffer buf is free
     }
-    __syncthreads();                      // staging buffers free for Ss
-    if (r < R1) {
+    cp_wait<0>();
+    // Ssym into shared memory (the staging buffers are no longer read)
+    if constexpr (TC) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int rv = 2 * w + rr;
+        if (rv >= R1) continue;
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float* d = Ss + (rv * TILE + m * 16 + gq) * TJS + n * 8 + 2 * tq;
+            d[0] = acc[rr][m][n][0];
+            d[1] = acc[rr][m][n][1];
+            d[8 * TJS] = acc[rr][m][n][2];
+            d[8 * TJS + 1] = acc[rr][m][n][3];
+          }
+      }
+    } else if (r < R1) {
 #pragma unroll
       for (int x = 0; x < 8; ++x)
 #pragma unroll
         for (int y = 0; y < 8; ++y)
-          Ss[(r * C_TI + io + x) * TJS + jo + y] = S[x][y];
+          Ss[(r * TILE + io + x) * TJS + jo + y] = S[x][y];
     }
     __syncthreads();
-    // each (row, quarter) slot has one owner thread: a fixed order
-    for (int q = t; q < C_TI * NQ; q += nt) {
-      const int pi = q / NQ, pq = q % NQ;
-      float px = 0.f, py = 0.f, pz = 0.f;
-      for (int k = 0; k < 4; ++k) {
-        const int jj = pq * 4 + k;
-        const Geo pg = pair_geo(Xi[pi][0], Xi[pi][1], Xi[pi][2], Xi[pi][3],
-                                i0 + pi, Xj[jj][0], Xj[jj][1], Xj[jj][2],
-                                Xj[jj][3], j0 + jj, rc);
-        const float G = accum_g<DIVD>(pg, R, rc, Ss + pi * TJS + jj,
-                                      C_TI * TJS);
-        const float w = G / pg.d;
-        px = fmaf(w, Xi[pi][0] - Xj[jj][0], px);
-        py = fmaf(w, Xi[pi][1] - Xj[jj][1], py);
-        pz = fmaf(w, Xi[pi][2] - Xj[jj][2], pz);
+    // dA/dd once per pair: w_ij = C_ij / d_ij (0 outside the cutoff)
+    for (int q = t; q < TILE * TJH; q += nt) {
+      const int i = q / TJH, j = q % TJH;
+      const float4 a = Xi[i], b = Xj[j];
+      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, i0 + i, b.x, b.y, b.z, b.w,
+                              j0 + j, rc);
+      Ws[i][j] = accum_g<DIVD>(pg, R, rc, Ss + i * TJS + j, TILE * TJS) /
+                 pg.d;
+    }
+    __syncthreads();
+    // I side: one thread per (i, axis) sums over j in order
+    for (int q = t; q < TILE * 3; q += nt) {
+      const int i = q / 3, c = q % 3;
+      const float xi = comp(Xi[i], c);
+      float s = red[i][c];
+      for (int j = 0; j < TJH; ++j) s = fmaf(Ws[i][j], xi - comp(Xj[j], c), s);
+      red[i][c] = s;
+    }
+    // J side: one thread per (j, axis) sums over i in order; slot (J, I)
+    if (!diag) {
+      for (int q = t; q < TJH * 3; q += nt) {
+        const int j = q / 3, c = q % 3;
+        const float xj = comp(Xj[j], c);
+        float s = 0.f;
+        for (int i = 0; i < TILE; ++i)
+          s = fmaf(Ws[i][j], xj - comp(Xi[i], c), s);
+        part[((size_t)pr.w * TILE + js * TJH + j) * 3 + c] = s;
       }
-      red[pi][pq][0] += px;
-      red[pi][pq][1] += py;
-      red[pi][pq][2] += pz;
     }
   }
-  // deterministic reduction over the NQ slots of each row
   __syncthreads();
-  for (int q = t; q < C_TI * 3; q += nt) {
-    const int i = q / 3, k = q % 3;
-    float s = 0.f;
-    for (int u = 0; u < NQ; ++u) s += red[i][u][k];
-    if (i0 + i < P) dx[(size_t)(i0 + i) * 3 + k] = s;
-  }
+  for (int q = t; q < TILE * 3; q += nt)
+    part[(size_t)pr.z * TILE * 3 + q] = (&red[0][0])[q];
+}
+
+// dx[perm[a]] = the atom's slots summed in the order of its tile's reach
+// list; atoms of a tile with no reach get 0
+__global__ void rc_coords_reduce(int P, const int* __restrict__ perm,
+                                 const int* __restrict__ row_ptr,
+                                 const float* __restrict__ part,
+                                 float* __restrict__ dx) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= P * 3) return;
+  const int a = q / 3, c = q % 3, I = a / TILE, l = a % TILE;
+  float s = 0.f;
+  for (int e = row_ptr[I]; e < row_ptr[I + 1]; ++e)
+    s += part[((size_t)e * TILE + l) * 3 + c];
+  dx[(size_t)perm[a] * 3 + c] = s;
 }
 
 // ---------------------------------------------------------------------------
-// K6 forward: rc_fwd's tiling; rows (local i, global off + i) from Xr/Mr,
-// the column loop over Pc from Xc/Mc
+// K6 forward: rc_fwd_fma's tiling over every column tile; rows (local i,
+// global off + i) from Xr/Mr, the column loop over Pc from Xc/Mc
 // ---------------------------------------------------------------------------
 template <bool DIVD>
 __global__ void __launch_bounds__(512)
@@ -762,21 +1083,35 @@ int prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int TJ, bool DIVD>
-int launch_coords(int P, int F, int R, float rc, const float* X,
-                  const float* M, const float* feats, const float* g,
-                  float* dx, cudaStream_t s) {
-  const int R1 = R + 1;
-  const int threads = R1 * (C_TI / 8) * (TJ / 8);
-  if (threads > 512) return (int)cudaErrorInvalidValue;
-  const int fl = coords_gemm_floats<TJ>(R1) > coords_s_floats<TJ>(R1)
-                     ? coords_gemm_floats<TJ>(R1)
-                     : coords_s_floats<TJ>(R1);
-  const size_t smem = sizeof(float) * fl;
-  int err = prepare(rc_bwd_coords<TJ, DIVD>, smem);
+template <typename K>
+int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
+           int P, int F, int R, float rc, const float4* Xp, const int* perm,
+           const int* a, const int* b, const float* c, float* d) {
+  int err = prepare(kernel, smem);
   if (err) return err;
-  rc_bwd_coords<TJ, DIVD><<<(P + C_TI - 1) / C_TI, threads, smem, s>>>(
-      P, F, R, rc, X, M, feats, g, dx);
+  kernel<<<grid, threads, smem, s>>>(P, F, R, rc, Xp, perm, a, b, c, d);
+  return (int)cudaGetLastError();
+}
+
+template <int TJH, int FC, bool DIVD>
+int launch_coords(int P, int F, int R, float rc, int n_pairs,
+                  const float4* Xp, const int* perm, const int* pairs,
+                  const float* feats, const float* g, float* part,
+                  cudaStream_t s) {
+  const int R1 = R + 1;
+  const int threads =
+      TJH == TILE ? 32 * ((R1 + 1) / 2) : R1 * 4 * (TJH / 8);
+  if (threads > 512) return (int)cudaErrorInvalidValue;
+  const int fl = 2 * cg_stage_floats<TJH, FC>(R1) > cg_s_floats<TJH>(R1)
+                     ? 2 * cg_stage_floats<TJH, FC>(R1)
+                     : cg_s_floats<TJH>(R1);
+  const size_t smem = sizeof(float) * fl;
+  auto kernel = rc_coords_pairs<TJH, FC, DIVD>;
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  kernel<<<n_pairs, threads, smem, s>>>(
+      P, F, R, rc, Xp, perm, reinterpret_cast<const int4*>(pairs), feats, g,
+      part);
   return (int)cudaGetLastError();
 }
 
@@ -784,24 +1119,33 @@ int launch_coords(int P, int F, int R, float rc, const float* X,
 
 extern "C" {
 
-// out [P, R+1, F]; F % 8 == 0; (R+1) * 8 <= 512 threads
-int rc_fwd_launch(int P, int F, int R, int div_d, float rc, const float* X,
-                  const float* M, const float* feats, float* out,
-                  void* stream) {
+// the plan's Xp [P, 4], perm [P], row_ptr [T + 1], cols; feats [P, F] ->
+// out [P, R+1, F]; F % 8 == 0, R + 1 <= 63. Tensor cores up to R+1 = 32
+// (warps own two radial channels: at most 16 warps), CUDA cores above.
+int rc_fwd_launch(int P, int F, int R, int div_d, float rc, const float* Xp,
+                  const int* perm, const int* row_ptr, const int* cols,
+                  const float* feats, float* out, void* stream) {
   const int R1 = R + 1;
-  if (F % 8 != 0 || R1 * (F_FT / 8) > 512) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (F_TJ * R1 * F_TI + F_TJ * F_FT);
-  const dim3 grid((P + F_TI - 1) / F_TI, (F + F_FT - 1) / F_FT);
+  if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  int err = div_d ? prepare(rc_fwd<true>, smem) : prepare(rc_fwd<false>, smem);
-  if (err) return err;
-  if (div_d)
-    rc_fwd<true><<<grid, R1 * (F_FT / 8), smem, s>>>(P, F, R, rc, X, M,
-                                                     feats, out);
-  else
-    rc_fwd<false><<<grid, R1 * (F_FT / 8), smem, s>>>(P, F, R, rc, X, M,
-                                                      feats, out);
-  return (int)cudaGetLastError();
+  const float4* X4 = reinterpret_cast<const float4*>(Xp);
+  if (R1 <= 32) {
+    const size_t smem =
+        sizeof(float) * (R1 * T_RB * T_AP + 2 * TILE * T_FP);
+    const dim3 grid((P + T_RB - 1) / T_RB, (F + F_FT - 1) / F_FT);
+    const int threads = 32 * ((R1 + 1) / 2);
+    return div_d ? launch(rc_fwd_tc<true>, grid, threads, smem, s, P, F, R,
+                          rc, X4, perm, row_ptr, cols, feats, out)
+                 : launch(rc_fwd_tc<false>, grid, threads, smem, s, P, F, R,
+                          rc, X4, perm, row_ptr, cols, feats, out);
+  }
+  const size_t smem = sizeof(float) * (TILE * R1 * F_TI + 2 * TILE * F_FT);
+  const dim3 grid((P + F_TI - 1) / F_TI, (F + F_FT - 1) / F_FT);
+  const int threads = R1 * (F_FT / 8);
+  return div_d ? launch(rc_fwd_fma<true>, grid, threads, smem, s, P, F, R,
+                        rc, X4, perm, row_ptr, cols, feats, out)
+               : launch(rc_fwd_fma<false>, grid, threads, smem, s, P, F, R,
+                        rc, X4, perm, row_ptr, cols, feats, out);
 }
 
 // g [P, R+1, F] -> dfeats [P, F]
@@ -823,22 +1167,41 @@ int rc_bwd_feats_launch(int P, int F, int R, int div_d, float rc,
   return (int)cudaGetLastError();
 }
 
-// g [P, R+1, F], feats [P, F] -> dx [P, 3]; j tiles of 32 up to R+1 = 32,
-// of 16 up to R+1 = 63 (at 64 the 16-column tile's shared memory, dynamic
-// and static, passes the 227 KB a block may have). The 16-column tiling
+// the plan's Xp, perm, row_ptr and n_pairs pairs [n_pairs, 4]; g [P, R+1,
+// F], feats [P, F]; part [>= listed ordered pairs, 32, 3] scratch -> dx
+// [P, 3]. Up to R+1 = 32 full 32 x 32 pair tiles in chunks of 8 features
+// (double-buffered, 203 KB of shared memory at R+1 = 32); above, two
+// column halves of 16 in chunks of 4, on CUDA cores (at R+1 = 64 the
+// 16-column stages pass the 227 KB a block may have). The 16-column tiling
 // exists for uma-m-1p1 (R+1 = 33) alone; uma-s-1p1 and small take the
 // 32-column one.
 int rc_bwd_coords_launch(int P, int F, int R, int div_d, float rc,
-                         const float* X, const float* M, const float* feats,
-                         const float* g, float* dx, void* stream) {
+                         int n_pairs, const float* Xp, const int* perm,
+                         const int* row_ptr, const int* pairs,
+                         const float* feats, const float* g, float* part,
+                         float* dx, void* stream) {
   if (F % 8 != 0 || R + 1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (R + 1 <= 32)
-    return div_d ? launch_coords<32, true>(P, F, R, rc, X, M, feats, g, dx, s)
-                 : launch_coords<32, false>(P, F, R, rc, X, M, feats, g, dx,
-                                            s);
-  return div_d ? launch_coords<16, true>(P, F, R, rc, X, M, feats, g, dx, s)
-               : launch_coords<16, false>(P, F, R, rc, X, M, feats, g, dx, s);
+  const float4* X4 = reinterpret_cast<const float4*>(Xp);
+  int err = 0;
+  if (n_pairs > 0) {
+    if (R + 1 <= 32)
+      err = div_d ? launch_coords<32, 8, true>(P, F, R, rc, n_pairs, X4, perm,
+                                               pairs, feats, g, part, s)
+                  : launch_coords<32, 8, false>(P, F, R, rc, n_pairs, X4,
+                                                perm, pairs, feats, g, part,
+                                                s);
+    else
+      err = div_d ? launch_coords<16, 4, true>(P, F, R, rc, n_pairs, X4, perm,
+                                               pairs, feats, g, part, s)
+                  : launch_coords<16, 4, false>(P, F, R, rc, n_pairs, X4,
+                                                perm, pairs, feats, g, part,
+                                                s);
+    if (err) return err;
+  }
+  rc_coords_reduce<<<(3 * P + 255) / 256, 256, 0, s>>>(P, perm, row_ptr,
+                                                        part, dx);
+  return (int)cudaGetLastError();
 }
 
 // ---- K6: rows [Pr, 3] (global indices off ..), columns [Pc, 3] ----------

@@ -18,7 +18,10 @@ autograd); CUDA tensors the hand-written kernels of
 ``csrc/radial_contract.cu`` behind a ``torch.autograd.Function``: the
 forward, the feats gradient (the transposed contraction; A is symmetric)
 and the fused coordinate gradient, none of which stores the adjacency.
-The kernels take float32 only.
+The kernels take float32 only. The forward and the coordinate gradient
+run on a ``tile_plan`` of the call's coordinates: atoms in a spatial
+order, cut into tiles of 32, and the tile pairs whose boxes lie within
+the cutoff; every other tile pair holds no pair inside it and is skipped.
 
 K6 (``radial_contract_rect``) is the same contraction for one block of
 rows against all columns, the form atom-axis sharding runs: rows
@@ -29,6 +32,8 @@ coordinate gradients of the rows and of the columns separately.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +48,141 @@ rect_launches = {"radial_contract_rect_fwd": 0,
                  "radial_contract_rect_bwd_feats": 0,
                  "radial_contract_rect_bwd_rows": 0,
                  "radial_contract_rect_bwd_cols": 0}
+# tile plans built by K5's CUDA branch
+plans = {"built": 0}
+
+TILE = 32            # atoms per plan tile: the kernels' row and column tiles
+REACH_SLACK = 1e-3   # Angstrom: covers f32 rounding of d in the kernels
+
+
+class TilePlan(NamedTuple):
+    """A spatial tiling of one call's atoms (``tile_plan``).
+
+    perm     int32 [P]: the original index of the atom at each plan position
+    xm       float32 [P, 4]: coordinates and mask in plan order
+    lo, hi   float32 [T, 3]: per-tile boxes over real atoms (empty: +inf, -inf)
+    row_ptr  int32 [T + 1], cols int32 [>= nnz]: the reach relation as rows
+             of column tiles, ascending; ``cols[row_ptr[I]:row_ptr[I+1]]``
+    pairs    int32 [n_upper, 4]: (I, J, e_IJ, e_JI) for each listed tile
+             pair with I <= J, row-major; e_IJ is the position of J in I's
+             row of ``cols`` (the slot of its partial sums)
+    """
+    perm: torch.Tensor
+    xm: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    pairs: torch.Tensor
+
+    @property
+    def n_tiles(self) -> int:
+        return self.lo.shape[0]
+
+    def stats(self, R1=None, F=None) -> dict:
+        """Tiles, listed tile pairs (ordered, and I <= J), their share of
+        all T^2, and with R1 and F the FLOP the plan's kernels compute per
+        launch: the forward 2 (R+1) F per pair of every listed ordered tile
+        pair, the coordinate gradient two S products per listed I <= J
+        tile pair. Synchronises with the device."""
+        T = self.n_tiles
+        listed = int(self.row_ptr[-1])
+        out = {"tiles": T, "listed": listed,
+               "listed_upper": int(self.pairs.shape[0]),
+               "share": listed / max(T * T, 1)}
+        if R1 is not None:
+            per = 2 * TILE * TILE * R1 * F
+            out["fwd_flop"] = per * listed
+            out["coords_flop"] = 2 * per * out["listed_upper"]
+        return out
+
+
+_LEVELS: dict = {}
+
+
+def _bisect_levels(P, device):
+    """Segment ids of each level of the recursive bisection of P atoms:
+    every segment longer than a tile splits at a tile boundary, the lower
+    part holding half its tiles (rounded down). The segments depend on P
+    alone, so they are made once per (P, device)."""
+    key = (P, str(device))
+    if key not in _LEVELS:
+        levels, segs = [], [P]
+        while any(n > TILE for n in segs):
+            sid = torch.repeat_interleave(torch.arange(len(segs)),
+                                          torch.tensor(segs))
+            levels.append((sid.to(device), len(segs)))
+            nxt = []
+            for n in segs:
+                if n > TILE:
+                    left = (-(-n // TILE) // 2) * TILE
+                    nxt += [left, n - left]
+                else:
+                    nxt.append(n)
+            segs = nxt
+        _LEVELS[key] = levels
+    return _LEVELS[key]
+
+
+def tile_plan(coords, mask, cutoff) -> TilePlan:
+    """The tile plan of K5's forward and coordinate gradient, in tiles of
+    ``TILE`` atoms (the kernels' tile; they take no other).
+
+    Order: recursive bisection, each segment sorted along the longest axis
+    of its real atoms' box and split at a tile boundary; masked atoms sort
+    last in every segment, so they end up last overall. Every sort is
+    stable, so the plan (and the kernels' sums) repeat bit for bit. Reach:
+    tile pairs whose boxes lie within ``cutoff + REACH_SLACK`` (f32): every
+    pair the kernels' own f32 test puts inside the cutoff lies in a listed
+    tile pair. Plain PyTorch on the coordinates' device; the upper-triangle
+    ``nonzero`` is the one host synchronisation of a call.
+    """
+    P, dev = coords.shape[0], coords.device
+    inf = float("inf")
+    x = coords.detach().to(torch.float32)
+    real = mask.detach() > 0
+    order = torch.argsort((~real).to(torch.int32), stable=True)
+    for sid, n_seg in _bisect_levels(P, dev):
+        xs, rs = x[order], real[order]
+        idx = sid[:, None].expand(-1, 3)
+        lo = torch.full((n_seg, 3), inf, device=dev).scatter_reduce(
+            0, idx, torch.where(rs[:, None], xs, inf), "amin")
+        hi = torch.full((n_seg, 3), -inf, device=dev).scatter_reduce(
+            0, idx, torch.where(rs[:, None], xs, -inf), "amax")
+        axis = (hi - lo).argmax(1)
+        key = torch.where(rs, xs.gather(1, axis[sid][:, None])[:, 0], inf)
+        k1 = torch.argsort(key, stable=True)
+        order = order[k1[torch.argsort(sid[k1], stable=True)]]
+    xs, rs = x[order], real[order]
+    T = -(-P // TILE)
+    pad = T * TILE - P
+    lo = torch.cat([torch.where(rs[:, None], xs, inf),
+                    torch.full((pad, 3), inf, device=dev)])
+    hi = torch.cat([torch.where(rs[:, None], xs, -inf),
+                    torch.full((pad, 3), -inf, device=dev)])
+    lo = lo.view(T, TILE, 3).amin(1)
+    hi = hi.view(T, TILE, 3).amax(1)
+    # per-axis gaps between boxes; an empty box gives +inf, never NaN
+    gap = torch.clamp(torch.maximum(lo[None] - hi[:, None],
+                                    lo[:, None] - hi[None]), min=0.0)
+    reach = (gap * gap).sum(-1) <= (float(cutoff) + REACH_SLACK) ** 2
+    cnt = reach.sum(1, dtype=torch.int32)
+    row_ptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    row_ptr[1:] = torch.cumsum(cnt, 0)
+    rank = torch.cumsum(reach, 1, dtype=torch.int32) - reach.int()
+    up = torch.triu(reach).nonzero()          # host synchronisation
+    pI, pJ = up[:, 0], up[:, 1]
+    e_ij = row_ptr[pI] + rank[pI, pJ]
+    e_ji = row_ptr[pJ] + rank[pJ, pI]
+    # reach is symmetric: every listed (I, J) is e_IJ or e_JI of one pair
+    cols = torch.zeros(max(2 * up.shape[0], 1), dtype=torch.int32,
+                       device=dev)
+    cols[e_ij.long()] = pJ.int()
+    cols[e_ji.long()] = pI.int()
+    xm = torch.cat([xs, rs[:, None].to(torch.float32)], 1).contiguous()
+    pairs = torch.stack([pI, pJ, e_ij, e_ji], 1).to(torch.int32)
+    return TilePlan(order.to(torch.int32), xm, lo, hi, row_ptr, cols,
+                    pairs.contiguous())
 
 
 def radial_contract_plain(coords, mask, feats, cutoff, n_radial,
@@ -88,19 +228,32 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def contract_on_plan(plan, feats, cutoff, n_radial, div_d=False):
+    """K5's forward kernel on a ``tile_plan`` of the coordinates: feats
+    [P, F] (float32, contiguous, 16-byte aligned, on the card) ->
+    [P, R+1, F]. Every row is written: rows of a tile with no reach get
+    zeros."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    P, F = feats.shape
+    out = torch.empty(P, n_radial + 1, F, device=feats.device,
+                      dtype=torch.float32)
+    call(load("radial_contract"), "rc_fwd_launch", P, F, n_radial,
+         int(div_d), float(cutoff), ptr(plan.xm), ptr(plan.perm),
+         ptr(plan.row_ptr), ptr(plan.cols), ptr(feats), ptr(out),
+         stream_ptr())
+    launches["radial_contract_fwd"] += 1
+    return out
+
+
 class _RadialContractFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, mask, feats, cutoff, n_radial, div_d):
-        from .cuda_build import call, load, ptr, stream_ptr
         coords, mask, feats = (_aligned(t) for t in (coords, mask, feats))
-        P, F = feats.shape
-        out = torch.empty(P, n_radial + 1, F, device=feats.device,
-                          dtype=torch.float32)
-        call(load("radial_contract"), "rc_fwd_launch", P, F, n_radial,
-             int(div_d), float(cutoff), ptr(coords), ptr(mask), ptr(feats),
-             ptr(out), stream_ptr())
-        launches["radial_contract_fwd"] += 1
+        plan = tile_plan(coords, mask, cutoff)
+        plans["built"] += 1
+        out = contract_on_plan(plan, feats, cutoff, n_radial, div_d)
         ctx.save_for_backward(coords, mask, feats)
+        ctx.plan = plan
         ctx.args = (float(cutoff), int(n_radial), bool(div_d))
         return out
 
@@ -120,10 +273,15 @@ class _RadialContractFn(torch.autograd.Function):
                  stream_ptr())
             launches["radial_contract_bwd_feats"] += 1
         if ctx.needs_input_grad[0]:
+            plan = ctx.plan
             dcoords = torch.empty_like(coords)
+            # one [TILE, 3] slot of partial sums per listed ordered pair
+            part = torch.empty(plan.cols.shape[0], TILE, 3,
+                               device=g.device, dtype=torch.float32)
             call(lib, "rc_bwd_coords_launch", P, F, n_radial, int(div_d),
-                 cutoff, ptr(coords), ptr(mask), ptr(feats), ptr(g),
-                 ptr(dcoords), stream_ptr())
+                 cutoff, plan.pairs.shape[0], ptr(plan.xm), ptr(plan.perm),
+                 ptr(plan.row_ptr), ptr(plan.pairs), ptr(feats), ptr(g),
+                 ptr(part), ptr(dcoords), stream_ptr())
             launches["radial_contract_bwd_coords"] += 1
         return dcoords, None, dfeats, None, None, None
 

@@ -242,22 +242,43 @@ def test_calculator_on_card_matches_cpu_f64(edge_kernel):
     assert np.array_equal(gpu.get_forces(cb)["forces"], rg["forces"])
 
 
-@pytest.mark.parametrize("div_d", [False, True])
-@pytest.mark.parametrize("P,F,R", [(300, 72, 24), (77, 16, 32),
-                                   (50, 16, 62)])
-def test_radial_contract_kernels_match_plain(div_d, P, F, R):
-    """Ragged atom and feature tiles, masked atoms, both j-tile widths of
-    the coordinate gradient (R + 1 <= 32 and > 32, up to the limit of 63
-    radial channels; 64 is refused)."""
-    _need_card()
-    gen = torch.Generator().manual_seed(P + R)
-    side = round(P ** (1 / 3)) + 1
+def _k5_system(P, system, gen):
+    """A jittered 1.8 A lattice with ~10% masked atoms (at the origin),
+    in lattice order; "shuffled" permutes it; "blobs" is two such
+    lattices 40 A apart, shuffled (tiles of one never reach the other's);
+    "masked_tile" masks 64 more atoms, which fill whole plan tiles."""
+    n = P // 2 if system == "blobs" else P
+    side = round(n ** (1 / 3)) + 1
     grid = torch.stack(torch.meshgrid(*[torch.arange(side)] * 3,
                                       indexing="ij"), -1).reshape(-1, 3)
-    coords = (grid[:P] * 1.8 + 0.15 * torch.randn(P, 3, generator=gen))
+    coords = grid[:n] * 1.8 + 0.15 * torch.randn(n, 3, generator=gen)
+    if system == "blobs":
+        coords = torch.cat([coords, coords[:P - n] + 40.0])
     mask = (torch.rand(P, generator=gen) > 0.1).float()
+    if system == "masked_tile":
+        mask[torch.randperm(P, generator=gen)[:64]] = 0.0
+    if system in ("shuffled", "blobs"):
+        coords = coords[torch.randperm(P, generator=gen)]
     coords[mask == 0] = 0.0
-    coords, mask = coords.to(**F32), mask.to(**F32)
+    return coords.to(**F32), mask.to(**F32)
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("P,F,R,system", [
+    (300, 72, 24, "lattice"), (77, 16, 32, "lattice"), (50, 16, 62, "lattice"),
+    (300, 72, 24, "shuffled"), (300, 40, 24, "blobs"),
+    (300, 16, 24, "masked_tile"), (20, 16, 24, "lattice"),
+    (200, 16, 40, "shuffled")])
+def test_radial_contract_kernels_match_plain(div_d, P, F, R, system):
+    """Ragged atom and feature tiles, masked atoms, atom orders the tile
+    plan has to restore (shuffled, two separated blobs), an all-masked
+    tile, P < 32, and both tilings of the coordinate gradient (R + 1 <= 32
+    on the tensor cores, > 32 on CUDA cores, up to the limit of 63 radial
+    channels; 64 is refused). Forward rows and coordinate gradients of
+    masked atoms are exactly 0."""
+    _need_card()
+    gen = torch.Generator().manual_seed(P + R)
+    coords, mask = _k5_system(P, system, gen)
     feats = torch.randn(P, F, generator=gen).to(**F32)
     g = torch.randn(P, R + 1, F, generator=gen).to(**F32)
     n0 = dict(rcm.launches)
@@ -271,6 +292,9 @@ def test_radial_contract_kernels_match_plain(div_d, P, F, R):
     for a, b in zip(*outs):
         assert _close(a, b)
     assert all(rcm.launches[k] == n0[k] + 1 for k in n0)
+    masked = mask == 0
+    assert bool((outs[0][0][masked] == 0).all())
+    assert bool((outs[0][1][masked] == 0).all())
     # no atomics: a second run repeats every result bit for bit
     c = coords.clone().requires_grad_(True)
     f = feats.clone().requires_grad_(True)

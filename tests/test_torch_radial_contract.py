@@ -4,7 +4,9 @@ features, ``jax.vjp`` against autograd) in f64 to 1e-10, both ``div_d``
 values, masked atoms, P not a multiple of 8. Also the coordinate-gradient
 formula the CUDA kernel uses (S1 + S2 summed over all features, then the
 radial-derivative ladder once per pair), written out here in f64 and held
-against autograd."""
+against autograd, and a mirror of the kernel's algorithm on a tile plan
+(one Ssym per listed I <= J tile pair, partial sums in per-pair slots
+reduced in reach-list order) held against the JAX reference's VJP."""
 
 import numpy as np
 import jax
@@ -14,6 +16,7 @@ import torch
 
 from pdb2reaction_tpu.mlip.pallas_ops import radial_contract_reference
 from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+from pdb2reaction_tpu_torch.mlip.radial_contract import TILE, tile_plan
 from pdb2reaction_tpu_torch.mlip.radial import (bessel_basis,
                                                 cosine_envelope,
                                                 gaussian_basis)
@@ -82,9 +85,16 @@ def _kernel_formula_dcoords(x, m, feats, g, rc, R, div_d):
     S2 = np.einsum("jrf,if->rij", g, feats)
     S = S1 + S2
     diff = x[:, None, :] - x[None, :, :]
+    G, inv = _ladder(diff, ~np.eye(P, dtype=bool) & (m[:, None] > 0)
+                     & (m[None, :] > 0), S, rc, R, div_d)
+    return (G[:, :, None] * diff * inv[:, :, None]).sum(1)
+
+
+def _ladder(diff, pair, S, rc, R, div_d):
+    """G = sum_r dA_r/dd S_r over pairs ``pair`` inside the cutoff, by the
+    kernels' sin/cos recurrence, and 1/d (d = 1 outside)."""
     d = np.sqrt(np.maximum((diff ** 2).sum(-1), 1e-12))
-    within = ((d <= rc) & ~np.eye(P, dtype=bool) & (m[:, None] > 0)
-              & (m[None, :] > 0))
+    within = (d <= rc) & pair
     d = np.where(within, d, 1.0)
     s1, c1 = np.sin(np.pi / rc * d), np.cos(np.pi / rc * d)
     env = np.where(within, 0.5 * (c1 + 1.0), 0.0)
@@ -98,8 +108,49 @@ def _kernel_formula_dcoords(x, m, feats, g, rc, R, div_d):
         G += base * (freq * c * env + s * denv - p * s * env * inv) * S[r]
         s, c = s * c1 + c * s1, c * c1 - s * s1
     G += inv ** (p - 1) * (denv - (p - 1) * env * inv) * S[R]
-    G = np.where(within, G, 0.0)
-    return (G[:, :, None] * diff * inv[:, :, None]).sum(1)
+    return np.where(within, G, 0.0), inv
+
+
+def _plan_mirror_dcoords(x, m, feats, g, rc, R, div_d):
+    """csrc/radial_contract.cu:rc_coords_pairs + rc_coords_reduce in
+    numpy: on the tile plan of (x, m), one block per listed tile pair
+    I <= J forms Ssym = S1[i, j] + S1[j, i] (S1 = g_I feats_J^T) once,
+    writes the I side's partial dx to slot e_IJ and, off the diagonal,
+    the J side's to slot e_JI; each atom then sums its tile's slots in
+    reach-list order. Indices are plan positions."""
+    P = x.shape[0]
+    plan = tile_plan(torch.tensor(x), torch.tensor(m), rc)
+    perm = plan.perm.numpy().astype(np.int64)
+    Pp = plan.n_tiles * TILE
+
+    def padded(a):
+        out = np.zeros((Pp,) + a.shape[1:])
+        out[:P] = a[perm]
+        return out
+
+    xs, ms, fs, gs = padded(x), padded(m), padded(feats), padded(g)
+    idx = np.arange(Pp)
+    part = np.full((plan.cols.shape[0], TILE, 3), np.nan)
+    for I, J, e_ij, e_ji in plan.pairs.numpy():
+        a, b = slice(I * TILE, (I + 1) * TILE), slice(J * TILE, (J + 1) * TILE)
+        Ssym = (np.einsum("irf,jf->rij", gs[a], fs[b])
+                + np.einsum("jrf,if->rij", gs[b], fs[a]))
+        diff = xs[a][:, None, :] - xs[b][None, :, :]
+        pair = ((idx[a][:, None] != idx[b][None, :])
+                & (ms[a][:, None] > 0) & (ms[b][None, :] > 0))
+        G, inv = _ladder(diff, pair, Ssym, rc, R, div_d)
+        wd = (G * inv)[:, :, None] * diff
+        part[e_ij] = wd.sum(1)
+        if I != J:                       # the diagonal writes one side
+            part[e_ji] = -wd.sum(0)
+    rp = plan.row_ptr.numpy()
+    dx = np.zeros((Pp, 3))
+    for I in range(plan.n_tiles):
+        for e in range(rp[I], rp[I + 1]):
+            dx[I * TILE:(I + 1) * TILE] += part[e]
+    out = np.zeros((P, 3))
+    out[perm] = dx[:P]
+    return out
 
 
 @pytest.mark.parametrize("div_d", [False, True])
@@ -113,6 +164,44 @@ def test_kernel_coordinate_gradient_formula(div_d):
     (dc,) = torch.autograd.grad(T, [c], torch.tensor(g))
     _close(_kernel_formula_dcoords(coords, mask, feats, g, rc, R, div_d),
            dc.numpy())
+
+
+def _blobs(P, rng):
+    """Two clusters ~14 A apart in shuffled order: tiles of either never
+    reach the other's."""
+    x = rng.normal(scale=2.5, size=(P, 3))
+    x[: P // 2, 0] += 14.0
+    return x[rng.permutation(P)]
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("system", ["spread", "blobs"])
+def test_plan_coordinate_gradient_mirror_matches_jax(div_d, system):
+    """The kernel's tiled coordinate gradient, mirrored in numpy on the
+    plan (upper-triangle pair tiles, Ssym, diagonal tiles written once,
+    the fixed-order slot reduction), against the JAX reference's VJP in
+    f64, with masked atoms and a ragged last tile."""
+    rng = np.random.default_rng(7 + div_d)
+    P, F, R, rc = 300, 6, 5, 4.0
+    if system == "spread":
+        coords = rng.uniform(0.0, 30.0, (P, 3))
+    else:
+        coords = _blobs(P, rng)
+    mask = (rng.uniform(size=P) > 0.15).astype(np.float64)
+    coords[mask == 0] = 0.0
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(P, R + 1, F))
+    plan = tile_plan(torch.tensor(coords), torch.tensor(mask), rc)
+    s = plan.stats()
+    assert s["listed"] < s["tiles"] ** 2      # some tile pairs are skipped
+    _, vjp = jax.vjp(
+        lambda c: radial_contract_reference(c, jnp.asarray(mask),
+                                            jnp.asarray(feats), rc, R,
+                                            div_d), jnp.asarray(coords))
+    (dc_j,) = vjp(jnp.asarray(g))
+    got = _plan_mirror_dcoords(coords, mask, feats, g, rc, R, div_d)
+    _close(got, dc_j)
+    assert np.all(got[mask == 0] == 0.0)
 
 
 def test_radial_bases_match_jax():
