@@ -36,14 +36,16 @@ Phases (any failure exits non-zero):
    atom orders; the forward's time is the call with its tile plan, the
    kernel alone on a plan beside it; the bound counts the pairs inside
    the cutoff (the work the function needs) at the peak of each kernel's
-   route to f32 accuracy (3xTF32 for the forward and the coordinate
-   gradient: ROUTE_PEAK), beside the FLOP the kernels compute (the listed
-   tile pairs; every pair for the feats gradient), with the rate on each;
+   route to f32 accuracy (3xTF32 at R + 1 <= 32: ROUTE_PEAK), beside the
+   FLOP the kernels compute (the listed tile pairs), with the rate on
+   each; then the three kernels and their plain versions timed at
+   uma-m-1p1 shapes (F = 2048, R + 1 = 33: the CUDA-core route), with
+   their errors ([K5-R33]);
 7. the PaiNN kernel path: uma-s-1p1 in mp_mode="pallas" through
    Calculator.get_forces on the 4096-atom system (ms per call, peak
-   memory, 8 / 7 / 8 K5 launches and the tile plans per call, two calls
-   bit for bit equal) and a 5-cycle run_opt; the dense mode of the same
-   weights on the card (ms per call, peak memory, forces against the
+   memory, 8 / 7 / 8 K5 launches and exactly one tile plan per call, two
+   calls bit for bit equal) and a 5-cycle run_opt; the dense mode of the
+   same weights on the card (ms per call, peak memory, forces against the
    pallas mode);
 8. the default path: make_uma_calculator(device="cuda") with no model
    (uma-s-1p1, dense) on the 300-atom cluster;
@@ -116,10 +118,11 @@ REPLACES = {
     "radial_contract_rect_bwd_cols": "pdb2reaction_tpu/mlip/pallas_ops.py:623",
 }
 # the peak of the route each kernel takes to f32 accuracy at the shapes
-# this script runs, FLOP/s of needed work: K5's forward and coordinate
-# gradient (R + 1 = 25 <= 32) form each product in 3xTF32, three TF32
-# products per f32 one; every other kernel runs f32 on CUDA cores
+# this script runs, FLOP/s of needed work: K5's three kernels (R + 1 = 25
+# <= 32) form each product in 3xTF32, three TF32 products per f32 one;
+# every other kernel runs f32 on CUDA cores
 ROUTE_PEAK = {"radial_contract_fwd": TF32_PEAK / 3,
+              "radial_contract_bwd_feats": TF32_PEAK / 3,
               "radial_contract_bwd_coords": TF32_PEAK / 3}
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
@@ -561,17 +564,15 @@ def k5_pairs(x, mask, cutoff):
     return int(within.sum())
 
 
-def k5_flops(pairs, P, R1, F, plan):
+def k5_flops(pairs, R1, F, plan):
     """(forward, feats gradient, coordinate gradient) FLOP per launch:
     what the function needs, 2 R1 F per pair inside the cutoff (one S
     product for the coordinate gradient: S2[i, j] = S1[j, i]), and what
-    the kernels compute: the forward and the coordinate gradient on the
-    tile plan's listed tile pairs (``plan``: TilePlan.stats), the feats
-    gradient on every pair."""
+    the kernels compute on the tile plan's listed tile pairs (``plan``:
+    TilePlan.stats)."""
     need = 2 * pairs * R1 * F
-    dense = 2 * P * P * R1 * F
     return ((need, need, need),
-            (plan["fwd_flop"], dense, plan["coords_flop"]))
+            (plan["fwd_flop"], plan["fwd_flop"], plan["coords_flop"]))
 
 
 def pallas_calculator(st, cfg, w):
@@ -673,9 +674,9 @@ def phase_k5(calc, quick):
                 got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
         log(f"[K5] stream {label}: kernel / plain ms fwd {t[0]:.2f} / "
             f"{t[1]:.2f} (the call with its tile plan; the kernel alone "
-            f"{t_kern:.2f}, the plan {t[0] - t_kern:.2f} a call, 8 calls "
-            f"a force call), feats {t[2]:.2f} / {t[3]:.2f}, coords "
-            f"{t[4]:.2f} / {t[5]:.2f}")
+            f"{t_kern:.2f}, the plan {t[0] - t_kern:.2f}, one a force "
+            f"call), feats {t[2]:.2f} / {t[3]:.2f}, coords {t[4]:.2f} / "
+            f"{t[5]:.2f}")
     pairs = k5_pairs(x0, mask0, rc)
     log(f"[K5] {pairs} ordered pairs inside {rc} A of {P * (P - 1)} "
         f"({100 * pairs / (P * (P - 1)):.2f}%, {pairs / P:.1f} per atom)")
@@ -687,7 +688,7 @@ def phase_k5(calc, quick):
             f"tile pair (of 1024); plan built in {st['ms']:.2f} ms")
         if st["share"] > 0.25:
             fail(f"the tile plan ({label}) lists more than 25% of tile pairs")
-    flops, computed = k5_flops(pairs, P, R + 1, F, plans["lattice order"])
+    flops, computed = k5_flops(pairs, R + 1, F, plans["lattice order"])
     c_b, m_b, f_b, g_b = (nbytes(x0), nbytes(mask0), nbytes(featsA),
                           nbytes(g))
     byts = (c_b + m_b + f_b + g_b, c_b + m_b + g_b + f_b,
@@ -702,12 +703,64 @@ def phase_k5(calc, quick):
         log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
             f" mean of streams A and B), needed {fl / 1e9:.1f} GFLOP "
             f"(pairs inside the cutoff), computed {fc / 1e9:.1f} GFLOP "
-            f"({'every pair' if k.endswith('feats') else 'listed tile pairs'}"
-            f"), {nb / 1e6:.1f} MB, bound at f32 accuracy {b32:.3f} ms "
+            f"(listed tile pairs), {nb / 1e6:.1f} MB, bound at f32 accuracy "
+            f"{b32:.3f} ms "
             f"({route}, {by}) / bf16 {bbf:.3f} ms; computed at "
             f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s, needed at "
             f"{fl / rows[k][1] / 1e9:.2f} TFLOP/s")
     return rows
+
+
+def phase_k5_r33(calc, quick):
+    """K5's three kernels and their plain versions at uma-m-1p1 shapes on
+    the 4096-atom system (F = 4C = 2048, R + 1 = 33: the CUDA-core route of
+    each kernel), stream A: errors and times, one log line."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS
+    cfg = CONFIGS["uma-m-1p1"]
+    rc, R, F = cfg.cutoff, cfg.n_radial, 4 * cfg.hidden
+    reps = 1 if quick else 2
+    x, mask, _, _ = k5_streams(calc)
+    P = x.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    feats = torch.randn(P, F, generator=gen, device="cuda")
+    g = torch.randn(P, R + 1, F, generator=gen, device="cuda")
+    outs, t = [], []
+    for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+        c = x.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        T = fn(c, mask, f, rc, R)
+        outs.append((T.detach(), *torch.autograd.grad(T, [f, c], g)))
+        del T
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(*outs)]
+    del outs
+    with torch.no_grad():
+        for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+            t.append(cuda_ms(lambda: fn(x, mask, feats, rc, R), reps,
+                             warm=1))
+    for wrt in ("feats", "coords"):
+        for fn in (rcm.radial_contract, rcm.radial_contract_plain):
+            c = x.clone().requires_grad_(wrt == "coords")
+            f = feats.clone().requires_grad_(wrt == "feats")
+            T = fn(c, mask, f, rc, R)
+            leaf = c if wrt == "coords" else f
+            t.append(cuda_ms(lambda: torch.autograd.grad(
+                T, [leaf], g, retain_graph=True), reps, warm=1))
+            del T
+    need = 2 * k5_pairs(x, mask, rc) * (R + 1) * F
+    log(f"[K5-R33] uma-m-1p1 shapes (P={P}, F={F}, R+1={R + 1}, CUDA "
+        f"cores): kernel / plain ms fwd {t[0]:.2f} / {t[1]:.2f} (the call "
+        f"with its tile plan), feats {t[2]:.2f} / {t[3]:.2f}, coords "
+        f"{t[4]:.2f} / {t[5]:.2f}; rel err fwd {errs[0]:.3e}, feats "
+        f"{errs[1]:.3e}, coords {errs[2]:.3e} (tol {KERNEL_TOL}); needed "
+        f"{need / 1e9:.1f} GFLOP a launch, bound {need / F32_PEAK * 1e3:.3f}"
+        f" ms at the f32 CUDA-core peak")
+    if max(errs) > KERNEL_TOL:
+        fail("K5 at uma-m-1p1 shapes disagrees with its plain version")
+    del g, feats
+    torch.cuda.empty_cache()
 
 
 def phase_pallas(st, w, reps, cycles):
@@ -751,6 +804,9 @@ def phase_pallas(st, w, reps, cycles):
     want = dict(zip(rcm.launches, (8, 7, 8)))
     if per_call != want:
         fail(f"K5 launches per force call {per_call}, want {want}")
+    if rcm.plans["built"] != calc.force_calls:
+        fail(f"{rcm.plans['built']} tile plans in {calc.force_calls} force "
+             "calls, want one a call")
     again = calc.get_forces(cb)["forces"]
     log(f"[pallas] next call bit for bit equal: {np.array_equal(again, f)}")
     if not np.array_equal(again, f):
@@ -1224,6 +1280,7 @@ def main():
     _, w4, _ = make_model(cfg_p, seed=0)
     calc4 = pallas_calculator(st4, cfg_p, w4)
     rows.update(phase_k5(calc4, args.quick))
+    phase_k5_r33(calc4, args.quick)
     k6_rows = phase_k6(calc4, args.quick)
     rows.update(k6_rows)
     del calc4

@@ -11,7 +11,7 @@
 // Replaces pdb2reaction_tpu/mlip/pallas_ops.py, reached from
 // radial_contract through radial_contract_tpu / _radial_contract_impl:
 //   rc_fwd_tc, rc_fwd_fma  <- _fwd_kernel:129
-//   rc_bwd_feats    <- _transpose_kernel:352 (via _grad_feats)
+//   rc_feats_plan   <- _transpose_kernel:352 (via _grad_feats)
 //                      dfeats[j, f] = sum_{i, r} A[j, i, r] g[i, r, f]
 //   rc_coords_pairs, rc_coords_reduce
 //                   <- _grad_coords_fused_kernel:256 (via _grad_coords_fused)
@@ -29,18 +29,18 @@
 // coupled rotation recurrence, whose f32 error grows linearly in r) and
 // contracts it at once.
 //
-// Which pairs: the forward and the coordinate gradient run on a tile plan
-// that the wrapper builds from the call's coordinates
-// (mlip/radial_contract.py: tile_plan): atoms in a spatial order (Xp:
-// coordinates and mask in plan order, perm: their original rows), tiles
-// of 32, and for each row tile the list of column tiles whose boxes lie
-// within the cutoff. Only listed tile pairs are computed (~22% of them at
-// the slice's density, against every pair before); rows and columns of
-// feats, g and out are read and written through perm, whole rows at a
-// time. Indices are plan positions, so i != j holds as before. What
-// bounds the two kernels then is the work on the listed tile pairs, ~7x
-// what the function needs (14% of a listed tile's pairs lie inside the
-// cutoff at the slice's density), and the throughput of its products.
+// Which pairs: all three kernels run on one tile plan of the call's
+// coordinates (mlip/radial_contract.py: tile_plan; the PaiNN pallas mode
+// builds one per energy evaluation and hands it to every contraction):
+// atoms in a spatial order (Xp: coordinates and mask in plan order, perm:
+// their original rows), tiles of 32, and for each row tile the list of
+// column tiles whose boxes lie within the cutoff. Only listed tile pairs
+// are computed (~22% of them at the slice's density); rows of feats, g,
+// out and dfeats are read and written through perm, whole rows at a time.
+// Indices are plan positions, so i != j holds as before. What bounds the
+// kernels then is the work on the listed tile pairs, ~7x what the
+// function needs (14% of a listed tile's pairs lie inside the cutoff at
+// the slice's density), and the throughput of its products.
 //
 // rc_fwd: a block owns 16 (tensor cores) or 8 (CUDA cores) rows of one
 // row tile and 64 features, and loops over its row's column tiles; the
@@ -54,14 +54,20 @@
 // (I, J) and, off the diagonal, the J side's to the slot of (J, I): one
 // product per ordered tile pair, half what the dense kernel formed. A
 // second pass sums each atom's slots in the order of its reach list.
+// rc_feats_plan, the forward's transpose: a block owns one row tile J (32
+// rows j) and 64 features and walks J's reach list in list order (the
+// reach relation is symmetric, so it lists every tile I with a pair inside
+// the cutoff), in chunks of 4 atoms of I: A[j][(i, r)] is built in
+// shared memory while the next chunk's g rows arrive by double-buffered
+// cp.async (k = (i, r) lies contiguous in g), then contracted; the block
+// owns its outputs, so no atomics.
 // Up to R + 1 = 32 the products run on the tensor cores in the 3xTF32
 // split (a = hi + lo, hi*hi + hi*lo + lo*hi, each k step's products added
 // to the f32 accumulator on CUDA cores: f32 accuracy), which beat the
-// CUDA-core loops on both kernels on an H100; above, where the tiles no
-// longer fit, on CUDA cores with register tiles of 8 x 8. Nothing is
-// reduced across blocks except through those slots, and no atomics are
-// used, so every result repeats bit for bit.
-// rc_bwd_feats still computes every pair, in the original order.
+// CUDA-core loops on the forward and the coordinate gradient on an H100;
+// above, where the tiles no longer fit, on CUDA cores with register tiles
+// of 8 x 8. Nothing is reduced across blocks except through those slots,
+// and no atomics are used, so every result repeats bit for bit.
 //
 // K6: the same contraction for one block of Pr rows against all Pc
 // columns (atom-axis sharding: each rank owns rows off .. off + Pr - 1 of
@@ -459,73 +465,210 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
 }
 
 // ---------------------------------------------------------------------------
-// feats gradient: block = 64 rows j x 128 features, 128 threads each
-// owning 8 j x 8 f; contracts over (i, r) in tiles of 2 atoms
+// feats gradient on the plan: block = one row tile J (32 rows j) x 64
+// features, 256 threads; loops over J's listed tiles I in list order, in
+// chunks of FG_NA = 4 atoms of I (k = (i, r), K = 4 (R + 1) values, padded
+// to KP, a multiple of 8, by zero columns of A and zero rows of g): A[j][k]
+// built in shared memory from the plan's coordinates, the chunk's g rows
+// staged k-contiguous by double-buffered cp.async. The threads form NKQ
+// groups that split the k steps; their partial sums are added in group
+// order at the end, in the shared memory the stages used. 74 KB of shared
+// memory at R + 1 = 25: three blocks an SM, so one block's A build
+// overlaps another's products.
+//   TC (R + 1 <= 32): warp w owns all 32 rows (two m tiles) x features
+//     (w & 1) * 32 .. + 32 (four n tiles) for the k steps (w >> 1) mod 4,
+//     in 3xTF32 (mma3: each k step's products in a zeroed fragment, added
+//     to the accumulator on CUDA cores);
+//   CUDA cores (R + 1 <= 63): A stored [k][j]; thread t owns 8 rows x 8
+//     features for the k values (t >> 5) mod 8.
 // ---------------------------------------------------------------------------
-constexpr int G_TJ = 64, G_TI = 2, G_FT = 128;
+constexpr int FG_THREADS = 256, FG_NA = 4, FG_GP = F_FT + 8,
+              FG_RP = F_FT + 4;
 
-template <bool DIVD>
-__global__ void __launch_bounds__(128)
-rc_bwd_feats(int P, int F, int R, float rc, const float* __restrict__ X,
-             const float* __restrict__ M, const float* __restrict__ g,
-             float* __restrict__ dfeats) {
+__host__ __device__ constexpr int fg_kp(int R1) {
+  return (FG_NA * R1 + 7) / 8 * 8;
+}
+
+template <bool TC>
+__host__ __device__ constexpr int fg_groups() { return TC ? 4 : 8; }
+
+// A: [TILE][KP + 4] (TC) or [KP][TILE]; then two g stages [KP][FG_GP],
+// aliased after the loop by the groups' sums [groups][TILE][FG_RP]
+template <bool TC>
+__host__ __device__ constexpr int fg_a_floats(int R1) {
+  return TC ? TILE * (fg_kp(R1) + 4) : fg_kp(R1) * TILE;
+}
+
+template <bool TC>
+__host__ __device__ constexpr int fg_smem_floats(int R1) {
+  return fg_a_floats<TC>(R1) +
+         (2 * fg_kp(R1) * FG_GP > fg_groups<TC>() * TILE * FG_RP
+              ? 2 * fg_kp(R1) * FG_GP
+              : fg_groups<TC>() * TILE * FG_RP);
+}
+
+template <bool TC, bool DIVD>
+__global__ void __launch_bounds__(FG_THREADS)
+rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+              const int* __restrict__ perm, const int* __restrict__ row_ptr,
+              const int* __restrict__ cols, const float* __restrict__ g,
+              float* __restrict__ dfeats) {
+  constexpr int NA = FG_NA, NKQ = fg_groups<TC>(), NS = TILE / NA;
   extern __shared__ __align__(16) float sm[];
-  __shared__ float Xj[G_TJ][4];
-  const int R1 = R + 1, K = G_TI * R1;
-  float* At = sm;                  // [K][G_TJ], k = ii * R1 + r
-  float* Gs = sm + K * G_TJ;       // [K][G_FT]
-  const int t = threadIdx.x;
-  const int j0 = blockIdx.x * G_TJ, fb = blockIdx.y * G_FT;
-  const int jo = (t / 16) * 8, fo = (t % 16) * 8;
-  for (int q = t; q < G_TJ; q += blockDim.x) {
-    const int gj = j0 + q;
-    const bool ok = gj < P;
-    Xj[q][0] = ok ? X[3 * gj] : 0.f;
-    Xj[q][1] = ok ? X[3 * gj + 1] : 0.f;
-    Xj[q][2] = ok ? X[3 * gj + 2] : 0.f;
-    Xj[q][3] = ok ? M[gj] : 0.f;
+  __shared__ float4 Xj[TILE];
+  __shared__ float4 Xi[2][NA];
+  const int R1 = R + 1, K = NA * R1, KP = fg_kp(R1), AP = KP + 4;
+  float* As = sm;
+  float* Gs = sm + fg_a_floats<TC>(R1);    // [2][KP][FG_GP]
+  float* red = Gs;                         // [NKQ][TILE][FG_RP], at the end
+  const int t = threadIdx.x, nt = blockDim.x, w = t >> 5;
+  const int gq = (t & 31) >> 2, tq = t & 3;
+  const int j0 = blockIdx.x * TILE, fb = blockIdx.y * F_FT;
+  const int kb = row_ptr[blockIdx.x];
+  const int nC = (row_ptr[blockIdx.x + 1] - kb) * NS;
+  for (int q = t; q < TILE; q += nt)
+    Xj[q] = j0 + q < P ? Xp[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the padding k in [K, KP): zero columns of A, zero rows of both stages
+  for (int q = t; q < (KP - K) * TILE; q += nt) {
+    const int k = K + q / TILE, j = q % TILE;
+    As[TC ? j * AP + k : k * TILE + j] = 0.f;
   }
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  for (int q = t; q < 2 * (KP - K) * F_FT; q += nt) {
+    const int b = q / ((KP - K) * F_FT), r = q % ((KP - K) * F_FT);
+    Gs[(b * KP + K + r / F_FT) * FG_GP + r % F_FT] = 0.f;
+  }
 
-  for (int i0 = 0; i0 < P; i0 += G_TI) {
-    __syncthreads();
-    for (int p = t; p < G_TI * G_TJ; p += blockDim.x) {
-      const int jj = p % G_TJ, ii = p / G_TJ, gi = i0 + ii;
-      const bool ok = gi < P;
-      const Geo pg = pair_geo(Xj[jj][0], Xj[jj][1], Xj[jj][2], Xj[jj][3],
-                              j0 + jj, ok ? X[3 * gi] : 0.f,
-                              ok ? X[3 * gi + 1] : 0.f,
-                              ok ? X[3 * gi + 2] : 0.f, ok ? M[gi] : 0.f, gi,
-                              rc);
-      a_column<DIVD>(pg, R, rc, At + ii * R1 * G_TJ + jj, G_TJ);
+  // chunk c: atoms i0 .. i0 + NA - 1 of the (c / NS)-th listed tile; its g
+  // rows perm[i] * R1 + r (contiguous per atom) and coordinates into
+  // buffer b; atoms past P are zeros
+  auto chunk_i0 = [&](int c) {
+    return cols[kb + c / NS] * TILE + (c % NS) * NA;
+  };
+  auto stage = [&](int c, int b) {
+    const int i0 = chunk_i0(c);
+    float* gs = Gs + b * KP * FG_GP;
+    for (int q = t; q < K * (F_FT / 4); q += nt) {
+      const int k = q / (F_FT / 4), ch = (q % (F_FT / 4)) * 4;
+      const int a = k / R1, pa = i0 + a;
+      const bool ok = pa < P && fb + ch < F;
+      cp_async16(gs + k * FG_GP + ch,
+                 ok ? g + ((size_t)perm[pa] * R1 + (k - a * R1)) * F + fb + ch
+                    : g,
+                 ok);
     }
-    // rows (i, r) of g are the contiguous global rows i0 * R1 + k
-    for (int q = t; q < K * G_FT / 4; q += blockDim.x) {
-      const int k = q / (G_FT / 4), c = (q % (G_FT / 4)) * 4;
-      const bool ok = i0 + k / R1 < P && fb + c < F;
-      reinterpret_cast<float4*>(Gs + k * G_FT + c)[0] =
-          ld4_or_zero(g + ((size_t)i0 * R1 + k) * F + fb + c, ok);
+    for (int q = t; q < NA; q += nt) {
+      const bool ok = i0 + q < P;
+      cp_async16(&Xi[b][q], ok ? Xp + i0 + q : Xp, ok);
+    }
+  };
+
+  float acc[2][4][4];                      // TC: [m][n][fragment]
+  float S[8][8];                           // CUDA cores: 8 j x 8 f
+  if constexpr (TC) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
+  } else {
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) S[a][b] = 0.f;
+  }
+
+  if (nC > 0) stage(0, 0);
+  cp_commit();
+  for (int c = 0; c < nC; ++c) {
+    const int buf = c & 1;
+    cp_wait<0>();
+    __syncthreads();          // chunk c has landed; chunk c - 1 is contracted
+    if (c + 1 < nC) stage(c + 1, buf ^ 1);
+    cp_commit();
+    const int i0 = chunk_i0(c);
+    for (int p = t; p < TILE * NA; p += nt) {
+      // TC: a warp's lanes span 4 atoms x 8 rows (fewer bank conflicts on
+      // the row-major stores); CUDA cores: 32 rows of one atom
+      const int ii = TC ? p % NA : p / TILE, jj = TC ? p / NA : p % TILE;
+      const float4 a = Xj[jj], b = Xi[buf][ii];
+      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, j0 + jj, b.x, b.y, b.z, b.w,
+                              i0 + ii, rc);
+      if constexpr (TC)
+        a_column<DIVD>(pg, R, rc, As + jj * AP + ii * R1, 1);
+      else
+        a_column<DIVD>(pg, R, rc, As + ii * R1 * TILE + jj, TILE);
     }
     __syncthreads();
-    for (int k = 0; k < K; ++k) {
-      float a[8], b[8];
-      ld8(At + k * G_TJ + jo, a);
-      ld8(Gs + k * G_FT + fo, b);
+    const float* gs = Gs + buf * KP * FG_GP;
+    if constexpr (TC) {
+      const int nh = (w & 1) * 32;
+      for (int ks = w >> 1; ks < KP / 8; ks += NKQ) {
+        const int k0 = ks * 8;
+        unsigned ah[2][4], al[2][4];
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
+        for (int m = 0; m < 2; ++m)
+          frag_a(As + m * 16 * AP + k0, AP, gq, tq, ah[m], al[m]);
 #pragma unroll
-        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
+        for (int n = 0; n < 4; ++n) {
+          // B[k][n] = g[k][f]: b0 = gs[k0 + t][n0 + g], b1 = gs[k0 + t + 4][..]
+          const float* q = gs + (k0 + tq) * FG_GP + nh + n * 8 + gq;
+          unsigned bh[2], bl[2];
+          split_tf32(q[0], bh[0], bl[0]);
+          split_tf32(q[4 * FG_GP], bh[1], bl[1]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma3(acc[m][n], ah[m], al[m], bh, bl);
+        }
+      }
+    } else {
+      const int jo = ((t >> 3) & 3) * 8, fo = (t & 7) * 8;
+      for (int k = t >> 5; k < K; k += NKQ) {
+        float a[8], b[8];
+        ld8(As + k * TILE + jo, a);
+        ld8(gs + k * FG_GP + fo, b);
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+#pragma unroll
+          for (int y = 0; y < 8; ++y) S[x][y] = fmaf(a[x], b[y], S[x][y]);
+      }
     }
   }
-  if (fb + fo < F) {
-    for (int x = 0; x < 8; ++x) {
-      const int gj = j0 + jo + x;
-      if (gj < P) st8(dfeats + (size_t)gj * F + fb + fo, acc[x]);
+  __syncthreads();                         // the stages hold no more chunks
+  if constexpr (TC) {
+    const int kq = w >> 1, nh = (w & 1) * 32;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float* d =
+            red + (kq * TILE + m * 16 + gq) * FG_RP + nh + n * 8 + 2 * tq;
+        d[0] = acc[m][n][0];
+        d[1] = acc[m][n][1];
+        d[8 * FG_RP] = acc[m][n][2];
+        d[8 * FG_RP + 1] = acc[m][n][3];
+      }
+  } else {
+    const int kq = t >> 5, jo = ((t >> 3) & 3) * 8, fo = (t & 7) * 8;
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+      st8(red + (kq * TILE + jo + x) * FG_RP + fo, S[x]);
+  }
+  __syncthreads();
+  // the groups' sums in group order; every row of the tile is written
+  for (int q = t; q < TILE * (F_FT / 4); q += nt) {
+    const int jj = q / (F_FT / 4), c4 = (q % (F_FT / 4)) * 4;
+    if (j0 + jj >= P || fb + c4 >= F) continue;
+    float4 s = *reinterpret_cast<const float4*>(red + jj * FG_RP + c4);
+    for (int k = 1; k < NKQ; ++k) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(red + (k * TILE + jj) * FG_RP + c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
     }
+    *reinterpret_cast<float4*>(dfeats + (size_t)perm[j0 + jj] * F + fb + c4) =
+        s;
   }
 }
 
@@ -860,9 +1003,12 @@ rc_rect_fwd(int Pr, int Pc, int off, int F, int R, float rc,
 }
 
 // ---------------------------------------------------------------------------
-// K6 feats gradient: rc_bwd_feats's tiling; a block owns 64 columns j and
-// contracts over the Pr local rows (i, r)
+// K6 feats gradient: block = 64 columns j x 128 features, 128 threads each
+// owning 8 j x 8 f; contracts over the Pr local rows (i, r) in tiles of 2
+// atoms
 // ---------------------------------------------------------------------------
+constexpr int G_TJ = 64, G_TI = 2, G_FT = 128;
+
 template <bool DIVD>
 __global__ void __launch_bounds__(128)
 rc_rect_bwd_feats(int Pr, int Pc, int off, int F, int R, float rc,
@@ -1148,23 +1294,30 @@ int rc_fwd_launch(int P, int F, int R, int div_d, float rc, const float* Xp,
                         rc, X4, perm, row_ptr, cols, feats, out);
 }
 
-// g [P, R+1, F] -> dfeats [P, F]
+// the plan's Xp, perm, row_ptr, cols; g [P, R+1, F] -> dfeats [P, F], every
+// row written; F % 8 == 0, R + 1 <= 63. Tensor cores up to R+1 = 32 (91
+// KB of shared memory there), CUDA cores above (177 KB at R+1 = 63).
 int rc_bwd_feats_launch(int P, int F, int R, int div_d, float rc,
-                        const float* X, const float* M, const float* g,
-                        float* dfeats, void* stream) {
+                        const float* Xp, const int* perm, const int* row_ptr,
+                        const int* cols, const float* g, float* dfeats,
+                        void* stream) {
   const int R1 = R + 1;
-  if (F % 8 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (G_TI * R1 * (G_TJ + G_FT));
-  const dim3 grid((P + G_TJ - 1) / G_TJ, (F + G_FT - 1) / G_FT);
+  if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  int err = div_d ? prepare(rc_bwd_feats<true>, smem)
-                  : prepare(rc_bwd_feats<false>, smem);
-  if (err) return err;
-  if (div_d)
-    rc_bwd_feats<true><<<grid, 128, smem, s>>>(P, F, R, rc, X, M, g, dfeats);
-  else
-    rc_bwd_feats<false><<<grid, 128, smem, s>>>(P, F, R, rc, X, M, g, dfeats);
-  return (int)cudaGetLastError();
+  const float4* X4 = reinterpret_cast<const float4*>(Xp);
+  const dim3 grid((P + TILE - 1) / TILE, (F + F_FT - 1) / F_FT);
+  if (R1 <= 32) {
+    const size_t smem = sizeof(float) * fg_smem_floats<true>(R1);
+    return div_d ? launch(rc_feats_plan<true, true>, grid, FG_THREADS, smem,
+                          s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats)
+                 : launch(rc_feats_plan<true, false>, grid, FG_THREADS, smem,
+                          s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats);
+  }
+  const size_t smem = sizeof(float) * fg_smem_floats<false>(R1);
+  return div_d ? launch(rc_feats_plan<false, true>, grid, FG_THREADS, smem, s,
+                        P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats)
+               : launch(rc_feats_plan<false, false>, grid, FG_THREADS, smem,
+                        s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats);
 }
 
 // the plan's Xp, perm, row_ptr and n_pairs pairs [n_pairs, 4]; g [P, R+1,

@@ -39,7 +39,8 @@ from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
-from .radial_contract import radial_contract, radial_contract_rect
+from .radial_contract import (radial_contract, radial_contract_rect,
+                              tile_plan)
 
 
 @dataclass(frozen=True)
@@ -302,7 +303,8 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
                      shard=None) -> torch.Tensor:
     """Every radial contraction through K5 (``radial_contract``): on CUDA
     the adjacency is built tile by tile inside the kernels and never
-    stored. Computes in float32 whatever ``cfg.dtype`` is. The
+    stored, on one tile plan that the call builds for all of its
+    contractions. Computes in float32 whatever ``cfg.dtype`` is. The
     edge-direction stream uses the u = (x_i - x_j)/d split:
     sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d. With ``shard``
     this rank's rows contract against the all-gathered streams of every
@@ -317,11 +319,15 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     x_full = coords_ang.to(dt)
     mask_full = system.atom_mask.to(dt)
     x, atom_mask = rows(x_full), rows(mask_full)
+    # one tile plan of this evaluation's coordinates serves every K5 call
+    # (never cached across calls: the optimizer moves the atoms)
+    plan = (tile_plan(x_full, mask_full, cfg.cutoff)
+            if shard is None and x_full.is_cuda else None)
 
     def contract(feats, div_d=False):
         if shard is None:
             return radial_contract(x_full, mask_full, feats, cfg.cutoff,
-                                   cfg.n_radial, div_d)
+                                   cfg.n_radial, div_d, plan=plan)
         return radial_contract_rect(x, atom_mask, i0, x_full, mask_full,
                                     allg(feats), cfg.cutoff, cfg.n_radial,
                                     div_d)

@@ -18,10 +18,13 @@ autograd); CUDA tensors the hand-written kernels of
 ``csrc/radial_contract.cu`` behind a ``torch.autograd.Function``: the
 forward, the feats gradient (the transposed contraction; A is symmetric)
 and the fused coordinate gradient, none of which stores the adjacency.
-The kernels take float32 only. The forward and the coordinate gradient
-run on a ``tile_plan`` of the call's coordinates: atoms in a spatial
-order, cut into tiles of 32, and the tile pairs whose boxes lie within
-the cutoff; every other tile pair holds no pair inside it and is skipped.
+The kernels take float32 only. All three run on one ``tile_plan`` of the
+call's coordinates: atoms in a spatial order, cut into tiles of 32, and
+the tile pairs whose boxes lie within the cutoff; every other tile pair
+holds no pair inside it and is skipped. A caller that contracts several
+streams over the same coordinates builds the plan once and passes it to
+every call (``plan=``; the PaiNN pallas mode does so once per energy
+evaluation); without one, each call builds its own.
 
 K6 (``radial_contract_rect``) is the same contraction for one block of
 rows against all columns, the form atom-axis sharding runs: rows
@@ -48,7 +51,7 @@ rect_launches = {"radial_contract_rect_fwd": 0,
                  "radial_contract_rect_bwd_feats": 0,
                  "radial_contract_rect_bwd_rows": 0,
                  "radial_contract_rect_bwd_cols": 0}
-# tile plans built by K5's CUDA branch
+# tile plans built (``tile_plan`` calls)
 plans = {"built": 0}
 
 TILE = 32            # atoms per plan tile: the kernels' row and column tiles
@@ -82,9 +85,10 @@ class TilePlan(NamedTuple):
     def stats(self, R1=None, F=None) -> dict:
         """Tiles, listed tile pairs (ordered, and I <= J), their share of
         all T^2, and with R1 and F the FLOP the plan's kernels compute per
-        launch: the forward 2 (R+1) F per pair of every listed ordered tile
-        pair, the coordinate gradient two S products per listed I <= J
-        tile pair. Synchronises with the device."""
+        launch: the forward and the feats gradient 2 (R+1) F per pair of
+        every listed ordered tile pair, the coordinate gradient two S
+        products per listed I <= J tile pair. Synchronises with the
+        device."""
         T = self.n_tiles
         listed = int(self.row_ptr[-1])
         out = {"tiles": T, "listed": listed,
@@ -137,6 +141,7 @@ def tile_plan(coords, mask, cutoff) -> TilePlan:
     tile pair. Plain PyTorch on the coordinates' device; the upper-triangle
     ``nonzero`` is the one host synchronisation of a call.
     """
+    plans["built"] += 1
     P, dev = coords.shape[0], coords.device
     inf = float("inf")
     x = coords.detach().to(torch.float32)
@@ -247,12 +252,13 @@ def contract_on_plan(plan, feats, cutoff, n_radial, div_d=False):
 
 class _RadialContractFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coords, mask, feats, cutoff, n_radial, div_d):
-        coords, mask, feats = (_aligned(t) for t in (coords, mask, feats))
-        plan = tile_plan(coords, mask, cutoff)
-        plans["built"] += 1
+    def forward(ctx, coords, mask, feats, cutoff, n_radial, div_d, plan):
+        feats = _aligned(feats)
+        if plan is None:
+            plan = tile_plan(coords, mask, cutoff)
         out = contract_on_plan(plan, feats, cutoff, n_radial, div_d)
-        ctx.save_for_backward(coords, mask, feats)
+        # the backward reads the coordinates and mask from the plan
+        ctx.save_for_backward(feats)
         ctx.plan = plan
         ctx.args = (float(cutoff), int(n_radial), bool(div_d))
         return out
@@ -260,7 +266,8 @@ class _RadialContractFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
-        coords, mask, feats = ctx.saved_tensors
+        (feats,) = ctx.saved_tensors
+        plan = ctx.plan
         cutoff, n_radial, div_d = ctx.args
         P, F = feats.shape
         g = _aligned(g.float())
@@ -269,12 +276,11 @@ class _RadialContractFn(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             dfeats = torch.empty_like(feats)
             call(lib, "rc_bwd_feats_launch", P, F, n_radial, int(div_d),
-                 cutoff, ptr(coords), ptr(mask), ptr(g), ptr(dfeats),
-                 stream_ptr())
+                 cutoff, ptr(plan.xm), ptr(plan.perm), ptr(plan.row_ptr),
+                 ptr(plan.cols), ptr(g), ptr(dfeats), stream_ptr())
             launches["radial_contract_bwd_feats"] += 1
         if ctx.needs_input_grad[0]:
-            plan = ctx.plan
-            dcoords = torch.empty_like(coords)
+            dcoords = torch.empty(P, 3, device=g.device, dtype=torch.float32)
             # one [TILE, 3] slot of partial sums per listed ordered pair
             part = torch.empty(plan.cols.shape[0], TILE, 3,
                                device=g.device, dtype=torch.float32)
@@ -283,7 +289,7 @@ class _RadialContractFn(torch.autograd.Function):
                  ptr(plan.row_ptr), ptr(plan.pairs), ptr(feats), ptr(g),
                  ptr(part), ptr(dcoords), stream_ptr())
             launches["radial_contract_bwd_coords"] += 1
-        return dcoords, None, dfeats, None, None, None
+        return dcoords, None, dfeats, None, None, None, None
 
 
 def _check(name, tensors, F, n_radial):
@@ -303,15 +309,24 @@ def _check(name, tensors, F, n_radial):
                          f"channels, got {n_radial + 1}")
 
 
-def radial_contract(coords, mask, feats, cutoff, n_radial, div_d=False):
-    """K5 on coords [P, 3], mask [P], feats [P, F]; returns [P, R+1, F]."""
+def radial_contract(coords, mask, feats, cutoff, n_radial, div_d=False,
+                    plan=None):
+    """K5 on coords [P, 3], mask [P], feats [P, F]; returns [P, R+1, F].
+    On CUDA tensors ``plan``, a ``tile_plan`` of these coordinates, mask and
+    cutoff, serves all three kernels (None: the call builds its own); on
+    the CPU it is ignored."""
     if not coords.is_cuda:
         return radial_contract_plain(coords, mask, feats, cutoff, n_radial,
                                      div_d)
     _check("radial_contract", (coords, mask, feats), feats.shape[1],
            n_radial)
+    if plan is not None and (plan.xm.shape[0] != coords.shape[0]
+                             or plan.xm.device != coords.device):
+        raise ValueError(f"radial_contract: a tile plan of "
+                         f"{plan.xm.shape[0]} atoms on {plan.xm.device} for "
+                         f"{coords.shape[0]} atoms on {coords.device}")
     return _RadialContractFn.apply(coords, mask, feats, cutoff, n_radial,
-                                   div_d)
+                                   div_d, plan)
 
 
 class _RadialContractRectFn(torch.autograd.Function):

@@ -17,8 +17,9 @@ Cells (default: all five):
                 act_bwd and its column copies), K2, and the rotations as
                 plain PyTorch einsums (cuBLAS batched products);
   painn-pallas  uma-s-1p1 in mp_mode="pallas" on the 4096-atom system:
-                K5 (rc_fwd_tc, rc_bwd_feats, rc_coords_pairs and
-                rc_coords_reduce) and the tile plan's glue;
+                K5 (rc_fwd_tc, rc_feats_plan, rc_coords_pairs and
+                rc_coords_reduce) and the glue of the call's one tile
+                plan;
   painn-dense   the default uma-s-1p1 (dense) on the 300-atom cluster.
 
 For each cell: builds the calculator, warms it up, profiles ``n`` force

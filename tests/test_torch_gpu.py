@@ -309,6 +309,56 @@ def test_radial_contract_kernels_match_plain(div_d, P, F, R, system):
         rcm.radial_contract(coords, mask, feats, 6.0, 63, div_d)
 
 
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("R", [24, 40])
+def test_radial_contract_given_plan_matches_own_plan(div_d, R):
+    """A tile plan passed in serves all three kernels: the result and both
+    gradients are bitwise those of the call that builds its own plan, no
+    plan is built, and a plan of another system size raises. R + 1 = 25
+    (tensor cores) and 41 (CUDA cores)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(R)
+    coords, mask = _k5_system(300, "shuffled", gen)
+    feats = torch.randn(300, 40, generator=gen).to(**F32)
+    g = torch.randn(300, R + 1, 40, generator=gen).to(**F32)
+    plan = rcm.tile_plan(coords, mask, 6.0)
+
+    def run(**kw):
+        c = coords.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        T = rcm.radial_contract(c, mask, f, 6.0, R, div_d, **kw)
+        return [T, *torch.autograd.grad(T, [c, f], g)]
+
+    own = run()
+    built = rcm.plans["built"]
+    given = run(plan=plan)
+    assert rcm.plans["built"] == built
+    assert all(torch.equal(a, b) for a, b in zip(given, own))
+    other = rcm.tile_plan(coords[:299], mask[:299], 6.0)
+    with pytest.raises(ValueError):
+        rcm.radial_contract(coords, mask, feats, 6.0, R, div_d, plan=other)
+
+
+def test_pallas_force_call_builds_one_tile_plan():
+    """A uma-s-1p1 pallas-mode force call builds one tile plan and hands
+    it to all of its K5 calls (8 forward, 7 feats-gradient and 8
+    coordinate-gradient launches)."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    st = Structure(rng.choice([1, 6, 8], size=96).astype(np.int32),
+                   rng.normal(scale=3.0, size=(96, 3)))
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    fn, w, _ = make_model(cfg, seed=3)
+    calc = Calculator(st, fn, params=tree_to(w, device="cuda"),
+                      device="cuda")
+    cb = st.coords_bohr.reshape(-1)
+    calc.get_forces(cb)
+    built, n0 = rcm.plans["built"], dict(rcm.launches)
+    calc.get_forces(cb)
+    assert rcm.plans["built"] == built + 1
+    assert [rcm.launches[k] - n0[k] for k in n0] == [8, 7, 8]
+
+
 def test_pallas_calculator_on_card_matches_cpu_f64():
     _need_card()
     rng = np.random.default_rng(5)

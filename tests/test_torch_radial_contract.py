@@ -4,9 +4,12 @@ features, ``jax.vjp`` against autograd) in f64 to 1e-10, both ``div_d``
 values, masked atoms, P not a multiple of 8. Also the coordinate-gradient
 formula the CUDA kernel uses (S1 + S2 summed over all features, then the
 radial-derivative ladder once per pair), written out here in f64 and held
-against autograd, and a mirror of the kernel's algorithm on a tile plan
-(one Ssym per listed I <= J tile pair, partial sums in per-pair slots
-reduced in reach-list order) held against the JAX reference's VJP."""
+against autograd, and mirrors of the kernels' algorithms on a tile plan
+held against the JAX reference's VJP: the coordinate gradient (one Ssym
+per listed I <= J tile pair, partial sums in per-pair slots reduced in
+reach-list order) and the feats gradient (each row tile's reach list in
+list order, A[j, (i, r)] contracted with g's rows, written through the
+plan's permutation)."""
 
 import numpy as np
 import jax
@@ -153,6 +156,65 @@ def _plan_mirror_dcoords(x, m, feats, g, rc, R, div_d):
     return out
 
 
+def _a_tile(xj, xi, mj, mi, pj, pi, rc, R, div_d):
+    """A[j, i, r] of one pair tile, j as the row, by the kernels'
+    sin/cos recurrence (csrc/radial_contract.cu: pair_geo, a_column);
+    pj, pi are plan positions (i != j by position)."""
+    diff = xj[:, None, :] - xi[None, :, :]
+    d = np.sqrt(np.maximum((diff ** 2).sum(-1), 1e-12))
+    within = ((d <= rc) & (pj[:, None] != pi[None, :])
+              & (mj[:, None] > 0) & (mi[None, :] > 0))
+    d = np.where(within, d, 1.0)
+    s1, c1 = np.sin(np.pi / rc * d), np.cos(np.pi / rc * d)
+    env = np.where(within, 0.5 * (c1 + 1.0), 0.0)
+    inv = 1.0 / d
+    scale = env * inv * np.sqrt(2.0 / rc)
+    ench = env
+    if div_d:
+        scale, ench = scale * inv, env * inv
+    A = np.empty(d.shape + (R + 1,))
+    s, c = s1, c1
+    for r in range(R):
+        A[..., r] = s * scale
+        s, c = s * c1 + c * s1, c * c1 - s * s1
+    A[..., R] = ench
+    return A
+
+
+def _plan_mirror_dfeats(x, m, g, rc, R, div_d):
+    """csrc/radial_contract.cu:rc_feats_plan in numpy: on the tile plan of
+    (x, m), each row tile J walks its reach list cols[row_ptr[J]:
+    row_ptr[J + 1]] in list order and adds A[j, (i, r)] g[(i, r), :] of
+    each listed tile I; its rows are written through perm, so rows of a
+    tile with no reach come out 0."""
+    P = x.shape[0]
+    plan = tile_plan(torch.tensor(x), torch.tensor(m), rc)
+    perm = plan.perm.numpy().astype(np.int64)
+    Pp = plan.n_tiles * TILE
+
+    def padded(a):
+        out = np.zeros((Pp,) + a.shape[1:])
+        out[:P] = a[perm]
+        return out
+
+    xs, ms, gs = padded(x), padded(m), padded(g)
+    pos = np.arange(Pp)
+    rp, cols = plan.row_ptr.numpy(), plan.cols.numpy()
+    out = np.full((Pp, g.shape[2]), np.nan)
+    for J in range(plan.n_tiles):
+        b = slice(J * TILE, (J + 1) * TILE)
+        acc = np.zeros((TILE, g.shape[2]))
+        for I in cols[rp[J]:rp[J + 1]]:
+            a = slice(I * TILE, (I + 1) * TILE)
+            A = _a_tile(xs[b], xs[a], ms[b], ms[a], pos[b], pos[a], rc, R,
+                        div_d)
+            acc += A.reshape(TILE, -1) @ gs[a].reshape(-1, g.shape[2])
+        out[b] = acc
+    res = np.empty((P, g.shape[2]))
+    res[perm] = out[:P]
+    return res
+
+
 @pytest.mark.parametrize("div_d", [False, True])
 def test_kernel_coordinate_gradient_formula(div_d):
     P, R, rc = 17, 6, 4.5
@@ -202,6 +264,50 @@ def test_plan_coordinate_gradient_mirror_matches_jax(div_d, system):
     got = _plan_mirror_dcoords(coords, mask, feats, g, rc, R, div_d)
     _close(got, dc_j)
     assert np.all(got[mask == 0] == 0.0)
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("system", ["spread", "blobs"])
+def test_plan_feats_gradient_mirror_matches_jax(div_d, system):
+    """The kernel's feats gradient on the plan, mirrored in numpy (each
+    row tile's reach list in order, the A[j, (i, r)] layout, rows written
+    through perm), against the JAX reference's VJP in f64, with masked
+    atoms (their rows exactly 0) and a ragged last tile."""
+    rng = np.random.default_rng(17 + div_d)
+    P, F, R, rc = 300, 6, 5, 4.0
+    if system == "spread":
+        coords = rng.uniform(0.0, 30.0, (P, 3))
+    else:
+        coords = _blobs(P, rng)
+    mask = (rng.uniform(size=P) > 0.15).astype(np.float64)
+    coords[mask == 0] = 0.0
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(P, R + 1, F))
+    s = tile_plan(torch.tensor(coords), torch.tensor(mask), rc).stats()
+    assert s["listed"] < s["tiles"] ** 2      # some tile pairs are skipped
+    _, vjp = jax.vjp(
+        lambda f: radial_contract_reference(jnp.asarray(coords),
+                                            jnp.asarray(mask), f, rc, R,
+                                            div_d), jnp.asarray(feats))
+    (df_j,) = vjp(jnp.asarray(g))
+    got = _plan_mirror_dfeats(coords, mask, g, rc, R, div_d)
+    _close(got, df_j)
+    assert np.all(got[mask == 0] == 0.0)
+
+
+def test_plan_argument_is_ignored_on_cpu():
+    """On CPU tensors ``plan=`` changes nothing: the plain version runs,
+    and no kernel is launched."""
+    coords, mask, feats, _ = _inputs(P=40, F=8, seed=5)
+    c, m, f = (torch.tensor(a, dtype=torch.float32)
+               for a in (coords, mask, feats))
+    before = dict(rcm.launches)
+    plan = tile_plan(c, m, 5.0)
+    for div_d in (False, True):
+        assert torch.equal(rcm.radial_contract(c, m, f, 5.0, 6, div_d,
+                                               plan=plan),
+                           rcm.radial_contract(c, m, f, 5.0, 6, div_d))
+    assert rcm.launches == before
 
 
 def test_radial_bases_match_jax():
