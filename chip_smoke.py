@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
    (fused_node_ffn), K3 (fused_edge_block) and K4 (fused_edge_chain)
    forward and backward at the first-layer inputs of the "pallas-full"
    and "pallas" layouts, each against its plain PyTorch version on the
-   card, with its time, the plain version's time and its bound;
+   card, with its time, the plain version's time and its bound (the edge
+   kernels at the 3xTF32 route of their conv products); the conv products
+   alone, timed and their TFLOP/s printed ([K1-gemm]);
 4. the escn main path: make_uma_calculator(model="escn-md", device="cuda")
    and Calculator.get_forces on the 300-atom cluster (ms per call, peak
    memory, kernel launch counts, two calls bit for bit equal), then the
@@ -119,11 +121,14 @@ REPLACES = {
 }
 # the peak of the route each kernel takes to f32 accuracy at the shapes
 # this script runs, FLOP/s of needed work: K5's three kernels (R + 1 = 25
-# <= 32) form each product in 3xTF32, three TF32 products per f32 one;
-# every other kernel runs f32 on CUDA cores
-ROUTE_PEAK = {"radial_contract_fwd": TF32_PEAK / 3,
-              "radial_contract_bwd_feats": TF32_PEAK / 3,
-              "radial_contract_bwd_coords": TF32_PEAK / 3}
+# <= 32) and the conv products of K1, K3 and K4 (95% of their FLOP) form
+# each product in 3xTF32, three TF32 products per f32 one; every other
+# kernel runs f32 on CUDA cores
+ROUTE_PEAK = {k: TF32_PEAK / 3 for k in (
+    "radial_contract_fwd", "radial_contract_bwd_feats",
+    "radial_contract_bwd_coords", "fused_edge_mega_fwd",
+    "fused_edge_mega_bwd", "fused_edge_block_fwd", "fused_edge_block_bwd",
+    "fused_edge_chain_fwd", "fused_edge_chain_bwd")}
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
     "fused_edge_block": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
@@ -185,23 +190,59 @@ def nbytes(*ts) -> int:
 # work counts (FLOP) from the shapes
 # ---------------------------------------------------------------------------
 
+def conv_flops(cfg, E):
+    """FLOP of the two conv products over E edges (either direction)."""
+    from pdb2reaction_tpu_torch.mlip.escn_edge_kernel import _dims
+    nl0, nls, U, G = _dims(cfg)
+    C, H, Ce = cfg.sphere_channels, cfg.hidden_channels, cfg.edge_channels
+    rows = [nl0] + [2 * nl for nl in nls]
+    conv1 = sum(2 * (r * 2 * C + (Ce if i == 0 else 0)) * r * H
+                for i, r in enumerate(rows))
+    conv2 = sum(2 * (r * H) * (r * C) for r in rows)
+    return E * (conv1 + conv2)
+
+
 def edge_flops(cfg, E, rotations=True):
     """(forward, backward) FLOP of one edge-kernel launch over E edges:
     the conv products and the S2 grid, plus the block-sparse rotations for
     K1 and K3 (``rotations``); K4 runs the chain alone."""
     from pdb2reaction_tpu_torch.mlip.escn_edge_kernel import _dims, _rot_nz
     nl0, nls, U, G = _dims(cfg)
-    C, H, Ce = cfg.sphere_channels, cfg.hidden_channels, cfg.edge_channels
+    C, H = cfg.sphere_channels, cfg.hidden_channels
     nnz = len(_rot_nz(cfg.lmax, cfg.mmax)[0])
-    rows = [nl0] + [2 * nl for nl in nls]
-    conv1 = sum(2 * (r * 2 * C + (Ce if i == 0 else 0)) * r * H
-                for i, r in enumerate(rows))
-    conv2 = sum(2 * (r * H) * (r * C) for r in rows)
     grid = 2 * 2 * G * U * H
     rot_f = 2 * nnz * C * 3 if rotations else 0   # source, target, back
     rot_b = 2 * nnz * C * 6 if rotations else 0   # g_out, gDpe, gDp x2, gx x2
-    return (E * (conv1 + conv2 + grid + rot_f),
-            E * (conv1 + conv2 + 3 * grid // 2 + rot_b))
+    conv = conv_flops(cfg, E)
+    return (conv + E * (grid + rot_f), conv + E * (3 * grid // 2 + rot_b))
+
+
+def gemm_rates(cfg, E, weights, reps):
+    """ms and TFLOP/s of the conv products alone (``conv_pair``: the two
+    grouped 3xTF32 launches of one direction on K1's layouts, random
+    operands), forward and backward; no wrapper, so no launch is counted."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import cuda_build as cb
+    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
+    nl0, nls, U, G = ek._dims(cfg)
+    C, H, Ce = cfg.sphere_channels, cfg.hidden_channels, cfg.edge_channels
+    w1, b1, w2, b2, w1t, w2t = ek._pack_weights(weights)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wide = torch.randn(E, U * 2 * C + Ce, generator=gen, device="cuda")
+    mid = torch.empty(E, U * H, device="cuda")
+    narrow = torch.randn(E, U * C, generator=gen, device="cuda")
+    lib = cb.load("escn_edge")
+    args = {0: (wide, w1t, b1, w2t, b2, narrow), 1: (narrow, w2, None, w1,
+                                                     None, wide)}
+    out = []
+    for bwd in (0, 1):
+        src, wa, ba, wb, bb, dst = args[bwd]
+        ms = cuda_ms(lambda: cb.call(
+            lib, "conv_pair", E, C, H, Ce, cfg.lmax, cfg.mmax, bwd,
+            cb.ptr(src), cb.ptr(wa), cb.ptr(ba), cb.ptr(wb), cb.ptr(bb),
+            cb.ptr(mid), cb.ptr(dst), cb.stream_ptr()), reps)
+        out.append((ms, conv_flops(cfg, E) / ms / 1e9))
+    return out
 
 
 def k2_flops(M, C, H, G, P):
@@ -248,9 +289,12 @@ def phase_build():
     times = cuda_build.build(["escn_edge", "escn_ffn", "radial_contract"],
                              verbose=True)
     for name, rec in cuda_build.BUILD_LOG.items():
+        entry = ""
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
     log(f"[build] {times} (wall {time.perf_counter() - t0:.1f} s)")
 
 
@@ -348,6 +392,12 @@ def phase_kernels(calc, cfg, quick):
              nbytes(x_t, src, es, Dp, Dpe, *wts, y_p) + saved,
              nbytes(x_t, g, src, Dp, Dpe, *wts, *gp) + saved)
     del res, g, y_p, gp
+    (tf, rf), (tb, rb) = gemm_rates(cfg, E, weights, reps)
+    log(f"[K1-gemm] the conv products alone (conv_tf32, one grouped launch "
+        f"per conv, 3xTF32), {conv_flops(cfg, E) / 1e9:.1f} GFLOP a "
+        f"direction: forward {tf:.3f} ms, {rf:.1f} TFLOP/s; backward "
+        f"{tb:.3f} ms, {rb:.1f} TFLOP/s (route peak "
+        f"{TF32_PEAK / 3 / 1e12:.0f})")
 
     # ---- K3: per-edge source and target rows of "pallas-full" -------------
     args3, _ = first_layer("pallas-full")
@@ -403,10 +453,11 @@ def phase_kernels(calc, cfg, quick):
     rows["fused_node_ffn_bwd"] = (abs_err(dk, dp), t2b, t2b_p, f2b,
                                   nbytes(xn2, g2, *fw, *ftab, dp))
     for k, (err, t, tp, fl, nb) in rows.items():
-        b32, bbf, by = bound_ms(fl, nb)
+        b32, bbf, by = bound_ms(fl, nb, k)
+        route = "3xTF32" if k in ROUTE_PEAK else "f32 CUDA cores"
         log(f"[kernel] {k}: {t:.3f} ms (plain {tp:.3f} ms), "
-            f"{fl / 1e9:.1f} GFLOP, {nb / 1e6:.1f} MB, bound f32 "
-            f"{b32:.3f} ms / bf16 {bbf:.3f} ms ({by}); "
+            f"{fl / 1e9:.1f} GFLOP, {nb / 1e6:.1f} MB, bound at f32 "
+            f"accuracy {b32:.3f} ms ({route}, {by}) / bf16 {bbf:.3f} ms; "
             f"{fl / t / 1e9:.2f} TFLOP/s")
     return rows
 

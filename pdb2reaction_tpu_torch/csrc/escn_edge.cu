@@ -12,6 +12,7 @@
 //      _bwd_kernel (fused_edge_chain, edge_kernel="pallas").
 // src_scatter is the deterministic backward of the callers' source
 // gather on the K3/K4 paths (no TPU kernel: XLA's scatter there).
+// conv_pair runs the two conv products of one direction alone (timing).
 //
 // K1 in detail (K3 and K4 drop stages of it, as said at their entries):
 //
@@ -27,21 +28,30 @@
 // one layer is ~132 GFLOP forward against ~45 MB of inputs; the conv
 // products are 95% of it. K3 and K4 do the same conv products against
 // 0.4-0.9 GB of per-edge inputs and outputs, still far below the bytes
-// the card moves in that time. The design therefore spends its effort on
-// the products and keeps the rest simple:
-//   - the conv products run as a shared-memory tiled SGEMM (128x128
-//     tiles, 8x8 outputs per thread, register-prefetched double-buffered
-//     k slices) over all E edges at once, one launch per |m| block,
-//     reading the weights once per 128-edge tile instead of once per edge;
-//   - the gathers are indexed loads (no one-hot products: those were a
-//     TPU compiler workaround);
-//   - the block-sparse rotations, the S2 activation and the K-sum are
-//     small per-edge kernels between the products;
-//   - the forward K-sum runs one block per target atom over that atom's
-//     K edges, so it needs no atomics;
-//   - the backward's source scatter is deterministic: one block per atom
-//     reduces the cotangents of the edges whose source is that atom,
-//     through a source-sorted edge permutation (CSR) the wrapper builds
+// the card moves in that time. So:
+//   - the conv products run on the tensor cores in the 3xTF32 split (f32
+//     accuracy at three TF32 products per product), one grouped launch per
+//     conv for all |m| blocks (conv_tf32: 128 x 128 output tiles of all
+//     blocks in one grid, the blocks with the longest k first, so the
+//     tails of the blocks' waves overlap), multiplied by wgmma from shared
+//     memory. Operands arrive by cp.async in a three-stage ring; each
+//     thread splits the 16-byte chunks it copied into hi and lo planes
+//     once. The three products of a 32-k slice go into an accumulator that
+//     starts the slice at zero and is added to the sum on CUDA cores (the
+//     tensor cores round their accumulator toward zero, a bias that grows
+//     with the k steps summed in it). Both operands are k-contiguous: the
+//     forward multiplies by the transposed weight packs, the backward by
+//     the untransposed ones;
+//   - the block-sparse rotations are bound by bytes and latency: the
+//     rotation tables are staged in shared memory once per block; threads
+//     own (row, 4 channels) and move float4s; the per-atom sums (the
+//     forward K-sum, the backward node cotangent) run one block per (atom,
+//     32-channel slice); the per-nonzero reductions (g_Dp, g_Dpe) stage the
+//     edge's rows in shared memory and give each nonzero one thread;
+//   - the S2 activation is a small per-(edge, channel) kernel;
+//   - the backward's source scatter is deterministic: each atom's block
+//     reduces the cotangents of the edges whose source is that atom in the
+//     order of a source-sorted edge permutation (CSR) the wrapper builds
 //     once per call. No atomics anywhere, so results repeat bit for bit.
 // Intermediates between the stages live in device memory (~0.7 GB per
 // layer at escn-md); conv 1 and conv 2 outputs are saved for the backward
@@ -58,11 +68,16 @@
 //   act    [E, U*H]   S2 activation output
 //   outsv  [E, U*C]   conv-2 output, saved
 //   y      [P, M*C]   K-summed message per target atom
-// Weights come packed per |m| block in row-vector orientation [in, out];
-// block m>0 is the merged [[Wr, Wi], [-Wi, Wr]].
+// Weights come packed per |m| block, in row-vector orientation [in, out]
+// (w1, w2) and transposed [out, in] (w1t, w2t); block m>0 is the merged
+// [[Wr, Wi], [-Wi, Wr]]. Every column offset and row stride is a multiple
+// of 4 floats (C, H and Ce are), which the 16-byte copies need; the
+// entries return cudaErrorInvalidValue otherwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 #define MAXU 32
 #define MAXMB 5
@@ -70,178 +85,398 @@
 namespace {
 
 // --------------------------------------------------------------------------
-// tiled SGEMM: C[M,N] = A[M,K] @ B[K,N] (+ bias[N]), row-major
-// 128 x 128 block tile, 8-deep k slices, 256 threads with 8 x 8 outputs
-// each (two 4-row and two 4-column strips, so shared-memory reads are
-// float4 and conflict-free). The next k slice is loaded into registers
-// while the current one is multiplied, into the other of two shared
-// buffers: one barrier per slice, load latency hidden behind arithmetic.
+// grouped GEMM on the tensor cores, 3xTF32, with wgmma:
+//   C_b[M, n_b] = A_b[M, k_b] B_b[n_b, k_b]^T (+ bias_b[n_b])
+// for the |m| blocks b of one conv, rows at the given strides, k
+// contiguous in both operands. A block owns a 128 x 128 output tile; each
+// of its two warpgroups owns 64 rows of it and multiplies with wgmma
+// m64n128k8 (TF32), both operands read from shared memory.
+//
+// Shared memory holds each operand slice (128 rows x GK = 32 k) in the
+// K-major layout wgmma reads without swizzling: 8 column blocks of 4 k,
+// each 128 rows x 16 bytes, so an 8-row x 16-byte core matrix is 128
+// contiguous bytes (8-row groups 128 B apart, column blocks 2 KB apart).
 // --------------------------------------------------------------------------
-constexpr int BM = 128, BN = 128, BK = 8;
+constexpr int GM = 128, GN = 128, GK = 32, GST = 3;
+static_assert(GM == GN, "both operand slices share one layout");
+constexpr int G_THREADS = 256;
+constexpr int G_SLICE = GM * GK;         // floats of an operand slice
+constexpr int G_SMEM =
+    (int)sizeof(float) * G_SLICE * (2 * GST + 4);  // 160 KB
+constexpr int G_LBO = GM * 16;           // bytes between column blocks
+constexpr int G_SBO = 8 * 16;            // bytes between 8-row groups
 
-__global__ void __launch_bounds__(256)
-sgemm_nn(int M, int N, int K, const float* __restrict__ A, int lda,
-         const float* __restrict__ B, int ldb, const float* __restrict__ bias,
-         float* __restrict__ Cm, int ldc) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  // loader mapping: A tile 128 x 8 -> thread loads rows ar, ar+64 at k ak..
-  const int ar = tid >> 2, ak = (tid & 3) * 2;     // 2 k per row, 2 rows
-  const int bk = tid >> 5, bc = (tid & 31) * 4;    // 4 cols of one k row
-  float ra[4], rb[4];
+struct GemmOp {
+  const float* a;       // [M, k] at stride lda
+  const float* b;       // [n, k] at stride ldb
+  const float* bias;    // [n] or null
+  float* c;             // [M, n] at stride ldc
+  int lda, ldb, ldc, n, k;
+  int tile0, ntn;       // first tile of the op in the grid, column tiles
+};
 
-  auto load = [&](int k0) {
+struct Group {
+  GemmOp op[MAXMB];
+  int nb, m;
+};
+
+// hi in place, lo beside it: each element split once
+__device__ __forceinline__ void split4(float* hi, float* lo) {
+  float4 v = *reinterpret_cast<float4*>(hi);
+  unsigned h[4], l[4];
+  split_tf32(v.x, h[0], l[0]);
+  split_tf32(v.y, h[1], l[1]);
+  split_tf32(v.z, h[2], l[2]);
+  split_tf32(v.w, h[3], l[3]);
+  *reinterpret_cast<float4*>(hi) =
+      make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                  __uint_as_float(h[2]), __uint_as_float(h[3]));
+  *reinterpret_cast<float4*>(lo) =
+      make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                  __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+// shared-memory offset (floats) of 16-byte chunk q of a slice, and its row
+// and k: a warp's 32 chunks are 16 rows x 2 column blocks, so 8 lanes write
+// 8 consecutive rows of one column block (no bank conflict) and lanes l and
+// l + 8 read the two halves of one 32-byte sector of a row
+__device__ __forceinline__ int chunk(int q, int& r, int& kc) {
+  const int w = q >> 5, l = q & 31;
+  const int kb = 2 * (w >> 3) + ((l >> 3) & 1);
+  r = 16 * (w & 7) + (l & 7) + 8 * (l >> 4);
+  kc = 4 * kb;
+  return kb * GM * 4 + r * 4;
+}
+
+// wgmma matrix descriptor of a K-major operand at p, no swizzle
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(G_LBO >> 4) << 16) |
+         ((uint64_t)(G_SBO >> 4) << 32);
+}
+
+// d[64] = (scale_d ? d : 0) + A[64 x 8] B[128 x 8]^T, TF32, asynchronous
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// keeps the compiler from moving accesses of d across wgmma's
+// asynchronous use of the registers
+__device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1) conv_tf32(const Group g) {
+  extern __shared__ __align__(128) float gsm[];
+  float* stA = gsm;                       // [GST] slices: raw, then hi
+  float* stB = gsm + GST * G_SLICE;       // [GST]
+  float* lo = stB + GST * G_SLICE;        // [2][A, B]: lo of two slices
+  const int t = blockIdx.x;
+  GemmOp op = g.op[0];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int gr = row0 + ar + 64 * h, gk = k0 + ak + q;
-        ra[2 * h + q] = (gr < M && gk < K) ? A[(size_t)gr * lda + gk] : 0.f;
-      }
+  for (int i = 1; i < MAXMB; ++i)
+    if (i < g.nb && t >= g.op[i].tile0) op = g.op[i];
+  const int local = t - op.tile0;
+  const int m0 = (local / op.ntn) * GM, n0 = (local % op.ntn) * GN;
+  const int M = g.m, N = op.n, K = op.k;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nk = (K + GK - 1) / GK;
+
+  float acc[64], p[64];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gk = k0 + bk, gc = col0 + bc + q;
-      rb[q] = (gk < K && gc < N) ? B[(size_t)gk * ldb + gc] : 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = p[i] = 0.f;
+
+  // thread tid copies (and later splits) chunks tid + 256 i, i < 4, of the
+  // A and B slices
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * GK;
+    float* As = stA + slot * G_SLICE;
+    float* Bs = stB + slot * G_SLICE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r, kc;
+      const int off = chunk(tid + i * G_THREADS, r, kc);
+      const bool kok = k0 + kc < K;
+      const bool oa = kok && m0 + r < M;
+      cp_async16(As + off,
+                 oa ? op.a + (size_t)(m0 + r) * op.lda + k0 + kc : op.a, oa);
+      const bool ob = kok && n0 + r < N;
+      cp_async16(Bs + off,
+                 ob ? op.b + (size_t)(n0 + r) * op.ldb + k0 + kc : op.b, ob);
     }
   };
-  auto store = [&](int buf) {
+  auto split = [&](int slot, float* lA, float* lB) {
+    float* As = stA + slot * G_SLICE;
+    float* Bs = stB + slot * G_SLICE;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < 4; ++i) {
+      int r, kc;
+      const int off = chunk(tid + i * G_THREADS, r, kc);
+      split4(As + off, lA + off);
+      split4(Bs + off, lB + off);
+    }
+  };
+  // the three products of slice kt, the small cross terms first, into p,
+  // which starts the slice at zero; asynchronous (one k8 step is two
+  // column blocks)
+  auto products = [&](int slot, const float* lA, const float* lB) {
+    const float* Ah = stA + slot * G_SLICE + wg * 64 * 4;
+    const float* Al = lA + wg * 64 * 4;
+    const float* Bh = stB + slot * G_SLICE;
+    fence_regs(p);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int q = 0; q < 2; ++q) As[buf][ak + q][ar + 64 * h] = ra[2 * h + q];
-    *reinterpret_cast<float4*>(&Bs[buf][bk][bc]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
+    for (int kk = 0; kk < GK / 8; ++kk) {
+      const int o = kk * 2 * GM * 4;
+      wgmma_tf32(p, smem_desc(Al + o), smem_desc(Bh + o), kk > 0);
+      wgmma_tf32(p, smem_desc(Ah + o), smem_desc(lB + o), 1);
+      wgmma_tf32(p, smem_desc(Ah + o), smem_desc(Bh + o), 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+  // the tensor cores round their accumulator toward zero, a bias that
+  // grows with the k steps summed in it: p sums 4 k steps, acc the slices
+  // on CUDA cores
+  auto collect = [&]() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(p);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += p[i];
   };
 
-  float acc[8][8];
+  // Slice kt is split while slice kt - 1's products run; one barrier a
+  // slice. The lo planes alternate between two buffers.
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) {
-      store(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
-    }
+  for (int s = 0; s < GST - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % GST;
+    float* lA = lo + (kt & 1) * 2 * G_SLICE;
+    float* lB = lA + G_SLICE;
+    cp_wait<GST - 2>();        // this thread's copies of slice kt landed
+    split(slot, lA, lB);
+    // the splits are generic-proxy writes that wgmma reads through the
+    // async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (kt > 0) collect();     // this warpgroup's products of slice kt - 1
+    __syncthreads();           // slice kt split; slice kt - 1's products
+                               // done: its slot and lo planes are free
+    if (kt + GST - 1 < nk) load((kt + GST - 1) % GST, kt + GST - 1);
+    cp_commit();
+    products(slot, lA, lB);
+  }
+  if (nk > 0) collect();
+  cp_wait<0>();
+
+  // epilogue: warp w of the warpgroup holds rows 16 w + gq (+8), columns
+  // 8 j + 2 tq (+1) in acc[4 j ..]
+  const int r0 = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + gq;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gr = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gc = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gc < N)
-        Cm[(size_t)gr * ldc + gc] = acc[i][j] + (bias ? bias[gc] : 0.f);
-    }
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * tq;
+    if (col >= N) continue;
+    const float b0 = op.bias ? op.bias[col] : 0.f;
+    const float b1 = op.bias ? op.bias[col + 1] : 0.f;
+    if (r0 < M)
+      *reinterpret_cast<float2*>(op.c + (size_t)r0 * op.ldc + col) =
+          make_float2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+    if (r0 + 8 < M)
+      *reinterpret_cast<float2*>(op.c + (size_t)(r0 + 8) * op.ldc + col) =
+          make_float2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
   }
 }
 
-cudaError_t gemm(cudaStream_t st, int M, int N, int K, const float* A,
-                 int lda, const float* B, int ldb, const float* bias,
-                 float* Cm, int ldc) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  sgemm_nn<<<grid, 256, 0, st>>>(M, N, K, A, lda, B, ldb, bias, Cm, ldc);
+bool al16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+void add_op(Group& gr, const float* a, int lda, const float* b, int ldb,
+            const float* bias, float* c, int ldc, int n, int k) {
+  GemmOp& o = gr.op[gr.nb++];
+  o.a = a;
+  o.lda = lda;
+  o.b = b;
+  o.ldb = ldb;
+  o.bias = bias;
+  o.c = c;
+  o.ldc = ldc;
+  o.n = n;
+  o.k = k;
+}
+
+// one launch for the group: ops sorted by k, longest first; the tiles of
+// op b are tile0 .. tile0 + ceil(M/GM) * ntn - 1, column tile fastest
+cudaError_t run_group(cudaStream_t st, Group gr) {
+  for (int i = 1; i < gr.nb; ++i)
+    for (int j = i; j > 0 && gr.op[j].k > gr.op[j - 1].k; --j) {
+      const GemmOp tmp = gr.op[j];
+      gr.op[j] = gr.op[j - 1];
+      gr.op[j - 1] = tmp;
+    }
+  const int tm = (gr.m + GM - 1) / GM;
+  int tiles = 0;
+  for (int b = 0; b < gr.nb; ++b) {
+    GemmOp& o = gr.op[b];
+    if (!al16(o.a) || !al16(o.b) || !al16(o.c) || o.lda % 4 || o.ldb % 4 ||
+        o.ldc % 4 || o.k % 4 || o.n % 4 || (o.bias && ((uintptr_t)o.bias & 7)))
+      return cudaErrorInvalidValue;
+    o.ntn = (o.n + GN - 1) / GN;
+    o.tile0 = tiles;
+    tiles += tm * o.ntn;
+  }
+  if (tiles == 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err) return err;
+  conv_tf32<<<tiles, G_THREADS, G_SMEM, st>>>(gr);
   return cudaGetLastError();
 }
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void fma4(float4& a, float s, const float4& b) {
+  a.x = fmaf(s, b.x, a.x);
+  a.y = fmaf(s, b.y, a.y);
+  a.z = fmaf(s, b.z, a.z);
+  a.w = fmaf(s, b.w, a.w);
 }
 
-// Rotation tables, device int arrays packed back to back:
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// sizes the rotation stages share
+struct Dims {
+  int K;          // edges per target atom (1: per-edge rows, K3)
+  int C, Ce, U, M, nl0, nnz, MC, Dtot;
+};
+
+// column of rotated row u (channel 0) in abuf / gpr
+__device__ __forceinline__ int rot_col(Dims d, int u) {
+  return u * 2 * d.C + (u >= d.nl0 ? d.Ce : 0);
+}
+
+// Rotation tables, int arrays packed back to back (the wrapper's order):
 // u_of_j[nnz], m_of_j[nnz], byu_ptr[U+1], byu_idx[nnz], bym_ptr[M+1],
-// bym_idx[nnz].
+// bym_idx[nnz]; staged in shared memory once per block
 struct Tabs {
   const int *u_of_j, *m_of_j, *byu_ptr, *byu_idx, *bym_ptr, *bym_idx;
 };
 
-Tabs make_tabs(const int* t, int nnz, int U, int M) {
+// ints of the staged tables, rounded up to 16 bytes
+__host__ __device__ int tab_words(Dims d) {
+  return (4 * d.nnz + d.U + d.M + 2 + 3) & ~3;
+}
+
+// copy the tables into s; the caller synchronises before reading them
+__device__ Tabs stage_tabs(Dims d, const int* __restrict__ t, int* s) {
+  const int n = 4 * d.nnz + d.U + d.M + 2;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = t[i];
   Tabs r;
-  r.u_of_j = t;
-  r.m_of_j = t + nnz;
-  r.byu_ptr = t + 2 * nnz;
-  r.byu_idx = r.byu_ptr + U + 1;
-  r.bym_ptr = r.byu_idx + nnz;
-  r.bym_idx = r.bym_ptr + M + 1;
+  r.u_of_j = s;
+  r.m_of_j = s + d.nnz;
+  r.byu_ptr = s + 2 * d.nnz;
+  r.byu_idx = r.byu_ptr + d.U + 1;
+  r.bym_ptr = r.byu_idx + d.nnz;
+  r.bym_idx = r.bym_ptr + d.M + 1;
   return r;
 }
 
-// column of rotated row u (channel 0) in abuf / gpr
-__device__ __forceinline__ int rot_col(int u, int C, int Ce, int nl0) {
-  return u * 2 * C + (u >= nl0 ? Ce : 0);
+// n rows of w floats (w a multiple of 4) at stride ld -> shared at pitch pp
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           int ld, int n, int w, float* dst,
+                                           int pp) {
+  const int w4 = w >> 2;
+  for (int q = threadIdx.x; q < n * w4; q += blockDim.x) {
+    const int r = q / w4, c = q - r * w4;
+    reinterpret_cast<float4*>(dst + r * pp)[c] =
+        __ldg(reinterpret_cast<const float4*>(src + (size_t)r * ld) + c);
+  }
 }
+
+constexpr int EB = 4;            // edges per block of rotate_in
+constexpr int CS4 = 8;           // float4s per channel slice (32 channels)
 
 // --------------------------------------------------------------------------
 // forward stages
 // --------------------------------------------------------------------------
 
-// one warp per edge: gather + block-sparse rotation into abuf; copy es.
-// The source row of edge e is row src[e] of x_s (row e when src is
-// null), its target row is row e / K of x_t (K = 1: row e).
-__global__ void rotate_in(int E, int K, int C, int Ce, int U, int nl0,
-                          int nnz, int MC, int Dtot,
-                          const float* __restrict__ x_s,
-                          const int64_t* __restrict__ src,
-                          const float* __restrict__ x_t,
-                          const float* __restrict__ es,
-                          const float* __restrict__ dp, Tabs tb,
-                          float* __restrict__ abuf) {
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= E) return;
-  const float* xs = x_s + (size_t)(src ? src[e] : e) * MC;
-  const float* xt = x_t + (size_t)(e / K) * MC;
-  const float* d = dp + (size_t)e * nnz;
-  float* row = abuf + (size_t)e * Dtot;
-  for (int u = 0; u < U; ++u) {
-    const int col = rot_col(u, C, Ce, nl0);
-    const int q0 = tb.byu_ptr[u], q1 = tb.byu_ptr[u + 1];
-    for (int c = lane; c < C; c += 32) {
-      float rs = 0.f, rt = 0.f;
-      for (int q = q0; q < q1; ++q) {
-        const int j = tb.byu_idx[q];
-        const int m = tb.m_of_j[j];
-        const float dj = d[j];
-        rs = fmaf(dj, xs[m * C + c], rs);
-        rt = fmaf(dj, xt[m * C + c], rt);
-      }
-      row[col + c] = rs;
-      row[col + C + c] = rt;
+// EB edges a block, one thread per (edge, row u, 4 channels): gather +
+// block-sparse rotation into abuf; copy es. The source row of edge e is
+// row src[e] of x_s (row e when src is null), its target row is row e / K
+// of x_t.
+__global__ void __launch_bounds__(256)
+rotate_in(Dims d, int E, const float* __restrict__ x_s,
+          const int64_t* __restrict__ src, const float* __restrict__ x_t,
+          const float* __restrict__ es, const float* __restrict__ dp,
+          const int* __restrict__ tabs, float* __restrict__ abuf) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  __syncthreads();
+  const int C4 = d.C >> 2, per = d.U * C4, e0 = blockIdx.x * EB;
+  const int ne = min(EB, E - e0);
+  for (int q = threadIdx.x; q < ne * per; q += blockDim.x) {
+    const int el = q / per, r = q - el * per, u = r / C4, c4 = r - u * C4;
+    const int e = e0 + el;
+    const float4* xs = reinterpret_cast<const float4*>(
+                           x_s + (size_t)(src ? src[e] : e) * d.MC) + c4;
+    const float4* xt =
+        reinterpret_cast<const float4*>(x_t + (size_t)(e / d.K) * d.MC) + c4;
+    const float* de = dp + (size_t)e * d.nnz;
+    float4 rs = make_float4(0.f, 0.f, 0.f, 0.f), rt = rs;
+    for (int p = tb.byu_ptr[u]; p < tb.byu_ptr[u + 1]; ++p) {
+      const int j = tb.byu_idx[p];
+      const float dj = __ldg(de + j);
+      const int mo = tb.m_of_j[j] * C4;
+      fma4(rs, dj, __ldg(xs + mo));
+      fma4(rt, dj, __ldg(xt + mo));
     }
+    float4* row = reinterpret_cast<float4*>(abuf + (size_t)e * d.Dtot +
+                                            rot_col(d, u));
+    row[c4] = rs;
+    row[C4 + c4] = rt;
   }
-  for (int i = lane; i < Ce; i += 32)
-    row[nl0 * 2 * C + i] = es[(size_t)e * Ce + i];
+  const int Ce4 = d.Ce >> 2;
+  for (int q = threadIdx.x; q < ne * Ce4; q += blockDim.x) {
+    const int el = q / Ce4, c = q - el * Ce4;
+    const size_t e = e0 + el;
+    reinterpret_cast<float4*>(abuf + e * d.Dtot + d.nl0 * 2 * d.C)[c] =
+        __ldg(reinterpret_cast<const float4*>(es + e * d.Ce) + c);
+  }
 }
 
 // one thread per (edge, hidden channel): separable S2 activation. UM is
@@ -289,28 +524,33 @@ __global__ void act_fwd(int E, int H, int U, int G,
     if (u < U) arow[(size_t)u * H] = acc[u];
 }
 
-// one block per target atom: rotate back with Dpe and sum its K edges
-// (K = 1, one block per edge: the per-edge back-rotation of K3)
-__global__ void back_ksum(int K, int C, int U, int M, int nnz,
-                          const float* __restrict__ outsv,
-                          const float* __restrict__ dpe, Tabs tb,
-                          float* __restrict__ y) {
-  const int p = blockIdx.x;
-  const int MC = M * C;
-  for (int idx = threadIdx.x; idx < MC; idx += blockDim.x) {
-    const int m = idx / C, c = idx - m * C;
+// one block per (target atom, 32-channel slice), one thread per (m, 4
+// channels): rotate back with Dpe and sum the atom's K edges in edge
+// order (K = 1, a block per edge: the per-edge back-rotation of K3)
+__global__ void __launch_bounds__(256)
+back_ksum(Dims d, const float* __restrict__ outsv,
+          const float* __restrict__ dpe, const int* __restrict__ tabs,
+          float* __restrict__ y) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  __syncthreads();
+  const int p = blockIdx.x, C4 = d.C >> 2, c4a = blockIdx.y * CS4;
+  const int cw = min(CS4, C4 - c4a);
+  for (int q = threadIdx.x; q < d.M * cw; q += blockDim.x) {
+    const int m = q / cw, c4 = c4a + q - m * cw;
     const int q0 = tb.bym_ptr[m], q1 = tb.bym_ptr[m + 1];
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const size_t e = (size_t)p * K + k;
-      const float* d = dpe + e * nnz;
-      const float* o = outsv + e * U * C;
-      for (int q = q0; q < q1; ++q) {
-        const int j = tb.bym_idx[q];
-        acc = fmaf(d[j], o[tb.u_of_j[j] * C + c], acc);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < d.K; ++k) {
+      const size_t e = (size_t)p * d.K + k;
+      const float* de = dpe + e * d.nnz;
+      const float4* o =
+          reinterpret_cast<const float4*>(outsv + e * d.U * d.C) + c4;
+      for (int i = q0; i < q1; ++i) {
+        const int j = tb.bym_idx[i];
+        fma4(acc, __ldg(de + j), __ldg(o + tb.u_of_j[j] * C4));
       }
     }
-    y[(size_t)p * MC + idx] = acc;
+    reinterpret_cast<float4*>(y + (size_t)p * d.MC + m * d.C)[c4] = acc;
   }
 }
 
@@ -318,39 +558,42 @@ __global__ void back_ksum(int K, int C, int U, int M, int nnz,
 // backward stages
 // --------------------------------------------------------------------------
 
-// one warp per edge: back-rotation transpose (g_out) and g_Dpe; the
-// cotangent of edge e is row e / K of gnode (K = 1: per-edge rows)
-__global__ void rot_out_bwd(int E, int K, int C, int U, int nnz, int MC,
-                            const float* __restrict__ gnode,
-                            const float* __restrict__ dpe,
-                            const float* __restrict__ outsv, Tabs tb,
-                            float* __restrict__ gout,
-                            float* __restrict__ gdpe) {
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= E) return;
-  const float* gb = gnode + (size_t)(e / K) * MC;
-  const float* d = dpe + (size_t)e * nnz;
-  const float* o = outsv + (size_t)e * U * C;
-  float* go = gout + (size_t)e * U * C;
-  for (int u = 0; u < U; ++u) {
-    const int q0 = tb.byu_ptr[u], q1 = tb.byu_ptr[u + 1];
-    for (int c = lane; c < C; c += 32) {
-      float acc = 0.f;
-      for (int q = q0; q < q1; ++q) {
-        const int j = tb.byu_idx[q];
-        acc = fmaf(d[j], gb[tb.m_of_j[j] * C + c], acc);
-      }
-      go[u * C + c] = acc;
+// one block per edge: back-rotation transpose (g_out, a thread per (row u,
+// 4 channels)) and g_Dpe (a thread per nonzero) from the edge's cotangent
+// row (row e / K of gnode) and conv-2 output row, both staged in shared
+// memory at a pitch of C + 4 floats
+__global__ void __launch_bounds__(128)
+rot_out_bwd(Dims d, const float* __restrict__ gnode,
+            const float* __restrict__ dpe, const float* __restrict__ outsv,
+            const int* __restrict__ tabs, float* __restrict__ gout,
+            float* __restrict__ gdpe) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  const int pc = d.C + 4, C4 = d.C >> 2, pc4 = pc >> 2;
+  float* gn = reinterpret_cast<float*>(tsm + tab_words(d));   // [M][pc]
+  float* os = gn + d.M * pc;                                  // [U][pc]
+  const size_t e = blockIdx.x;
+  stage_rows(gnode + (e / d.K) * d.MC, d.C, d.M, d.C, gn, pc);
+  stage_rows(outsv + e * d.U * d.C, d.C, d.U, d.C, os, pc);
+  __syncthreads();
+  const float* de = dpe + e * d.nnz;
+  const float4* gn4 = reinterpret_cast<const float4*>(gn);
+  const float4* os4 = reinterpret_cast<const float4*>(os);
+  for (int q = threadIdx.x; q < d.U * C4; q += blockDim.x) {
+    const int u = q / C4, c4 = q - u * C4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tb.byu_ptr[u]; i < tb.byu_ptr[u + 1]; ++i) {
+      const int j = tb.byu_idx[i];
+      fma4(acc, __ldg(de + j), gn4[tb.m_of_j[j] * pc4 + c4]);
     }
+    reinterpret_cast<float4*>(gout + e * d.U * d.C)[q] = acc;
   }
-  for (int j = 0; j < nnz; ++j) {
-    const float* ou = o + tb.u_of_j[j] * C;
-    const float* gm = gb + tb.m_of_j[j] * C;
-    float part = 0.f;
-    for (int c = lane; c < C; c += 32) part = fmaf(ou[c], gm[c], part);
-    part = warp_sum(part);
-    if (lane == 0) gdpe[(size_t)e * nnz + j] = part;
+  for (int j = threadIdx.x; j < d.nnz; j += blockDim.x) {
+    const float4* o = os4 + tb.u_of_j[j] * pc4;
+    const float4* g = gn4 + tb.m_of_j[j] * pc4;
+    float s = 0.f;
+    for (int c4 = 0; c4 < C4; ++c4) s = dot4(o[c4], g[c4], s);
+    gdpe[e * d.nnz + j] = s;
   }
 }
 
@@ -405,94 +648,115 @@ __global__ void act_bwd(int E, int H, int U, int G,
     if (u < U) grow[(size_t)u * H] = gm[u];
 }
 
-// one warp per edge: g_Dp from the rotated-pair cotangent (rows of x_s
-// and x_t picked as in rotate_in)
-__global__ void gdp_bwd(int E, int K, int C, int Ce, int nl0, int nnz,
-                        int MC, int Dtot, const float* __restrict__ x_s,
-                        const int64_t* __restrict__ src,
-                        const float* __restrict__ x_t,
-                        const float* __restrict__ gpr, Tabs tb,
-                        float* __restrict__ gdp) {
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= E) return;
-  const float* xs = x_s + (size_t)(src ? src[e] : e) * MC;
-  const float* xt = x_t + (size_t)(e / K) * MC;
-  const float* gr = gpr + (size_t)e * Dtot;
-  for (int j = 0; j < nnz; ++j) {
-    const int col = rot_col(tb.u_of_j[j], C, Ce, nl0);
-    const int mo = tb.m_of_j[j] * C;
-    float part = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      part = fmaf(xs[mo + c], gr[col + c], part);
-      part = fmaf(xt[mo + c], gr[col + C + c], part);
+// one block per edge, a thread per nonzero: g_Dp from the rotated-pair
+// cotangent; the edge's source and target node rows (picked as in
+// rotate_in) and its rotated gpr rows staged in shared memory
+__global__ void __launch_bounds__(128)
+gdp_bwd(Dims d, const float* __restrict__ x_s,
+        const int64_t* __restrict__ src, const float* __restrict__ x_t,
+        const float* __restrict__ gpr, const int* __restrict__ tabs,
+        float* __restrict__ gdp) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  const int pc = d.C + 4, pg = 2 * d.C + 4, C4 = d.C >> 2;
+  float* xs = reinterpret_cast<float*>(tsm + tab_words(d));   // [M][pc]
+  float* xt = xs + d.M * pc;                                  // [M][pc]
+  float* gp = xt + d.M * pc;                                  // [U][pg]
+  const size_t e = blockIdx.x;
+  stage_rows(x_s + (size_t)(src ? src[e] : e) * d.MC, d.C, d.M, d.C, xs, pc);
+  stage_rows(x_t + (e / d.K) * d.MC, d.C, d.M, d.C, xt, pc);
+  const float* gr = gpr + e * d.Dtot;
+  for (int q = threadIdx.x; q < d.U * 2 * C4; q += blockDim.x) {
+    const int u = q / (2 * C4), c = q - u * 2 * C4;
+    reinterpret_cast<float4*>(gp + u * pg)[c] =
+        __ldg(reinterpret_cast<const float4*>(gr + rot_col(d, u)) + c);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < d.nnz; j += blockDim.x) {
+    const float4* a = reinterpret_cast<const float4*>(xs + tb.m_of_j[j] * pc);
+    const float4* b = reinterpret_cast<const float4*>(xt + tb.m_of_j[j] * pc);
+    const float4* g = reinterpret_cast<const float4*>(gp + tb.u_of_j[j] * pg);
+    float s = 0.f;
+    for (int c4 = 0; c4 < C4; ++c4) {
+      s = dot4(a[c4], g[c4], s);
+      s = dot4(b[c4], g[C4 + c4], s);
     }
-    part = warp_sum(part);
-    if (lane == 0) gdp[(size_t)e * nnz + j] = part;
+    gdp[e * d.nnz + j] = s;
   }
 }
 
-// one block per atom: node cotangent = rotation transpose of the target
-// halves of its own K edges + the source halves of the edges whose source
-// it is (deterministic scatter through the source-sorted permutation)
-__global__ void gx_bwd(int K, int C, int Ce, int M, int nl0, int nnz,
-                       int Dtot, const float* __restrict__ dp,
-                       const float* __restrict__ gpr,
-                       const int* __restrict__ src_ptr,
-                       const int* __restrict__ src_perm, Tabs tb,
-                       float* __restrict__ gx) {
-  const int p = blockIdx.x;
-  const int MC = M * C;
+// one block per (atom, 32-channel slice), one thread per (m, 4 channels):
+// node cotangent = rotation transpose of the target halves of the atom's
+// own K edges + the source halves of the edges whose source it is, in
+// source-sorted (CSR) order: a deterministic scatter
+__global__ void __launch_bounds__(256)
+gx_bwd(Dims d, const float* __restrict__ dp, const float* __restrict__ gpr,
+       const int* __restrict__ src_ptr, const int* __restrict__ src_perm,
+       const int* __restrict__ tabs, float* __restrict__ gx) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  __syncthreads();
+  const int p = blockIdx.x, C4 = d.C >> 2, c4a = blockIdx.y * CS4;
+  const int cw = min(CS4, C4 - c4a);
   const int s0 = src_ptr[p], s1 = src_ptr[p + 1];
-  for (int idx = threadIdx.x; idx < MC; idx += blockDim.x) {
-    const int m = idx / C, c = idx - m * C;
+  for (int q = threadIdx.x; q < d.M * cw; q += blockDim.x) {
+    const int m = q / cw, c4 = c4a + q - m * cw;
     const int q0 = tb.bym_ptr[m], q1 = tb.bym_ptr[m + 1];
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const size_t e = (size_t)p * K + k;
-      const float* d = dp + e * nnz;
-      const float* gr = gpr + e * Dtot + C + c;
-      for (int q = q0; q < q1; ++q) {
-        const int j = tb.bym_idx[q];
-        acc = fmaf(d[j], gr[rot_col(tb.u_of_j[j], C, Ce, nl0)], acc);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < d.K; ++k) {
+      const size_t e = (size_t)p * d.K + k;
+      const float* de = dp + e * d.nnz;
+      const float* gr = gpr + e * d.Dtot + d.C;
+      for (int i = q0; i < q1; ++i) {
+        const int j = tb.bym_idx[i];
+        fma4(acc, __ldg(de + j),
+             __ldg(reinterpret_cast<const float4*>(
+                       gr + rot_col(d, tb.u_of_j[j])) + c4));
       }
     }
     for (int t = s0; t < s1; ++t) {
       const size_t e = (size_t)src_perm[t];
-      const float* d = dp + e * nnz;
-      const float* gr = gpr + e * Dtot + c;
-      for (int q = q0; q < q1; ++q) {
-        const int j = tb.bym_idx[q];
-        acc = fmaf(d[j], gr[rot_col(tb.u_of_j[j], C, Ce, nl0)], acc);
+      const float* de = dp + e * d.nnz;
+      const float* gr = gpr + e * d.Dtot;
+      for (int i = q0; i < q1; ++i) {
+        const int j = tb.bym_idx[i];
+        fma4(acc, __ldg(de + j),
+             __ldg(reinterpret_cast<const float4*>(
+                       gr + rot_col(d, tb.u_of_j[j])) + c4));
       }
     }
-    gx[(size_t)p * MC + idx] = acc;
+    reinterpret_cast<float4*>(gx + (size_t)p * d.MC + m * d.C)[c4] = acc;
   }
 }
 
-// one block per edge: rotation transpose of K3, the source and target
-// halves of the rotated-pair cotangent back to per-edge node rows (the
-// caller's gather and repeat reduce them; no scatter here)
-__global__ void rot_in_bwd(int C, int Ce, int M, int nl0, int nnz, int Dtot,
-                           const float* __restrict__ dp,
-                           const float* __restrict__ gpr, Tabs tb,
-                           float* __restrict__ gxs, float* __restrict__ gxt) {
+// one block per (edge, 32-channel slice): rotation transpose of K3, the
+// source and target halves of the rotated-pair cotangent back to per-edge
+// node rows (the caller's gather and repeat reduce them; no scatter here)
+__global__ void __launch_bounds__(256)
+rot_in_bwd(Dims d, const float* __restrict__ dp,
+           const float* __restrict__ gpr, const int* __restrict__ tabs,
+           float* __restrict__ gxs, float* __restrict__ gxt) {
+  extern __shared__ __align__(16) int tsm[];
+  const Tabs tb = stage_tabs(d, tabs, tsm);
+  __syncthreads();
   const size_t e = blockIdx.x;
-  const int MC = M * C;
-  const float* d = dp + e * nnz;
-  const float* gr = gpr + e * Dtot;
-  for (int idx = threadIdx.x; idx < MC; idx += blockDim.x) {
-    const int m = idx / C, c = idx - m * C;
-    const int q0 = tb.bym_ptr[m], q1 = tb.bym_ptr[m + 1];
-    float as = 0.f, at = 0.f;
-    for (int q = q0; q < q1; ++q) {
-      const int j = tb.bym_idx[q];
-      const int col = rot_col(tb.u_of_j[j], C, Ce, nl0);
-      as = fmaf(d[j], gr[col + c], as);
-      at = fmaf(d[j], gr[col + C + c], at);
+  const int C4 = d.C >> 2, c4a = blockIdx.y * CS4;
+  const int cw = min(CS4, C4 - c4a);
+  const float* de = dp + e * d.nnz;
+  const float* gr = gpr + e * d.Dtot;
+  for (int q = threadIdx.x; q < d.M * cw; q += blockDim.x) {
+    const int m = q / cw, c4 = c4a + q - m * cw;
+    float4 as = make_float4(0.f, 0.f, 0.f, 0.f), at = as;
+    for (int i = tb.bym_ptr[m]; i < tb.bym_ptr[m + 1]; ++i) {
+      const int j = tb.bym_idx[i];
+      const float dj = __ldg(de + j);
+      const float4* g =
+          reinterpret_cast<const float4*>(gr + rot_col(d, tb.u_of_j[j]));
+      fma4(as, dj, __ldg(g + c4));
+      fma4(at, dj, __ldg(g + C4 + c4));
     }
-    gxs[e * MC + idx] = as;
-    gxt[e * MC + idx] = at;
+    reinterpret_cast<float4*>(gxs + e * d.MC + m * d.C)[c4] = as;
+    reinterpret_cast<float4*>(gxt + e * d.MC + m * d.C)[c4] = at;
   }
 }
 
@@ -529,6 +793,20 @@ cudaError_t launch_act(cudaStream_t st, int E, int H, int U, int G,
   ACT(8) ACT(12) ACT(20) ACT(MAXU)
 #undef ACT
   return cudaErrorInvalidValue;
+}
+
+// a rotation stage's launch: dynamic shared memory above 48 KB is asked
+// for first (a refused launch never runs; the caller reads the error)
+template <typename Kern, typename... Args>
+cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
+                   cudaStream_t st, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  kern<<<grid, threads, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------------------
@@ -577,59 +855,106 @@ Geo make_geo(int C, int H, int Ce, int lmax, int mmax) {
   return g;
 }
 
-bool bad_geo(const Geo& g, int mmax) {
-  return mmax + 1 > MAXMB || g.U > MAXU;
+// a configuration the kernels do not take: too many blocks or rows, or
+// widths whose column offsets are not 16-byte aligned
+bool bad_geo(const Geo& g, int mmax, int C, int H, int Ce) {
+  return mmax + 1 > MAXMB || g.U > MAXU || C % 4 || H % 4 || Ce % 4;
 }
 
-// conv 1 -> S2 activation -> conv 2 over E edges. Block b of conv 1
-// reads its input columns at a[b] with row stride lda[b].
+Dims make_dims(const Geo& g, int K, int C, int Ce, int lmax, int nnz) {
+  Dims d;
+  d.K = K;
+  d.C = C;
+  d.Ce = Ce;
+  d.U = g.U;
+  d.nl0 = lmax + 1;
+  d.M = d.nl0 * d.nl0;
+  d.nnz = nnz;
+  d.MC = d.M * C;
+  d.Dtot = g.U * 2 * C + Ce;
+  return d;
+}
+
+// the four convs, each one grouped launch over the |m| blocks
+// conv 1: block b reads its input columns at a[b] with row stride lda[b],
+// times the transposed pack w1t (block b is [nl*H, inC], k contiguous)
+Group conv1_fwd(const Geo& g, int E, int H, const float* const* a,
+                const int* lda, const float* w1t, const float* b1,
+                float* msg) {
+  Group gr;
+  gr.nb = 0;
+  gr.m = E;
+  for (int b = 0; b < g.nb; ++b)
+    add_op(gr, a[b], lda[b], w1t + g.w1_off[b], g.inC[b], b1 + g.b1_off[b],
+           msg + g.hid_col[b], g.U * H, g.nl[b] * H, g.inC[b]);
+  return gr;
+}
+
+// conv 2: act times w2t (block b is [nl*C, nl*H])
+Group conv2_fwd(const Geo& g, int E, int C, int H, const float* act,
+                const float* w2t, const float* b2, float* outsv) {
+  Group gr;
+  gr.nb = 0;
+  gr.m = E;
+  for (int b = 0; b < g.nb; ++b)
+    add_op(gr, act + g.hid_col[b], g.U * H, w2t + g.w2_off[b], g.nl[b] * H,
+           b2 + g.b2_off[b], outsv + g.out_col[b], g.U * C, g.nl[b] * C,
+           g.nl[b] * H);
+  return gr;
+}
+
+// conv2^T: the conv-2 output cotangent times w2 (block b is [nl*H, nl*C])
+Group conv2_bwd(const Geo& g, int E, int C, int H, const float* gout,
+                const float* w2, float* gact) {
+  Group gr;
+  gr.nb = 0;
+  gr.m = E;
+  for (int b = 0; b < g.nb; ++b)
+    add_op(gr, gout + g.out_col[b], g.U * C, w2 + g.w2_off[b], g.nl[b] * C,
+           nullptr, gact + g.hid_col[b], g.U * H, g.nl[b] * H, g.nl[b] * C);
+  return gr;
+}
+
+// conv1^T: g_msg times w1 (block b is [inC, nl*H]); block b of the conv-1
+// input cotangent goes to c[b] with row stride ldc[b]
+Group conv1_bwd(const Geo& g, int E, int H, const float* gact,
+                const float* w1, float* const* c, const int* ldc) {
+  Group gr;
+  gr.nb = 0;
+  gr.m = E;
+  for (int b = 0; b < g.nb; ++b)
+    add_op(gr, gact + g.hid_col[b], g.U * H, w1 + g.w1_off[b], g.nl[b] * H,
+           nullptr, c[b], ldc[b], g.inC[b], g.nl[b] * H);
+  return gr;
+}
+
+// conv 1 -> S2 activation -> conv 2 over E edges
 cudaError_t chain_fwd(cudaStream_t st, const Geo& g, int E, int C, int H,
                       int G, const float* const* a, const int* lda,
-                      const float* w1, const float* b1, const float* w2,
+                      const float* w1t, const float* b1, const float* w2t,
                       const float* b2, const float* tg, const float* fg,
                       float* msg, float* act, float* outsv) {
-  const int U = g.U;
   cudaError_t err;
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * H, g.inC[b], a[b], lda[b], w1 + g.w1_off[b],
-               g.nl[b] * H, b1 + g.b1_off[b], msg + g.hid_col[b], U * H);
-    if (err) return err;
-  }
-  if ((err = launch_act<false>(st, E, H, U, G, msg, tg, fg, act))) return err;
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * C, g.nl[b] * H, act + g.hid_col[b], U * H,
-               w2 + g.w2_off[b], g.nl[b] * C, b2 + g.b2_off[b],
-               outsv + g.out_col[b], U * C);
-    if (err) return err;
-  }
-  return cudaSuccess;
+  if ((err = run_group(st, conv1_fwd(g, E, H, a, lda, w1t, b1, msg))))
+    return err;
+  if ((err = launch_act<false>(st, E, H, g.U, G, msg, tg, fg, act)))
+    return err;
+  return run_group(st, conv2_fwd(g, E, C, H, act, w2t, b2, outsv));
 }
 
 // conv2^T -> S2 activation VJP -> conv1^T from the conv-2 output
-// cotangent gout [E, U*C]. Block b of the conv-1 input cotangent goes to
-// c[b] with row stride ldc[b].
+// cotangent gout [E, U*C]
 cudaError_t chain_bwd(cudaStream_t st, const Geo& g, int E, int C, int H,
                       int G, const float* gout, const float* msg,
-                      const float* w1t, const float* w2t, const float* tg,
+                      const float* w1, const float* w2, const float* tg,
                       const float* fg, float* gact, float* const* c,
                       const int* ldc) {
-  const int U = g.U;
   cudaError_t err;
-  // conv2^T: block b of w2t is [nl*C, nl*H]
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.nl[b] * H, g.nl[b] * C, gout + g.out_col[b], U * C,
-               w2t + g.w2_off[b], g.nl[b] * H, nullptr, gact + g.hid_col[b],
-               U * H);
-    if (err) return err;
-  }
-  if ((err = launch_act<true>(st, E, H, U, G, msg, tg, fg, gact))) return err;
-  // conv1^T: block b of w1t is [nl*H, inC]
-  for (int b = 0; b < g.nb; ++b) {
-    err = gemm(st, E, g.inC[b], g.nl[b] * H, gact + g.hid_col[b], U * H,
-               w1t + g.w1_off[b], g.inC[b], nullptr, c[b], ldc[b]);
-    if (err) return err;
-  }
-  return cudaSuccess;
+  if ((err = run_group(st, conv2_bwd(g, E, C, H, gout, w2, gact))))
+    return err;
+  if ((err = launch_act<true>(st, E, H, g.U, G, msg, tg, fg, gact)))
+    return err;
+  return run_group(st, conv1_bwd(g, E, H, gact, w1, c, ldc));
 }
 
 // abuf-layout operand pointers: block b at column in_col[b], stride Dtot
@@ -649,6 +974,40 @@ cudaError_t copy_cols(cudaStream_t st, float* dst, int ldd, const float* src,
                            cudaMemcpyDeviceToDevice, st);
 }
 
+// the launches of the rotation stages, shared by K1 and K3
+size_t tab_bytes(const Dims& d) { return sizeof(int) * tab_words(d); }
+
+dim3 slices(int rows, const Dims& d) {
+  return dim3(rows, ((d.C >> 2) + CS4 - 1) / CS4);
+}
+
+cudaError_t run_rotate_in(cudaStream_t st, const Dims& d, int E,
+                          const float* x_s, const int64_t* src,
+                          const float* x_t, const float* es, const float* dp,
+                          const int* tabs, float* abuf) {
+  return launch(rotate_in, dim3((E + EB - 1) / EB), 256, tab_bytes(d), st, d,
+                E, x_s, src, x_t, es, dp, tabs, abuf);
+}
+
+cudaError_t run_rot_out_bwd(cudaStream_t st, const Dims& d, int E,
+                            const float* gnode, const float* dpe,
+                            const float* outsv, const int* tabs, float* gout,
+                            float* gdpe) {
+  const size_t smem = tab_bytes(d) + sizeof(float) * (d.M + d.U) * (d.C + 4);
+  return launch(rot_out_bwd, dim3(E), 128, smem, st, d, gnode, dpe, outsv,
+                tabs, gout, gdpe);
+}
+
+cudaError_t run_gdp_bwd(cudaStream_t st, const Dims& d, int E,
+                        const float* x_s, const int64_t* src,
+                        const float* x_t, const float* gpr, const int* tabs,
+                        float* gdp) {
+  const size_t smem = tab_bytes(d) + sizeof(float) * (2 * d.M * (d.C + 4) +
+                                                      d.U * (2 * d.C + 4));
+  return launch(gdp_bwd, dim3(E), 128, smem, st, d, x_s, src, x_t, gpr, tabs,
+                gdp);
+}
+
 }  // namespace
 
 extern "C" {
@@ -656,30 +1015,26 @@ extern "C" {
 // K1 forward. Returns the first CUDA error of the launch sequence (0 = ok).
 int k1_fwd(int P, int K, int C, int H, int Ce, int lmax, int mmax, int nnz,
            int G, const float* x, const int64_t* src, const float* es,
-           const float* dp, const float* dpe, const float* w1,
-           const float* b1, const float* w2, const float* b2,
+           const float* dp, const float* dpe, const float* w1t,
+           const float* b1, const float* w2t, const float* b2,
            const float* tg, const float* fg, const int* tabs, float* abuf,
            float* msg, float* act, float* outsv, float* y, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = (lmax + 1) * (lmax + 1);
-  const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
-  const int U = g.U, E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
-  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(g, K, C, Ce, lmax, nnz);
+  const int E = P * K;
   cudaError_t err;
-
-  rotate_in<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, K, C, Ce, U, nl0, nnz, MC, Dtot, x, src, x, es, dp, tb, abuf);
-  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = run_rotate_in(st, d, E, x, src, x, es, dp, tabs, abuf)))
+    return (int)err;
   float* a[MAXMB];
   int lda[MAXMB];
-  abuf_cols(g, abuf, Dtot, a, lda);
-  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+  abuf_cols(g, abuf, d.Dtot, a, lda);
+  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1t, b1, w2t, b2, tg, fg,
                        msg, act, outsv)))
     return (int)err;
-  back_ksum<<<P, 256, 0, st>>>(K, C, U, M, nnz, outsv, dpe, tb, y);
-  return (int)cudaGetLastError();
+  return (int)launch(back_ksum, slices(P, d), 256, tab_bytes(d), st, d,
+                     (const float*)outsv, dpe, tabs, y);
 }
 
 // K1 backward: input cotangents gx [P, M*C], g_Dp / g_Dpe [E, nnz]; the
@@ -688,63 +1043,52 @@ int k1_bwd(int P, int K, int C, int H, int Ce, int lmax, int mmax, int nnz,
            int G, const float* x, const float* gnode, const int64_t* src,
            const int* src_ptr, const int* src_perm, const float* dp,
            const float* dpe, const float* msg, const float* outsv,
-           const float* w1t, const float* w2t, const float* tg,
+           const float* w1, const float* w2, const float* tg,
            const float* fg, const int* tabs, float* gout, float* gact,
            float* gpr, float* gx, float* gdp, float* gdpe, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = (lmax + 1) * (lmax + 1);
-  const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
-  const int U = g.U, E = P * K, MC = M * C, Dtot = U * 2 * C + Ce;
-  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(g, K, C, Ce, lmax, nnz);
+  const int E = P * K;
   cudaError_t err;
-
-  rot_out_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, K, C, U, nnz, MC, gnode, dpe, outsv, tb, gout, gdpe);
-  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = run_rot_out_bwd(st, d, E, gnode, dpe, outsv, tabs, gout, gdpe)))
+    return (int)err;
   float* c[MAXMB];
   int ldc[MAXMB];
-  abuf_cols(g, gpr, Dtot, c, ldc);
-  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+  abuf_cols(g, gpr, d.Dtot, c, ldc);
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1, w2, tg, fg, gact,
                        c, ldc)))
     return (int)err;
-  gdp_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, K, C, Ce, nl0, nnz, MC, Dtot, x, src, x, gpr, tb, gdp);
-  if ((err = cudaGetLastError())) return (int)err;
-  gx_bwd<<<P, 256, 0, st>>>(K, C, Ce, M, nl0, nnz, Dtot, dp, gpr, src_ptr,
-                            src_perm, tb, gx);
-  return (int)cudaGetLastError();
+  if ((err = run_gdp_bwd(st, d, E, x, src, x, gpr, tabs, gdp)))
+    return (int)err;
+  return (int)launch(gx_bwd, slices(P, d), 256, tab_bytes(d), st, d, dp,
+                     (const float*)gpr, src_ptr, src_perm, tabs, gx);
 }
 
 // K3 forward: K1's stages on per-edge rows xs, xt [E, M*C] (edge e reads
 // row e of each), back-rotated per edge into y [E, M*C] with no K-sum.
 int k3_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
            const float* xs, const float* xt, const float* es,
-           const float* dp, const float* dpe, const float* w1,
-           const float* b1, const float* w2, const float* b2,
+           const float* dp, const float* dpe, const float* w1t,
+           const float* b1, const float* w2t, const float* b2,
            const float* tg, const float* fg, const int* tabs, float* abuf,
            float* msg, float* act, float* outsv, float* y, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = (lmax + 1) * (lmax + 1);
-  const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
-  const int U = g.U, MC = M * C, Dtot = U * 2 * C + Ce;
-  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(g, 1, C, Ce, lmax, nnz);
   cudaError_t err;
-
-  rotate_in<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, 1, C, Ce, U, nl0, nnz, MC, Dtot, xs, nullptr, xt, es, dp, tb, abuf);
-  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = run_rotate_in(st, d, E, xs, nullptr, xt, es, dp, tabs, abuf)))
+    return (int)err;
   float* a[MAXMB];
   int lda[MAXMB];
-  abuf_cols(g, abuf, Dtot, a, lda);
-  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+  abuf_cols(g, abuf, d.Dtot, a, lda);
+  if ((err = chain_fwd(st, g, E, C, H, G, a, lda, w1t, b1, w2t, b2, tg, fg,
                        msg, act, outsv)))
     return (int)err;
-  back_ksum<<<E, 256, 0, st>>>(1, C, U, M, nnz, outsv, dpe, tb, y);
-  return (int)cudaGetLastError();
+  return (int)launch(back_ksum, slices(E, d), 256, tab_bytes(d), st, d,
+                     (const float*)outsv, dpe, tabs, y);
 }
 
 // K3 backward: from the per-edge output cotangent gy [E, M*C], the
@@ -753,34 +1097,27 @@ int k3_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
 int k3_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
            const float* xs, const float* xt, const float* gy,
            const float* dp, const float* dpe, const float* msg,
-           const float* outsv, const float* w1t, const float* w2t,
+           const float* outsv, const float* w1, const float* w2,
            const float* tg, const float* fg, const int* tabs, float* gout,
            float* gact, float* gpr, float* gxs, float* gxt, float* gdp,
            float* gdpe, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = (lmax + 1) * (lmax + 1);
-  const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
-  const int U = g.U, MC = M * C, Dtot = U * 2 * C + Ce;
-  const Tabs tb = make_tabs(tabs, nnz, U, M);
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(g, 1, C, Ce, lmax, nnz);
   cudaError_t err;
-
-  rot_out_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, 1, C, U, nnz, MC, gy, dpe, outsv, tb, gout, gdpe);
-  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = run_rot_out_bwd(st, d, E, gy, dpe, outsv, tabs, gout, gdpe)))
+    return (int)err;
   float* c[MAXMB];
   int ldc[MAXMB];
-  abuf_cols(g, gpr, Dtot, c, ldc);
-  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+  abuf_cols(g, gpr, d.Dtot, c, ldc);
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1, w2, tg, fg, gact,
                        c, ldc)))
     return (int)err;
-  gdp_bwd<<<(E * 32 + 255) / 256, 256, 0, st>>>(
-      E, 1, C, Ce, nl0, nnz, MC, Dtot, xs, nullptr, xt, gpr, tb, gdp);
-  if ((err = cudaGetLastError())) return (int)err;
-  rot_in_bwd<<<E, 256, 0, st>>>(C, Ce, M, nl0, nnz, Dtot, dp, gpr, tb, gxs,
-                                gxt);
-  return (int)cudaGetLastError();
+  if ((err = run_gdp_bwd(st, d, E, xs, nullptr, xt, gpr, tabs, gdp)))
+    return (int)err;
+  return (int)launch(rot_in_bwd, slices(E, d), 256, tab_bytes(d), st, d, dp,
+                     (const float*)gpr, tabs, gxs, gxt);
 }
 
 // K4 forward: conv 1 -> S2 activation -> conv 2 on rotated pair rows
@@ -788,14 +1125,14 @@ int k3_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int nnz, int G,
 // out [E, U*C]. The m0 block's input (its pair rows, then es) is staged
 // into x0 [E, nl0*2C + Ce]; the m > 0 blocks read pr in place.
 int k4_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
-           const float* pr, const float* es, const float* w1,
-           const float* b1, const float* w2, const float* b2,
+           const float* pr, const float* es, const float* w1t,
+           const float* b1, const float* w2t, const float* b2,
            const float* tg, const float* fg, float* x0, float* msg,
            float* act, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
   const int PR = g.U * 2 * C, W0 = nl0 * 2 * C;
   cudaError_t err;
   if ((err = copy_cols(st, x0, g.inC[0], pr, PR, W0, E))) return (int)err;
@@ -807,7 +1144,7 @@ int k4_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
     a[b] = b == 0 ? x0 : pr + g.pr_col[b];
     lda[b] = b == 0 ? g.inC[0] : PR;
   }
-  return (int)chain_fwd(st, g, E, C, H, G, a, lda, w1, b1, w2, b2, tg, fg,
+  return (int)chain_fwd(st, g, E, C, H, G, a, lda, w1t, b1, w2t, b2, tg, fg,
                         msg, act, out);
 }
 
@@ -815,13 +1152,13 @@ int k4_fwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
 // ges [E, Ce]. The m0 block's cotangent lands in g0 [E, nl0*2C + Ce] and
 // is split into gpr and ges.
 int k4_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
-           const float* msg, const float* gout, const float* w1t,
-           const float* w2t, const float* tg, const float* fg, float* gact,
+           const float* msg, const float* gout, const float* w1,
+           const float* w2, const float* tg, const float* fg, float* gact,
            float* g0, float* gpr, float* ges, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nl0 = lmax + 1;
   const Geo g = make_geo(C, H, Ce, lmax, mmax);
-  if (bad_geo(g, mmax)) return (int)cudaErrorInvalidValue;
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
   const int PR = g.U * 2 * C, W0 = nl0 * 2 * C;
   cudaError_t err;
   float* c[MAXMB];
@@ -830,11 +1167,39 @@ int k4_bwd(int E, int C, int H, int Ce, int lmax, int mmax, int G,
     c[b] = b == 0 ? g0 : gpr + g.pr_col[b];
     ldc[b] = b == 0 ? g.inC[0] : PR;
   }
-  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1t, w2t, tg, fg, gact,
+  if ((err = chain_bwd(st, g, E, C, H, G, gout, msg, w1, w2, tg, fg, gact,
                        c, ldc)))
     return (int)err;
   if ((err = copy_cols(st, gpr, PR, g0, g.inC[0], W0, E))) return (int)err;
   return (int)copy_cols(st, ges, Ce, g0 + W0, g.inC[0], Ce, E);
+}
+
+// The two conv products of one direction alone, on K1's layouts (for
+// timing the GEMM): bwd = 0 runs conv 1 (abuf-layout in [E, Dtot] -> mid
+// [E, U*H], w = w1t) then conv 2 (mid -> out [E, U*C], w = w2t); bwd = 1
+// runs conv2^T (in [E, U*C] -> mid, w = w2) then conv1^T (mid -> out
+// [E, Dtot], w = w1). Biases are used by the forward only.
+int conv_pair(int E, int C, int H, int Ce, int lmax, int mmax, int bwd,
+              const float* in, const float* wa, const float* ba,
+              const float* wb, const float* bb, float* mid, float* out,
+              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Geo g = make_geo(C, H, Ce, lmax, mmax);
+  if (bad_geo(g, mmax, C, H, Ce)) return (int)cudaErrorInvalidValue;
+  const int Dtot = g.U * 2 * C + Ce;
+  float* p[MAXMB];
+  int ld[MAXMB];
+  cudaError_t err;
+  if (!bwd) {
+    abuf_cols(g, const_cast<float*>(in), Dtot, p, ld);
+    if ((err = run_group(st, conv1_fwd(g, E, H, p, ld, wa, ba, mid))))
+      return (int)err;
+    return (int)run_group(st, conv2_fwd(g, E, C, H, mid, wb, bb, out));
+  }
+  abuf_cols(g, out, Dtot, p, ld);
+  if ((err = run_group(st, conv2_bwd(g, E, C, H, in, wa, mid))))
+    return (int)err;
+  return (int)run_group(st, conv1_bwd(g, E, H, mid, wb, p, ld));
 }
 
 // Deterministic backward of a row gather: out [P, F] row p = sum of the

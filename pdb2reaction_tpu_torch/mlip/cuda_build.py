@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library in the
 package's ``_build/`` directory (listed in ``.gitignore``), keyed by a hash
-of the source so an edited file is rebuilt, and bound with ``ctypes``.
+of the source and of the headers of ``csrc/`` so an edited file is
+rebuilt, and bound with ``ctypes``.
 Nothing is built when a module is imported: the CPU paths never need
 ``nvcc``. A failed build raises.
 """
@@ -38,10 +39,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, keyed by its source, every
+    header of ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:

@@ -196,7 +196,9 @@ def _merge(A, B):
 
 def _pack_weights(weights):
     """Packed row-vector [in, out] blocks and biases for conv 1 and conv 2,
-    plus the transposed packs the backward multiplies by."""
+    plus the transposed [out, in] packs. The kernels' conv products read
+    both operands k-contiguous: the forward multiplies by the transposed
+    packs, the backward by the untransposed ones."""
     (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
     w1 = [W0] + [_merge(a, b) for a, b in zip(Wrs, Wis)]
     w2 = [V0] + [_merge(a, b) for a, b in zip(Vrs, Vis)]
@@ -317,20 +319,20 @@ class _MegaFn(torch.autograd.Function):
         y = torch.empty(P, M * C, **dev)
         call(load("escn_edge"), "k1_fwd", P, K, C, H, Ce, cfg.lmax,
              cfg.mmax, nnz, G, ptr(x_node), ptr(src), ptr(es_e), ptr(dp_e),
-             ptr(dpe_e), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(tg),
+             ptr(dpe_e), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2), ptr(tg),
              ptr(fg), ptr(tabs), ptr(abuf), ptr(msg), ptr(act), ptr(outsv),
              ptr(y), stream_ptr())
         launches["fused_edge_mega_fwd"] += 1
         ctx.cfg = cfg
-        ctx.save_for_backward(x_node, src, dp_e, dpe_e, msg, outsv, w1t,
-                              w2t, tg, fg)
+        ctx.save_for_backward(x_node, src, dp_e, dpe_e, msg, outsv, w1, w2,
+                              tg, fg)
         return y.T
 
     @staticmethod
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
-        x_node, src, dp_e, dpe_e, msg, outsv, w1t, w2t, tg, fg = \
+        x_node, src, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg = \
             ctx.saved_tensors
         nl0, nls, U, G = _dims(cfg)
         M = (cfg.lmax + 1) ** 2
@@ -355,7 +357,7 @@ class _MegaFn(torch.autograd.Function):
         call(load("escn_edge"), "k1_bwd", P, K, C, H, Ce, cfg.lmax,
              cfg.mmax, nnz, G, ptr(x_node), ptr(g_node), ptr(src),
              ptr(src_ptr), ptr(perm), ptr(dp_e), ptr(dpe_e), ptr(msg),
-             ptr(outsv), ptr(w1t), ptr(w2t), ptr(tg), ptr(fg), ptr(tabs),
+             ptr(outsv), ptr(w1), ptr(w2), ptr(tg), ptr(fg), ptr(tabs),
              ptr(gout), ptr(gact), ptr(gpr), ptr(gx), ptr(gdp), ptr(gdpe),
              stream_ptr())
         launches["fused_edge_mega_bwd"] += 1
@@ -385,12 +387,12 @@ class _BlockFn(torch.autograd.Function):
         y = torch.empty(E, MC, **dev)
         call(load("escn_edge"), "k3_fwd", E, C, H, Ce, cfg.lmax, cfg.mmax,
              nnz, G, ptr(xs), ptr(xt), ptr(es_e), ptr(dp_e), ptr(dpe_e),
-             ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(tg), ptr(fg),
+             ptr(w1t), ptr(b1), ptr(w2t), ptr(b2), ptr(tg), ptr(fg),
              ptr(_tables_dev(cfg, xs.device)), ptr(abuf), ptr(msg), ptr(act),
              ptr(outsv), ptr(y), stream_ptr())
         launches["fused_edge_block_fwd"] += 1
         ctx.cfg = cfg
-        ctx.save_for_backward(xs, xt, dp_e, dpe_e, msg, outsv, w1t, w2t, tg,
+        ctx.save_for_backward(xs, xt, dp_e, dpe_e, msg, outsv, w1, w2, tg,
                               fg)
         return y.T
 
@@ -398,7 +400,7 @@ class _BlockFn(torch.autograd.Function):
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
-        xs, xt, dp_e, dpe_e, msg, outsv, w1t, w2t, tg, fg = \
+        xs, xt, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg = \
             ctx.saved_tensors
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
@@ -416,7 +418,7 @@ class _BlockFn(torch.autograd.Function):
         gdpe = torch.empty(E, nnz, **dev)
         call(load("escn_edge"), "k3_bwd", E, C, H, Ce, cfg.lmax, cfg.mmax,
              nnz, G, ptr(xs), ptr(xt), ptr(gy), ptr(dp_e), ptr(dpe_e),
-             ptr(msg), ptr(outsv), ptr(w1t), ptr(w2t), ptr(tg), ptr(fg),
+             ptr(msg), ptr(outsv), ptr(w1), ptr(w2), ptr(tg), ptr(fg),
              ptr(_tables_dev(cfg, xs.device)), ptr(gout), ptr(gact),
              ptr(gpr), ptr(gxs), ptr(gxt), ptr(gdp), ptr(gdpe), stream_ptr())
         launches["fused_edge_block_bwd"] += 1
@@ -441,19 +443,19 @@ class _ChainFn(torch.autograd.Function):
         act = torch.empty(E, U * H, **dev)
         out = torch.empty(E, U * C, **dev)
         call(load("escn_edge"), "k4_fwd", E, C, H, Ce, cfg.lmax, cfg.mmax, G,
-             ptr(pr_e), ptr(es_e), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+             ptr(pr_e), ptr(es_e), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
              ptr(tg), ptr(fg), ptr(x0), ptr(msg), ptr(act), ptr(out),
              stream_ptr())
         launches["fused_edge_chain_fwd"] += 1
         ctx.cfg = cfg
-        ctx.save_for_backward(msg, w1t, w2t, tg, fg)
+        ctx.save_for_backward(msg, w1, w2, tg, fg)
         return out.T
 
     @staticmethod
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
-        msg, w1t, w2t, tg, fg = ctx.saved_tensors
+        msg, w1, w2, tg, fg = ctx.saved_tensors
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
                     cfg.edge_channels)
@@ -465,7 +467,7 @@ class _ChainFn(torch.autograd.Function):
         gpr = torch.empty(E, U * 2 * C, **dev)
         ges = torch.empty(E, Ce, **dev)
         call(load("escn_edge"), "k4_bwd", E, C, H, Ce, cfg.lmax, cfg.mmax, G,
-             ptr(msg), ptr(gout), ptr(w1t), ptr(w2t), ptr(tg), ptr(fg),
+             ptr(msg), ptr(gout), ptr(w1), ptr(w2), ptr(tg), ptr(fg),
              ptr(gact), ptr(g0), ptr(gpr), ptr(ges), stream_ptr())
         launches["fused_edge_chain_bwd"] += 1
         return None, gpr.T, ges.T, None, None, None
@@ -478,7 +480,9 @@ def _flat_weights(weights):
 
 def _kernel_guard(name, cfg, weights, tables, *ts):
     """The CUDA kernels' limits: float32 on one card, U <= 32 reduced rows,
-    mmax <= 4, and no weight that requires grad."""
+    mmax <= 4, C, H and Ce multiples of 4 (the conv products copy 16-byte
+    chunks at column offsets of those widths), and no weight that
+    requires grad."""
     flat = _flat_weights(weights)
     if any(w.requires_grad for w in flat):
         raise NotImplementedError(
@@ -489,6 +493,11 @@ def _kernel_guard(name, cfg, weights, tables, *ts):
     if U > 32 or cfg.mmax > 4:
         raise ValueError(f"{name}'s CUDA kernel takes U <= 32 reduced rows "
                          "and mmax <= 4")
+    widths = (cfg.sphere_channels, cfg.hidden_channels, cfg.edge_channels)
+    if any(w % 4 for w in widths):
+        raise ValueError(f"{name}'s CUDA kernel takes sphere, hidden and "
+                         f"edge channels that are multiples of 4; got "
+                         f"{widths}")
 
 
 def _check_shapes(name, **shapes):

@@ -6,14 +6,15 @@ PyTorch/CUDA port, by kernel name (torch.profiler, CUDA activity).
 
 Cells (default: all five):
   escn-md       escn-md on the 300-atom cluster of chip_smoke.py (padded
-                to 320): K1 (sgemm_nn, rotate_in, act_fwd, back_ksum,
-                rot_out_bwd, act_bwd, gdp_bwd, gx_bwd) and K2 (ffn_fwd,
-                ffn_bwd);
-  escn-md-full  the same with edge_kernel="pallas-full": K3 (sgemm_nn,
+                to 320): K1 (conv_tf32, the grouped 3xTF32 conv products,
+                4 launches per layer and direction pair; rotate_in,
+                act_fwd, back_ksum, rot_out_bwd, act_bwd, gdp_bwd, gx_bwd)
+                and K2 (ffn_fwd, ffn_bwd);
+  escn-md-full  the same with edge_kernel="pallas-full": K3 (conv_tf32,
                 rotate_in, act_fwd, back_ksum, rot_out_bwd, act_bwd,
                 gdp_bwd, rot_in_bwd), the source gather's backward
                 (csr_rows_sum) and K2;
-  escn-md-chain the same with edge_kernel="pallas": K4 (sgemm_nn, act_fwd,
+  escn-md-chain the same with edge_kernel="pallas": K4 (conv_tf32, act_fwd,
                 act_bwd and its column copies), K2, and the rotations as
                 plain PyTorch einsums (cuBLAS batched products);
   painn-pallas  uma-s-1p1 in mp_mode="pallas" on the 4096-atom system:

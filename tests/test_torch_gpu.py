@@ -170,6 +170,76 @@ def test_edge_chain_kernel_matches_plain(name, over, P):
         ek.fused_edge_chain(cfg, pr[:-1], es, w, tabs)
 
 
+def _edge_kernel_args(kind, cfg, ins, src):
+    """(kernel, plain, differentiable inputs, call) of K1, K3 or K4 on the
+    inputs of ``_edge_inputs``."""
+    x, es, dp, dpe = ins
+    if kind == "mega":
+        return (ek.fused_edge_mega, ek.fused_edge_mega_plain, (x, es, dp, dpe),
+                lambda fn, w, tabs, a, b, c, d: fn(cfg, a, src, b, c, d, w,
+                                                   tabs))
+    if kind == "block":
+        xs = x[:, src].contiguous()
+        xt = x.repeat_interleave(cfg.max_neighbors, dim=1)
+        return (ek.fused_edge_block, ek.fused_edge_block_plain,
+                (xs, xt, es, dp, dpe),
+                lambda fn, w, tabs, *a: fn(cfg, *a, w, tabs))
+    nl0, nls, U, G = ek._dims(cfg)
+    pr = torch.randn(U * 2 * cfg.sphere_channels, src.numel(),
+                     generator=torch.Generator().manual_seed(2)).to(**F32)
+    return (ek.fused_edge_chain, ek.fused_edge_chain_plain, (pr, es),
+            lambda fn, w, tabs, *a: fn(cfg, *a, w, tabs))
+
+
+EDGE_KINDS = {"mega": "fused_edge_mega", "block": "fused_edge_block",
+              "chain": "fused_edge_chain"}
+NARROW_MD = dict(sphere_channels=16, hidden_channels=16, edge_channels=8)
+
+
+@pytest.mark.parametrize("kind", list(EDGE_KINDS))
+@pytest.mark.parametrize("name,over", [("escn-test", {}),
+                                       ("escn-md", NARROW_MD)])
+def test_edge_kernel_ragged_tiles_repeat_bit_for_bit(kind, name, over):
+    """K1, K3 and K4 at P = 13, K = 16 (E = 208: a ragged 128-edge tile of
+    the conv products; at escn-test also N = 24 / 32 and k = 56 / 64, all
+    ragged): values and every input cotangent against the plain version,
+    one forward and one backward launch counted per call, and a second
+    call equal bit for bit."""
+    _need_card()
+    cfg = dataclasses.replace(ESCN_CONFIGS[name], max_neighbors=16, **over)
+    w, tabs, src, ins, _ = _edge_inputs(cfg, 13, seed=11)
+    kern, plain, leaves, call = _edge_kernel_args(kind, cfg, ins, src)
+    key = EDGE_KINDS[kind]
+    got, g = [], None
+    for fn in (kern, plain, kern):
+        n0 = dict(ek.launches)
+        lv = [t.clone().requires_grad_(True) for t in leaves]
+        y = call(fn, w, tabs, *lv)
+        if g is None:
+            g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                12)).to(**F32)
+        got.append([y.detach(), *torch.autograd.grad(y, lv, g)])
+        ran = 1 if fn is kern else 0
+        assert ek.launches[f"{key}_fwd"] == n0[f"{key}_fwd"] + ran
+        assert ek.launches[f"{key}_bwd"] == n0[f"{key}_bwd"] + ran
+    torch.cuda.synchronize()
+    for a, b in zip(got[0], got[1]):
+        assert _close(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[2]))
+
+
+@pytest.mark.parametrize("kind", list(EDGE_KINDS))
+def test_edge_kernel_refuses_misaligned_widths(kind):
+    """An edge-channel width that is not a multiple of 4 would put the conv
+    products' 16-byte copies off alignment: the wrappers raise."""
+    _need_card()
+    cfg = dataclasses.replace(ESCN_CONFIGS["escn-test"], edge_channels=6)
+    w, tabs, src, ins, _ = _edge_inputs(cfg, 5, seed=13)
+    kern, _, leaves, call = _edge_kernel_args(kind, cfg, ins, src)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        call(kern, w, tabs, *leaves)
+
+
 def test_gather_src_backward_is_a_deterministic_scatter():
     """The K3/K4 paths' source gather: its backward equals index_add over
     the live edges and repeats bit for bit."""
