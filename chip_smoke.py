@@ -14,9 +14,10 @@ Phases (any failure exits non-zero):
    (fused_node_ffn), K3 (fused_edge_block) and K4 (fused_edge_chain)
    forward and backward at the first-layer inputs of the "pallas-full"
    and "pallas" layouts, each against its plain PyTorch version on the
-   card, with its time, the plain version's time and its bound (the edge
-   kernels at the 3xTF32 route of their conv products); the conv products
-   alone, timed and their TFLOP/s printed ([K1-gemm]);
+   card, with its time, the plain version's time and its bound (K1-K4 at
+   the 3xTF32 route of their products); the conv products alone, timed
+   and their TFLOP/s printed ([K1-gemm]); K2's launches one by one, with
+   their rates and the peak memory of a K2 launch ([K2-stages]);
 4. the escn main path: make_uma_calculator(model="escn-md", device="cuda")
    and Calculator.get_forces on the 300-atom cluster (ms per call, peak
    memory, kernel launch counts, two calls bit for bit equal), then the
@@ -121,14 +122,16 @@ REPLACES = {
 }
 # the peak of the route each kernel takes to f32 accuracy at the shapes
 # this script runs, FLOP/s of needed work: K5's three kernels (R + 1 = 25
-# <= 32) and the conv products of K1, K3 and K4 (95% of their FLOP) form
-# each product in 3xTF32, three TF32 products per f32 one; every other
-# kernel runs f32 on CUDA cores
+# <= 32), the conv products of K1, K3 and K4 (95% of their FLOP) and K2's
+# GEMMs (all of its FLOP but the sums over the grid) form each product in
+# 3xTF32, three TF32 products per f32 one; every other kernel runs f32 on
+# CUDA cores
 ROUTE_PEAK = {k: TF32_PEAK / 3 for k in (
     "radial_contract_fwd", "radial_contract_bwd_feats",
     "radial_contract_bwd_coords", "fused_edge_mega_fwd",
     "fused_edge_mega_bwd", "fused_edge_block_fwd", "fused_edge_block_bwd",
-    "fused_edge_chain_fwd", "fused_edge_chain_bwd")}
+    "fused_edge_chain_fwd", "fused_edge_chain_bwd", "fused_node_ffn_fwd",
+    "fused_node_ffn_bwd")}
 SOURCES = {
     "fused_edge_mega": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
     "fused_edge_block": "pdb2reaction_tpu_torch/csrc/escn_edge.cu",
@@ -248,6 +251,72 @@ def gemm_rates(cfg, E, weights, reps):
 def k2_flops(M, C, H, G, P):
     return (P * (2 * G * M * C * 2 + 2 * G * C * H * 2),
             P * (2 * G * M * C * 3 + 2 * G * C * H * 3))
+
+
+def k2_stages(cfg, x, weights, tables, gen, reps):
+    """K2's launches one by one at the main path's shapes (``gemm_tf32`` /
+    ``grid_sum_cuda``: the kernels of ``k2_fwd`` / ``k2_bwd`` alone, on the
+    wrapper's operands; no launch counted), ms and TFLOP/s of the
+    function's FLOP (GEMMs) or GB/s of the bytes read and written
+    (grid_sum); then the peak memory of one forward and one backward
+    launch above what was held before. One log line."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
+    o = fk.route_operands(weights, tables)
+    P, M, C = x.shape
+    G, Mp = o.tgp.shape
+    H = o.w1t.shape[0]
+    R = G * P
+    g = torch.randn(x.shape, generator=gen, device=x.device)
+    xc, gc = fk.node_cols(x, Mp), fk.node_cols(g, Mp)
+    grid = x.new_empty(G, P * C)
+    rows = grid.view(R, C)
+    hid = x.new_empty(R, H)
+    out = x.new_empty(P, M, C)
+    gemm, gsum = fk.gemm_tf32, fk.grid_sum_cuda
+    tab, ffn = 2 * G * P * C * M, 2 * R * C * H
+    gs_bytes = 4 * (G * P * C + Mp * G + P * M * C)
+    steps = {"fwd": [
+        ("to-grid", lambda: gemm(o.tgp, xc, c=grid), tab),
+        ("hidden silu", lambda: gemm(rows, o.w1t, o.b1, "silu", c=hid), ffn),
+        ("out rows", lambda: gemm(hid, o.w2t, o.b2, c=rows), ffn),
+        ("grid_sum fg", lambda: gsum(o.fgtp, grid, P, C, M, out), None)],
+        "bwd": [
+        ("to-grid", lambda: gemm(o.tgp, xc, c=grid), tab),
+        ("silu'", lambda: gemm(rows, o.w1t, o.b1, "dsilu", c=hid), ffn),
+        ("dy", lambda: gemm(o.fgtp, gc, c=grid), tab),
+        ("dpre", lambda: gemm(rows, o.w2, epi="mul", c=hid), ffn),
+        ("dgrid", lambda: gemm(hid, o.w1, c=rows), ffn),
+        ("grid_sum tg^T", lambda: gsum(o.tgp, grid, P, C, M, out), None)]}
+    parts, total = [], {}
+    for d, lst in steps.items():
+        items = []
+        total[d] = 0.0
+        for name, fn, fl in lst:
+            ms = cuda_ms(fn, reps)
+            total[d] += ms
+            rate = (f"{fl / ms / 1e9:.1f} TFLOP/s" if fl else
+                    f"{gs_bytes / ms / 1e6:.0f} GB/s")
+            items.append(f"{name} {ms:.3f} ms ({rate})")
+        parts.append(f"{d}: " + ", ".join(items) + f"; sum {total[d]:.3f} ms")
+    del grid, rows, hid, out, xc, gc
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xl = x.clone().requires_grad_(True)
+    y = fk.fused_node_ffn(cfg, xl, weights, tables)
+    torch.cuda.synchronize()
+    peak_f = torch.cuda.max_memory_allocated() - base
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(y, [xl], g)
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated() - base
+    log(f"[K2-stages] P={P}, M={M} (Mp={Mp}), C={C}, H={H}, G={G}; "
+        + "; ".join(parts) + f"; peak memory above the inputs: forward "
+        f"launch {peak_f / 2 ** 20:.1f} MiB, backward launch "
+        f"{peak_b / 2 ** 20:.1f} MiB")
+    return total
 
 
 def bound_ms(flops, nb, name=None):
@@ -452,6 +521,8 @@ def phase_kernels(calc, cfg, quick):
                                   nbytes(xn2, *fw, *ftab, o_p))
     rows["fused_node_ffn_bwd"] = (abs_err(dk, dp), t2b, t2b_p, f2b,
                                   nbytes(xn2, g2, *fw, *ftab, dp))
+    del o_k, o_p, dk, dp, xk, xp, g2
+    k2_stages(cfg_, xn2, fw, ftab, gen, reps)
     for k, (err, t, tp, fl, nb) in rows.items():
         b32, bbf, by = bound_ms(fl, nb, k)
         route = "3xTF32" if k in ROUTE_PEAK else "f32 CUDA cores"

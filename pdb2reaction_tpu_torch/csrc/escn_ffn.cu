@@ -5,339 +5,209 @@
 // (forward) and _ffn_bwd_kernel (input cotangent), reached from
 // fused_node_ffn through _ffn_fwd_call / _ffn_bwd_call.
 //
-// Per node i:  grid = tg[G,M] @ x_i[M,C]
+// Per node p:  grid = tg[G,M] @ x_p[M,C]
 //              h    = silu(grid @ W1 + b1)          [G, H]
 //              y    = h @ W2 + b2                   [G, C]
 //              out  = fg[M,G] @ y
 // The backward recomputes from the saved input x:
-//              dy = fg^T @ g_i;  dpre = (dy @ W2^T) * silu'(pre)
-//              dx_i = tg^T @ (dpre @ W1^T)
+//              dy = fg^T @ g_p;  dpre = (dy @ W2^T) * silu'(grid @ W1 + b1)
+//              dx_p = tg^T @ (dpre @ W1^T)
 //
-// What bounds it: arithmetic (~66 MFLOP per node forward at escn-md:
-// G = 460, M = 25, C = 128, H = 256), provided the [G, H] hidden
-// activations never reach device memory (at P = 320 they would be 151 MB
-// per tensor, written and read several times). That is the point of the
-// TPU kernel and of this one: one block per node walks the grid in chunks
-// of GC = 32 points; each chunk's table rows, grid rows, hidden rows and
-// outputs live in shared memory, and the node's output accumulates in
-// shared memory across chunks (two blocks fit on one SM at escn-md). Device memory sees only x (and g) in, the node result
-// out, and the weights, which every block reads through L2.
-// Every in-block product (to-grid, the two FFN products, from-grid) runs
-// through one register-tiled routine: each thread owns 4 rows x 4..16
-// columns; the left operand sits in shared memory k-major (so the 4 rows
-// of one k are one float4) and the right one is read as float4 strips,
-// so one shared-memory load feeds 8 to 16 multiply-adds. Weights stream
-// through a 16-row shared-memory slab, the next slab prefetched into
-// registers while the current one is multiplied.
+// What bounds it: arithmetic. At escn-md (P = 320, G = 460, M = 25,
+// C = 128, H = 256) a forward is 21.2 GFLOP, 91% of it the two FFN
+// products [G, C] x [C, H] and [G, H] x [H, C] of every node, against
+// ~9 MB of inputs and outputs. Only the tensor cores pass the CUDA cores'
+// 67 TFLOP/s, and at f32 accuracy that means the 3xTF32 split. So each
+// step runs as one plain GEMM on the grouped 3xTF32 wgmma kernel of
+// tf32_gemm.cuh (conv_tf32, tagged node_ffn), with the activation in its
+// epilogue, and the (node, grid point) rows in (g, p) order: the grid is
+// [G, P, C] = [G*P, C], so the table products over m are plain GEMMs too
+// (tg [G, Mp] times x laid out [P*C, Mp]; Mp = M rounded up to 4 with zero
+// columns, which both operands carry), the FFN products are [G*P, C] x
+// [C, H] and back, and only the sums over g that return to the nodes need
+// a kernel of their own (grid_sum). The price is that the [G*P, H] hidden
+// activations and two [G*P, C] grids pass through device memory (~0.6 GB
+// a forward, ~1.1 GB a backward at escn-md, ~0.2 / 0.3 ms of HBM time);
+// the TPU kernel keeps them on chip. Scratch comes from the caller.
+//
+// Forward:  grid = tgp xc^T                      [G, P*C]  (conv_tf32)
+//           h    = silu(grid W1t^T + b1)         [G*P, H]  (conv_tf32)
+//           y    = h W2t^T + b2, over grid       [G*P, C]  (conv_tf32)
+//           out[p, m, c] = sum_g fgtp[g, m] y[g, p*C + c]  (grid_sum)
+// Backward: grid = tgp xc^T;  s = silu'(grid W1t^T + b1)   [G*P, H]
+//           dy   = fgtp gc^T, over grid          [G, P*C]
+//           s   *= dy W2^T  (dpre, in place)     [G*P, H]
+//           dgrid = s W1^T, over grid            [G*P, C]
+//           dx[p, m, c] = sum_g tgp[g, m] dgrid[g, p*C + c] (grid_sum)
+// No atomics: every sum runs in a fixed order, so results repeat bit for
+// bit.
 
 #include <cuda_runtime.h>
 
-#define GC 32           // grid points per chunk
-#define LT (GC + 4)     // row stride of k-major chunk buffers (bank skew)
+#include "tf32_gemm.cuh"
 
 namespace {
 
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+// grid_sum: a block owns GS_COLS columns n = p*C + c of Y; its GS_WARPS
+// warps split g into GS_WARPS contiguous ranges, each lane walks its
+// range in order with one accumulator per m (M <= 32), loading GS_DEPTH
+// rows of its column before it uses them and reading the table's row g
+// (the same 16-byte chunks for the whole warp) through L1. Then the
+// warps' sums are added in warp order. Its bound is the read of Y (75 MB
+// at escn-md, 0.022 ms on an H100); it takes ~0.11 ms there, and deeper
+// batches, more columns a lane or more warps a block were no faster (a
+// cp.async ring of Y rows is untried).
+constexpr int GS_COLS = 32, GS_WARPS = 8, GS_MAXM = 32, GS_DEPTH = 4;
 
-constexpr int KS = 16;                      // slab rows
-constexpr int SV = KS * 512 / 4 / 256;      // float4 per thread, N <= 512
-
-// registers <-> one slab of KS rows of a right operand in device memory
-struct Slab {
-  float4 v[SV];
-  __device__ void fetch(const float* B, int ldb, int k0, int kb, int N) {
-    const int nv = kb * N / 4;
+// out[p, m, c] = sum_g T[g, m] Y[g, p*C + c] for m < M; T [G, Mp] with
+// Mp a multiple of 4 (the padded tables tgp and fgtp)
+__global__ void __launch_bounds__(GS_COLS * GS_WARPS)
+    grid_sum(int M, int Mp, int G, int N, int C, const float* __restrict__ T,
+             const float* __restrict__ Y, float* __restrict__ out) {
+  __shared__ float red[GS_WARPS * GS_MAXM * GS_COLS];  // the warps' sums
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int n = blockIdx.x * GS_COLS + lane;
+  const bool live = n < N;
+  const int per = (G + GS_WARPS - 1) / GS_WARPS;
+  const int ga = min(G, w * per), gb = min(G, ga + per);
+  float acc[GS_MAXM];
 #pragma unroll
-    for (int u = 0; u < SV; ++u) {
-      const int i = threadIdx.x + u * blockDim.x;
-      if (i < nv) {
-        const int e = 4 * i, kk = e / N, n = e - kk * N;
-        v[u] = *reinterpret_cast<const float4*>(B + (size_t)(k0 + kk) * ldb +
-                                                n);
-      }
-    }
-  }
-  __device__ void put(float* slab, int kb, int N) const {
-    const int nv = kb * N / 4;
+  for (int m = 0; m < GS_MAXM; ++m) acc[m] = 0.f;
+  for (int g0 = ga; g0 < gb; g0 += GS_DEPTH) {
+    // rows past gb read as 0 (and the table's last row, finite)
+    float yv[GS_DEPTH];
 #pragma unroll
-    for (int u = 0; u < SV; ++u) {
-      const int i = threadIdx.x + u * blockDim.x;
-      if (i < nv) reinterpret_cast<float4*>(slab)[i] = v[u];
-    }
-  }
-};
-
-__device__ __forceinline__ float apply(int mode, float old, float v) {
-  if (mode == 0) return v;
-  if (mode == 1) return silu(v);
-  if (mode == 2) {
-    const float s = 1.f / (1.f + expf(-v));
-    return s * (1.f + v * (1.f - s));
-  }
-  if (mode == 3) return old * v;
-  return old + v;
-}
-
-// C (op)= f(A @ B + bias) for R rows x N columns, depth Kd.
-// A is given k-major: AT[k * ldaT + r] (rows padded to a multiple of 4).
-// B in device memory (through the slab) or, with BSM, in shared memory.
-// C is row-major Cs[r * ldc + n], or with ct k-major Cs[n * ldc + r].
-// mode 0: C = v; 1: silu(v); 2: silu'(v); 3: C *= v; 4: C += v.
-// Thread t owns rows 4*(t / ncg) .. +3 and TN columns as TN/4 float4
-// strips, strip s at s * N / (TN/4) + 4 * (t % ncg).
-template <int TN, bool BSM>
-__device__ void chunk_gemm(const float* AT, int ldaT, const float* B, int ldb,
-                           const float* __restrict__ bias, float* Cs, int ldc,
-                           bool ct, int R, int N, int Kd, int mode,
-                           float* slab) {
-  constexpr int S = TN / 4;
-  const int t = threadIdx.x;
-  const int ncg = N / TN, strip = N / S;
-  const int rg = t / ncg, cg = t - rg * ncg;
-  const int r0 = rg * 4;
-  const bool active = r0 < R;
-  float acc[4][TN];
+    for (int u = 0; u < GS_DEPTH; ++u)
+      yv[u] = live && g0 + u < gb ? Y[(size_t)(g0 + u) * N + n] : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < GS_DEPTH; ++u) {
+      const float4* t4 = reinterpret_cast<const float4*>(
+          T + (size_t)min(g0 + u, G - 1) * Mp);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  Slab pre;
-  if (!BSM) {
-    pre.fetch(B, ldb, 0, min(KS, Kd), N);
-    __syncthreads();                       // previous users of slab done
-    pre.put(slab, min(KS, Kd), N);
-    __syncthreads();
-  }
-  for (int k0 = 0; k0 < Kd; k0 += KS) {
-    const int kb = min(KS, Kd - k0);
-    const bool more = k0 + KS < Kd;
-    const int kn = more ? min(KS, Kd - k0 - KS) : 0;
-    if (!BSM && more) pre.fetch(B, ldb, k0 + KS, kn, N);
-    const float* bk = BSM ? B + (size_t)k0 * ldb : slab;
-    const int ldk = BSM ? ldb : N;
-    if (active) {
-#pragma unroll 4
-      for (int kk = 0; kk < kb; ++kk) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(AT + (k0 + kk) * ldaT + r0);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        float bv[TN];
-#pragma unroll
-        for (int q = 0; q < S; ++q) {
-          const float4 b = *reinterpret_cast<const float4*>(
-              bk + kk * ldk + q * strip + 4 * cg);
-          bv[4 * q] = b.x;
-          bv[4 * q + 1] = b.y;
-          bv[4 * q + 2] = b.z;
-          bv[4 * q + 3] = b.w;
+      for (int q = 0; q < GS_MAXM / 4; ++q) {
+        if (4 * q < Mp) {
+          const float4 t = __ldg(t4 + q);
+          acc[4 * q] = fmaf(t.x, yv[u], acc[4 * q]);
+          acc[4 * q + 1] = fmaf(t.y, yv[u], acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(t.z, yv[u], acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(t.w, yv[u], acc[4 * q + 3]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
-    if (!BSM && more) {
-      __syncthreads();                     // current slab consumed
-      pre.put(slab, kn, N);
-      __syncthreads();
-    }
   }
-  if (!active) return;
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int n = (j / 4) * strip + 4 * cg + (j % 4);
-    const float bn = bias ? bias[n] : 0.f;
-    if (ct && r0 + 3 < R) {                // 4 rows of column n: one float4
-      float4* o = reinterpret_cast<float4*>(Cs + n * ldc + r0);
-      const float4 w = *o;
-      *o = make_float4(apply(mode, w.x, acc[0][j] + bn),
-                       apply(mode, w.y, acc[1][j] + bn),
-                       apply(mode, w.z, acc[2][j] + bn),
-                       apply(mode, w.w, acc[3][j] + bn));
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (r0 + i >= R) continue;
-      float* o = ct ? Cs + n * ldc + r0 + i : Cs + (r0 + i) * ldc + n;
-      *o = apply(mode, *o, acc[i][j] + bn);
-    }
-  }
-}
-
-// tile width: at most 32 column groups, so the GC rows fit 256 threads
-template <bool BSM>
-__device__ void gemm_any(const float* AT, int ldaT, const float* B, int ldb,
-                         const float* bias, float* Cs, int ldc, bool ct,
-                         int R, int N, int Kd, int mode, float* slab) {
-  if (N <= 128)
-    chunk_gemm<4, BSM>(AT, ldaT, B, ldb, bias, Cs, ldc, ct, R, N, Kd, mode,
-                       slab);
-  else if (N <= 256)
-    chunk_gemm<8, BSM>(AT, ldaT, B, ldb, bias, Cs, ldc, ct, R, N, Kd, mode,
-                       slab);
-  else
-    chunk_gemm<16, BSM>(AT, ldaT, B, ldb, bias, Cs, ldc, ct, R, N, Kd, mode,
-                        slab);
-}
-
-// the chunk's rows g0 .. g0+R of tg [G, M] and columns of fg [M, G], in
-// the layouts the products read: tt [M, LT] and tr [GC, MS] of tg, fc
-// [M, LT] and ft [GC, MS] of fg. A null destination is skipped.
-__device__ void stage_tables(const float* __restrict__ tg,
-                             const float* __restrict__ fg, int M, int MS,
-                             int G, int g0, int R, float* tt, float* tr,
-                             float* fc, float* ft) {
-  for (int i = threadIdx.x; i < R * M; i += blockDim.x) {
-    const int r = i / M, m = i - r * M;
-    const float tv = tg[(size_t)(g0 + r) * M + m];
-    const float fv = fg[(size_t)m * G + g0 + r];
-    if (tt) tt[m * LT + r] = tv;
-    if (tr) tr[r * MS + m] = tv;
-    if (fc) fc[m * LT + r] = fv;
-    if (ft) ft[r * MS + m] = fv;
-  }
-}
-
-__host__ __device__ inline int pad4(int v) { return (v + 3) & ~3; }
-
-// shared memory (floats): node rows, chunk tables, the grid/output rows,
-// the hidden rows (k-major), the slab
-__host__ __device__ inline size_t smem_floats(int M, int C, int H,
-                                              bool bwd) {
-  const size_t tables = bwd ? 2 * M * LT + GC * pad4(M)
-                            : M * LT + GC * pad4(M);
-  return 2 * (size_t)M * C + tables + (size_t)C * LT + (size_t)H * LT +
-         KS * (C > H ? C : H);
-}
-
-__global__ void __launch_bounds__(256)
-ffn_fwd(int M, int C, int H, int G, const float* __restrict__ x,
-        const float* __restrict__ w1, const float* __restrict__ b1,
-        const float* __restrict__ w2, const float* __restrict__ b2,
-        const float* __restrict__ tg, const float* __restrict__ fg,
-        float* __restrict__ out) {
-  extern __shared__ __align__(16) float sm[];
-  const int MC = M * C, MS = pad4(M);
-  float* xs = sm;                 // [M, C]
-  float* acc = xs + MC;           // [M, C]
-  float* tt = acc + MC;           // [M, LT]   tg chunk, k-major
-  float* ft = tt + M * LT;        // [GC, MS]  fg chunk, k-major
-  float* gr = ft + GC * MS;       // [C, LT] grid (k-major), then y [GC, C]
-  float* hs = gr + C * LT;        // [H, LT]   hidden rows, k-major
-  float* slab = hs + H * LT;      // [KS, max(C, H)]
-  const size_t p = blockIdx.x;
-  for (int i = threadIdx.x; i < MC; i += blockDim.x) {
-    xs[i] = x[p * MC + i];
-    acc[i] = 0.f;
-  }
-  for (int g0 = 0; g0 < G; g0 += GC) {
-    const int R = min(GC, G - g0);
-    __syncthreads();
-    stage_tables(tg, fg, M, MS, G, g0, R, tt, nullptr, nullptr, ft);
-    __syncthreads();
-    gemm_any<true>(tt, LT, xs, C, nullptr, gr, LT, true, R, C, M, 0,
-                   slab);                                      // grid
-    __syncthreads();
-    gemm_any<false>(gr, LT, w1, H, b1, hs, LT, true, R, H, C, 1, slab);  // h
-    __syncthreads();
-    gemm_any<false>(hs, LT, w2, C, b2, gr, C, false, R, C, H, 0, slab);  // y
-    __syncthreads();
-    gemm_any<true>(ft, MS, gr, C, nullptr, acc, C, false, M, C, R, 4,
-                   slab);                                      // fg y
-  }
+  for (int m = 0; m < GS_MAXM; ++m)
+    red[(w * GS_MAXM + m) * GS_COLS + lane] = acc[m];
   __syncthreads();
-  for (int i = threadIdx.x; i < MC; i += blockDim.x) out[p * MC + i] = acc[i];
+  for (int i = threadIdx.x; i < M * GS_COLS; i += blockDim.x) {
+    const int m = i / GS_COLS, col = i - m * GS_COLS;
+    const int nn = blockIdx.x * GS_COLS + col;
+    if (nn >= N) continue;
+    float s = 0.f;
+    for (int v = 0; v < GS_WARPS; ++v)
+      s += red[(v * GS_MAXM + m) * GS_COLS + col];
+    const int p = nn / C, c = nn - p * C;
+    out[((size_t)p * M + m) * C + c] = s;
+  }
 }
 
-__global__ void __launch_bounds__(256)
-ffn_bwd(int M, int C, int H, int G, const float* __restrict__ x,
-        const float* __restrict__ gin, const float* __restrict__ w1,
-        const float* __restrict__ b1, const float* __restrict__ w1t,
-        const float* __restrict__ w2t, const float* __restrict__ tg,
-        const float* __restrict__ fg, float* __restrict__ dx) {
-  extern __shared__ __align__(16) float sm[];
-  const int MC = M * C, MS = pad4(M);
-  float* xs = sm;                 // [M, C]
-  float* acc = xs + MC;           // [M, C]
-  float* tt = acc + MC;           // [M, LT]   tg chunk, k-major
-  float* fc = tt + M * LT;        // [M, LT]   fg chunk, k-major
-  float* tr = fc + M * LT;        // [GC, MS]  tg chunk rows
-  float* gr = tr + GC * MS;       // [C, LT] grid, dy (k-major); dgrid rows
-  float* hs = gr + C * LT;        // [H, LT]   silu'(pre), then dpre
-  float* slab = hs + H * LT;      // [KS, max(C, H)]
-  const size_t p = blockIdx.x;
-  const float* gp = gin + p * MC; // node cotangent, read through the slab
-  for (int i = threadIdx.x; i < MC; i += blockDim.x) {
-    xs[i] = x[p * MC + i];
-    acc[i] = 0.f;
-  }
-  for (int g0 = 0; g0 < G; g0 += GC) {
-    const int R = min(GC, G - g0);
-    __syncthreads();
-    stage_tables(tg, fg, M, MS, G, g0, R, tt, tr, fc, nullptr);
-    __syncthreads();
-    gemm_any<true>(tt, LT, xs, C, nullptr, gr, LT, true, R, C, M, 0,
-                   slab);                                      // grid
-    __syncthreads();
-    gemm_any<false>(gr, LT, w1, H, b1, hs, LT, true, R, H, C, 2,
-                    slab);                                     // silu'(pre)
-    __syncthreads();
-    gemm_any<false>(fc, LT, gp, C, nullptr, gr, LT, true, R, C, M, 0,
-                    slab);                                     // dy
-    __syncthreads();
-    gemm_any<false>(gr, LT, w2t, H, nullptr, hs, LT, true, R, H, C, 3,
-                    slab);                                     // dpre
-    __syncthreads();
-    gemm_any<false>(hs, LT, w1t, C, nullptr, gr, C, false, R, C, H, 0,
-                    slab);                                     // dgrid
-    __syncthreads();
-    gemm_any<true>(tr, MS, gr, C, nullptr, acc, C, false, M, C, R, 4,
-                   slab);                                      // tg^T dgrid
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MC; i += blockDim.x) dx[p * MC + i] = acc[i];
+cudaError_t run_grid_sum(cudaStream_t st, int M, int Mp, int G, int P,
+                         int C, const float* T, const float* Y, float* out) {
+  if (M > Mp || Mp > GS_MAXM || Mp % 4 || !al16(T))
+    return cudaErrorInvalidValue;
+  const int N = P * C;
+  grid_sum<<<(N + GS_COLS - 1) / GS_COLS, GS_COLS * GS_WARPS, 0, st>>>(
+      M, Mp, G, N, C, T, Y, out);
+  return cudaGetLastError();
 }
 
-// the tile widths need N % TN == 0 for N in {C, H}
-bool dims_ok(int M, int C, int H) {
-  auto ok = [](int n) {
-    return n <= 128 ? n % 4 == 0 : n <= 256 ? n % 8 == 0 : n % 16 == 0;
-  };
-  return M <= GC && C <= 512 && H <= 512 && ok(C) && ok(H);
+// one conv_tf32 launch of K2: C[rows, n] = f(A[rows, k] B[n, k]^T + bias)
+template <int EPI>
+cudaError_t gemm(cudaStream_t st, int rows, int n, int k, const float* a,
+                 const float* b, const float* bias, float* c, int ldc) {
+  Group gr;
+  gr.nb = 0;
+  gr.m = rows;
+  add_op(gr, a, k, b, k, bias, c, ldc, n, k);
+  return run_group<EPI, node_ffn>(st, gr);
+}
+
+bool dims_bad(int M, int Mp, int C, int H) {
+  return Mp > GS_MAXM || Mp < M || Mp % 4 || C % 4 || H % 4;
 }
 
 }  // namespace
 
 extern "C" {
 
-int k2_fwd(int P, int M, int C, int H, int G, const float* x,
-           const float* w1, const float* b1, const float* w2,
-           const float* b2, const float* tg, const float* fg, float* out,
-           void* stream) {
-  if (!dims_ok(M, C, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(M, C, H, false);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return (int)err;
-  ffn_fwd<<<P, 256, smem, (cudaStream_t)stream>>>(M, C, H, G, x, w1, b1, w2,
-                                                  b2, tg, fg, out);
-  return (int)cudaGetLastError();
+// xc [P*C, Mp]: x[p, m, c] at row p*C + c, column m, zero columns M..Mp;
+// tgp [G, Mp] and fgtp [G, Mp] the zero-padded tg and fg^T; w1t [H, C],
+// w2t [C, H]; scratch grid [G*P*C], hid [G*P*H]; out [P, M, C].
+int k2_fwd(int P, int M, int Mp, int C, int H, int G, const float* xc,
+           const float* tgp, const float* fgtp, const float* w1t,
+           const float* b1, const float* w2t, const float* b2, float* grid,
+           float* hid, float* out, void* stream) {
+  if (dims_bad(M, Mp, C, H)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int R = G * P;
+  cudaError_t err;
+  if ((err = gemm<EPI_BIAS>(st, G, P * C, Mp, tgp, xc, nullptr, grid,
+                            P * C)))
+    return (int)err;
+  if ((err = gemm<EPI_SILU>(st, R, H, C, grid, w1t, b1, hid, H)))
+    return (int)err;
+  if ((err = gemm<EPI_BIAS>(st, R, C, H, hid, w2t, b2, grid, C)))
+    return (int)err;
+  return (int)run_grid_sum(st, M, Mp, G, P, C, fgtp, grid, out);
 }
 
-int k2_bwd(int P, int M, int C, int H, int G, const float* x, const float* g,
-           const float* w1, const float* b1, const float* w1t,
-           const float* w2t, const float* tg, const float* fg, float* dx,
+// gc [P*C, Mp] the output cotangent laid out as xc; w1 [C, H] and
+// w2 [H, C] as stored; scratch grid [G*P*C], s [G*P*H]; dx [P, M, C].
+int k2_bwd(int P, int M, int Mp, int C, int H, int G, const float* xc,
+           const float* gc, const float* tgp, const float* fgtp,
+           const float* w1t, const float* b1, const float* w1,
+           const float* w2, float* grid, float* s, float* dx,
            void* stream) {
-  if (!dims_ok(M, C, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(M, C, H, true);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return (int)err;
-  ffn_bwd<<<P, 256, smem, (cudaStream_t)stream>>>(M, C, H, G, x, g, w1, b1,
-                                                  w1t, w2t, tg, fg, dx);
-  return (int)cudaGetLastError();
+  if (dims_bad(M, Mp, C, H)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int R = G * P;
+  cudaError_t err;
+  if ((err = gemm<EPI_BIAS>(st, G, P * C, Mp, tgp, xc, nullptr, grid,
+                            P * C)))
+    return (int)err;
+  if ((err = gemm<EPI_DSILU>(st, R, H, C, grid, w1t, b1, s, H)))
+    return (int)err;
+  if ((err = gemm<EPI_BIAS>(st, G, P * C, Mp, fgtp, gc, nullptr, grid,
+                            P * C)))
+    return (int)err;
+  if ((err = gemm<EPI_MUL>(st, R, H, C, grid, w2, nullptr, s, H)))
+    return (int)err;
+  if ((err = gemm<EPI_BIAS>(st, R, C, H, s, w1, nullptr, grid, C)))
+    return (int)err;
+  return (int)run_grid_sum(st, M, Mp, G, P, C, tgp, grid, dx);
+}
+
+// The steps alone (tests and timing; no K2 launch is counted): one K2
+// GEMM, c[rows, n] = f(a[rows, k] b[n, k]^T + bias) with epi the Epi
+// mode (EPI_MUL multiplies into c), and one grid_sum.
+int k2_gemm(int epi, int rows, int n, int k, const float* a, const float* b,
+            const float* bias, float* c, int ldc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (epi == EPI_BIAS)
+    err = gemm<EPI_BIAS>(st, rows, n, k, a, b, bias, c, ldc);
+  else if (epi == EPI_SILU)
+    err = gemm<EPI_SILU>(st, rows, n, k, a, b, bias, c, ldc);
+  else if (epi == EPI_DSILU)
+    err = gemm<EPI_DSILU>(st, rows, n, k, a, b, bias, c, ldc);
+  else if (epi == EPI_MUL)
+    err = gemm<EPI_MUL>(st, rows, n, k, a, b, bias, c, ldc);
+  return (int)err;
+}
+
+int k2_grid_sum(int M, int Mp, int G, int P, int C, const float* T,
+                const float* Y, float* out, void* stream) {
+  return (int)run_grid_sum((cudaStream_t)stream, M, Mp, G, P, C, T, Y, out);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Shared helpers of the hand-written kernels: asynchronous 16-byte copies
 // into shared memory and f32-accurate products on the tensor cores in the
-// 3xTF32 split (K5 in radial_contract.cu, the eSCN conv GEMM in
-// escn_edge.cu). cuda_build hashes every header of csrc/ into each
+// 3xTF32 split (K5 in radial_contract.cu, the grouped GEMM in
+// tf32_gemm.cuh). cuda_build hashes every header of csrc/ into each
 // library's key, so an edited header rebuilds its users.
 #pragma once
 

@@ -42,7 +42,7 @@ from .escn_ffn_kernel import fused_node_ffn
 from .so3 import (_const, edge_rot_mat, num_coeffs, s2_grid_tables,
                   s2_grid_tables_midpoint, wigner_full)
 
-_TODO = "see ROADMAP.md queue 0 item 7 (eSCN full and gate branches)"
+_TODO = "see ROADMAP.md queue 1 item 10 (eSCN full and gate branches)"
 EDGE_KERNELS = ("pallas-mega", "pallas-full", "pallas")
 
 
@@ -320,7 +320,7 @@ def check_edge_kernel(cfg: ESCNConfig):
         raise NotImplementedError(
             'edge_kernel="xla" (the all-plain variant the JAX package uses '
             "for Hessians) comes with the Hessian port: see ROADMAP.md "
-            "queue 0 item 6")
+            "queue 1 item 1")
     if cfg.edge_kernel not in EDGE_KERNELS:
         raise ValueError(f"edge_kernel={cfg.edge_kernel!r}: one of "
                          f"{EDGE_KERNELS}")

@@ -8,18 +8,29 @@ public layout: x [P, M, C] node coefficients, weights = merged MoLE
     out_i = fg @ y
 
 CPU tensors take the plain PyTorch version (``ffn_plain``); CUDA tensors
-the hand-written kernel (``csrc/escn_ffn.cu``), whose [G, H] hidden
-activations stay in shared memory, behind ``torch.autograd.Function`` with
-a kernel backward that recomputes from the saved x. The kernel runs f32,
-computes the input cotangent only, and raises if a weight requires grad.
+the hand-written kernels (``csrc/escn_ffn.cu``) behind
+``torch.autograd.Function``, with a kernel backward that recomputes from
+the saved x. The kernels run each step as one 3xTF32 tensor-core GEMM with
+the (node, grid point) rows in (g, p) order, and a deterministic sum over
+the grid back to the nodes (``grid_sum``); ``ffn_route_plain`` and
+``ffn_route_vjp_plain`` are the same launches in plain PyTorch, on the
+operands ``route_operands`` builds for the kernels (the tests hold them to
+``ffn_plain``). The kernels run f32, compute the input cotangent only, and
+raise if a weight requires grad, or if C or H is not a multiple of 4 or
+M passes 32.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 # launches of the CUDA kernels, counted where each is launched
 launches = {"fused_node_ffn_fwd": 0, "fused_node_ffn_bwd": 0}
+# the epilogues of the kernels' GEMM (enum Epi of csrc/tf32_gemm.cuh)
+EPI = {"bias": 0, "silu": 1, "dsilu": 2, "mul": 3}
+MAX_M = 32                  # grid_sum keeps one accumulator per m
 
 
 def ffn_plain(x, weights, tables):
@@ -31,6 +42,88 @@ def ffn_plain(x, weights, tables):
     return torch.einsum("mg,pgc->pmc", fg, y)
 
 
+def _pad_m(t, Mp):
+    """t [..., M] -> [..., Mp], zeros in the columns M..Mp."""
+    out = t.new_zeros(*t.shape[:-1], Mp)
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def node_cols(x, Mp):
+    """x [P, M, C] -> [P*C, Mp]: x[p, m, c] at row p*C + c, column m (the
+    right operand of the table products, k = m contiguous)."""
+    P, M, C = x.shape
+    return _pad_m(x.transpose(1, 2), Mp).reshape(P * C, Mp)
+
+
+class RouteOps(NamedTuple):
+    """The operands the kernels read besides x and its cotangent."""
+    tgp: torch.Tensor       # [G, Mp]  tg, zero columns M..Mp
+    fgtp: torch.Tensor      # [G, Mp]  fg^T, likewise
+    w1t: torch.Tensor       # [H, C]   W1^T (forward products)
+    w2t: torch.Tensor       # [C, H]   W2^T
+    w1: torch.Tensor        # [C, H]   as stored (backward products)
+    w2: torch.Tensor        # [H, C]
+    b1: torch.Tensor
+    b2: torch.Tensor
+
+
+def route_operands(weights, tables):
+    """The kernels' operands, contiguous, with M padded to a multiple of 4
+    (the GEMM's 16-byte copies, grid_sum's float4 rows of the tables)."""
+    W1, b1, W2, b2 = (t.contiguous() for t in weights)
+    tg, fg = tables
+    Mp = (tg.shape[1] + 3) // 4 * 4
+    return RouteOps(_pad_m(tg, Mp), _pad_m(fg.T, Mp), W1.T.contiguous(),
+                    W2.T.contiguous(), W1, W2, b1, b2)
+
+
+def gemm_plain(a, b, bias=None, epi="bias", c=None):
+    """One GEMM of the route: f(a [rows, k] b [n, k]^T + bias), f the
+    epilogue; "mul" multiplies into ``c`` (the kernel's old C)."""
+    v = a @ b.T
+    if bias is not None:
+        v = v + bias
+    if epi == "silu":
+        return torch.nn.functional.silu(v)
+    if epi == "dsilu":
+        s = torch.sigmoid(v)
+        return s * (1 + v * (1 - s))
+    if epi == "mul":
+        return v * c
+    return v
+
+
+def grid_sum_plain(T, Y, P, C, M):
+    """out [P, M, C], out[p, m, c] = sum_g T[g, m] Y[g, p*C + c], for a
+    table T [G, Mp] (tgp or fgtp; the columns past M unread) and grid
+    rows Y [G, P*C]."""
+    return (T[:, :M].T @ Y).reshape(M, P, C).transpose(0, 1)
+
+
+def ffn_route_plain(x, o: RouteOps):
+    """K2's forward launch by launch (``k2_fwd``), in plain PyTorch."""
+    P, M, C = x.shape
+    G, Mp = o.tgp.shape
+    grid = gemm_plain(o.tgp, node_cols(x, Mp))                # [G, P*C]
+    h = gemm_plain(grid.reshape(G * P, C), o.w1t, o.b1, "silu")
+    y = gemm_plain(h, o.w2t, o.b2)                            # [G*P, C]
+    return grid_sum_plain(o.fgtp, y.reshape(G, P * C), P, C, M)
+
+
+def ffn_route_vjp_plain(x, g, o: RouteOps):
+    """K2's backward (the cotangent of x) launch by launch (``k2_bwd``),
+    in plain PyTorch."""
+    P, M, C = x.shape
+    G, Mp = o.tgp.shape
+    grid = gemm_plain(o.tgp, node_cols(x, Mp)).reshape(G * P, C)
+    s = gemm_plain(grid, o.w1t, o.b1, "dsilu")                # [G*P, H]
+    dy = gemm_plain(o.fgtp, node_cols(g, Mp)).reshape(G * P, C)
+    s = gemm_plain(dy, o.w2, epi="mul", c=s)                  # dpre
+    dgrid = gemm_plain(s, o.w1)                               # [G*P, C]
+    return grid_sum_plain(o.tgp, dgrid.reshape(G, P * C), P, C, M)
+
+
 class _FfnFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, W1, b1, W2, b2, tg, fg):
@@ -38,31 +131,34 @@ class _FfnFn(torch.autograd.Function):
         P, M, C = x.shape
         H = W1.shape[1]
         G = tg.shape[0]
-        x = x.contiguous()
-        W1, b1, W2, b2, tg, fg = (t.contiguous() for t in
-                                  (W1, b1, W2, b2, tg, fg))
-        out = torch.empty_like(x)
-        call(load("escn_ffn"), "k2_fwd", P, M, C, H, G, ptr(x), ptr(W1),
-             ptr(b1), ptr(W2), ptr(b2), ptr(tg), ptr(fg), ptr(out),
-             stream_ptr())
+        o = route_operands((W1, b1, W2, b2), (tg, fg))
+        Mp = o.tgp.shape[1]
+        xc = node_cols(x, Mp)
+        grid = x.new_empty(G * P * C)
+        hid = x.new_empty(G * P * H)
+        out = x.new_empty(P, M, C)
+        call(load("escn_ffn"), "k2_fwd", P, M, Mp, C, H, G, ptr(xc),
+             ptr(o.tgp), ptr(o.fgtp), ptr(o.w1t), ptr(o.b1), ptr(o.w2t),
+             ptr(o.b2), ptr(grid), ptr(hid), ptr(out), stream_ptr())
         launches["fused_node_ffn_fwd"] += 1
-        ctx.save_for_backward(x, W1, b1, W2, tg, fg)
+        ctx.save_for_backward(xc, *o)
+        ctx.dims = (P, M, C, H, G)
         return out
 
     @staticmethod
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
-        x, W1, b1, W2, tg, fg = ctx.saved_tensors
-        P, M, C = x.shape
-        H = W1.shape[1]
-        G = tg.shape[0]
-        g = g.contiguous().float()
-        W1t = W1.T.contiguous()
-        W2t = W2.T.contiguous()
-        dx = torch.empty_like(x)
-        call(load("escn_ffn"), "k2_bwd", P, M, C, H, G, ptr(x), ptr(g),
-             ptr(W1), ptr(b1), ptr(W1t), ptr(W2t), ptr(tg), ptr(fg),
-             ptr(dx), stream_ptr())
+        xc, *ops = ctx.saved_tensors
+        o = RouteOps(*ops)
+        P, M, C, H, G = ctx.dims
+        Mp = o.tgp.shape[1]
+        gc = node_cols(g.float(), Mp)
+        grid = xc.new_empty(G * P * C)
+        s = xc.new_empty(G * P * H)
+        dx = xc.new_empty(P, M, C)
+        call(load("escn_ffn"), "k2_bwd", P, M, Mp, C, H, G, ptr(xc),
+             ptr(gc), ptr(o.tgp), ptr(o.fgtp), ptr(o.w1t), ptr(o.b1),
+             ptr(o.w1), ptr(o.w2), ptr(grid), ptr(s), ptr(dx), stream_ptr())
         launches["fused_node_ffn_bwd"] += 1
         return dx, None, None, None, None, None, None
 
@@ -77,7 +173,43 @@ def fused_node_ffn(cfg, x, weights, tables):
             "fused_node_ffn's CUDA kernel computes the input cotangent "
             "only; weight gradients (training) are a later port item")
     for t in ts:
-        if not t.is_cuda or t.dtype != torch.float32:
+        if t.device != x.device or t.dtype != torch.float32:
             raise TypeError("fused_node_ffn's CUDA kernel takes float32 "
                             "tensors on one CUDA device")
+    P, M, C = x.shape
+    H = weights[0].shape[1]
+    if C % 4 or H % 4:
+        raise ValueError(f"fused_node_ffn's CUDA kernel needs C = {C} and "
+                         f"H = {H} to be multiples of 4 (16-byte copies)")
+    if M > MAX_M:
+        raise ValueError(f"fused_node_ffn's CUDA kernel takes M <= {MAX_M} "
+                         f"coefficients per node, not {M}")
     return _FfnFn.apply(x, *weights, *tables)
+
+
+def gemm_tf32(a, b, bias=None, epi="bias", c=None):
+    """One GEMM of K2's route on the card (``k2_gemm``, the kernel that
+    ``k2_fwd`` / ``k2_bwd`` launch, alone): f(a b^T + bias) into ``c``
+    (which "mul" multiplies into). For tests and timing: counts no
+    launch."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    rows, k = a.shape
+    n = b.shape[0]
+    if c is None:
+        c = a.new_empty(rows, n)
+    call(load("escn_ffn"), "k2_gemm", EPI[epi], rows, n, k, ptr(a), ptr(b),
+         ptr(bias), ptr(c), c.stride(0), stream_ptr())
+    return c
+
+
+def grid_sum_cuda(T, Y, P, C, M, out=None):
+    """``grid_sum`` alone on the card (``grid_sum_plain``'s function on a
+    contiguous padded table T [G, Mp]): for tests and timing, counts no
+    launch."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    G, Mp = T.shape
+    if out is None:
+        out = Y.new_empty(P, M, C)
+    call(load("escn_ffn"), "k2_grid_sum", M, Mp, G, P, C, ptr(T), ptr(Y),
+         ptr(out), stream_ptr())
+    return out

@@ -75,7 +75,7 @@ def params_from_jax(np_params: dict, device="cpu",
             raise KeyError(f"blocks[{i}] lacks {bad}")
         if "gate" in blk:
             raise NotImplementedError(
-                "gate-activation weights: see ROADMAP.md queue 0 item 7")
+                "gate-activation weights: see ROADMAP.md queue 1 item 10")
     out: Any = _convert({k: v for k, v in np_params.items()
                          if k not in ("charge", "spin", "task")},
                         device, dtype)

@@ -104,8 +104,8 @@ def make_uma_calculator(
     if escn and spatial > 1:
         raise NotImplementedError(
             f"spatial={spatial} with eSCN model {model!r}: eSCN under "
-            "atom-axis sharding is not ported yet (ROADMAP.md queue 0 "
-            "item 4)")
+            "atom-axis sharding is not ported yet (ROADMAP.md queue 1 "
+            "item 8)")
     if escn and mp_mode:
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
                          "take edge_kernel")

@@ -11,7 +11,7 @@ every rank runs the same force call and gets the same forces.
 - PaiNN-class ``mp_mode="pallas"``: each rank contracts its rows against
   all columns through K6 (``radial_contract_rect``), O(P/n) memory;
 - the other PaiNN-class modes: the sharded [P, K] gather layout;
-- eSCN: not ported yet (ROADMAP.md queue 0 item 4).
+- eSCN: not ported yet (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def make_spatial_energy_fn(cfg, group: SpatialGroup):
         raise NotImplementedError(
             "eSCN under atom-axis sharding (K3 with the row gather, "
             "pdb2reaction_tpu/mlip/escn.py:554-820) is not ported yet: "
-            "ROADMAP.md queue 0 item 4")
+            "ROADMAP.md queue 1 item 8")
     body = energy_fn_pallas if cfg.mp_mode == "pallas" else energy_fn_gather
 
     def fn(coords, system, params):

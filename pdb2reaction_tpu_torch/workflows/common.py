@@ -22,7 +22,7 @@ def load_structure(path) -> Structure:
     if suf not in (".xyz", ".trj"):
         raise NotImplementedError(
             f"input format {suf!r}: this port reads .xyz/.trj; PDB and GJF "
-            "inputs are ROADMAP.md queue 1 item 10")
+            "inputs are ROADMAP.md queue 1 item 6")
     st = io_xyz.read_xyz(p)
     st.input_suffix = suf
     return st
@@ -51,7 +51,7 @@ def make_calculator(struct: Structure, *, calc_mode: str = "uma",
     if mode != "uma":
         raise NotImplementedError(
             f"calc_mode {calc_mode!r}: the analytic test potentials are a "
-            "later port item (ROADMAP.md queue 1 item 4)")
+            "later port item (ROADMAP.md queue 1 item 1)")
     return make_uma_calculator(struct, model=model, charge=charge,
                                spin=spin, freeze_atoms=freeze_atoms,
                                device=device, **calc_kw)

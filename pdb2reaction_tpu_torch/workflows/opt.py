@@ -20,7 +20,7 @@ from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 
 OPT_MODES = ("lbfgs", "rfo")
-_LATER = "a later port item (ROADMAP.md queue 1 items 9 and 13)"
+_LATER = "a later port item (ROADMAP.md queue 1 items 5 and 11)"
 
 
 def optimize_structure(struct, calc: Calculator, *, opt_mode: str = "lbfgs",

@@ -6,10 +6,12 @@ PyTorch/CUDA port, by kernel name (torch.profiler, CUDA activity).
 
 Cells (default: all five):
   escn-md       escn-md on the 300-atom cluster of chip_smoke.py (padded
-                to 320): K1 (conv_tf32, the grouped 3xTF32 conv products,
-                4 launches per layer and direction pair; rotate_in,
-                act_fwd, back_ksum, rot_out_bwd, act_bwd, gdp_bwd, gx_bwd)
-                and K2 (ffn_fwd, ffn_bwd);
+                to 320): K1 (conv_tf32<0, edge_conv>, the grouped 3xTF32
+                conv products, 4 launches per layer and direction pair;
+                rotate_in, act_fwd, back_ksum, rot_out_bwd, act_bwd,
+                gdp_bwd, gx_bwd) and K2 (its own instantiations of the
+                same GEMM, conv_tf32<epilogue, node_ffn>, 3 launches a
+                forward and 5 a backward, and grid_sum, 1 each);
   escn-md-full  the same with edge_kernel="pallas-full": K3 (conv_tf32,
                 rotate_in, act_fwd, back_ksum, rot_out_bwd, act_bwd,
                 gdp_bwd, rot_in_bwd), the source gather's backward
@@ -25,8 +27,10 @@ Cells (default: all five):
 
 For each cell: builds the calculator, warms it up, profiles ``n`` force
 calls (3, or 2 for painn-pallas), prints the device time per call of each
-kernel (everything not named above is the plain PyTorch glue) and the
-device-busy share of the profiled window. Exits non-zero without a card.
+kernel (everything not named above is the plain PyTorch glue), the sums
+of the kernel families of ``FAMILIES`` (K2's launches apart from the edge
+kernels' conv products) and the device-busy share of the profiled window.
+Exits non-zero without a card.
 """
 
 import dataclasses
@@ -41,6 +45,10 @@ CELLS = ("escn-md", "escn-md-full", "escn-md-chain", "painn-pallas",
          "painn-dense")
 LAYOUT = {"escn-md": "pallas-mega", "escn-md-full": "pallas-full",
           "escn-md-chain": "pallas"}
+# (label, substrings of the kernel names it sums)
+FAMILIES = (("K2 (conv_tf32<., node_ffn> + grid_sum)", ("node_ffn",
+                                                        "grid_sum")),
+            ("edge conv products (conv_tf32<0, edge_conv>)", ("edge_conv",)))
 
 
 def build(cell):
@@ -92,6 +100,11 @@ def profile_cell(cell, smi):
           f"({busy / (wall / n * 1e3):.1%})")
     for ms, cnt, name in rows[:30]:
         print(f"{ms:9.3f} ms  x{cnt:<4d} {name[:90]}")
+    for label, keys in FAMILIES:
+        sel = [r for r in rows if any(k in r[2] for k in keys)]
+        if sel:
+            print(f"# {label}: {sum(r[0] for r in sel):.3f} ms in "
+                  f"{sum(r[1] for r in sel)} launches per call")
     del calc
     torch.cuda.empty_cache()
 

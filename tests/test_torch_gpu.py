@@ -282,6 +282,100 @@ def test_node_ffn_kernel_matches_plain():
         assert _close(a, b)
 
 
+def _ffn_inputs(P, M, C, H, G, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def f(*s, scale=0.3):
+        return (torch.randn(s, generator=gen) * scale).to(**F32)
+
+    w = (f(C, H), f(H, scale=0.1), f(H, C), f(C, scale=0.1))
+    tabs = (f(G, M, scale=1.0), f(M, G, scale=1.0 / G))
+    return f(P, M, C, scale=1.0), w, tabs, f(P, M, C, scale=1.0)
+
+
+# (P, M, C, H, G): G*P rows ragged against the 128-row GEMM tile (5980,
+# 1260, 2300); columns under 128 (C = 32, H = 64; escn-test's 8 and 16)
+# and past it (C = 132, H = 260: a ragged second column tile)
+FFN_SHAPES = [(13, 25, 32, 64, 460), (7, 9, 8, 16, 180),
+              (5, 25, 132, 260, 460)]
+
+
+@pytest.mark.parametrize("P,M,C,H,G", FFN_SHAPES)
+def test_node_ffn_kernel_ragged_repeat_bit_for_bit(P, M, C, H, G):
+    """K2 at ragged row and column counts: value and input cotangent
+    against the plain version, one forward and one backward launch counted
+    per call, and a second call equal bit for bit."""
+    _need_card()
+    x, w, tabs, g = _ffn_inputs(P, M, C, H, G, seed=14)
+    got = []
+    for fn in (fk.fused_node_ffn, lambda c, v, ww, tt: fk.ffn_plain(v, ww, tt),
+               fk.fused_node_ffn):
+        n0 = dict(fk.launches)
+        xv = x.clone().requires_grad_(True)
+        y = fn(None, xv, w, tabs)
+        got.append((y.detach(), torch.autograd.grad(y, [xv], g)[0]))
+        ran = 1 if fn is fk.fused_node_ffn else 0
+        assert fk.launches["fused_node_ffn_fwd"] == \
+            n0["fused_node_ffn_fwd"] + ran
+        assert fk.launches["fused_node_ffn_bwd"] == \
+            n0["fused_node_ffn_bwd"] + ran
+    torch.cuda.synchronize()
+    for a, b in zip(got[0], got[1]):
+        assert _close(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[2]))
+
+
+@pytest.mark.parametrize("P,M,C,H,match", [
+    (5, 25, 30, 64, "multiples of 4"), (5, 25, 32, 62, "multiples of 4"),
+    (5, 36, 32, 64, "M <= 32")])
+def test_node_ffn_kernel_refuses_unsupported_shapes(P, M, C, H, match):
+    """C or H not a multiple of 4 (the GEMM's 16-byte copies) or more than
+    32 coefficients a node (grid_sum's accumulators): the wrapper raises,
+    and nothing falls back to the plain version."""
+    _need_card()
+    x, w, tabs, _ = _ffn_inputs(P, M, C, H, 60, seed=15)
+    n0 = dict(fk.launches)
+    with pytest.raises(ValueError, match=match):
+        fk.fused_node_ffn(None, x, w, tabs)
+    assert fk.launches == n0
+
+
+@pytest.mark.parametrize("epi", list(fk.EPI))
+def test_conv_tf32_epilogues_match_torch(epi):
+    """K2's instantiations of the 3xTF32 GEMM alone, each epilogue, at a
+    ragged size (300 rows, 72 columns, k = 36: one full and one ragged
+    32-k slice) against the plain product in full f32."""
+    _need_card()
+    gen = torch.Generator().manual_seed(16)
+    rows, n, k = 300, 72, 36
+    a = torch.randn(rows, k, generator=gen).to(**F32)
+    b = torch.randn(n, k, generator=gen).to(**F32)
+    bias = None if epi == "mul" else torch.randn(n, generator=gen).to(**F32)
+    c0 = torch.randn(rows, n, generator=gen).to(**F32)
+    ref = fk.gemm_plain(a, b, bias, epi, c=c0)
+    got = fk.gemm_tf32(a, b, bias, epi, c=c0.clone())
+    torch.cuda.synchronize()
+    assert _close(got, ref)
+
+
+@pytest.mark.parametrize("M,Mp", [(25, 28), (9, 12), (32, 32)])
+def test_grid_sum_kernel_matches_plain_and_repeats(M, Mp):
+    """grid_sum at a ragged column count (P*C = 13 * 36, not a multiple of
+    its 32-column blocks) on a padded table whose padding columns hold
+    garbage (never read into the output), against the plain sum; two
+    launches equal bit for bit."""
+    _need_card()
+    gen = torch.Generator().manual_seed(17)
+    P, C, G = 13, 36, 460
+    T = torch.randn(G, Mp, generator=gen).to(**F32)
+    Y = torch.randn(G, P * C, generator=gen).to(**F32)
+    got = [fk.grid_sum_cuda(T, Y, P, C, M) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert got[0].shape == (P, M, C)
+    assert _close(got[0], fk.grid_sum_plain(T, Y, P, C, M))
+    assert torch.equal(got[0], got[1])
+
+
 EDGE_FN = {"pallas-mega": "fused_edge_mega", "pallas-full": "fused_edge_block",
            "pallas": "fused_edge_chain"}
 
