@@ -56,17 +56,24 @@ Phases (any failure exits non-zero):
    path on the 64-atom cluster with the same weights;
 10. K6 parity at the sharded path's shapes (the 4096-atom system in four
    row blocks of 1024 against all 4096 columns, F = 1024, R + 1 = 25):
-   forward, feats gradient and the row and column coordinate gradients of
+   forward, feats gradient and the row and column coordinate gradients
+   (one fused launch on the block's rect tile plan) of
    radial_contract_rect against its plain version at each offset
    0/1024/2048/3072 for streams A and B, and the four forward blocks
-   stacked against K5's kernel output; the bound counts the pairs inside
-   the cutoff with one atom in the block;
+   stacked against K5's kernel output; the rect plan's statistics (listed
+   tile pairs, their share, computed against needed GFLOP, build time)
+   at each offset and for a block of the shuffled system; the fused
+   coordinate gradient timed with its plan given, as the sharded path
+   calls it; the bound counts the pairs inside the cutoff with one atom
+   in the block; then the coordinate kernel's CUDA-core route (R + 1 =
+   33) against its plain version ([K6-R33]);
 11. the sharded path: four ranks started with "spawn" on the one card
    (gloo collectives staged through host memory), each building
    make_uma_calculator(uma-s-1p1, mp_mode="pallas", spatial=4) with the
    weights of phase 7: energy and forces against phase 7's unsharded
-   call, bit for bit equal on all ranks and across two calls, 8 / 7 / 8 /
-   8 K6 launches and no K5 launch per rank and force call, ms per call
+   call, bit for bit equal on all ranks and across two calls, 8 / 7 / 8
+   K6 launches (forward, feats gradient, both coordinate gradients), one
+   rect tile plan and no K5 launch per rank and force call, ms per call
    and peak memory per rank (four ranks time-sharing one card), a 5-cycle
    run_opt with the same force calls on every rank; then, in the same
    group, the factory default make_uma_calculator(st, spatial=4)
@@ -117,18 +124,21 @@ REPLACES = {
     "radial_contract_rect_fwd": "pdb2reaction_tpu/mlip/pallas_ops.py:474",
     "radial_contract_rect_bwd_feats":
         "pdb2reaction_tpu/mlip/pallas_ops.py:568",
-    "radial_contract_rect_bwd_rows": "pdb2reaction_tpu/mlip/pallas_ops.py:594",
-    "radial_contract_rect_bwd_cols": "pdb2reaction_tpu/mlip/pallas_ops.py:623",
+    # one kernel for both coordinate gradients: the rows' and the columns'
+    "radial_contract_rect_bwd_coords":
+        "pdb2reaction_tpu/mlip/pallas_ops.py:594, "
+        "pdb2reaction_tpu/mlip/pallas_ops.py:623",
 }
 # the peak of the route each kernel takes to f32 accuracy at the shapes
-# this script runs, FLOP/s of needed work: K5's three kernels (R + 1 = 25
-# <= 32), the conv products of K1, K3 and K4 (95% of their FLOP) and K2's
-# GEMMs (all of its FLOP but the sums over the grid) form each product in
-# 3xTF32, three TF32 products per f32 one; every other kernel runs f32 on
-# CUDA cores
+# this script runs, FLOP/s of needed work: K5's three kernels and K6's
+# coordinate kernel (R + 1 = 25 <= 32), the conv products of K1, K3 and K4
+# (95% of their FLOP) and K2's GEMMs (all of its FLOP but the sums over
+# the grid) form each product in 3xTF32, three TF32 products per f32 one;
+# every other kernel runs f32 on CUDA cores
 ROUTE_PEAK = {k: TF32_PEAK / 3 for k in (
     "radial_contract_fwd", "radial_contract_bwd_feats",
-    "radial_contract_bwd_coords", "fused_edge_mega_fwd",
+    "radial_contract_bwd_coords", "radial_contract_rect_bwd_coords",
+    "fused_edge_mega_fwd",
     "fused_edge_mega_bwd", "fused_edge_block_fwd", "fused_edge_block_bwd",
     "fused_edge_chain_fwd", "fused_edge_chain_bwd", "fused_node_ffn_fwd",
     "fused_node_ffn_bwd")}
@@ -1046,7 +1056,7 @@ def phase_reference_painn(seed):
 # ---------------------------------------------------------------------------
 
 K6_NAMES = ("radial_contract_rect_fwd", "radial_contract_rect_bwd_feats",
-            "radial_contract_rect_bwd_rows", "radial_contract_rect_bwd_cols")
+            "radial_contract_rect_bwd_coords")
 
 
 def k6_pairs(x, mask, cutoff, off, n):
@@ -1063,11 +1073,26 @@ def k6_pairs(x, mask, cutoff, off, n):
     return int(within.sum())
 
 
+def k6_plan_stats(rcm, x, mask, off, Pr, rc, R1, F):
+    """The rect tile plan of rows off .. off + Pr - 1 against all columns:
+    (plan, its statistics with the build time in ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = rcm.rect_tile_plan(x[off:off + Pr], mask[off:off + Pr], off, x,
+                              mask, rc)
+    torch.cuda.synchronize()
+    st = plan.stats(R1, F)
+    st["ms"] = (time.perf_counter() - t0) * 1e3
+    return plan, st
+
+
 def phase_k6(calc, quick):
-    """K6 forward / feats gradient / row and column coordinate gradients
-    against the plain version at the sharded path's shapes, for both
-    streams at every offset; the four forward blocks stacked against K5's
-    kernel output on the whole system."""
+    """K6 forward / feats gradient / fused row and column coordinate
+    gradients against the plain version at the sharded path's shapes, for
+    both streams at every offset; the rect plans' statistics; the four
+    forward blocks stacked against K5's kernel output; the coordinate
+    kernel's CUDA-core route at R + 1 = 33."""
     import torch
     from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
     reps = 1 if quick else 3
@@ -1080,6 +1105,8 @@ def phase_k6(calc, quick):
     g = torch.randn(Pr, R + 1, F, generator=gen, device="cuda")
     got = {k: [] for k in K6_NAMES}        # (abs err, ms, plain ms)
     fns = (rcm.radial_contract_rect, rcm.radial_contract_rect_plain)
+    plans = {off: k6_plan_stats(rcm, x, mask, off, Pr, rc, R + 1, F)
+             for off in range(0, P, Pr)}
     for label, feats, div_d in (("A", featsA, False), ("B", featsB, True)):
         with torch.no_grad():
             T_sq = rcm.radial_contract(x, mask, feats, rc, R, div_d)
@@ -1102,24 +1129,34 @@ def phase_k6(calc, quick):
             log(f"[K6] stream {label} (div_d={div_d}), rows {off}..."
                 f"{off + Pr - 1} of {P}: rel err fwd {errs[0][1]:.3e}, "
                 f"feats {errs[1][1]:.3e}, rows {errs[2][1]:.3e}, cols "
-                f"{errs[3][1]:.3e} (tol {KERNEL_TOL})")
+                f"{errs[3][1]:.3e} (the rows and columns from one launch; "
+                f"tol {KERNEL_TOL})")
             if max(e[1] for e in errs) > KERNEL_TOL:
                 fail(f"K6 stream {label} at offset {off} disagrees with its "
                      "plain version")
             args = (x[rows], mask[rows], off, x, mask, feats, rc, R, div_d)
+            plan = plans[off][0]
             with torch.no_grad():
                 t = [cuda_ms(lambda: fn(*args), reps, warm=1) for fn in fns]
-            for leaf_at in (5, 0, 3):           # feats, rows, columns
-                for fn in fns:
+            # feats; then both coordinate gradients, the kernel on the
+            # block's plan (as the sharded path calls it)
+            for leaves in ((5,), (0, 3)):
+                for fn, kw in ((fns[0], {"plan": plan}), (fns[1], {})):
                     a = list(args)
-                    a[leaf_at] = a[leaf_at].clone().requires_grad_(True)
-                    T = fn(*a)
+                    for at in leaves:
+                        a[at] = a[at].clone().requires_grad_(True)
+                    T = fn(*a, **kw)
                     t.append(cuda_ms(lambda: torch.autograd.grad(
-                        T, [a[leaf_at]], g, retain_graph=True), reps,
-                        warm=1))
+                        T, [a[at] for at in leaves], g, retain_graph=True),
+                        reps, warm=1))
                     del T
+            errs[2] = max(errs[2], errs[3])
             for i, k in enumerate(K6_NAMES):
                 got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
+            log(f"[K6] stream {label}, rows {off}...: kernel / plain ms fwd "
+                f"{t[0]:.2f} / {t[1]:.2f}, feats {t[2]:.2f} / {t[3]:.2f}, "
+                f"rows and cols {t[4]:.2f} / {t[5]:.2f} (one launch, its "
+                "plan given)")
         stacked = torch.cat(blocks)
         e_sq = rel_err(stacked, T_sq)
         log(f"[K6] stream {label}: the four forward blocks stacked against "
@@ -1133,23 +1170,76 @@ def phase_k6(calc, quick):
     log(f"[K6] ordered pairs inside {rc} A with one atom in the block, per "
         f"block: {pairs} (mean {sum(pairs) / len(pairs):.0f} of "
         f"{Pr * (P - 1)})")
+    sh = torch.randperm(P, generator=torch.Generator().manual_seed(4)).cuda()
+    shuffled = k6_plan_stats(rcm, x[sh], mask[sh], 0, Pr, rc, R + 1, F)[1]
+    for label, st in [*((f"rows {o}...", v[1]) for o, v in plans.items()),
+                      ("shuffled system, rows 0...", shuffled)]:
+        log(f"[K6-plan] {label}: {st['row_tiles']} x {st['col_tiles']} "
+            f"tiles, {st['listed']} listed tile pairs "
+            f"({100 * st['share']:.2f}%), the coordinate kernel computes "
+            f"{st['coords_flop'] / 1e9:.2f} GFLOP against {need / 1e9:.2f} "
+            f"needed; plan built in {st['ms']:.2f} ms")
+    coords_flop = sum(v[1]["coords_flop"] for v in plans.values()) / RANKS
     geo = 16 * (Pr + P)                     # rows and columns: xyz + mask
     f_b, t_b = nbytes(featsA), nbytes(g)
-    byts = (geo + f_b + t_b, geo + t_b + f_b, geo + f_b + t_b + 12 * Pr,
-            geo + f_b + t_b + 12 * P)
+    byts = (geo + f_b + t_b, geo + t_b + f_b, geo + f_b + t_b + 12 * (Pr + P))
     rows = {}
     for k, nb in zip(K6_NAMES, byts):
         v = got[k]
         rows[k] = (max(e for e, _, _ in v), sum(t for _, t, _ in v) / len(v),
                    sum(tp for _, _, tp in v) / len(v), need, nb)
-        b32, bbf, by = bound_ms(need, nb)
+        b32, bbf, by = bound_ms(need, nb, k)
+        fc = coords_flop if k in ROUTE_PEAK else computed
+        route = "3xTF32" if k in ROUTE_PEAK else "f32 CUDA cores"
         log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
             f" mean of 4 offsets x streams A and B), needed "
             f"{need / 1e9:.2f} GFLOP (pairs inside the cutoff), computed "
-            f"{computed / 1e9:.1f} GFLOP (every pair), {nb / 1e6:.1f} MB, "
-            f"bound f32 {b32:.3f} ms / bf16 {bbf:.3f} ms ({by}); computed "
-            f"at {computed / rows[k][1] / 1e9:.2f} TFLOP/s")
+            f"{fc / 1e9:.1f} GFLOP "
+            f"({'listed tile pairs' if k in ROUTE_PEAK else 'every pair'}), "
+            f"{nb / 1e6:.1f} MB, bound at f32 accuracy {b32:.3f} ms "
+            f"({route}, {by}) / bf16 {bbf:.3f} ms; computed at "
+            f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s")
+    log(f"[K6] both coordinate gradients from one launch: "
+        f"{rows['radial_contract_rect_bwd_coords'][1]:.3f} ms a launch; the "
+        "every-pair rows and columns kernels it replaces took 10.84 + "
+        "15.73 = 26.57 ms a launch (PERF.md section 6, NVIDIA H100 80GB "
+        "HBM3, 700.00 W)")
+    del g
+    phase_k6_r33(rcm, x, mask, Pr)
     return rows
+
+
+def phase_k6_r33(rcm, x, mask, Pr):
+    """K6's coordinate kernel on its CUDA-core route (R + 1 = 33, the
+    uma-m-1p1 radial width) against the plain version, one row block of
+    the 4096-atom system at a narrow F: errors and times, one log line."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS
+    cfg = CONFIGS["uma-m-1p1"]
+    rc, R, F, off = cfg.cutoff, cfg.n_radial, 64, Pr
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    feats = torch.randn(x.shape[0], F, generator=gen, device="cuda")
+    g = torch.randn(Pr, R + 1, F, generator=gen, device="cuda")
+    rows = slice(off, off + Pr)
+    outs, t = [], []
+    for fn in (rcm.radial_contract_rect, rcm.radial_contract_rect_plain):
+        cr = x[rows].clone().requires_grad_(True)
+        cc = x.clone().requires_grad_(True)
+        T = fn(cr, mask[rows], off, cc, mask, feats, rc, R)
+        outs.append(torch.autograd.grad(T, [cr, cc], g, retain_graph=True))
+        t.append(cuda_ms(lambda: torch.autograd.grad(
+            T, [cr, cc], g, retain_graph=True), 2, warm=1))
+        del T
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(*outs)]
+    log(f"[K6-R33] uma-m-1p1 radial width (rows {off}... of {x.shape[0]}, "
+        f"F={F}, R+1={R + 1}, CUDA cores): both coordinate gradients "
+        f"kernel / plain ms {t[0]:.2f} / {t[1]:.2f} (the backward builds "
+        f"its plan); rel err rows {errs[0]:.3e}, cols {errs[1]:.3e} (tol "
+        f"{KERNEL_TOL})")
+    if max(errs) > KERNEL_TOL:
+        fail("K6's coordinate gradients at R+1 = 33 disagree with the plain "
+             "version")
 
 
 def spatial_rank(group, out_dir):
@@ -1178,11 +1268,13 @@ def spatial_rank(group, out_dir):
     torch.cuda.reset_peak_memory_stats()
     res = calc.get_forces(cb)                # first call (warm-up)
     torch.cuda.synchronize()
+    n_plans = rcm.plans["rect_built"]
     t0 = time.perf_counter()
     for _ in range(2):
         res = calc.get_forces(cb)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 2 * 1e3
+    plans_per_call = (rcm.plans["rect_built"] - n_plans) / 2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_call = {k: v / calc.force_calls
                 for k, v in {**rcm.rect_launches, **rcm.launches}.items()}
@@ -1231,6 +1323,7 @@ def spatial_rank(group, out_dir):
             "backend": group.backend, "energy": res["energy"], "ms": ms,
             "comm_ms": comm_ms,
             "peak_gib": peak, "per_call": per_call,
+            "plans_per_call": plans_per_call,
             "repeat": bool(np.array_equal(again, res["forces"])),
             "opt": [ro["energy"], ro["force_calls"],
                                       ro["cycles"], opt_wall,
@@ -1318,7 +1411,8 @@ def phase_spatial(ref, k6_ms):
             f"(four ranks time-sharing one card), peak memory "
             f"{r['peak_gib']:.2f} GiB, the collectives of one call alone "
             f"{r['comm_ms']:.1f} ms; launches per force call "
-            f"{r['per_call']}")
+            f"{r['per_call']}, rect tile plans per call "
+            f"{r['plans_per_call']}")
     # the four contexts time-slice the card, so a rank's kernel spans
     # overlap the others': the card work is counted from phase 10's times
     work = RANKS * sum(ranks[0]["per_call"][k] * k6_ms[k] for k in K6_NAMES)
@@ -1331,13 +1425,15 @@ def phase_spatial(ref, k6_ms):
             and all(r["repeat"] for r in ranks)):
         fail("the sharded force call (energy or forces) disagrees with the "
              "unsharded one, between ranks or between calls")
-    want = dict(zip(K6_NAMES, (8, 7, 8, 8)))
+    want = dict(zip(K6_NAMES, (8, 7, 8)))
     for r in ranks:
         pc = r["per_call"]
         if any(pc[k] != v for k, v in want.items()) or any(
-                pc[k] != 0 for k in pc if k not in want):
-            fail(f"rank {r['rank']}: launches per force call {pc}, want "
-                 f"{want} and no K5 launch")
+                pc[k] != 0 for k in pc if k not in want) \
+                or r["plans_per_call"] != 1:
+            fail(f"rank {r['rank']}: launches per force call {pc} and "
+                 f"{r['plans_per_call']} rect tile plans, want {want}, no "
+                 "K5 launch and one plan")
     opts = [r["opt"] for r in ranks]
     log(f"[spatial-opt] 5-cycle L-BFGS on every rank: E {ranks[0]['e0']:.8f}"
         f" -> {opts[0][0]:.8f} Ha in {opts[0][2]} cycles, force calls per "

@@ -78,29 +78,34 @@
 //   rc_rect_fwd        <- _fwd_kernel_rect:474 (via _rc_rect_impl)
 //   rc_rect_bwd_feats  <- _transpose_kernel_rect:568 (via _rc_rect_bwd)
 //                         dfeats[j, f] = sum_{i in rows, r} A[i, j, r] g[i, r, f]
-//   rc_rect_bwd_xyz<rows> <- _grad_rows_kernel:594
+//   rc_rect_coords_pairs, rc_rect_coords_reduce
+//                      <- _grad_rows_kernel:594 and _grad_cols_kernel:623
 //                         dx_rows[i] = sum_j G[i, j] (x_i - x_j) / d
-//   rc_rect_bwd_xyz<cols> <- _grad_cols_kernel:623
 //                         dx_cols[j] = sum_{i in rows} G[i, j] (x_j - x_i) / d
-//   with G = sum_r dA_r/dd S_r and S = g_I feats_J^T (one product: K5's
-//   S1 + S2 needs both sides of the square).
+//   with G = sum_r dA_r/dd S_r and S = g_I feats_J^T: one product serves
+//   both gradients (K5's S1 + S2 needs both sides of the square).
 //
 // What bounds them: as K5, the arithmetic over the pairs inside the
 // cutoff with one atom in the row block, 2 (R + 1) F FLOP per pair and
 // launch; at the sharded slice (Pr = 1024, Pc = 4096, F = 1024, R + 1 =
-// 25) ~6.5 GFLOP, ~0.1 ms at the f32 peak, against ~0.12 GB of device
-// memory. The kernels compute every pair, a dense 2 (R + 1) Pr Pc F
-// (215 GFLOP). The design is K5's: the adjacency is built per tile in
-// shared memory and contracted at once with register tiles of 8 x 8; a
-// block owns its outputs and loops over the other axis itself, so
-// nothing is reduced across blocks, no atomics are used and results
-// repeat bit for bit. The forward and the feats gradient tile as K5's
-// (the row loop runs over Pr). The row-coordinate gradient owns 8 rows
-// a block against column tiles of 128 (64 above R + 1 = 32), so that a
-// 1024-row block still gives 128 blocks; the column-coordinate gradient
-// owns 32 columns against row tiles of 32 (16 above R + 1 = 32). Fusing
-// the two coordinate gradients into one S product, and skipping empty
-// tiles, are later redesigns.
+// 25) ~6.5 GFLOP, 0.040 ms at the 3xTF32 route's 165 TFLOP/s, against
+// ~0.12 GB of device memory. The forward and the feats gradient compute
+// every pair, a dense 2 (R + 1) Pr Pc F (215 GFLOP), with K5's first
+// design: the adjacency built per tile in shared memory and contracted at
+// once with register tiles of 8 x 8; a block owns its outputs and loops
+// over the other axis itself. The coordinate gradients run on a rect tile
+// plan (mlip/radial_contract.py: rect_tile_plan; the sharded PaiNN pallas
+// mode builds one per energy evaluation): rows and columns each in K5's
+// spatial order and tiles of 32, and the (row tile, column tile) pairs
+// whose boxes lie within the cutoff, as a CSR by row tile, a CSR by column
+// tile and a list of pairs (I, J, e_row, e_col). One block per listed pair
+// forms S once over all of F (K5's tilings: 3xTF32 tensor cores up to
+// R + 1 = 32, CUDA cores up to 63), applies dA/dd once per pair and writes
+// the row side's partial dx to slot e_row and the column side's to slot
+// e_col; rc_rect_coords_reduce sums each row's slots in row-list order and
+// each column's in column-list order, through the plans' permutations.
+// Nothing is reduced across blocks except through those slots, no atomics
+// are used, and every result repeats bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -618,25 +623,46 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
 }
 
 // ---------------------------------------------------------------------------
-// coordinate gradient: one block per listed tile pair (I, J), I <= J (the
-// plan's pairs: I, J, slot of (I, J), slot of (J, I)). Per column
-// sub-tile of TJH, Ssym[r][i][j] = sum_f g[i, r, f] feats[j, f] +
-// g[j, r, f] feats[i, f] over all of F, chunks of FC features staged
-// k-contiguous ([atom][r][f], as g lies in memory) by double-buffered
-// cp.async; then w_ij = sum_r dA_r/dd Ssym / d once per pair, the I
-// side's sums over j kept in shared memory and the J side's over i
-// written to slot (J, I). On a diagonal tile (I = J) Ssym already holds
-// both orders, so only the I side is written.
+// coordinate gradients: one block per listed tile pair of a plan
+// (coords_pairs, the body of rc_coords_pairs and rc_rect_coords_pairs).
+// K5 (!RECT): the pairs (I, J), I <= J, of one square plan (I, J, slot of
+// (I, J), slot of (J, I)). Per column sub-tile of TJH, Ssym[r][i][j] =
+// sum_f g[i, r, f] feats[j, f] + g[j, r, f] feats[i, f] over all of F,
+// chunks of FC features staged k-contiguous ([atom][r][f], as g lies in
+// memory) by double-buffered cp.async; then w_ij = sum_r dA_r/dd Ssym / d
+// once per pair, the I side's sums over j kept in shared memory and the J
+// side's over i written to slot (J, I). On a diagonal tile (I = J) Ssym
+// already holds both orders, so only the I side is written. Indices are
+// plan positions.
+// K6 (RECT): the pairs (I, J, e_row, e_col) of a rect plan, I a tile of
+// the row block, J of the columns, each side in its own order. One
+// product S = g_I feats_J^T (half the staging: no g_J, no feats_I); the
+// row side's sums go to slot e_row of part_r, the column side's, negated,
+// to slot e_col of part_c. Self-pairs are excluded by global index
+// (off + perm_r[a] against perm_c[b]): plan positions of the two sides
+// name different atoms.
 //   TJH = 32, FC = 8 (R + 1 <= 32): tensor cores; warp w owns
 //     r = 2w, 2w + 1, each a 32 x 32 tile of 2 x 4 mma tiles, in 3xTF32;
 //   TJH = 16, FC = 4 (R + 1 <= 63): CUDA cores; one thread per
 //     (r, 8 i, 8 j), two features a step.
 // ---------------------------------------------------------------------------
-constexpr int C_FC = 16;                 // K6's feature chunk
+struct PairArgs {
+  int Pr, Pc, off;            // rows, columns, global index of row 0
+  const float4* Xr;           // rows' coordinates and mask, plan order
+  const float4* Xc;           // columns' (K5: the same plan)
+  const int* perm_r;          // local row at each row plan position
+  const int* perm_c;
+  const int4* pairs;
+  const float* feats;         // [Pc, F]
+  const float* g;             // [Pr, R+1, F]
+  float* part_r;              // the I side's slots (K5: both sides')
+  float* part_c;              // the J side's slots
+};
 
-template <int TJH, int FC>
+template <int TJH, int FC, bool RECT>
 __host__ __device__ constexpr int cg_stage_floats(int R1) {
-  return (TILE + TJH) * (R1 + 1) * (FC + 4);
+  return RECT ? (TILE * R1 + TJH) * (FC + 4)
+              : (TILE + TJH) * (R1 + 1) * (FC + 4);
 }
 
 template <int TJH>
@@ -644,67 +670,85 @@ __host__ __device__ constexpr int cg_s_floats(int R1) {
   return R1 * TILE * (TJH + 1);
 }
 
-template <int TJH, int FC, bool DIVD>
-__global__ void __launch_bounds__(512)
-rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
-                const int* __restrict__ perm, const int4* __restrict__ pairs,
-                const float* __restrict__ feats, const float* __restrict__ g,
-                float* __restrict__ part) {
+template <int TJH, int FC, bool DIVD, bool RECT>
+__device__ __forceinline__ void coords_pairs(int F, int R, float rc,
+                                             const PairArgs& pa) {
   constexpr bool TC = TJH == TILE;        // tensor cores on the full tile
   static_assert(TC ? FC == 8 : (TJH == 16 && FC == 4), "tiling");
   constexpr int FCP = FC + 4, TJS = TJH + 1, CH = FC / 4;
   constexpr int NJG = TJH / 8;
   extern __shared__ __align__(16) float sm[];
   __shared__ float4 Xi[TILE], Xj[TJH];
+  __shared__ int Gi[TILE], Gj[TJH];       // RECT: global indices
   __shared__ float Ws[TILE][TJS];
   __shared__ float red[TILE][3];
   const int R1 = R + 1;
-  const int st = cg_stage_floats<TJH, FC>(R1);
+  const int st = cg_stage_floats<TJH, FC, RECT>(R1);
   float* Ss = sm;                  // [R1][TILE][TJS], aliases the stages
   const int t = threadIdx.x, nt = blockDim.x;
   const int w = t >> 5, gq = (t & 31) >> 2, tq = t & 3;
   const int r = t / (4 * NJG), io = ((t / NJG) % 4) * 8, jo = (t % NJG) * 8;
-  const int4 pr = pairs[blockIdx.x];
+  const int4 pr = pa.pairs[blockIdx.x];
   const int i0 = pr.x * TILE;
-  const bool diag = pr.x == pr.y;
-  for (int q = t; q < TILE; q += nt)
-    Xi[q] = i0 + q < P ? Xp[i0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool diag = !RECT && pr.x == pr.y;
+  // K5: one set of atoms, so the columns' fields fold into the rows'
+  const int Pr = pa.Pr, Pc = RECT ? pa.Pc : Pr;
+  const float4* __restrict__ Xr = pa.Xr;
+  const float4* __restrict__ Xc = RECT ? pa.Xc : Xr;
+  const int* __restrict__ perm_r = pa.perm_r;
+  const int* __restrict__ perm_c = RECT ? pa.perm_c : perm_r;
+  const float* __restrict__ g = pa.g;
+  const float* __restrict__ feats = pa.feats;
+  float* part_r = pa.part_r;
+  float* part_c = RECT ? pa.part_c : part_r;
+  for (int q = t; q < TILE; q += nt) {
+    const bool ok = i0 + q < Pr;
+    Xi[q] = ok ? Xr[i0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (RECT) Gi[q] = ok ? pa.off + perm_r[i0 + q] : -1;
+  }
   for (int q = t; q < TILE * 3; q += nt) (&red[0][0])[q] = 0.f;
   const int nF = F / FC;
 
   for (int js = 0; js < TILE / TJH; ++js) {
     const int j0 = pr.y * TILE + js * TJH;
     __syncthreads();                      // the last sub-tile is done
-    for (int q = t; q < TJH; q += nt)
-      Xj[q] = j0 + q < P ? Xp[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    // chunk c into buffer b: gI [TILE][R1][FCP], gJ [TJH][R1][FCP],
-    // fI [TILE][FCP], fJ [TJH][FCP]
+    for (int q = t; q < TJH; q += nt) {
+      const bool ok = j0 + q < Pc;
+      Xj[q] = ok ? Xc[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (RECT) Gj[q] = ok ? perm_c[j0 + q] : -2;
+    }
+    // chunk c into buffer b: gI [TILE][R1][FCP], then (K5 only) gJ
+    // [TJH][R1][FCP] and fI [TILE][FCP], then fJ [TJH][FCP]
     auto stage = [&](int c, int b) {
       float* gIs = sm + b * st;
       float* gJs = gIs + TILE * R1 * FCP;
       float* fIs = gJs + TJH * R1 * FCP;
-      float* fJs = fIs + TILE * FCP;
+      float* fJs = RECT ? gJs : fIs + TILE * FCP;
       const int fc = c * FC;
-      for (int q = t; q < (TILE + TJH) * R1 * CH; q += nt) {
+      for (int q = t; q < (RECT ? TILE : TILE + TJH) * R1 * CH; q += nt) {
         const int ch = q % CH, row = q / CH;
         const bool isI = row < TILE * R1;
         const int rw = isI ? row : row - TILE * R1;
         const int a = rw / R1, rr = rw - a * R1;
-        const int pa = (isI ? i0 : j0) + a;
-        const bool ok = pa < P;
+        const int p = (isI ? i0 : j0) + a;
+        const bool ok = p < (isI ? Pr : Pc);
         cp_async16((isI ? gIs : gJs) + rw * FCP + ch * 4,
-                   ok ? g + ((size_t)perm[pa] * R1 + rr) * F + fc + ch * 4
+                   ok ? g + ((size_t)(isI ? perm_r : perm_c)[p] * R1 +
+                             rr) * F + fc + ch * 4
                       : g,
                    ok);
       }
-      for (int q = t; q < (TILE + TJH) * CH; q += nt) {
-        const int ch = q % CH, a = q / CH;
+      constexpr int A0 = RECT ? TILE : 0;   // feats rows: fI (K5), fJ
+      for (int q = t; q < (TILE + TJH - A0) * CH; q += nt) {
+        const int ch = q % CH, a = A0 + q / CH;
         const bool isI = a < TILE;
         const int aa = isI ? a : a - TILE;
-        const int pa = (isI ? i0 : j0) + aa;
-        const bool ok = pa < P;
+        const int p = (isI ? i0 : j0) + aa;
+        const bool ok = p < (isI ? Pr : Pc);
         cp_async16((isI ? fIs : fJs) + aa * FCP + ch * 4,
-                   ok ? feats + (size_t)perm[pa] * F + fc + ch * 4 : feats,
+                   ok ? feats + (size_t)(isI ? perm_r : perm_c)[p] * F +
+                            fc + ch * 4
+                      : feats,
                    ok);
       }
     };
@@ -738,7 +782,7 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
       const float* gIs = sm + buf * st;
       const float* gJs = gIs + TILE * R1 * FCP;
       const float* fIs = gJs + TJH * R1 * FCP;
-      const float* fJs = fIs + TILE * FCP;
+      const float* fJs = RECT ? gJs : fIs + TILE * FCP;
       if constexpr (TC) {
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
@@ -757,17 +801,19 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
               for (int m = 0; m < 2; ++m)
                 mma3(acc[rr][m][n], ah[m], al[m], bh, bl);
             }
-            // S2[i, j] = S1[j, i] += sum_f feats[i, f] g[j, r, f]
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              frag_a(fIs + m * 16 * FCP, FCP, gq, tq, ah[m], al[m]);
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              frag_b(gJs + (n * 8 * R1 + rv) * FCP, R1 * FCP, gq, tq, bh,
-                     bl);
+            if constexpr (!RECT) {
+              // S2[i, j] = S1[j, i] += sum_f feats[i, f] g[j, r, f]
 #pragma unroll
               for (int m = 0; m < 2; ++m)
-                mma3(acc[rr][m][n], ah[m], al[m], bh, bl);
+                frag_a(fIs + m * 16 * FCP, FCP, gq, tq, ah[m], al[m]);
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                frag_b(gJs + (n * 8 * R1 + rv) * FCP, R1 * FCP, gq, tq, bh,
+                       bl);
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+                  mma3(acc[rr][m][n], ah[m], al[m], bh, bl);
+              }
             }
           }
         }
@@ -787,24 +833,28 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
 #pragma unroll
             for (int y = 0; y < 8; ++y)
               S[x][y] = fmaf(a[x].y, b[y].y, fmaf(a[x].x, b[y].x, S[x][y]));
+          if constexpr (!RECT) {
 #pragma unroll
-          for (int x = 0; x < 8; ++x)
-            a[x] = *reinterpret_cast<const float2*>(fIs + (io + x) * FCP + f);
-#pragma unroll
-          for (int y = 0; y < 8; ++y)
-            b[y] = *reinterpret_cast<const float2*>(
-                gJs + ((jo + y) * R1 + r) * FCP + f);
-#pragma unroll
-          for (int x = 0; x < 8; ++x)
+            for (int x = 0; x < 8; ++x)
+              a[x] = *reinterpret_cast<const float2*>(fIs + (io + x) * FCP +
+                                                      f);
 #pragma unroll
             for (int y = 0; y < 8; ++y)
-              S[x][y] = fmaf(a[x].y, b[y].y, fmaf(a[x].x, b[y].x, S[x][y]));
+              b[y] = *reinterpret_cast<const float2*>(
+                  gJs + ((jo + y) * R1 + r) * FCP + f);
+#pragma unroll
+            for (int x = 0; x < 8; ++x)
+#pragma unroll
+              for (int y = 0; y < 8; ++y)
+                S[x][y] =
+                    fmaf(a[x].y, b[y].y, fmaf(a[x].x, b[y].x, S[x][y]));
+          }
         }
       }
       __syncthreads();                    // buffer buf is free
     }
     cp_wait<0>();
-    // Ssym into shared memory (the staging buffers are no longer read)
+    // S into shared memory (the staging buffers are no longer read)
     if constexpr (TC) {
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -829,12 +879,12 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
           Ss[(r * TILE + io + x) * TJS + jo + y] = S[x][y];
     }
     __syncthreads();
-    // dA/dd once per pair: w_ij = C_ij / d_ij (0 outside the cutoff)
+    // dA/dd once per pair: w_ij = G_ij / d_ij (0 outside the cutoff)
     for (int q = t; q < TILE * TJH; q += nt) {
       const int i = q / TJH, j = q % TJH;
       const float4 a = Xi[i], b = Xj[j];
-      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, i0 + i, b.x, b.y, b.z, b.w,
-                              j0 + j, rc);
+      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, RECT ? Gi[i] : i0 + i, b.x,
+                              b.y, b.z, b.w, RECT ? Gj[j] : j0 + j, rc);
       Ws[i][j] = accum_g<DIVD>(pg, R, rc, Ss + i * TJS + j, TILE * TJS) /
                  pg.d;
     }
@@ -848,6 +898,7 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
       red[i][c] = s;
     }
     // J side: one thread per (j, axis) sums over i in order; slot (J, I)
+    // (K5) or e_col (K6)
     if (!diag) {
       for (int q = t; q < TJH * 3; q += nt) {
         const int j = q / 3, c = q % 3;
@@ -855,28 +906,66 @@ rc_coords_pairs(int P, int F, int R, float rc, const float4* __restrict__ Xp,
         float s = 0.f;
         for (int i = 0; i < TILE; ++i)
           s = fmaf(Ws[i][j], xj - comp(Xi[i], c), s);
-        part[((size_t)pr.w * TILE + js * TJH + j) * 3 + c] = s;
+        part_c[((size_t)pr.w * TILE + js * TJH + j) * 3 + c] = s;
       }
     }
   }
   __syncthreads();
   for (int q = t; q < TILE * 3; q += nt)
-    part[(size_t)pr.z * TILE * 3 + q] = (&red[0][0])[q];
+    part_r[(size_t)pr.z * TILE * 3 + q] = (&red[0][0])[q];
 }
 
-// dx[perm[a]] = the atom's slots summed in the order of its tile's reach
-// list; atoms of a tile with no reach get 0
+// the two kernels, each its own name in a profile
+template <int TJH, int FC, bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_coords_pairs(int F, int R, float rc, PairArgs pa) {
+  coords_pairs<TJH, FC, DIVD, false>(F, R, rc, pa);
+}
+
+template <int TJH, int FC, bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_rect_coords_pairs(int F, int R, float rc, PairArgs pa) {
+  coords_pairs<TJH, FC, DIVD, true>(F, R, rc, pa);
+}
+
+// dx[perm[a]] = the atom's slots summed in the order of its tile's list
+// (ptr: the plan's CSR of that side); atoms of a tile with no reach get 0
+__device__ __forceinline__ void sum_slots(int a, int c,
+                                          const int* __restrict__ perm,
+                                          const int* __restrict__ ptr,
+                                          const float* __restrict__ part,
+                                          float* __restrict__ dx) {
+  const int I = a / TILE, l = a % TILE;
+  float s = 0.f;
+  for (int e = ptr[I]; e < ptr[I + 1]; ++e)
+    s += part[((size_t)e * TILE + l) * 3 + c];
+  dx[(size_t)perm[a] * 3 + c] = s;
+}
+
 __global__ void rc_coords_reduce(int P, const int* __restrict__ perm,
                                  const int* __restrict__ row_ptr,
                                  const float* __restrict__ part,
                                  float* __restrict__ dx) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= P * 3) return;
-  const int a = q / 3, c = q % 3, I = a / TILE, l = a % TILE;
-  float s = 0.f;
-  for (int e = row_ptr[I]; e < row_ptr[I + 1]; ++e)
-    s += part[((size_t)e * TILE + l) * 3 + c];
-  dx[(size_t)perm[a] * 3 + c] = s;
+  if (q < P * 3) sum_slots(q / 3, q % 3, perm, row_ptr, part, dx);
+}
+
+// K6: both sides in one grid, the rows' slots in row-list order, the
+// columns' in column-list order
+__global__ void rc_rect_coords_reduce(int Pr, int Pc,
+                                      const int* __restrict__ perm_r,
+                                      const int* __restrict__ perm_c,
+                                      const int* __restrict__ row_ptr,
+                                      const int* __restrict__ col_ptr,
+                                      const float* __restrict__ part_r,
+                                      const float* __restrict__ part_c,
+                                      float* __restrict__ dx_r,
+                                      float* __restrict__ dx_c) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < Pr * 3)
+    sum_slots(q / 3, q % 3, perm_r, row_ptr, part_r, dx_r);
+  else if (q < (Pr + Pc) * 3)
+    sum_slots(q / 3 - Pr, q % 3, perm_c, col_ptr, part_c, dx_c);
 }
 
 // ---------------------------------------------------------------------------
@@ -1020,154 +1109,6 @@ rc_rect_bwd_feats(int Pr, int Pc, int off, int F, int R, float rc,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K6 coordinate gradients. A block owns a tile of one side (TI rows when
-// !COLS, TJ columns when COLS) and loops over tiles of the other. For each
-// (TI rows, TJ columns) pair tile, one thread per (r, 8 i, 8 j)
-// accumulates S = g_I feats_J^T over all of F (chunks of 16 features
-// staged k-major in shared memory); then one thread per (owned atom,
-// quarter of the other tile) applies dA/dd once per pair and sums the
-// (x_own - x_other)/d-weighted terms in a fixed order.
-// ---------------------------------------------------------------------------
-template <int TI, int TJ>
-__host__ __device__ constexpr int rect_xyz_floats(int R1) {
-  return C_FC * R1 * (TI + 4) + C_FC * TJ > R1 * TI * (TJ + 1)
-             ? C_FC * R1 * (TI + 4) + C_FC * TJ
-             : R1 * TI * (TJ + 1);
-}
-
-template <int TI, int TJ, bool COLS, bool DIVD>
-__global__ void __launch_bounds__(512)
-rc_rect_bwd_xyz(int Pr, int Pc, int off, int F, int R, float rc,
-                const float* __restrict__ Xr, const float* __restrict__ Mr,
-                const float* __restrict__ Xc, const float* __restrict__ Mc,
-                const float* __restrict__ feats, const float* __restrict__ g,
-                float* __restrict__ dx) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int TIP = TI + 4, TJS = TJ + 1;
-  constexpr int NIG = TI / 8, NJG = TJ / 8;
-  constexpr int OWN = COLS ? TJ : TI, OTHER = COLS ? TI : TJ;
-  constexpr int NQ = OTHER / 4;
-  __shared__ float Xi[TI][4], Xj[TJ][4];
-  __shared__ float red[OWN][NQ][3];
-  const int R1 = R + 1;
-  float* gIs = sm;                         // [C_FC][R1][TIP]
-  float* fJs = gIs + C_FC * R1 * TIP;      // [C_FC][TJ]
-  float* Ss = sm;                          // [R1][TI][TJS], aliases them
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int own0 = blockIdx.x * OWN;
-  const int r = t / (NIG * NJG);
-  const int io = ((t / NJG) % NIG) * 8, jo = (t % NJG) * 8;
-  for (int q = t; q < OWN * NQ * 3; q += nt) (&red[0][0][0])[q] = 0.f;
-
-  const int n_other = COLS ? Pr : Pc;
-  for (int o0 = 0; o0 < n_other; o0 += OTHER) {
-    const int i0 = COLS ? o0 : own0, j0 = COLS ? own0 : o0;
-    __syncthreads();                      // the last pair phase is done
-    for (int q = t; q < TI; q += nt) {
-      const int li = i0 + q;
-      const bool ok = li < Pr;
-      Xi[q][0] = ok ? Xr[3 * li] : 0.f;
-      Xi[q][1] = ok ? Xr[3 * li + 1] : 0.f;
-      Xi[q][2] = ok ? Xr[3 * li + 2] : 0.f;
-      Xi[q][3] = ok ? Mr[li] : 0.f;
-    }
-    for (int q = t; q < TJ; q += nt) {
-      const int gj = j0 + q;
-      const bool ok = gj < Pc;
-      Xj[q][0] = ok ? Xc[3 * gj] : 0.f;
-      Xj[q][1] = ok ? Xc[3 * gj + 1] : 0.f;
-      Xj[q][2] = ok ? Xc[3 * gj + 2] : 0.f;
-      Xj[q][3] = ok ? Mc[gj] : 0.f;
-    }
-    float S[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) S[a][b] = 0.f;
-
-    for (int fc = 0; fc < F; fc += C_FC) {
-      __syncthreads();
-      // g rows (i, r) of the row tile, transposed to [f][r][i]
-      for (int q = t; q < TI * R1 * (C_FC / 4); q += nt) {
-        const int c = (q % (C_FC / 4)) * 4, row = q / (C_FC / 4);
-        const int rr = row % R1;
-        const float4 v = ld4_or_zero(g + ((size_t)i0 * R1 + row) * F + fc + c,
-                                     i0 + row / R1 < Pr && fc + c < F);
-        float* d = gIs + (c * R1 + rr) * TIP + row / R1;
-        d[0] = v.x;
-        d[R1 * TIP] = v.y;
-        d[2 * R1 * TIP] = v.z;
-        d[3 * R1 * TIP] = v.w;
-      }
-      // feats of the column tile, transposed to [f][j]
-      for (int q = t; q < TJ * (C_FC / 4); q += nt) {
-        const int c = (q % (C_FC / 4)) * 4, a = q / (C_FC / 4);
-        const int gj = j0 + a;
-        const float4 v = ld4_or_zero(feats + (size_t)gj * F + fc + c,
-                                     gj < Pc && fc + c < F);
-        float* d = fJs + c * TJ + a;
-        d[0] = v.x;
-        d[TJ] = v.y;
-        d[2 * TJ] = v.z;
-        d[3 * TJ] = v.w;
-      }
-      __syncthreads();
-      if (r < R1) {
-        for (int f = 0; f < C_FC; ++f) {
-          float a[8], b[8];
-          ld8(gIs + (f * R1 + r) * TIP + io, a);
-          ld8(fJs + f * TJ + jo, b);
-#pragma unroll
-          for (int x = 0; x < 8; ++x)
-#pragma unroll
-            for (int y = 0; y < 8; ++y) S[x][y] = fmaf(a[x], b[y], S[x][y]);
-        }
-      }
-    }
-    __syncthreads();                      // staging buffers free for Ss
-    if (r < R1) {
-#pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int y = 0; y < 8; ++y)
-          Ss[(r * TI + io + x) * TJS + jo + y] = S[x][y];
-    }
-    __syncthreads();
-    // each (owned atom, quarter) slot has one owner thread: a fixed order
-    for (int q = t; q < OWN * NQ; q += nt) {
-      const int po = q / NQ, pq = q % NQ;
-      float px = 0.f, py = 0.f, pz = 0.f;
-      for (int k = 0; k < 4; ++k) {
-        const int pt = pq * 4 + k;
-        const int ii = COLS ? pt : po, jj = COLS ? po : pt;
-        const Geo pg = pair_geo(Xi[ii][0], Xi[ii][1], Xi[ii][2], Xi[ii][3],
-                                off + i0 + ii, Xj[jj][0], Xj[jj][1],
-                                Xj[jj][2], Xj[jj][3], j0 + jj, rc);
-        const float G = accum_g<DIVD>(pg, R, rc, Ss + ii * TJS + jj,
-                                      TI * TJS);
-        // rows: G (x_i - x_j) / d; columns: G (x_j - x_i) / d
-        const float w = (COLS ? -G : G) / pg.d;
-        px = fmaf(w, Xi[ii][0] - Xj[jj][0], px);
-        py = fmaf(w, Xi[ii][1] - Xj[jj][1], py);
-        pz = fmaf(w, Xi[ii][2] - Xj[jj][2], pz);
-      }
-      red[po][pq][0] += px;
-      red[po][pq][1] += py;
-      red[po][pq][2] += pz;
-    }
-  }
-  // deterministic reduction over the NQ slots of each owned atom
-  __syncthreads();
-  const int n_own = COLS ? Pc : Pr;
-  for (int q = t; q < OWN * 3; q += nt) {
-    const int o = q / 3, k = q % 3;
-    float s = 0.f;
-    for (int u = 0; u < NQ; ++u) s += red[o][u][k];
-    if (own0 + o < n_own) dx[(size_t)(own0 + o) * 3 + k] = s;
-  }
-}
-
 template <typename K>
 int prepare(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
@@ -1184,26 +1125,36 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
   return (int)cudaGetLastError();
 }
 
-template <int TJH, int FC, bool DIVD>
-int launch_coords(int P, int F, int R, float rc, int n_pairs,
-                  const float4* Xp, const int* perm, const int* pairs,
-                  const float* feats, const float* g, float* part,
+template <int TJH, int FC, bool DIVD, bool RECT>
+int launch_coords(int F, int R, float rc, int n_pairs, const PairArgs& pa,
                   cudaStream_t s) {
   const int R1 = R + 1;
   const int threads =
       TJH == TILE ? 32 * ((R1 + 1) / 2) : R1 * 4 * (TJH / 8);
   if (threads > 512) return (int)cudaErrorInvalidValue;
-  const int fl = 2 * cg_stage_floats<TJH, FC>(R1) > cg_s_floats<TJH>(R1)
-                     ? 2 * cg_stage_floats<TJH, FC>(R1)
+  const int fl = 2 * cg_stage_floats<TJH, FC, RECT>(R1) > cg_s_floats<TJH>(R1)
+                     ? 2 * cg_stage_floats<TJH, FC, RECT>(R1)
                      : cg_s_floats<TJH>(R1);
   const size_t smem = sizeof(float) * fl;
-  auto kernel = rc_coords_pairs<TJH, FC, DIVD>;
+  void (*kernel)(int, int, float, PairArgs) =
+      RECT ? rc_rect_coords_pairs<TJH, FC, DIVD>
+           : rc_coords_pairs<TJH, FC, DIVD>;
   int err = prepare(kernel, smem);
   if (err) return err;
-  kernel<<<n_pairs, threads, smem, s>>>(
-      P, F, R, rc, Xp, perm, reinterpret_cast<const int4*>(pairs), feats, g,
-      part);
+  kernel<<<n_pairs, threads, smem, s>>>(F, R, rc, pa);
   return (int)cudaGetLastError();
+}
+
+// the tiling by R + 1: tensor cores on full 32 x 32 pair tiles up to 32,
+// CUDA cores on two column halves of 16 above
+template <bool RECT>
+int launch_coords_any(int F, int R, int div_d, float rc, int n_pairs,
+                      const PairArgs& pa, cudaStream_t s) {
+  if (R + 1 <= 32)
+    return div_d ? launch_coords<32, 8, true, RECT>(F, R, rc, n_pairs, pa, s)
+                 : launch_coords<32, 8, false, RECT>(F, R, rc, n_pairs, pa, s);
+  return div_d ? launch_coords<16, 4, true, RECT>(F, R, rc, n_pairs, pa, s)
+               : launch_coords<16, 4, false, RECT>(F, R, rc, n_pairs, pa, s);
 }
 
 }  // namespace
@@ -1281,20 +1232,14 @@ int rc_bwd_coords_launch(int P, int F, int R, int div_d, float rc,
   if (F % 8 != 0 || R + 1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float4* X4 = reinterpret_cast<const float4*>(Xp);
-  int err = 0;
+  const PairArgs pa{P,     P,
+                    0,     X4,
+                    X4,    perm,
+                    perm,  reinterpret_cast<const int4*>(pairs),
+                    feats, g,
+                    part,  part};
   if (n_pairs > 0) {
-    if (R + 1 <= 32)
-      err = div_d ? launch_coords<32, 8, true>(P, F, R, rc, n_pairs, X4, perm,
-                                               pairs, feats, g, part, s)
-                  : launch_coords<32, 8, false>(P, F, R, rc, n_pairs, X4,
-                                                perm, pairs, feats, g, part,
-                                                s);
-    else
-      err = div_d ? launch_coords<16, 4, true>(P, F, R, rc, n_pairs, X4, perm,
-                                               pairs, feats, g, part, s)
-                  : launch_coords<16, 4, false>(P, F, R, rc, n_pairs, X4,
-                                                perm, pairs, feats, g, part,
-                                                s);
+    const int err = launch_coords_any<false>(F, R, div_d, rc, n_pairs, pa, s);
     if (err) return err;
   }
   rc_coords_reduce<<<(3 * P + 255) / 256, 256, 0, s>>>(P, perm, row_ptr,
@@ -1351,68 +1296,44 @@ int rc_rect_bwd_feats_launch(int Pr, int Pc, int off, int F, int R,
   return (int)cudaGetLastError();
 }
 
-}  // extern "C"
-
-namespace {
-
-template <int TI, int TJ, bool COLS>
-int launch_rect_xyz(int Pr, int Pc, int off, int F, int R, int div_d,
-                    float rc, const float* Xr, const float* Mr,
-                    const float* Xc, const float* Mc, const float* feats,
-                    const float* g, float* dx, cudaStream_t s) {
-  const int R1 = R + 1;
-  const int threads = R1 * (TI / 8) * (TJ / 8);
-  if (F % 8 != 0 || threads > 512) return (int)cudaErrorInvalidValue;
-  const int n_own = COLS ? Pc : Pr, own = COLS ? TJ : TI;
-  if (n_own == 0) return 0;
-  const size_t smem = sizeof(float) * rect_xyz_floats<TI, TJ>(R1);
-  const int blocks = (n_own + own - 1) / own;
-  int err = div_d ? prepare(rc_rect_bwd_xyz<TI, TJ, COLS, true>, smem)
-                  : prepare(rc_rect_bwd_xyz<TI, TJ, COLS, false>, smem);
-  if (err) return err;
-  if (div_d)
-    rc_rect_bwd_xyz<TI, TJ, COLS, true><<<blocks, threads, smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, feats, g, dx);
-  else
-    rc_rect_bwd_xyz<TI, TJ, COLS, false><<<blocks, threads, smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, feats, g, dx);
+// the rect plan's Xr [Pr, 4], Xc [Pc, 4], perm_r, perm_c, row_ptr,
+// col_ptr and n_pairs pairs [n_pairs, 4]; feats [Pc, F], g [Pr, R+1, F];
+// part_r, part_c [n_pairs, 32, 3] scratch -> dx_r [Pr, 3], dx_c [Pc, 3],
+// every row and column written. F % 8 == 0, R + 1 <= 63. Up to R+1 = 32
+// full 32 x 32 pair tiles on the tensor cores (111.5 KB of shared memory
+// at R+1 = 25), above two column halves of 16 on CUDA cores (140.6 KB at
+// R+1 = 63).
+int rc_rect_bwd_coords_launch(int Pr, int Pc, int off, int F, int R,
+                              int div_d, float rc, int n_pairs,
+                              const float* Xr, const float* Xc,
+                              const int* perm_r, const int* perm_c,
+                              const int* row_ptr, const int* col_ptr,
+                              const int* pairs, const float* feats,
+                              const float* g, float* part_r, float* part_c,
+                              float* dx_r, float* dx_c, void* stream) {
+  if (F % 8 != 0 || R + 1 > 63) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const PairArgs pa{Pr,
+                    Pc,
+                    off,
+                    reinterpret_cast<const float4*>(Xr),
+                    reinterpret_cast<const float4*>(Xc),
+                    perm_r,
+                    perm_c,
+                    reinterpret_cast<const int4*>(pairs),
+                    feats,
+                    g,
+                    part_r,
+                    part_c};
+  if (n_pairs > 0) {
+    const int err = launch_coords_any<true>(F, R, div_d, rc, n_pairs, pa, s);
+    if (err) return err;
+  }
+  if (Pr + Pc > 0)
+    rc_rect_coords_reduce<<<(3 * (Pr + Pc) + 255) / 256, 256, 0, s>>>(
+        Pr, Pc, perm_r, perm_c, row_ptr, col_ptr, part_r, part_c, dx_r,
+        dx_c);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// g [Pr, R+1, F], feats [Pc, F] -> dx_rows [Pr, 3]; 8 rows a block
-// against column tiles of 128 up to R+1 = 32, of 64 up to R+1 = 63
-int rc_rect_bwd_rows_launch(int Pr, int Pc, int off, int F, int R,
-                            int div_d, float rc, const float* Xr,
-                            const float* Mr, const float* Xc,
-                            const float* Mc, const float* feats,
-                            const float* g, float* dx, void* stream) {
-  if (R + 1 > 63) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (R + 1 <= 32)
-    return launch_rect_xyz<8, 128, false>(Pr, Pc, off, F, R, div_d, rc, Xr,
-                                          Mr, Xc, Mc, feats, g, dx, s);
-  return launch_rect_xyz<8, 64, false>(Pr, Pc, off, F, R, div_d, rc, Xr, Mr,
-                                       Xc, Mc, feats, g, dx, s);
-}
-
-// g [Pr, R+1, F], feats [Pc, F] -> dx_cols [Pc, 3]; 32 columns a block
-// against row tiles of 32 up to R+1 = 32, of 16 up to R+1 = 63
-int rc_rect_bwd_cols_launch(int Pr, int Pc, int off, int F, int R,
-                            int div_d, float rc, const float* Xr,
-                            const float* Mr, const float* Xc,
-                            const float* Mc, const float* feats,
-                            const float* g, float* dx, void* stream) {
-  if (R + 1 > 63) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (R + 1 <= 32)
-    return launch_rect_xyz<32, 32, true>(Pr, Pc, off, F, R, div_d, rc, Xr,
-                                         Mr, Xc, Mc, feats, g, dx, s);
-  return launch_rect_xyz<16, 32, true>(Pr, Pc, off, F, R, div_d, rc, Xr, Mr,
-                                       Xc, Mc, feats, g, dx, s);
 }
 
 }  // extern "C"

@@ -40,7 +40,7 @@ from ..core.structure import PaddedSystem
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
 from .radial_contract import (radial_contract, radial_contract_rect,
-                              tile_plan)
+                              rect_tile_plan, tile_plan)
 
 
 @dataclass(frozen=True)
@@ -308,7 +308,8 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     edge-direction stream uses the u = (x_i - x_j)/d split:
     sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d. With ``shard``
     this rank's rows contract against the all-gathered streams of every
-    atom through K6 (``radial_contract_rect``): O(P/n) memory a rank."""
+    atom through K6 (``radial_contract_rect``), whose coordinate gradients
+    run on one rect tile plan a call: O(P/n) memory a rank."""
     dt = torch.float32
     P = coords_ang.shape[0]
     C = cfg.hidden
@@ -319,10 +320,14 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     x_full = coords_ang.to(dt)
     mask_full = system.atom_mask.to(dt)
     x, atom_mask = rows(x_full), rows(mask_full)
-    # one tile plan of this evaluation's coordinates serves every K5 call
-    # (never cached across calls: the optimizer moves the atoms)
-    plan = (tile_plan(x_full, mask_full, cfg.cutoff)
-            if shard is None and x_full.is_cuda else None)
+    # one tile plan of this evaluation's coordinates serves every K5 call,
+    # one rect plan of this rank's rows every K6 call (never cached across
+    # calls: the optimizer moves the atoms)
+    plan = None
+    if x_full.is_cuda:
+        plan = (tile_plan(x_full, mask_full, cfg.cutoff) if shard is None
+                else rect_tile_plan(x, atom_mask, i0, x_full, mask_full,
+                                    cfg.cutoff))
 
     def contract(feats, div_d=False):
         if shard is None:
@@ -330,7 +335,7 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
                                    cfg.n_radial, div_d, plan=plan)
         return radial_contract_rect(x, atom_mask, i0, x_full, mask_full,
                                     allg(feats), cfg.cutoff, cfg.n_radial,
-                                    div_d)
+                                    div_d, plan=plan)
 
     z = torch.clamp(rows(system.numbers), 0, cfg.max_z)
     s = _embed_z(z, params, cfg, atom_mask)

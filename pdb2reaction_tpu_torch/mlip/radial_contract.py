@@ -30,8 +30,12 @@ K6 (``radial_contract_rect``) is the same contraction for one block of
 rows against all columns, the form atom-axis sharding runs: rows
 coords_rows [Pr, 3] with global indices ``row_offset`` .. and columns
 coords_cols [Pc, 3], feats [Pc, F] -> [Pr, R+1, F]; self-pairs are
-excluded by global index. Its kernels give the feats gradient and the
-coordinate gradients of the rows and of the columns separately.
+excluded by global index. Its forward and feats gradient run over every
+pair; its coordinate kernel runs on a ``rect_tile_plan`` (rows and columns
+each in the spatial order, the listed (row tile, column tile) pairs) and
+gives the gradients of the rows and of the columns from one S product per
+listed pair, in one launch. The PaiNN pallas mode's sharded branch builds
+one such plan per energy evaluation and passes it to every call.
 """
 
 from __future__ import annotations
@@ -49,10 +53,9 @@ launches = {"radial_contract_fwd": 0, "radial_contract_bwd_feats": 0,
             "radial_contract_bwd_coords": 0}
 rect_launches = {"radial_contract_rect_fwd": 0,
                  "radial_contract_rect_bwd_feats": 0,
-                 "radial_contract_rect_bwd_rows": 0,
-                 "radial_contract_rect_bwd_cols": 0}
-# tile plans built (``tile_plan`` calls)
-plans = {"built": 0}
+                 "radial_contract_rect_bwd_coords": 0}
+# tile plans built (``tile_plan`` and ``rect_tile_plan`` calls)
+plans = {"built": 0, "rect_built": 0}
 
 TILE = 32            # atoms per plan tile: the kernels' row and column tiles
 REACH_SLACK = 1e-3   # Angstrom: covers f32 rounding of d in the kernels
@@ -128,20 +131,15 @@ def _bisect_levels(P, device):
     return _LEVELS[key]
 
 
-def tile_plan(coords, mask, cutoff) -> TilePlan:
-    """The tile plan of K5's forward and coordinate gradient, in tiles of
-    ``TILE`` atoms (the kernels' tile; they take no other).
+def _plan_tiles(coords, mask):
+    """The spatial order of one side of a plan and its tiles' boxes:
+    (order, xs, real, lo, hi), xs and real in plan order, lo and hi
+    float32 [T, 3] over each tile's real atoms (empty: +inf, -inf).
 
     Order: recursive bisection, each segment sorted along the longest axis
     of its real atoms' box and split at a tile boundary; masked atoms sort
     last in every segment, so they end up last overall. Every sort is
-    stable, so the plan (and the kernels' sums) repeat bit for bit. Reach:
-    tile pairs whose boxes lie within ``cutoff + REACH_SLACK`` (f32): every
-    pair the kernels' own f32 test puts inside the cutoff lies in a listed
-    tile pair. Plain PyTorch on the coordinates' device; the upper-triangle
-    ``nonzero`` is the one host synchronisation of a call.
-    """
-    plans["built"] += 1
+    stable, so the order (and the kernels' sums) repeat bit for bit."""
     P, dev = coords.shape[0], coords.device
     inf = float("inf")
     x = coords.detach().to(torch.float32)
@@ -165,12 +163,36 @@ def tile_plan(coords, mask, cutoff) -> TilePlan:
                     torch.full((pad, 3), inf, device=dev)])
     hi = torch.cat([torch.where(rs[:, None], xs, -inf),
                     torch.full((pad, 3), -inf, device=dev)])
-    lo = lo.view(T, TILE, 3).amin(1)
-    hi = hi.view(T, TILE, 3).amax(1)
+    return (order, xs, rs, lo.view(T, TILE, 3).amin(1),
+            hi.view(T, TILE, 3).amax(1))
+
+
+def _reach(lo_a, hi_a, lo_b, hi_b, cutoff):
+    """bool [Ta, Tb]: the tile pairs whose boxes lie within ``cutoff +
+    REACH_SLACK`` (f32), so that every pair the kernels' own f32 test puts
+    inside the cutoff lies in a listed tile pair."""
     # per-axis gaps between boxes; an empty box gives +inf, never NaN
-    gap = torch.clamp(torch.maximum(lo[None] - hi[:, None],
-                                    lo[:, None] - hi[None]), min=0.0)
-    reach = (gap * gap).sum(-1) <= (float(cutoff) + REACH_SLACK) ** 2
+    gap = torch.clamp(torch.maximum(lo_b[None] - hi_a[:, None],
+                                    lo_a[:, None] - hi_b[None]), min=0.0)
+    return (gap * gap).sum(-1) <= (float(cutoff) + REACH_SLACK) ** 2
+
+
+def _xm(xs, rs):
+    return torch.cat([xs, rs[:, None].to(torch.float32)], 1).contiguous()
+
+
+def tile_plan(coords, mask, cutoff) -> TilePlan:
+    """The tile plan of K5's forward and coordinate gradient, in tiles of
+    ``TILE`` atoms (the kernels' tile; they take no other): the order and
+    boxes of ``_plan_tiles``, the reach relation of ``_reach``. Plain
+    PyTorch on the coordinates' device; the upper-triangle ``nonzero`` is
+    the one host synchronisation of a call.
+    """
+    plans["built"] += 1
+    dev = coords.device
+    order, xs, rs, lo, hi = _plan_tiles(coords, mask)
+    T = lo.shape[0]
+    reach = _reach(lo, hi, lo, hi, cutoff)
     cnt = reach.sum(1, dtype=torch.int32)
     row_ptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(cnt, 0)
@@ -184,10 +206,87 @@ def tile_plan(coords, mask, cutoff) -> TilePlan:
                        device=dev)
     cols[e_ij.long()] = pJ.int()
     cols[e_ji.long()] = pI.int()
-    xm = torch.cat([xs, rs[:, None].to(torch.float32)], 1).contiguous()
     pairs = torch.stack([pI, pJ, e_ij, e_ji], 1).to(torch.int32)
-    return TilePlan(order.to(torch.int32), xm, lo, hi, row_ptr, cols,
-                    pairs.contiguous())
+    return TilePlan(order.to(torch.int32), _xm(xs, rs), lo, hi, row_ptr,
+                    cols, pairs.contiguous())
+
+
+class RectTilePlan(NamedTuple):
+    """The tile plan of K6's coordinate gradients (``rect_tile_plan``): one
+    block of rows (global indices ``off`` ..) and all columns, each side in
+    its own spatial order and tiles of ``TILE``.
+
+    off              int: the global index of row 0
+    perm_r, perm_c   int32 [Pr], [Pc]: the local row / column at each plan
+                     position
+    xm_r, xm_c       float32 [Pr, 4], [Pc, 4]: coordinates and mask in plan
+                     order
+    row_ptr, cols    int32 [Tr + 1], [n]: each row tile's listed column
+                     tiles, ascending
+    col_ptr, rows    int32 [Tc + 1], [n]: each column tile's listed row
+                     tiles, ascending
+    pairs            int32 [n, 4]: (I, J, e_row, e_col) per listed tile
+                     pair, row-major; e_row is J's position in ``cols``, e_col
+                     I's in ``rows``: the slots of the two sides' partial sums
+    """
+    off: int
+    perm_r: torch.Tensor
+    perm_c: torch.Tensor
+    xm_r: torch.Tensor
+    xm_c: torch.Tensor
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    col_ptr: torch.Tensor
+    rows: torch.Tensor
+    pairs: torch.Tensor
+
+    def stats(self, R1=None, F=None) -> dict:
+        """Row and column tiles, listed tile pairs and their share of all
+        Tr Tc, and with R1 and F the FLOP the coordinate kernel computes
+        per launch: one S product, 2 (R+1) F per pair, on every listed
+        tile pair. Synchronises with the device."""
+        Tr, Tc = self.row_ptr.shape[0] - 1, self.col_ptr.shape[0] - 1
+        listed = int(self.pairs.shape[0])
+        out = {"row_tiles": Tr, "col_tiles": Tc, "listed": listed,
+               "share": listed / max(Tr * Tc, 1)}
+        if R1 is not None:
+            out["coords_flop"] = 2 * TILE * TILE * R1 * F * listed
+        return out
+
+
+def rect_tile_plan(coords_rows, mask_rows, row_offset, coords_cols,
+                   mask_cols, cutoff) -> RectTilePlan:
+    """The tile plan of K6's coordinate gradients: rows and columns each
+    ordered and tiled by ``_plan_tiles``, and the (row tile, column tile)
+    pairs whose boxes lie within the cutoff (``_reach``), as CSRs by row
+    tile and by column tile and as one list of pairs with both sides'
+    slots. Plain PyTorch on the coordinates' device; the ``nonzero`` is
+    the one host synchronisation."""
+    plans["rect_built"] += 1
+    dev = coords_rows.device
+    perm_r, xr, real_r, lo_r, hi_r = _plan_tiles(coords_rows, mask_rows)
+    perm_c, xc, real_c, lo_c, hi_c = _plan_tiles(coords_cols, mask_cols)
+    reach = _reach(lo_r, hi_r, lo_c, hi_c, cutoff)          # [Tr, Tc]
+    ptr = []
+    for dim in (1, 0):
+        p = torch.zeros(reach.shape[1 - dim] + 1, dtype=torch.int32,
+                        device=dev)
+        p[1:] = torch.cumsum(reach.sum(dim, dtype=torch.int32), 0)
+        ptr.append(p)
+    row_ptr, col_ptr = ptr
+    nz = reach.nonzero()                      # host synchronisation
+    pI, pJ = nz[:, 0], nz[:, 1]
+    # row-major: the pairs are the row lists in order, so e_row = 0 .. n-1
+    e_row = torch.arange(nz.shape[0], device=dev)
+    e_col = col_ptr[pJ] + (torch.cumsum(reach, 0, dtype=torch.int32)
+                           - reach.int())[pI, pJ]
+    rows = torch.empty(nz.shape[0], dtype=torch.int32, device=dev)
+    rows[e_col.long()] = pI.int()
+    pairs = torch.stack([pI, pJ, e_row, e_col], 1).to(torch.int32)
+    return RectTilePlan(int(row_offset), perm_r.to(torch.int32),
+                        perm_c.to(torch.int32), _xm(xr, real_r), _xm(xc, real_c),
+                        row_ptr, pJ.to(torch.int32), col_ptr, rows,
+                        pairs.contiguous())
 
 
 def radial_contract_plain(coords, mask, feats, cutoff, n_radial,
@@ -329,10 +428,34 @@ def radial_contract(coords, mask, feats, cutoff, n_radial, div_d=False,
                                    div_d, plan)
 
 
+def rect_coords_on_plan(plan, feats, g, cutoff, n_radial, div_d=False):
+    """K6's coordinate kernel on a ``rect_tile_plan``: feats [Pc, F] and g
+    [Pr, R+1, F] (float32, contiguous, 16-byte aligned, on the card) ->
+    (dx_rows [Pr, 3], dx_cols [Pc, 3]) from one S product per listed tile
+    pair. Every row and column is written: atoms of a tile with no reach
+    get zeros."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    Pr, Pc, F = g.shape[0], feats.shape[0], feats.shape[1]
+    dev = feats.device
+    n = plan.pairs.shape[0]
+    dxr = torch.empty(Pr, 3, device=dev, dtype=torch.float32)
+    dxc = torch.empty(Pc, 3, device=dev, dtype=torch.float32)
+    # one [TILE, 3] slot of partial sums per listed pair and side
+    part = torch.empty(2, n, TILE, 3, device=dev, dtype=torch.float32)
+    call(load("radial_contract"), "rc_rect_bwd_coords_launch", Pr, Pc,
+         plan.off, F, n_radial, int(div_d), float(cutoff), n,
+         ptr(plan.xm_r), ptr(plan.xm_c), ptr(plan.perm_r), ptr(plan.perm_c),
+         ptr(plan.row_ptr), ptr(plan.col_ptr), ptr(plan.pairs), ptr(feats),
+         ptr(g), ptr(part[0]), ptr(part[1]), ptr(dxr), ptr(dxc),
+         stream_ptr())
+    rect_launches["radial_contract_rect_bwd_coords"] += 1
+    return dxr, dxc
+
+
 class _RadialContractRectFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cr, mr, row_offset, cc, mc, feats, cutoff, n_radial,
-                div_d):
+                div_d, plan):
         from .cuda_build import call, load, ptr, stream_ptr
         cr, mr, cc, mc, feats = (_aligned(t) for t in (cr, mr, cc, mc, feats))
         Pr, (Pc, F) = cr.shape[0], feats.shape
@@ -345,39 +468,42 @@ class _RadialContractRectFn(torch.autograd.Function):
              stream_ptr())
         rect_launches["radial_contract_rect_fwd"] += 1
         ctx.save_for_backward(cr, mr, cc, mc, feats)
+        ctx.plan = plan
         return out
 
     @staticmethod
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cr, mr, cc, mc, feats = ctx.saved_tensors
-        geo = (*ctx.args, ptr(cr), ptr(mr), ptr(cc), ptr(mc))
+        Pr, Pc, off, F, n_radial, div_d, cutoff = ctx.args
         g = _aligned(g.float())
-        lib = load("radial_contract")
         dcr = dcc = dfeats = None
         if ctx.needs_input_grad[5]:
             dfeats = torch.empty_like(feats)
-            call(lib, "rc_rect_bwd_feats_launch", *geo, ptr(g), ptr(dfeats),
-                 stream_ptr())
+            call(load("radial_contract"), "rc_rect_bwd_feats_launch",
+                 *ctx.args, ptr(cr), ptr(mr), ptr(cc), ptr(mc), ptr(g),
+                 ptr(dfeats), stream_ptr())
             rect_launches["radial_contract_rect_bwd_feats"] += 1
-        if ctx.needs_input_grad[0]:
-            dcr = torch.empty_like(cr)
-            call(lib, "rc_rect_bwd_rows_launch", *geo, ptr(feats), ptr(g),
-                 ptr(dcr), stream_ptr())
-            rect_launches["radial_contract_rect_bwd_rows"] += 1
-        if ctx.needs_input_grad[3]:
-            dcc = torch.empty_like(cc)
-            call(lib, "rc_rect_bwd_cols_launch", *geo, ptr(feats), ptr(g),
-                 ptr(dcc), stream_ptr())
-            rect_launches["radial_contract_rect_bwd_cols"] += 1
-        return dcr, None, None, dcc, None, dfeats, None, None, None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[3]:
+            # one launch serves both coordinate gradients
+            plan = ctx.plan if ctx.plan is not None else rect_tile_plan(
+                cr, mr, off, cc, mc, cutoff)
+            dxr, dxc = rect_coords_on_plan(plan, feats, g, cutoff, n_radial,
+                                           div_d)
+            dcr = dxr if ctx.needs_input_grad[0] else None
+            dcc = dxc if ctx.needs_input_grad[3] else None
+        return dcr, None, None, dcc, None, dfeats, None, None, None, None
 
 
 def radial_contract_rect(coords_rows, mask_rows, row_offset, coords_cols,
-                         mask_cols, feats, cutoff, n_radial, div_d=False):
+                         mask_cols, feats, cutoff, n_radial, div_d=False,
+                         plan=None):
     """K6 on rows [Pr, 3] (global indices ``row_offset`` ..), mask_rows
     [Pr], columns [Pc, 3], mask_cols [Pc], feats [Pc, F]; returns
-    [Pr, R+1, F]. ``row_offset`` is a Python int."""
+    [Pr, R+1, F]. ``row_offset`` is a Python int. On CUDA tensors ``plan``,
+    a ``rect_tile_plan`` of these rows, columns, offset and cutoff, serves
+    the coordinate gradients (None: the backward builds its own); on the
+    CPU it is ignored."""
     if not coords_rows.is_cuda:
         return radial_contract_rect_plain(coords_rows, mask_rows, row_offset,
                                           coords_cols, mask_cols, feats,
@@ -391,7 +517,18 @@ def radial_contract_rect(coords_rows, mask_rows, row_offset, coords_cols,
         raise ValueError("radial_contract_rect: rows and their mask, and "
                          "columns, their mask and feats, must agree in "
                          "length")
+    if plan is not None and (
+            plan.xm_r.shape[0] != coords_rows.shape[0]
+            or plan.xm_c.shape[0] != coords_cols.shape[0]
+            or plan.off != int(row_offset)
+            or plan.xm_r.device != coords_rows.device):
+        raise ValueError(
+            f"radial_contract_rect: a rect tile plan of {plan.xm_r.shape[0]}"
+            f" rows from {plan.off} and {plan.xm_c.shape[0]} columns on "
+            f"{plan.xm_r.device} for {coords_rows.shape[0]} rows from "
+            f"{int(row_offset)} and {coords_cols.shape[0]} columns on "
+            f"{coords_rows.device}")
     return _RadialContractRectFn.apply(coords_rows, mask_rows,
                                        int(row_offset), coords_cols,
                                        mask_cols, feats, cutoff, n_radial,
-                                       div_d)
+                                       div_d, plan)

@@ -4,7 +4,7 @@ PyTorch/CUDA port, by kernel name (torch.profiler, CUDA activity).
 
     python3 scripts/gpu_kernel_breakdown.py [cell ...]   # one CUDA card
 
-Cells (default: all five):
+Cells (default: all six):
   escn-md       escn-md on the 300-atom cluster of chip_smoke.py (padded
                 to 320): K1 (conv_tf32<0, edge_conv>, the grouped 3xTF32
                 conv products, 4 launches per layer and direction pair;
@@ -23,13 +23,21 @@ Cells (default: all five):
                 K5 (rc_fwd_tc, rc_feats_plan, rc_coords_pairs and
                 rc_coords_reduce) and the glue of the call's one tile
                 plan;
+  painn-rank    one rank's share of the four-rank sharded uma-s-1p1
+                pallas call on the 4096-atom system, in one process: rank
+                0's 1024 rows against all columns, the collectives
+                replaced by local copies (the kernels' work is the
+                rank's; the values are not the sharded call's): K6
+                (rc_rect_fwd, rc_rect_bwd_feats, rc_rect_coords_pairs and
+                rc_rect_coords_reduce) and the glue of the call's one rect
+                tile plan;
   painn-dense   the default uma-s-1p1 (dense) on the 300-atom cluster.
 
 For each cell: builds the calculator, warms it up, profiles ``n`` force
-calls (3, or 2 for painn-pallas), prints the device time per call of each
+calls (3, or 2 for painn-pallas and painn-rank), prints the device time per call of each
 kernel (everything not named above is the plain PyTorch glue), the sums
 of the kernel families of ``FAMILIES`` (K2's launches apart from the edge
-kernels' conv products) and the device-busy share of the profiled window.
+kernels' conv products, K5's and K6's launches) and the device-busy share of the profiled window.
 Exits non-zero without a card.
 """
 
@@ -42,13 +50,33 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 CELLS = ("escn-md", "escn-md-full", "escn-md-chain", "painn-pallas",
-         "painn-dense")
+         "painn-rank", "painn-dense")
 LAYOUT = {"escn-md": "pallas-mega", "escn-md-full": "pallas-full",
           "escn-md-chain": "pallas"}
 # (label, substrings of the kernel names it sums)
 FAMILIES = (("K2 (conv_tf32<., node_ffn> + grid_sum)", ("node_ffn",
                                                         "grid_sum")),
-            ("edge conv products (conv_tf32<0, edge_conv>)", ("edge_conv",)))
+            ("edge conv products (conv_tf32<0, edge_conv>)", ("edge_conv",)),
+            ("K5 (rc_fwd_*, rc_feats_plan, rc_coords_pairs + reduce)",
+             ("rc_fwd_", "rc_feats_plan", "rc_coords_")),
+            ("K6 (rc_rect_fwd, rc_rect_bwd_feats, rc_rect_coords_pairs + "
+             "reduce)", ("rc_rect_",)))
+
+
+class RankShare:
+    """Rank 0 of four with the collectives replaced by local copies: one
+    rank's device work of the sharded call in one process."""
+    rank, size = 0, 4
+
+    @staticmethod
+    def replicate_in(x):
+        return x
+
+    sum_out = replicate_in
+
+    @classmethod
+    def all_gather_rows(cls, t):
+        return t.repeat(cls.size, *[1] * (t.dim() - 1))
 
 
 def build(cell):
@@ -68,7 +96,12 @@ def build(cell):
     zs, xyz = chip_smoke.cluster(4096, seed=0)
     cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
     _, w, _ = make_model(cfg, seed=0)
-    return chip_smoke.pallas_calculator(Structure(zs, xyz), cfg, w), 2
+    calc = chip_smoke.pallas_calculator(Structure(zs, xyz), cfg, w)
+    if cell == "painn-rank":
+        from pdb2reaction_tpu_torch.parallel.spatial import (
+            make_spatial_energy_fn)
+        calc.energy_fn = make_spatial_energy_fn(cfg, RankShare())
+    return calc, 2
 
 
 def profile_cell(cell, smi):

@@ -562,8 +562,10 @@ def _rc_system(P, seed):
 def test_radial_contract_rect_kernels_match_plain(div_d, Pc, Pr, off, F, R):
     """K6 at a ragged row block (Pr = 184) with masked atoms at nonzero
     offsets: values and the feats, row and column coordinate gradients
-    against the plain version; both tilings of the coordinate gradients
-    (R + 1 <= 32 and > 32); a second run repeats bit for bit; guards."""
+    against the plain version, one launch of each of the three kernels
+    (the coordinate kernel serves rows and columns); both tilings of the
+    coordinate kernel (R + 1 <= 32 and > 32); a second run repeats bit for
+    bit; guards."""
     _need_card()
     coords, mask, gen = _rc_system(Pc, Pc + Pr + off)
     feats = torch.randn(Pc, F, generator=gen).to(**F32)
@@ -631,3 +633,134 @@ def test_radial_contract_rect_blocks_stack_to_square(div_d):
     stacked = torch.cat(blocks)
     assert float((stacked - T).abs().max()) <= 1e-5 * float(T.abs().max())
     assert _close(dc_sum, dc) and _close(df_sum, df)
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("R,shuffled", [(24, False), (24, True),
+                                        (32, False), (32, True)])
+def test_radial_contract_rect_fused_coords_match_plain(div_d, R, shuffled):
+    """Both coordinate gradients, ``autograd.grad(T, [cr, cc], g)``, from
+    one launch of the coordinate kernel on the rect tile plan against the
+    plain version, at R + 1 = 25 (tensor cores) and 33 (CUDA cores), with
+    the system in lattice order and shuffled (a row block spread over the
+    whole box), at a ragged block with masked atoms; no feats-gradient
+    launch; masked rows and columns exactly 0; two calls bit for bit
+    equal."""
+    _need_card()
+    Pc, Pr, off, F = 700, 203, 331, 24
+    coords, mask, gen = _rc_system(Pc, R + 7 * shuffled)
+    if shuffled:
+        sh = torch.randperm(Pc, generator=gen)
+        coords, mask = coords[sh.cuda()], mask[sh.cuda()]
+    feats = torch.randn(Pc, F, generator=gen).to(**F32)
+    g = torch.randn(Pr, R + 1, F, generator=gen).to(**F32)
+    rows = slice(off, off + Pr)
+
+    def run(fn):
+        cr = coords[rows].clone().requires_grad_(True)
+        cc = coords.clone().requires_grad_(True)
+        T = fn(cr, mask[rows], off, cc, mask, feats, 6.0, R, div_d)
+        return torch.autograd.grad(T, [cr, cc], g)
+
+    n0 = dict(rcm.rect_launches)
+    got = run(rcm.radial_contract_rect)
+    assert [rcm.rect_launches[k] - n0[k] for k in n0] == [1, 0, 1]
+    ref = run(rcm.radial_contract_rect_plain)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _close(a, b)
+    assert bool((got[0][mask[rows] == 0] == 0).all())
+    assert bool((got[1][mask == 0] == 0).all())
+    assert all(torch.equal(a, b)
+               for a, b in zip(run(rcm.radial_contract_rect), got))
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("R", [24, 40])
+def test_radial_contract_rect_given_plan_matches_own_plan(div_d, R):
+    """A rect tile plan passed in serves the coordinate kernel: the result
+    and all three gradients are bitwise those of the call whose backward
+    builds its own plan, and no plan is built; a plan of other rows,
+    columns or offset raises."""
+    _need_card()
+    Pc, Pr, off, F = 500, 125, 250, 16
+    coords, mask, gen = _rc_system(Pc, R)
+    feats = torch.randn(Pc, F, generator=gen).to(**F32)
+    g = torch.randn(Pr, R + 1, F, generator=gen).to(**F32)
+    rows = slice(off, off + Pr)
+    plan = rcm.rect_tile_plan(coords[rows], mask[rows], off, coords, mask,
+                              6.0)
+
+    def run(**kw):
+        cr = coords[rows].clone().requires_grad_(True)
+        cc = coords.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        T = rcm.radial_contract_rect(cr, mask[rows], off, cc, mask, f, 6.0,
+                                     R, div_d, **kw)
+        return [T, *torch.autograd.grad(T, [cr, cc, f], g)]
+
+    built = rcm.plans["rect_built"]
+    own = run()
+    assert rcm.plans["rect_built"] == built + 1
+    given = run(plan=plan)
+    assert rcm.plans["rect_built"] == built + 1
+    assert all(torch.equal(a, b) for a, b in zip(given, own))
+    args = (coords[rows], mask[rows], off, coords, mask, feats, 6.0, R,
+            div_d)
+    for other in (
+            rcm.rect_tile_plan(coords[off:off + Pr - 1],
+                               mask[off:off + Pr - 1], off, coords, mask,
+                               6.0),
+            rcm.rect_tile_plan(coords[rows], mask[rows], off, coords[:-1],
+                               mask[:-1], 6.0),
+            rcm.rect_tile_plan(coords[rows], mask[rows], off + 1, coords,
+                               mask, 6.0)):
+        with pytest.raises(ValueError):
+            rcm.radial_contract_rect(*args, plan=other)
+
+
+class _OneRank:
+    """A sharding of one rank: the sharded pallas branch (K6 against all
+    columns) without collectives."""
+    rank, size = 0, 1
+
+    @staticmethod
+    def replicate_in(x):
+        return x
+
+    all_gather_rows = sum_out = replicate_in
+
+
+def test_sharded_pallas_force_call_builds_one_rect_plan():
+    """A uma-s-1p1 force call through the sharded pallas branch builds one
+    rect tile plan and hands it to all of its K6 calls (8 forward, 7
+    feats-gradient and 8 coordinate launches, no K5 launch); its forces,
+    and the unsharded pallas call's, match the CPU float64 plain path on a
+    jittered lattice (the smoke cluster's geometry)."""
+    from pdb2reaction_tpu_torch.parallel.spatial import (
+        make_spatial_energy_fn)
+    _need_card()
+    rng = np.random.default_rng(8)
+    grid = np.stack(np.meshgrid(*[np.arange(5)] * 3), -1).reshape(-1, 3)
+    st = Structure(rng.choice([1, 6, 8], size=96).astype(np.int32),
+                   grid[:96] * 1.8 + rng.normal(scale=0.15, size=(96, 3)))
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    fn, w, _ = make_model(cfg, seed=3)
+    wc = tree_to(w, device="cuda")
+    shard = Calculator(st, make_spatial_energy_fn(cfg, _OneRank()),
+                       params=wc, device="cuda")
+    cb = st.coords_bohr.reshape(-1)
+    shard.get_forces(cb)
+    built, n0, k0 = rcm.plans["rect_built"], dict(rcm.rect_launches), \
+        dict(rcm.launches)
+    res = shard.get_forces(cb)
+    assert rcm.plans["rect_built"] == built + 1
+    assert [rcm.rect_launches[k] - n0[k] for k in n0] == [8, 7, 8]
+    assert rcm.launches == k0
+    one = Calculator(st, fn, params=wc, device="cuda").get_forces(cb)
+    ref = make_uma_calculator(st, model="uma-s-1p1", params=w,
+                              device="cpu",
+                              dtype=torch.float64).get_forces(cb)
+    for got in (res, one):
+        assert np.abs(got["forces"] - ref["forces"]).max() \
+            <= TOL * np.abs(ref["forces"]).max()

@@ -4,10 +4,14 @@ reaches K6 on the CPU (tests/test_spatial.py): forward and the VJP (rows,
 columns and feats, ``jax.vjp`` against autograd) in f64 to 1e-10, both
 ``div_d`` values, offsets 0/8/16/32, masked atoms, Pr not a multiple of 8.
 Also: rect rows equal the plain K5 rows; the row and column
-coordinate-gradient formulas the CUDA kernels use (one S = g_I feats_J^T
+coordinate-gradient formulas the CUDA kernel uses (one S = g_I feats_J^T
 product, then the radial-derivative ladder once per pair), written out in
-numpy and held against autograd; the CPU wrapper takes the plain version
-and launches nothing."""
+numpy and held against autograd; a numpy mirror of the kernel's walk over
+the rect tile plan (one S per listed (row tile, column tile) pair, both
+sides' partial sums in per-pair slots, each side reduced in its own list
+order through its permutation) held against the JAX reference's VJP, and
+faulty twins of it that must fail; the CPU wrapper takes the plain
+version, ignores ``plan=`` and launches nothing."""
 
 import numpy as np
 import jax
@@ -17,6 +21,7 @@ import torch
 
 from pdb2reaction_tpu.mlip.pallas_ops import radial_contract_rect_reference
 from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+from pdb2reaction_tpu_torch.mlip.radial_contract import TILE, rect_tile_plan
 
 TOL = 1e-10          # f64: the same math, sums reordered
 Pc, F = 45, 10
@@ -93,19 +98,12 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert (dict(rcm.launches), dict(rcm.rect_launches)) == before
 
 
-def _kernel_formula_dxyz(xr, mr, off, xc, mc, feats, g, rc, R, div_d):
-    """(dx_rows, dx_cols) as the CUDA kernels form them
-    (csrc/radial_contract.cu:rc_rect_bwd_xyz): S = g_I feats_J^T over all
-    features, G = sum_r dA_r/dd S_r with the sin/cos ladder by the coupled
-    rotation recurrence, then dx_rows[i] = sum_j G (x_i - x_j)/d and
-    dx_cols[j] = sum_i G (x_j - x_i)/d."""
-    S = np.einsum("irf,jf->rij", g, feats)
-    diff = xr[:, None, :] - xc[None, :, :]
+def _ladder(diff, pair, S, rc, R, div_d):
+    """G = sum_r dA_r/dd S_r over pairs ``pair`` inside the cutoff, by the
+    kernel's sin/cos recurrence (csrc/radial_contract.cu: accum_g), and
+    1/d (d = 1 outside)."""
     d = np.sqrt(np.maximum((diff ** 2).sum(-1), 1e-12))
-    gi = off + np.arange(xr.shape[0])
-    gj = np.arange(xc.shape[0])
-    within = ((d <= rc) & (gi[:, None] != gj[None, :]) & (mr[:, None] > 0)
-              & (mc[None, :] > 0))
+    within = (d <= rc) & pair
     d = np.where(within, d, 1.0)
     s1, c1 = np.sin(np.pi / rc * d), np.cos(np.pi / rc * d)
     env = np.where(within, 0.5 * (c1 + 1.0), 0.0)
@@ -119,8 +117,181 @@ def _kernel_formula_dxyz(xr, mr, off, xc, mc, feats, g, rc, R, div_d):
         G += base * (freq * c * env + s * denv - p * s * env * inv) * S[r]
         s, c = s * c1 + c * s1, c * c1 - s * s1
     G += inv ** (p - 1) * (denv - (p - 1) * env * inv) * S[R]
-    w = np.where(within, G, 0.0)[:, :, None] * diff * inv[:, :, None]
+    return np.where(within, G, 0.0), inv
+
+
+def _kernel_formula_dxyz(xr, mr, off, xc, mc, feats, g, rc, R, div_d):
+    """(dx_rows, dx_cols) as the CUDA coordinate kernel forms them
+    (csrc/radial_contract.cu: rc_coords_pairs<RECT>, here over all pairs
+    at once): S = g_I feats_J^T over all features, G = sum_r dA_r/dd S_r
+    with the sin/cos ladder by the coupled rotation recurrence, then
+    dx_rows[i] = sum_j G (x_i - x_j)/d and dx_cols[j] = sum_i G (x_j -
+    x_i)/d."""
+    S = np.einsum("irf,jf->rij", g, feats)
+    diff = xr[:, None, :] - xc[None, :, :]
+    gi = off + np.arange(xr.shape[0])
+    gj = np.arange(xc.shape[0])
+    pair = ((gi[:, None] != gj[None, :]) & (mr[:, None] > 0)
+            & (mc[None, :] > 0))
+    G, inv = _ladder(diff, pair, S, rc, R, div_d)
+    w = (G * inv)[:, :, None] * diff
     return w.sum(1), -w.sum(0)
+
+
+def _rect_plan_mirror_dxyz(xr, mr, off, xc, mc, feats, g, rc, R, div_d,
+                           fault=None):
+    """csrc/radial_contract.cu: rc_coords_pairs<RECT> +
+    rc_rect_coords_reduce in numpy, on the rect tile plan of (rows,
+    columns): one block per listed (row tile I, column tile J) pair forms
+    S = g_I feats_J^T once, excludes self-pairs by global index (off +
+    perm_r[a] against perm_c[b]), writes the row side's partial dx to slot
+    e_row and the column side's to slot e_col; each row then sums its
+    tile's slots in row-list order, each column in column-list order, and
+    the results go out through perm_r and perm_c. ``fault`` makes a faulty
+    twin: "plan_positions" tests self-pairs by plan position,
+    "column_slots_by_row_list" writes the column side to slot e_row."""
+    plan = rect_tile_plan(torch.tensor(xr), torch.tensor(mr), off,
+                          torch.tensor(xc), torch.tensor(mc), rc)
+    perm_r = plan.perm_r.numpy().astype(np.int64)
+    perm_c = plan.perm_c.numpy().astype(np.int64)
+    Tr, Tc = plan.row_ptr.shape[0] - 1, plan.col_ptr.shape[0] - 1
+
+    def padded(a, perm, T):
+        out = np.zeros((T * TILE,) + a.shape[1:])
+        out[:len(perm)] = a[perm]
+        return out
+
+    xrs, mrs, gs = (padded(a, perm_r, Tr) for a in (xr, mr, g))
+    xcs, mcs, fs = (padded(a, perm_c, Tc) for a in (xc, mc, feats))
+    gid_r = np.full(Tr * TILE, -1)
+    gid_r[:len(perm_r)] = off + perm_r
+    gid_c = np.full(Tc * TILE, -2)
+    gid_c[:len(perm_c)] = perm_c
+    if fault == "plan_positions":
+        gid_r, gid_c = np.arange(Tr * TILE), np.arange(Tc * TILE)
+    n = plan.pairs.shape[0]
+    part_r = np.full((n, TILE, 3), np.nan)
+    part_c = np.full((n, TILE, 3), np.nan)
+    for I, J, e_row, e_col in plan.pairs.numpy():
+        a, b = slice(I * TILE, (I + 1) * TILE), slice(J * TILE, (J + 1) * TILE)
+        S = np.einsum("irf,jf->rij", gs[a], fs[b])
+        diff = xrs[a][:, None, :] - xcs[b][None, :, :]
+        pair = ((gid_r[a][:, None] != gid_c[b][None, :])
+                & (mrs[a][:, None] > 0) & (mcs[b][None, :] > 0))
+        G, inv = _ladder(diff, pair, S, rc, R, div_d)
+        wd = (G * inv)[:, :, None] * diff
+        part_r[e_row] = wd.sum(1)
+        part_c[e_row if fault == "column_slots_by_row_list" else e_col] = \
+            -wd.sum(0)
+    out = []
+    for part, ptr, perm, T in ((part_r, plan.row_ptr, perm_r, Tr),
+                               (part_c, plan.col_ptr, perm_c, Tc)):
+        ptr = ptr.numpy()
+        dx = np.zeros((T * TILE, 3))
+        for I in range(T):
+            for e in range(ptr[I], ptr[I + 1]):
+                dx[I * TILE:(I + 1) * TILE] += part[e]
+        res = np.empty((len(perm), 3))
+        res[perm] = dx[:len(perm)]
+        out.append(res)
+    return out
+
+
+def _blobs(P, rng):
+    """Two clusters ~14 A apart in shuffled order: tiles of either never
+    reach the other's."""
+    x = rng.normal(scale=2.5, size=(P, 3))
+    x[: P // 2, 0] += 14.0
+    return x[rng.permutation(P)]
+
+
+def _jax_dxyz(coords, mask, off, Pr, feats, g, rc, R, div_d):
+    rows = slice(off, off + Pr)
+    _, vjp = jax.vjp(
+        lambda cr, cc: radial_contract_rect_reference(
+            cr, jnp.asarray(mask[rows]), off, cc, jnp.asarray(mask),
+            jnp.asarray(feats), rc, R, div_d),
+        jnp.asarray(coords[rows]), jnp.asarray(coords))
+    return vjp(jnp.asarray(g))
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("system,off,Pr", [
+    ("spread", 0, 75), ("spread", 100, 75), ("spread", 260, 40),
+    ("blobs", 150, 90)])
+def test_rect_plan_coordinate_gradients_mirror_matches_jax(div_d, system,
+                                                           off, Pr):
+    """The coordinate kernel's walk over the rect plan, mirrored in numpy,
+    against the JAX reference's VJP in f64 for the rows and the columns:
+    several offsets, ragged row blocks and tiles, masked atoms (their rows
+    exactly 0), a system whose tiles never meet half of the others."""
+    rng = np.random.default_rng(7 + div_d + off)
+    P, F, R, rc = 300, 6, 5, 4.0
+    coords = (rng.uniform(0.0, 30.0, (P, 3)) if system == "spread"
+              else _blobs(P, rng))
+    mask = (rng.uniform(size=P) > 0.15).astype(np.float64)
+    coords[mask == 0] = 0.0
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(Pr, R + 1, F))
+    rows = slice(off, off + Pr)
+    s = rect_tile_plan(torch.tensor(coords[rows]), torch.tensor(mask[rows]),
+                       off, torch.tensor(coords), torch.tensor(mask),
+                       rc).stats()
+    assert s["listed"] < s["row_tiles"] * s["col_tiles"]   # some skipped
+    dcr_j, dcc_j = _jax_dxyz(coords, mask, off, Pr, feats, g, rc, R, div_d)
+    dcr, dcc = _rect_plan_mirror_dxyz(coords[rows], mask[rows], off, coords,
+                                      mask, feats, g, rc, R, div_d)
+    _close(dcr, dcr_j)
+    _close(dcc, dcc_j)
+    assert np.all(dcr[mask[rows] == 0] == 0.0)
+    assert np.all(dcc[mask == 0] == 0.0)
+
+
+@pytest.mark.parametrize("fault", ["plan_positions",
+                                   "column_slots_by_row_list"])
+def test_rect_plan_mirror_faulty_twins_fail(fault):
+    """The same check catches a kernel that tests self-pairs by plan
+    position (rows and columns are ordered apart, so on a block at an
+    offset it drops real pairs) and one that stores the column side's
+    partial sums in the row list's slots."""
+    rng = np.random.default_rng(12)
+    P, F, R, rc, off, Pr = 120, 6, 5, 4.5, 50, 40
+    coords = rng.uniform(0.0, 10.0, (P, 3))
+    mask = np.ones(P)
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(Pr, R + 1, F))
+    rows = slice(off, off + Pr)
+    want = _jax_dxyz(coords, mask, off, Pr, feats, g, rc, R, False)
+    args = (coords[rows], mask[rows], off, coords, mask, feats, g, rc, R,
+            False)
+    for a, b in zip(_rect_plan_mirror_dxyz(*args), want):
+        _close(a, b)
+    bad = _rect_plan_mirror_dxyz(*args, fault=fault)
+    with pytest.raises(AssertionError):
+        for a, b in zip(bad, want):
+            _close(a, b)
+
+
+def test_plan_argument_is_ignored_on_cpu():
+    """On CPU tensors ``plan=`` changes nothing: the plain version runs,
+    no kernel is launched, and no plan is built."""
+    coords, mask, feats, rng = _inputs(seed=5)
+    t = [torch.tensor(a, dtype=torch.float32)
+         for a in (coords, mask, feats)]
+    plan = rect_tile_plan(t[0][8:21], t[1][8:21], 8, t[0], t[1], 5.0)
+    before = dict(rcm.launches), dict(rcm.rect_launches), dict(rcm.plans)
+    g = torch.tensor(rng.normal(size=(13, 7, F)), dtype=torch.float32)
+    for div_d in (False, True):
+        got, ref = [], []
+        for kw, out in (({"plan": plan}, got), ({}, ref)):
+            cr = t[0][8:21].clone().requires_grad_(True)
+            cc = t[0].clone().requires_grad_(True)
+            T = rcm.radial_contract_rect(cr, t[1][8:21], 8, cc, t[1], t[2],
+                                         5.0, 6, div_d, **kw)
+            out += [T, *torch.autograd.grad(T, [cr, cc], g)]
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert (dict(rcm.launches), dict(rcm.rect_launches),
+            dict(rcm.plans)) == before
 
 
 @pytest.mark.parametrize("div_d", [False, True])
