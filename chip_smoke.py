@@ -57,16 +57,19 @@ Phases (any failure exits non-zero):
 10. K6 parity at the sharded path's shapes (the 4096-atom system in four
    row blocks of 1024 against all 4096 columns, F = 1024, R + 1 = 25):
    forward, feats gradient and the row and column coordinate gradients
-   (one fused launch on the block's rect tile plan) of
+   (one fused launch), all three on the block's rect tile plan, of
    radial_contract_rect against its plain version at each offset
    0/1024/2048/3072 for streams A and B, and the four forward blocks
    stacked against K5's kernel output; the rect plan's statistics (listed
-   tile pairs, their share, computed against needed GFLOP, build time)
-   at each offset and for a block of the shuffled system; the fused
-   coordinate gradient timed with its plan given, as the sharded path
-   calls it; the bound counts the pairs inside the cutoff with one atom
-   in the block; then the coordinate kernel's CUDA-core route (R + 1 =
-   33) against its plain version ([K6-R33]);
+   tile pairs, their share, the GFLOP each kernel computes on them
+   against the GFLOP needed, build time) at each offset and for a block
+   of the shuffled system, and the plan's stages timed one by one
+   ([K6-plan-stages]); the three kernels timed with the block's plan
+   given, as the sharded path calls them, and the forward also with the
+   plan it builds itself; the bound counts the pairs inside the cutoff
+   with one atom in the block, at the 3xTF32 route; then the three
+   kernels' CUDA-core routes (R + 1 = 33) against the plain version
+   ([K6-R33]);
 11. the sharded path: four ranks started with "spawn" on the one card
    (gloo collectives staged through host memory), each building
    make_uma_calculator(uma-s-1p1, mp_mode="pallas", spatial=4) with the
@@ -130,14 +133,15 @@ REPLACES = {
         "pdb2reaction_tpu/mlip/pallas_ops.py:623",
 }
 # the peak of the route each kernel takes to f32 accuracy at the shapes
-# this script runs, FLOP/s of needed work: K5's three kernels and K6's
-# coordinate kernel (R + 1 = 25 <= 32), the conv products of K1, K3 and K4
+# this script runs, FLOP/s of needed work: K5's and K6's three kernels
+# (R + 1 = 25 <= 32), the conv products of K1, K3 and K4
 # (95% of their FLOP) and K2's GEMMs (all of its FLOP but the sums over
 # the grid) form each product in 3xTF32, three TF32 products per f32 one;
 # every other kernel runs f32 on CUDA cores
 ROUTE_PEAK = {k: TF32_PEAK / 3 for k in (
     "radial_contract_fwd", "radial_contract_bwd_feats",
-    "radial_contract_bwd_coords", "radial_contract_rect_bwd_coords",
+    "radial_contract_bwd_coords", "radial_contract_rect_fwd",
+    "radial_contract_rect_bwd_feats", "radial_contract_rect_bwd_coords",
     "fused_edge_mega_fwd",
     "fused_edge_mega_bwd", "fused_edge_block_fwd", "fused_edge_block_bwd",
     "fused_edge_chain_fwd", "fused_edge_chain_bwd", "fused_node_ffn_fwd",
@@ -1087,6 +1091,26 @@ def k6_plan_stats(rcm, x, mask, off, Pr, rc, R1, F):
     return plan, st
 
 
+def k6_plan_stages(rcm, x, mask, Pr, rc, reps=5):
+    """The rect tile plan's build timed stage by stage (host clock, the
+    card synchronised around each stage), at each row block of the
+    system; one log line, the mean over the blocks and ``reps`` builds."""
+    import torch
+    tot = {}
+    for _ in range(reps):
+        for off in range(0, x.shape[0], Pr):
+            st = {}
+            rcm.rect_tile_plan(x[off:off + Pr], mask[off:off + Pr], off, x,
+                               mask, rc, stages=st)
+            for k, v in st.items():
+                tot[k] = tot.get(k, 0.0) + v
+    torch.cuda.synchronize()
+    n = reps * (x.shape[0] // Pr)
+    log(f"[K6-plan-stages] rect plan of a {Pr}-row block, ms (mean of {n} "
+        f"builds): " + ", ".join(f"{k} {v / n:.2f}" for k, v in tot.items())
+        + f"; sum {sum(tot.values()) / n:.2f}")
+
+
 def phase_k6(calc, quick):
     """K6 forward / feats gradient / fused row and column coordinate
     gradients against the plain version at the sharded path's shapes, for
@@ -1136,10 +1160,14 @@ def phase_k6(calc, quick):
                      "plain version")
             args = (x[rows], mask[rows], off, x, mask, feats, rc, R, div_d)
             plan = plans[off][0]
+            # the forward with the block's plan given (as the sharded path
+            # calls it) and with the plan it builds itself
             with torch.no_grad():
-                t = [cuda_ms(lambda: fn(*args), reps, warm=1) for fn in fns]
+                t = [cuda_ms(lambda: fns[0](*args, plan=plan), reps, warm=1),
+                     cuda_ms(lambda: fns[1](*args), reps, warm=1)]
+                t_own = cuda_ms(lambda: fns[0](*args), reps, warm=1)
             # feats; then both coordinate gradients, the kernel on the
-            # block's plan (as the sharded path calls it)
+            # block's plan
             for leaves in ((5,), (0, 3)):
                 for fn, kw in ((fns[0], {"plan": plan}), (fns[1], {})):
                     a = list(args)
@@ -1154,9 +1182,10 @@ def phase_k6(calc, quick):
             for i, k in enumerate(K6_NAMES):
                 got[k].append((errs[i][0], t[2 * i], t[2 * i + 1]))
             log(f"[K6] stream {label}, rows {off}...: kernel / plain ms fwd "
-                f"{t[0]:.2f} / {t[1]:.2f}, feats {t[2]:.2f} / {t[3]:.2f}, "
-                f"rows and cols {t[4]:.2f} / {t[5]:.2f} (one launch, its "
-                "plan given)")
+                f"{t[0]:.2f} / {t[1]:.2f} (the call building its own plan "
+                f"{t_own:.2f}), feats {t[2]:.2f} / {t[3]:.2f}, rows and cols "
+                f"{t[4]:.2f} / {t[5]:.2f} (one launch); the kernels on the "
+                "block's plan")
         stacked = torch.cat(blocks)
         e_sq = rel_err(stacked, T_sq)
         log(f"[K6] stream {label}: the four forward blocks stacked against "
@@ -1166,7 +1195,6 @@ def phase_k6(calc, quick):
         del blocks, stacked, T_sq
     pairs = [k6_pairs(x, mask, rc, off, Pr) for off in range(0, P, Pr)]
     need = 2 * (sum(pairs) / len(pairs)) * (R + 1) * F
-    computed = 2 * Pr * P * (R + 1) * F
     log(f"[K6] ordered pairs inside {rc} A with one atom in the block, per "
         f"block: {pairs} (mean {sum(pairs) / len(pairs):.0f} of "
         f"{Pr * (P - 1)})")
@@ -1176,10 +1204,11 @@ def phase_k6(calc, quick):
                       ("shuffled system, rows 0...", shuffled)]:
         log(f"[K6-plan] {label}: {st['row_tiles']} x {st['col_tiles']} "
             f"tiles, {st['listed']} listed tile pairs "
-            f"({100 * st['share']:.2f}%), the coordinate kernel computes "
-            f"{st['coords_flop'] / 1e9:.2f} GFLOP against {need / 1e9:.2f} "
+            f"({100 * st['share']:.2f}%), each kernel computes "
+            f"{st['flop'] / 1e9:.2f} GFLOP against {need / 1e9:.2f} "
             f"needed; plan built in {st['ms']:.2f} ms")
-    coords_flop = sum(v[1]["coords_flop"] for v in plans.values()) / RANKS
+    k6_plan_stages(rcm, x, mask, Pr, rc)
+    computed = sum(v[1]["flop"] for v in plans.values()) / RANKS
     geo = 16 * (Pr + P)                     # rows and columns: xyz + mask
     f_b, t_b = nbytes(featsA), nbytes(g)
     byts = (geo + f_b + t_b, geo + t_b + f_b, geo + f_b + t_b + 12 * (Pr + P))
@@ -1189,30 +1218,28 @@ def phase_k6(calc, quick):
         rows[k] = (max(e for e, _, _ in v), sum(t for _, t, _ in v) / len(v),
                    sum(tp for _, _, tp in v) / len(v), need, nb)
         b32, bbf, by = bound_ms(need, nb, k)
-        fc = coords_flop if k in ROUTE_PEAK else computed
-        route = "3xTF32" if k in ROUTE_PEAK else "f32 CUDA cores"
         log(f"[kernel] {k}: {rows[k][1]:.3f} ms (plain {rows[k][2]:.3f} ms;"
-            f" mean of 4 offsets x streams A and B), needed "
-            f"{need / 1e9:.2f} GFLOP (pairs inside the cutoff), computed "
-            f"{fc / 1e9:.1f} GFLOP "
-            f"({'listed tile pairs' if k in ROUTE_PEAK else 'every pair'}), "
-            f"{nb / 1e6:.1f} MB, bound at f32 accuracy {b32:.3f} ms "
-            f"({route}, {by}) / bf16 {bbf:.3f} ms; computed at "
-            f"{fc / rows[k][1] / 1e9:.2f} TFLOP/s")
-    log(f"[K6] both coordinate gradients from one launch: "
-        f"{rows['radial_contract_rect_bwd_coords'][1]:.3f} ms a launch; the "
-        "every-pair rows and columns kernels it replaces took 10.84 + "
-        "15.73 = 26.57 ms a launch (PERF.md section 6, NVIDIA H100 80GB "
-        "HBM3, 700.00 W)")
+            f" mean of 4 offsets x streams A and B, the block's plan "
+            f"given), needed {need / 1e9:.2f} GFLOP (pairs inside the "
+            f"cutoff), computed {computed / 1e9:.1f} GFLOP (listed tile "
+            f"pairs), {nb / 1e6:.1f} MB, bound at f32 accuracy {b32:.3f} "
+            f"ms (3xTF32, {by}) / bf16 {bbf:.3f} ms; computed at "
+            f"{computed / rows[k][1] / 1e9:.2f} TFLOP/s")
+    log(f"[K6] forward and feats gradient on the rect plan: "
+        f"{rows['radial_contract_rect_fwd'][1]:.3f} and "
+        f"{rows['radial_contract_rect_bwd_feats'][1]:.3f} ms a launch; the "
+        "every-pair kernels they replace took 8.37 / 8.32 and 7.23 / 7.19 "
+        "ms a launch (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W)")
     del g
     phase_k6_r33(rcm, x, mask, Pr)
     return rows
 
 
 def phase_k6_r33(rcm, x, mask, Pr):
-    """K6's coordinate kernel on its CUDA-core route (R + 1 = 33, the
+    """K6's three kernels on their CUDA-core routes (R + 1 = 33, the
     uma-m-1p1 radial width) against the plain version, one row block of
-    the 4096-atom system at a narrow F: errors and times, one log line."""
+    the 4096-atom system at a narrow F: errors and times (the kernels on
+    the block's plan), one log line."""
     import torch
     from pdb2reaction_tpu_torch.mlip.model import CONFIGS
     cfg = CONFIGS["uma-m-1p1"]
@@ -1221,25 +1248,34 @@ def phase_k6_r33(rcm, x, mask, Pr):
     feats = torch.randn(x.shape[0], F, generator=gen, device="cuda")
     g = torch.randn(Pr, R + 1, F, generator=gen, device="cuda")
     rows = slice(off, off + Pr)
+    plan = rcm.rect_tile_plan(x[rows], mask[rows], off, x, mask, rc)
     outs, t = [], []
-    for fn in (rcm.radial_contract_rect, rcm.radial_contract_rect_plain):
+    for fn, kw in ((rcm.radial_contract_rect, {"plan": plan}),
+                   (rcm.radial_contract_rect_plain, {})):
         cr = x[rows].clone().requires_grad_(True)
         cc = x.clone().requires_grad_(True)
-        T = fn(cr, mask[rows], off, cc, mask, feats, rc, R)
-        outs.append(torch.autograd.grad(T, [cr, cc], g, retain_graph=True))
-        t.append(cuda_ms(lambda: torch.autograd.grad(
-            T, [cr, cc], g, retain_graph=True), 2, warm=1))
+        f = feats.clone().requires_grad_(True)
+        T = fn(cr, mask[rows], off, cc, mask, f, rc, R, **kw)
+        outs.append((T.detach(),
+                     *torch.autograd.grad(T, [f, cr, cc], g,
+                                          retain_graph=True)))
+        with torch.no_grad():
+            t.append(cuda_ms(lambda: fn(x[rows], mask[rows], off, x, mask,
+                                        feats, rc, R, **kw), 2, warm=1))
+        for leaves in ([f], [cr, cc]):
+            t.append(cuda_ms(lambda: torch.autograd.grad(
+                T, leaves, g, retain_graph=True), 2, warm=1))
         del T
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(*outs)]
     log(f"[K6-R33] uma-m-1p1 radial width (rows {off}... of {x.shape[0]}, "
-        f"F={F}, R+1={R + 1}, CUDA cores): both coordinate gradients "
-        f"kernel / plain ms {t[0]:.2f} / {t[1]:.2f} (the backward builds "
-        f"its plan); rel err rows {errs[0]:.3e}, cols {errs[1]:.3e} (tol "
-        f"{KERNEL_TOL})")
+        f"F={F}, R+1={R + 1}, CUDA cores, the block's plan given): kernel / "
+        f"plain ms fwd {t[0]:.2f} / {t[3]:.2f}, feats {t[1]:.2f} / "
+        f"{t[4]:.2f}, both coordinate gradients {t[2]:.2f} / {t[5]:.2f}; "
+        f"rel err fwd {errs[0]:.3e}, feats {errs[1]:.3e}, rows "
+        f"{errs[2]:.3e}, cols {errs[3]:.3e} (tol {KERNEL_TOL})")
     if max(errs) > KERNEL_TOL:
-        fail("K6's coordinate gradients at R+1 = 33 disagree with the plain "
-             "version")
+        fail("K6 at R+1 = 33 disagrees with the plain version")
 
 
 def spatial_rank(group, out_dir):

@@ -75,8 +75,9 @@
 // index, off + i against j, so every shard drops exactly its own diagonal.
 // Replaces pdb2reaction_tpu/mlip/pallas_ops.py, reached from
 // radial_contract_rect through radial_contract_rect_tpu:
-//   rc_rect_fwd        <- _fwd_kernel_rect:474 (via _rc_rect_impl)
-//   rc_rect_bwd_feats  <- _transpose_kernel_rect:568 (via _rc_rect_bwd)
+//   rc_rect_plan_fwd_tc, rc_rect_plan_fwd_fma
+//                      <- _fwd_kernel_rect:474 (via _rc_rect_impl)
+//   rc_rect_plan_feats <- _transpose_kernel_rect:568 (via _rc_rect_bwd)
 //                         dfeats[j, f] = sum_{i in rows, r} A[i, j, r] g[i, r, f]
 //   rc_rect_coords_pairs, rc_rect_coords_reduce
 //                      <- _grad_rows_kernel:594 and _grad_cols_kernel:623
@@ -89,23 +90,29 @@
 // cutoff with one atom in the row block, 2 (R + 1) F FLOP per pair and
 // launch; at the sharded slice (Pr = 1024, Pc = 4096, F = 1024, R + 1 =
 // 25) ~6.5 GFLOP, 0.040 ms at the 3xTF32 route's 165 TFLOP/s, against
-// ~0.12 GB of device memory. The forward and the feats gradient compute
-// every pair, a dense 2 (R + 1) Pr Pc F (215 GFLOP), with K5's first
-// design: the adjacency built per tile in shared memory and contracted at
-// once with register tiles of 8 x 8; a block owns its outputs and loops
-// over the other axis itself. The coordinate gradients run on a rect tile
-// plan (mlip/radial_contract.py: rect_tile_plan; the sharded PaiNN pallas
-// mode builds one per energy evaluation): rows and columns each in K5's
-// spatial order and tiles of 32, and the (row tile, column tile) pairs
-// whose boxes lie within the cutoff, as a CSR by row tile, a CSR by column
-// tile and a list of pairs (I, J, e_row, e_col). One block per listed pair
-// forms S once over all of F (K5's tilings: 3xTF32 tensor cores up to
-// R + 1 = 32, CUDA cores up to 63), applies dA/dd once per pair and writes
-// the row side's partial dx to slot e_row and the column side's to slot
-// e_col; rc_rect_coords_reduce sums each row's slots in row-list order and
-// each column's in column-list order, through the plans' permutations.
-// Nothing is reduced across blocks except through those slots, no atomics
-// are used, and every result repeats bit for bit.
+// ~0.12 GB of device memory. All three run on one rect tile plan
+// (mlip/radial_contract.py: rect_tile_plan; the sharded PaiNN pallas mode
+// builds one per energy evaluation): rows and columns each in K5's spatial
+// order and tiles of 32, and the (row tile, column tile) pairs whose boxes
+// lie within the cutoff, as a CSR by row tile (row_ptr, cols), a CSR by
+// column tile (col_ptr, rows) and a list of pairs (I, J, e_row, e_col).
+// Only listed tile pairs are computed (17-29% of them at the slice's
+// density), with K5's tilings: 3xTF32 tensor cores up to R + 1 = 32, CUDA
+// cores up to 63. The forward and the feats gradient are K5's bodies with
+// RECT set (fwd_tc / fwd_fma, feats_plan): a forward block of rows walks
+// its row tile's column list, a feats block owns one column tile and walks
+// that tile's row list, so every output has one owner; rows and columns
+// are read and written through their own permutations, and the pair test
+// compares global indices (off + perm_r[i] against perm_c[j]) staged in
+// shared memory beside each tile's coordinates, since a plan position
+// names different atoms on the two sides. A tile whose list is empty
+// writes zeros. The coordinate kernel: one block per listed pair forms S
+// once over all of F, applies dA/dd once per pair and writes the row
+// side's partial dx to slot e_row and the column side's to slot e_col;
+// rc_rect_coords_reduce sums each row's slots in row-list order and each
+// column's in column-list order, through the plans' permutations. Nothing
+// is reduced across blocks except through those slots, no atomics are
+// used, and every result repeats bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -192,11 +199,6 @@ __device__ __forceinline__ void st8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ float4 ld4_or_zero(const float* p, bool ok) {
-  return ok ? *reinterpret_cast<const float4*>(p)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
 __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : v.z;
 }
@@ -219,15 +221,35 @@ __device__ __forceinline__ void frag_b(const float* p, int ld, int g, int t,
 }
 
 constexpr int TILE = 32;                 // the tile plan's tile
-constexpr int F_TI = 8, F_TJ = 32, F_FT = 64;
+constexpr int F_TI = 8, F_FT = 64;
 
-// stages column tile cols[kb + k] of the plan: its coordinates and mask
-// into xj[TILE], its feats rows (features fb .. fb + F_FT) into fs at
-// pitch fp; rows past P are zeros
+// The arguments of a forward or feats-gradient launch on a plan. K5: one
+// square plan, so the columns' fields fold into the rows' at compile time
+// and its kernels take their scalar arguments as before; K6 (RECT): a
+// rect plan, rows (global indices off ..) and columns each in their own
+// order, so self-pairs are tested by global index.
+struct PlanArgs {
+  int Pr, Pc, off;            // rows, columns, global index of row 0
+  const float4* Xr;           // rows' coordinates and mask, plan order
+  const float4* Xc;           // columns'
+  const int* perm_r;          // local row at each row plan position
+  const int* perm_c;          // local column at each column plan position
+  const int* ptr;             // the walked CSR: the forward's, each row
+  const int* list;            //   tile's column tiles; the feats
+                              //   gradient's, each column tile's row tiles
+  const float* in;            // forward: feats [Pc, F]; feats: g [Pr, R1, F]
+  float* out;                 // forward: [Pr, R1, F]; feats: dfeats [Pc, F]
+};
+
+// stages column tile j0 / TILE of a plan: its coordinates and mask into
+// xj[TILE], its feats rows (features fb .. fb + F_FT) through perm into fs
+// at pitch fp and (RECT) the columns' global indices into gj; columns past
+// P are zeros (index -2)
+template <bool RECT>
 __device__ __forceinline__ void stage_cols(int P, int F, int fb, int j0,
                                            const float4* Xp, const int* perm,
                                            const float* feats, float* fs,
-                                           int fp, float4* xj) {
+                                           int fp, float4* xj, int* gj) {
   const int t = threadIdx.x, nt = blockDim.x;
   for (int q = t; q < TILE * F_FT / 4; q += nt) {
     const int jj = q / (F_FT / 4), c = (q % (F_FT / 4)) * 4, pj = j0 + jj;
@@ -238,6 +260,7 @@ __device__ __forceinline__ void stage_cols(int P, int F, int fb, int j0,
   for (int q = t; q < TILE; q += nt) {
     const bool ok = j0 + q < P;
     cp_async16(xj + q, ok ? Xp + j0 + q : Xp, ok);
+    if constexpr (RECT) gj[q] = ok ? perm[j0 + q] : -2;
   }
 }
 
@@ -246,15 +269,22 @@ __device__ __forceinline__ void stage_cols(int P, int F, int fb, int j0,
 // per (r, 8 features) owning 8 rows x 8 features; loops over the row
 // tile's listed column tiles
 // ---------------------------------------------------------------------------
-template <bool DIVD>
-__global__ void __launch_bounds__(512)
-rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
-           const int* __restrict__ perm, const int* __restrict__ row_ptr,
-           const int* __restrict__ cols, const float* __restrict__ feats,
-           float* __restrict__ out) {
+template <bool DIVD, bool RECT>
+__device__ __forceinline__ void fwd_fma(int F, int R, float rc,
+                                        const PlanArgs& pa) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float4 Xi[F_TI];
   __shared__ float4 Xj[2][TILE];
+  __shared__ int Gi[RECT ? F_TI : 1], Gj[2][RECT ? TILE : 1];
+  const int Pr = pa.Pr, Pc = RECT ? pa.Pc : Pr;
+  const float4* __restrict__ Xr = pa.Xr;
+  const float4* __restrict__ Xc = RECT ? pa.Xc : Xr;
+  const int* __restrict__ perm_r = pa.perm_r;
+  const int* __restrict__ perm_c = RECT ? pa.perm_c : perm_r;
+  const int* __restrict__ row_ptr = pa.ptr;
+  const int* __restrict__ cols = pa.list;
+  const float* __restrict__ feats = pa.in;
+  float* __restrict__ out = pa.out;
   const int R1 = R + 1;
   float* As = sm;                          // [TILE][R1][F_TI]
   float* Fs = sm + TILE * R1 * F_TI;       // [2][TILE][F_FT]
@@ -262,8 +292,10 @@ rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
   const int i0 = blockIdx.x * F_TI, fb = blockIdx.y * F_FT;
   const int r = t / (F_FT / 8), fo = (t % (F_FT / 8)) * 8;
   const int kb = row_ptr[i0 / TILE], nJ = row_ptr[i0 / TILE + 1] - kb;
-  if (t < F_TI)
-    Xi[t] = i0 + t < P ? Xp[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (t < F_TI) {
+    Xi[t] = i0 + t < Pr ? Xr[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (RECT) Gi[t] = i0 + t < Pr ? pa.off + perm_r[i0 + t] : -1;
+  }
   float acc[F_TI][8];
 #pragma unroll
   for (int a = 0; a < F_TI; ++a)
@@ -271,13 +303,15 @@ rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
     for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
 
   if (nJ > 0)
-    stage_cols(P, F, fb, cols[kb] * TILE, Xp, perm, feats, Fs, F_FT, Xj[0]);
+    stage_cols<RECT>(Pc, F, fb, cols[kb] * TILE, Xc, perm_c, feats, Fs,
+                     F_FT, Xj[0], Gj[0]);
   cp_commit();
   for (int k = 0; k < nJ; ++k) {
     const int buf = k & 1;
     if (k + 1 < nJ)
-      stage_cols(P, F, fb, cols[kb + k + 1] * TILE, Xp, perm, feats,
-                 Fs + (buf ^ 1) * TILE * F_FT, F_FT, Xj[buf ^ 1]);
+      stage_cols<RECT>(Pc, F, fb, cols[kb + k + 1] * TILE, Xc, perm_c,
+                       feats, Fs + (buf ^ 1) * TILE * F_FT, F_FT,
+                       Xj[buf ^ 1], Gj[buf ^ 1]);
     cp_commit();
     cp_wait<1>();
     __syncthreads();                      // tile k has landed for all
@@ -285,8 +319,9 @@ rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
     for (int p = t; p < F_TI * TILE; p += nt) {
       const int ii = p % F_TI, jj = p / F_TI;
       const float4 a = Xi[ii], b = Xj[buf][jj];
-      const Geo g = pair_geo(a.x, a.y, a.z, a.w, i0 + ii, b.x, b.y, b.z, b.w,
-                             j0 + jj, rc);
+      const Geo g = pair_geo(a.x, a.y, a.z, a.w, RECT ? Gi[ii] : i0 + ii,
+                             b.x, b.y, b.z, b.w,
+                             RECT ? Gj[buf][jj] : j0 + jj, rc);
       a_column<DIVD>(g, R, rc, As + jj * R1 * F_TI + ii, F_TI);
     }
     __syncthreads();
@@ -305,8 +340,8 @@ rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
   if (fb + fo < F) {
     for (int x = 0; x < F_TI; ++x) {
       const int pi = i0 + x;
-      if (pi < P)
-        st8(out + ((size_t)perm[pi] * R1 + r) * F + fb + fo, acc[x]);
+      if (pi < Pr)
+        st8(out + ((size_t)perm_r[pi] * R1 + r) * F + fb + fo, acc[x]);
     }
   }
 }
@@ -319,15 +354,22 @@ rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
 // ---------------------------------------------------------------------------
 constexpr int T_RB = 16, T_AP = TILE + 4, T_FP = F_FT + 8;
 
-template <bool DIVD>
-__global__ void __launch_bounds__(512)
-rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
-          const int* __restrict__ perm, const int* __restrict__ row_ptr,
-          const int* __restrict__ cols, const float* __restrict__ feats,
-          float* __restrict__ out) {
+template <bool DIVD, bool RECT>
+__device__ __forceinline__ void fwd_tc(int F, int R, float rc,
+                                       const PlanArgs& pa) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float4 Xi[T_RB];
   __shared__ float4 Xj[2][TILE];
+  __shared__ int Gi[RECT ? T_RB : 1], Gj[2][RECT ? TILE : 1];
+  const int Pr = pa.Pr, Pc = RECT ? pa.Pc : Pr;
+  const float4* __restrict__ Xr = pa.Xr;
+  const float4* __restrict__ Xc = RECT ? pa.Xc : Xr;
+  const int* __restrict__ perm_r = pa.perm_r;
+  const int* __restrict__ perm_c = RECT ? pa.perm_c : perm_r;
+  const int* __restrict__ row_ptr = pa.ptr;
+  const int* __restrict__ cols = pa.list;
+  const float* __restrict__ feats = pa.in;
+  float* __restrict__ out = pa.out;
   const int R1 = R + 1;
   float* As = sm;                          // [R1][T_RB][T_AP]
   float* Fs = sm + R1 * T_RB * T_AP;       // [2][TILE][T_FP]
@@ -335,8 +377,10 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
   const int gq = (t & 31) >> 2, tq = t & 3;
   const int i0 = blockIdx.x * T_RB, fb = blockIdx.y * F_FT;
   const int kb = row_ptr[i0 / TILE], nJ = row_ptr[i0 / TILE + 1] - kb;
-  if (t < T_RB)
-    Xi[t] = i0 + t < P ? Xp[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (t < T_RB) {
+    Xi[t] = i0 + t < Pr ? Xr[i0 + t] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (RECT) Gi[t] = i0 + t < Pr ? pa.off + perm_r[i0 + t] : -1;
+  }
   float acc[2][8][4];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
@@ -346,13 +390,15 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
       for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
 
   if (nJ > 0)
-    stage_cols(P, F, fb, cols[kb] * TILE, Xp, perm, feats, Fs, T_FP, Xj[0]);
+    stage_cols<RECT>(Pc, F, fb, cols[kb] * TILE, Xc, perm_c, feats, Fs,
+                     T_FP, Xj[0], Gj[0]);
   cp_commit();
   for (int k = 0; k < nJ; ++k) {
     const int buf = k & 1;
     if (k + 1 < nJ)
-      stage_cols(P, F, fb, cols[kb + k + 1] * TILE, Xp, perm, feats,
-                 Fs + (buf ^ 1) * TILE * T_FP, T_FP, Xj[buf ^ 1]);
+      stage_cols<RECT>(Pc, F, fb, cols[kb + k + 1] * TILE, Xc, perm_c,
+                       feats, Fs + (buf ^ 1) * TILE * T_FP, T_FP,
+                       Xj[buf ^ 1], Gj[buf ^ 1]);
     cp_commit();
     cp_wait<1>();
     __syncthreads();                      // tile k has landed for all
@@ -360,8 +406,9 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
     for (int p = t; p < T_RB * TILE; p += nt) {
       const int jj = p % TILE, ii = p / TILE;
       const float4 a = Xi[ii], b = Xj[buf][jj];
-      const Geo g = pair_geo(a.x, a.y, a.z, a.w, i0 + ii, b.x, b.y, b.z, b.w,
-                             j0 + jj, rc);
+      const Geo g = pair_geo(a.x, a.y, a.z, a.w, RECT ? Gi[ii] : i0 + ii,
+                             b.x, b.y, b.z, b.w,
+                             RECT ? Gj[buf][jj] : j0 + jj, rc);
       a_column<DIVD>(g, R, rc, As + ii * T_AP + jj, T_RB * T_AP);
     }
     __syncthreads();
@@ -405,8 +452,9 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
 #pragma unroll
       for (int hrow = 0; hrow < 2; ++hrow) {
         const int pi = i0 + gq + 8 * hrow;
-        if (pi < P)
-          *reinterpret_cast<float2*>(out + ((size_t)perm[pi] * R1 + r) * F +
+        if (pi < Pr)
+          *reinterpret_cast<float2*>(out + ((size_t)perm_r[pi] * R1 + r) *
+                                               F +
                                      f) =
               make_float2(acc[rr][n][2 * hrow], acc[rr][n][2 * hrow + 1]);
       }
@@ -414,23 +462,61 @@ rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
   }
 }
 
+// the forward kernels, each its own name in a profile: K5's on a square
+// plan, K6's on a rect plan
+template <bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_fwd_fma(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+           const int* __restrict__ perm, const int* __restrict__ row_ptr,
+           const int* __restrict__ cols, const float* __restrict__ feats,
+           float* __restrict__ out) {
+  fwd_fma<DIVD, false>(
+      F, R, rc, PlanArgs{P, P, 0, Xp, Xp, perm, perm, row_ptr, cols, feats,
+                         out});
+}
+
+template <bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_fwd_tc(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+          const int* __restrict__ perm, const int* __restrict__ row_ptr,
+          const int* __restrict__ cols, const float* __restrict__ feats,
+          float* __restrict__ out) {
+  fwd_tc<DIVD, false>(
+      F, R, rc, PlanArgs{P, P, 0, Xp, Xp, perm, perm, row_ptr, cols, feats,
+                         out});
+}
+
+template <bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_rect_plan_fwd_fma(int F, int R, float rc, PlanArgs pa) {
+  fwd_fma<DIVD, true>(F, R, rc, pa);
+}
+
+template <bool DIVD>
+__global__ void __launch_bounds__(512)
+rc_rect_plan_fwd_tc(int F, int R, float rc, PlanArgs pa) {
+  fwd_tc<DIVD, true>(F, R, rc, pa);
+}
+
 // ---------------------------------------------------------------------------
-// feats gradient on the plan: block = one row tile J (32 rows j) x 64
-// features, 256 threads; loops over J's listed tiles I in list order, in
-// chunks of FG_NA = 4 atoms of I (k = (i, r), K = 4 (R + 1) values, padded
-// to KP, a multiple of 8, by zero columns of A and zero rows of g): A[j][k]
-// built in shared memory from the plan's coordinates, the chunk's g rows
-// staged k-contiguous by double-buffered cp.async. The threads form NKQ
-// groups that split the k steps; their partial sums are added in group
-// order at the end, in the shared memory the stages used. 74 KB of shared
-// memory at R + 1 = 25: three blocks an SM, so one block's A build
-// overlaps another's products.
-//   TC (R + 1 <= 32): warp w owns all 32 rows (two m tiles) x features
+// feats gradient on the plan: block = one column tile J (32 columns j) x
+// 64 features, 256 threads; loops over J's listed row tiles I in list
+// order (K5: J's reach list, which lists every I with a pair inside the
+// cutoff since the reach relation is symmetric; K6: the rect plan's
+// column list), in chunks of FG_NA = 4 row atoms (k = (i, r), K = 4 (R +
+// 1) values, padded to KP, a multiple of 8, by zero columns of A and zero
+// rows of g): A[j][k] built in shared memory from the plan's coordinates,
+// the chunk's g rows staged k-contiguous by double-buffered cp.async. The
+// threads form NKQ groups that split the k steps; their partial sums are
+// added in group order at the end, in the shared memory the stages used.
+// 74 KB of shared memory at R + 1 = 25: three blocks an SM, so one
+// block's A build overlaps another's products.
+//   TC (R + 1 <= 32): warp w owns all 32 columns (two m tiles) x features
 //     (w & 1) * 32 .. + 32 (four n tiles) for the k steps (w >> 1) mod 4,
 //     in 3xTF32 (mma3: each k step's products in a zeroed fragment, added
 //     to the accumulator on CUDA cores);
-//   CUDA cores (R + 1 <= 63): A stored [k][j]; thread t owns 8 rows x 8
-//     features for the k values (t >> 5) mod 8.
+//   CUDA cores (R + 1 <= 63): A stored [k][j]; thread t owns 8 columns x
+//     8 features for the k values (t >> 5) mod 8.
 // ---------------------------------------------------------------------------
 constexpr int FG_THREADS = 256, FG_NA = 4, FG_GP = F_FT + 8,
               FG_RP = F_FT + 4;
@@ -457,16 +543,25 @@ __host__ __device__ constexpr int fg_smem_floats(int R1) {
               : fg_groups<TC>() * TILE * FG_RP);
 }
 
-template <bool TC, bool DIVD>
-__global__ void __launch_bounds__(FG_THREADS)
-rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
-              const int* __restrict__ perm, const int* __restrict__ row_ptr,
-              const int* __restrict__ cols, const float* __restrict__ g,
-              float* __restrict__ dfeats) {
+template <bool TC, bool DIVD, bool RECT>
+__device__ __forceinline__ void feats_plan(int F, int R, float rc,
+                                           const PlanArgs& pa) {
   constexpr int NA = FG_NA, NKQ = fg_groups<TC>(), NS = TILE / NA;
   extern __shared__ __align__(16) float sm[];
   __shared__ float4 Xj[TILE];
   __shared__ float4 Xi[2][NA];
+  __shared__ int Gj[RECT ? TILE : 1], Gi[2][RECT ? NA : 1];
+  // the block's own tile J is of the columns, the walked tiles I of the
+  // rows
+  const int Pr = pa.Pr, Pc = RECT ? pa.Pc : Pr;
+  const float4* __restrict__ Xr = pa.Xr;
+  const float4* __restrict__ Xc = RECT ? pa.Xc : Xr;
+  const int* __restrict__ perm_r = pa.perm_r;
+  const int* __restrict__ perm_c = RECT ? pa.perm_c : perm_r;
+  const int* __restrict__ ptr = pa.ptr;
+  const int* __restrict__ list = pa.list;
+  const float* __restrict__ g = pa.in;
+  float* __restrict__ dfeats = pa.out;
   const int R1 = R + 1, K = NA * R1, KP = fg_kp(R1), AP = KP + 4;
   float* As = sm;
   float* Gs = sm + fg_a_floats<TC>(R1);    // [2][KP][FG_GP]
@@ -474,10 +569,12 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
   const int t = threadIdx.x, nt = blockDim.x, w = t >> 5;
   const int gq = (t & 31) >> 2, tq = t & 3;
   const int j0 = blockIdx.x * TILE, fb = blockIdx.y * F_FT;
-  const int kb = row_ptr[blockIdx.x];
-  const int nC = (row_ptr[blockIdx.x + 1] - kb) * NS;
-  for (int q = t; q < TILE; q += nt)
-    Xj[q] = j0 + q < P ? Xp[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int kb = ptr[blockIdx.x];
+  const int nC = (ptr[blockIdx.x + 1] - kb) * NS;
+  for (int q = t; q < TILE; q += nt) {
+    Xj[q] = j0 + q < Pc ? Xc[j0 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (RECT) Gj[q] = j0 + q < Pc ? perm_c[j0 + q] : -2;
+  }
   // the padding k in [K, KP): zero columns of A, zero rows of both stages
   for (int q = t; q < (KP - K) * TILE; q += nt) {
     const int k = K + q / TILE, j = q % TILE;
@@ -488,27 +585,29 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
     Gs[(b * KP + K + r / F_FT) * FG_GP + r % F_FT] = 0.f;
   }
 
-  // chunk c: atoms i0 .. i0 + NA - 1 of the (c / NS)-th listed tile; its g
-  // rows perm[i] * R1 + r (contiguous per atom) and coordinates into
-  // buffer b; atoms past P are zeros
+  // chunk c: row atoms i0 .. i0 + NA - 1 of the (c / NS)-th listed tile;
+  // its g rows perm_r[i] * R1 + r (contiguous per atom) and coordinates
+  // (RECT: and global indices) into buffer b; atoms past Pr are zeros
   auto chunk_i0 = [&](int c) {
-    return cols[kb + c / NS] * TILE + (c % NS) * NA;
+    return list[kb + c / NS] * TILE + (c % NS) * NA;
   };
   auto stage = [&](int c, int b) {
     const int i0 = chunk_i0(c);
     float* gs = Gs + b * KP * FG_GP;
     for (int q = t; q < K * (F_FT / 4); q += nt) {
       const int k = q / (F_FT / 4), ch = (q % (F_FT / 4)) * 4;
-      const int a = k / R1, pa = i0 + a;
-      const bool ok = pa < P && fb + ch < F;
+      const int a = k / R1, pa_ = i0 + a;
+      const bool ok = pa_ < Pr && fb + ch < F;
       cp_async16(gs + k * FG_GP + ch,
-                 ok ? g + ((size_t)perm[pa] * R1 + (k - a * R1)) * F + fb + ch
+                 ok ? g + ((size_t)perm_r[pa_] * R1 + (k - a * R1)) * F +
+                          fb + ch
                     : g,
                  ok);
     }
     for (int q = t; q < NA; q += nt) {
-      const bool ok = i0 + q < P;
-      cp_async16(&Xi[b][q], ok ? Xp + i0 + q : Xp, ok);
+      const bool ok = i0 + q < Pr;
+      cp_async16(&Xi[b][q], ok ? Xr + i0 + q : Xr, ok);
+      if constexpr (RECT) Gi[b][q] = ok ? pa.off + perm_r[i0 + q] : -1;
     }
   };
 
@@ -538,12 +637,13 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
     cp_commit();
     const int i0 = chunk_i0(c);
     for (int p = t; p < TILE * NA; p += nt) {
-      // TC: a warp's lanes span 4 atoms x 8 rows (fewer bank conflicts on
-      // the row-major stores); CUDA cores: 32 rows of one atom
+      // TC: a warp's lanes span 4 atoms x 8 columns (fewer bank conflicts
+      // on the row-major stores); CUDA cores: 32 columns of one atom
       const int ii = TC ? p % NA : p / TILE, jj = TC ? p / NA : p % TILE;
       const float4 a = Xj[jj], b = Xi[buf][ii];
-      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, j0 + jj, b.x, b.y, b.z, b.w,
-                              i0 + ii, rc);
+      const Geo pg = pair_geo(a.x, a.y, a.z, a.w, RECT ? Gj[jj] : j0 + jj,
+                              b.x, b.y, b.z, b.w,
+                              RECT ? Gi[buf][ii] : i0 + ii, rc);
       if constexpr (TC)
         a_column<DIVD>(pg, R, rc, As + jj * AP + ii * R1, 1);
       else
@@ -604,10 +704,10 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
       st8(red + (kq * TILE + jo + x) * FG_RP + fo, S[x]);
   }
   __syncthreads();
-  // the groups' sums in group order; every row of the tile is written
+  // the groups' sums in group order; every column of the tile is written
   for (int q = t; q < TILE * (F_FT / 4); q += nt) {
     const int jj = q / (F_FT / 4), c4 = (q % (F_FT / 4)) * 4;
-    if (j0 + jj >= P || fb + c4 >= F) continue;
+    if (j0 + jj >= Pc || fb + c4 >= F) continue;
     float4 s = *reinterpret_cast<const float4*>(red + jj * FG_RP + c4);
     for (int k = 1; k < NKQ; ++k) {
       const float4 v =
@@ -617,9 +717,26 @@ rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
       s.z += v.z;
       s.w += v.w;
     }
-    *reinterpret_cast<float4*>(dfeats + (size_t)perm[j0 + jj] * F + fb + c4) =
-        s;
+    *reinterpret_cast<float4*>(dfeats + (size_t)perm_c[j0 + jj] * F + fb +
+                               c4) = s;
   }
+}
+
+template <bool TC, bool DIVD>
+__global__ void __launch_bounds__(FG_THREADS)
+rc_feats_plan(int P, int F, int R, float rc, const float4* __restrict__ Xp,
+              const int* __restrict__ perm, const int* __restrict__ row_ptr,
+              const int* __restrict__ cols, const float* __restrict__ g,
+              float* __restrict__ dfeats) {
+  feats_plan<TC, DIVD, false>(
+      F, R, rc, PlanArgs{P, P, 0, Xp, Xp, perm, perm, row_ptr, cols, g,
+                         dfeats});
+}
+
+template <bool TC, bool DIVD>
+__global__ void __launch_bounds__(FG_THREADS)
+rc_rect_plan_feats(int F, int R, float rc, PlanArgs pa) {
+  feats_plan<TC, DIVD, true>(F, R, rc, pa);
 }
 
 // ---------------------------------------------------------------------------
@@ -968,147 +1085,6 @@ __global__ void rc_rect_coords_reduce(int Pr, int Pc,
     sum_slots(q / 3 - Pr, q % 3, perm_c, col_ptr, part_c, dx_c);
 }
 
-// ---------------------------------------------------------------------------
-// K6 forward: rc_fwd_fma's tiling over every column tile; rows (local i,
-// global off + i) from Xr/Mr, the column loop over Pc from Xc/Mc
-// ---------------------------------------------------------------------------
-template <bool DIVD>
-__global__ void __launch_bounds__(512)
-rc_rect_fwd(int Pr, int Pc, int off, int F, int R, float rc,
-            const float* __restrict__ Xr, const float* __restrict__ Mr,
-            const float* __restrict__ Xc, const float* __restrict__ Mc,
-            const float* __restrict__ feats, float* __restrict__ out) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float Xi[F_TI][4];
-  const int R1 = R + 1;
-  float* As = sm;                          // [F_TJ][R1][F_TI]
-  float* Fs = sm + F_TJ * R1 * F_TI;       // [F_TJ][F_FT]
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int i0 = blockIdx.x * F_TI, fb = blockIdx.y * F_FT;
-  const int r = t / (F_FT / 8), fo = (t % (F_FT / 8)) * 8;
-  if (t < F_TI) {
-    const int li = i0 + t;
-    const bool ok = li < Pr;
-    Xi[t][0] = ok ? Xr[3 * li] : 0.f;
-    Xi[t][1] = ok ? Xr[3 * li + 1] : 0.f;
-    Xi[t][2] = ok ? Xr[3 * li + 2] : 0.f;
-    Xi[t][3] = ok ? Mr[li] : 0.f;
-  }
-  float acc[F_TI][8];
-#pragma unroll
-  for (int a = 0; a < F_TI; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  for (int j0 = 0; j0 < Pc; j0 += F_TJ) {
-    __syncthreads();
-    for (int p = t; p < F_TI * F_TJ; p += nt) {
-      const int ii = p % F_TI, jj = p / F_TI, gj = j0 + jj;
-      const bool ok = gj < Pc;
-      const Geo g = pair_geo(Xi[ii][0], Xi[ii][1], Xi[ii][2], Xi[ii][3],
-                             off + i0 + ii, ok ? Xc[3 * gj] : 0.f,
-                             ok ? Xc[3 * gj + 1] : 0.f,
-                             ok ? Xc[3 * gj + 2] : 0.f, ok ? Mc[gj] : 0.f,
-                             gj, rc);
-      a_column<DIVD>(g, R, rc, As + jj * R1 * F_TI + ii, F_TI);
-    }
-    for (int q = t; q < F_TJ * F_FT / 4; q += nt) {
-      const int jj = q / (F_FT / 4), c = (q % (F_FT / 4)) * 4, gj = j0 + jj;
-      reinterpret_cast<float4*>(Fs + jj * F_FT + c)[0] = ld4_or_zero(
-          feats + (size_t)gj * F + fb + c, gj < Pc && fb + c < F);
-    }
-    __syncthreads();
-    for (int jj = 0; jj < F_TJ; ++jj) {
-      float a[8], b[8];
-      ld8(As + (jj * R1 + r) * F_TI, a);
-      ld8(Fs + jj * F_FT + fo, b);
-#pragma unroll
-      for (int x = 0; x < F_TI; ++x)
-#pragma unroll
-        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-    }
-  }
-  if (fb + fo < F) {
-    for (int x = 0; x < F_TI; ++x) {
-      const int li = i0 + x;
-      if (li < Pr) st8(out + ((size_t)li * R1 + r) * F + fb + fo, acc[x]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6 feats gradient: block = 64 columns j x 128 features, 128 threads each
-// owning 8 j x 8 f; contracts over the Pr local rows (i, r) in tiles of 2
-// atoms
-// ---------------------------------------------------------------------------
-constexpr int G_TJ = 64, G_TI = 2, G_FT = 128;
-
-template <bool DIVD>
-__global__ void __launch_bounds__(128)
-rc_rect_bwd_feats(int Pr, int Pc, int off, int F, int R, float rc,
-                  const float* __restrict__ Xr, const float* __restrict__ Mr,
-                  const float* __restrict__ Xc, const float* __restrict__ Mc,
-                  const float* __restrict__ g, float* __restrict__ dfeats) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float Xj[G_TJ][4];
-  const int R1 = R + 1, K = G_TI * R1;
-  float* At = sm;                  // [K][G_TJ], k = ii * R1 + r
-  float* Gs = sm + K * G_TJ;       // [K][G_FT]
-  const int t = threadIdx.x;
-  const int j0 = blockIdx.x * G_TJ, fb = blockIdx.y * G_FT;
-  const int jo = (t / 16) * 8, fo = (t % 16) * 8;
-  for (int q = t; q < G_TJ; q += blockDim.x) {
-    const int gj = j0 + q;
-    const bool ok = gj < Pc;
-    Xj[q][0] = ok ? Xc[3 * gj] : 0.f;
-    Xj[q][1] = ok ? Xc[3 * gj + 1] : 0.f;
-    Xj[q][2] = ok ? Xc[3 * gj + 2] : 0.f;
-    Xj[q][3] = ok ? Mc[gj] : 0.f;
-  }
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  for (int i0 = 0; i0 < Pr; i0 += G_TI) {
-    __syncthreads();
-    for (int p = t; p < G_TI * G_TJ; p += blockDim.x) {
-      const int jj = p % G_TJ, ii = p / G_TJ, li = i0 + ii;
-      const bool ok = li < Pr;
-      const Geo pg = pair_geo(Xj[jj][0], Xj[jj][1], Xj[jj][2], Xj[jj][3],
-                              j0 + jj, ok ? Xr[3 * li] : 0.f,
-                              ok ? Xr[3 * li + 1] : 0.f,
-                              ok ? Xr[3 * li + 2] : 0.f, ok ? Mr[li] : 0.f,
-                              off + li, rc);
-      a_column<DIVD>(pg, R, rc, At + ii * R1 * G_TJ + jj, G_TJ);
-    }
-    // rows (i, r) of g are the contiguous local rows i0 * R1 + k
-    for (int q = t; q < K * G_FT / 4; q += blockDim.x) {
-      const int k = q / (G_FT / 4), c = (q % (G_FT / 4)) * 4;
-      const bool ok = i0 + k / R1 < Pr && fb + c < F;
-      reinterpret_cast<float4*>(Gs + k * G_FT + c)[0] =
-          ld4_or_zero(g + ((size_t)i0 * R1 + k) * F + fb + c, ok);
-    }
-    __syncthreads();
-    for (int k = 0; k < K; ++k) {
-      float a[8], b[8];
-      ld8(At + k * G_TJ + jo, a);
-      ld8(Gs + k * G_FT + fo, b);
-#pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-    }
-  }
-  if (fb + fo < F) {
-    for (int x = 0; x < 8; ++x) {
-      const int gj = j0 + jo + x;
-      if (gj < Pc) st8(dfeats + (size_t)gj * F + fb + fo, acc[x]);
-    }
-  }
-}
-
 template <typename K>
 int prepare(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
@@ -1123,6 +1099,42 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
   if (err) return err;
   kernel<<<grid, threads, smem, s>>>(P, F, R, rc, Xp, perm, a, b, c, d);
   return (int)cudaGetLastError();
+}
+
+template <typename K>
+int launch_rect(K kernel, dim3 grid, int threads, size_t smem,
+                cudaStream_t s, int F, int R, float rc, const PlanArgs& pa) {
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  kernel<<<grid, threads, smem, s>>>(F, R, rc, pa);
+  return (int)cudaGetLastError();
+}
+
+// the launch shapes of K5's and K6's kernels on a plan
+struct Shape {
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+// forward over `rows` rows: tensor cores up to R+1 = 32 (warps own two
+// radial channels: at most 16 warps), CUDA cores above
+Shape fwd_shape(int rows, int F, int R1) {
+  if (R1 <= 32)
+    return {dim3((rows + T_RB - 1) / T_RB, (F + F_FT - 1) / F_FT),
+            32 * ((R1 + 1) / 2),
+            sizeof(float) * (R1 * T_RB * T_AP + 2 * TILE * T_FP)};
+  return {dim3((rows + F_TI - 1) / F_TI, (F + F_FT - 1) / F_FT),
+          R1 * (F_FT / 8),
+          sizeof(float) * (TILE * R1 * F_TI + 2 * TILE * F_FT)};
+}
+
+// feats gradient over `cols` columns: tensor cores up to R+1 = 32 (91 KB
+// of shared memory there), CUDA cores above (177 KB at R+1 = 63)
+Shape feats_shape(int cols, int F, int R1) {
+  return {dim3((cols + TILE - 1) / TILE, (F + F_FT - 1) / F_FT), FG_THREADS,
+          sizeof(float) * (R1 <= 32 ? fg_smem_floats<true>(R1)
+                                    : fg_smem_floats<false>(R1))};
 }
 
 template <int TJH, int FC, bool DIVD, bool RECT>
@@ -1162,8 +1174,8 @@ int launch_coords_any(int F, int R, int div_d, float rc, int n_pairs,
 extern "C" {
 
 // the plan's Xp [P, 4], perm [P], row_ptr [T + 1], cols; feats [P, F] ->
-// out [P, R+1, F]; F % 8 == 0, R + 1 <= 63. Tensor cores up to R+1 = 32
-// (warps own two radial channels: at most 16 warps), CUDA cores above.
+// out [P, R+1, F]; F % 8 == 0, R + 1 <= 63. Tensor cores up to R+1 = 32,
+// CUDA cores above.
 int rc_fwd_launch(int P, int F, int R, int div_d, float rc, const float* Xp,
                   const int* perm, const int* row_ptr, const int* cols,
                   const float* feats, float* out, void* stream) {
@@ -1171,28 +1183,20 @@ int rc_fwd_launch(int P, int F, int R, int div_d, float rc, const float* Xp,
   if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float4* X4 = reinterpret_cast<const float4*>(Xp);
-  if (R1 <= 32) {
-    const size_t smem =
-        sizeof(float) * (R1 * T_RB * T_AP + 2 * TILE * T_FP);
-    const dim3 grid((P + T_RB - 1) / T_RB, (F + F_FT - 1) / F_FT);
-    const int threads = 32 * ((R1 + 1) / 2);
-    return div_d ? launch(rc_fwd_tc<true>, grid, threads, smem, s, P, F, R,
-                          rc, X4, perm, row_ptr, cols, feats, out)
-                 : launch(rc_fwd_tc<false>, grid, threads, smem, s, P, F, R,
-                          rc, X4, perm, row_ptr, cols, feats, out);
-  }
-  const size_t smem = sizeof(float) * (TILE * R1 * F_TI + 2 * TILE * F_FT);
-  const dim3 grid((P + F_TI - 1) / F_TI, (F + F_FT - 1) / F_FT);
-  const int threads = R1 * (F_FT / 8);
-  return div_d ? launch(rc_fwd_fma<true>, grid, threads, smem, s, P, F, R,
-                        rc, X4, perm, row_ptr, cols, feats, out)
-               : launch(rc_fwd_fma<false>, grid, threads, smem, s, P, F, R,
-                        rc, X4, perm, row_ptr, cols, feats, out);
+  const Shape sh = fwd_shape(P, F, R1);
+  if (R1 <= 32)
+    return div_d ? launch(rc_fwd_tc<true>, sh.grid, sh.threads, sh.smem, s,
+                          P, F, R, rc, X4, perm, row_ptr, cols, feats, out)
+                 : launch(rc_fwd_tc<false>, sh.grid, sh.threads, sh.smem, s,
+                          P, F, R, rc, X4, perm, row_ptr, cols, feats, out);
+  return div_d ? launch(rc_fwd_fma<true>, sh.grid, sh.threads, sh.smem, s, P,
+                        F, R, rc, X4, perm, row_ptr, cols, feats, out)
+               : launch(rc_fwd_fma<false>, sh.grid, sh.threads, sh.smem, s,
+                        P, F, R, rc, X4, perm, row_ptr, cols, feats, out);
 }
 
 // the plan's Xp, perm, row_ptr, cols; g [P, R+1, F] -> dfeats [P, F], every
-// row written; F % 8 == 0, R + 1 <= 63. Tensor cores up to R+1 = 32 (91
-// KB of shared memory there), CUDA cores above (177 KB at R+1 = 63).
+// row written; F % 8 == 0, R + 1 <= 63.
 int rc_bwd_feats_launch(int P, int F, int R, int div_d, float rc,
                         const float* Xp, const int* perm, const int* row_ptr,
                         const int* cols, const float* g, float* dfeats,
@@ -1201,19 +1205,20 @@ int rc_bwd_feats_launch(int P, int F, int R, int div_d, float rc,
   if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float4* X4 = reinterpret_cast<const float4*>(Xp);
-  const dim3 grid((P + TILE - 1) / TILE, (F + F_FT - 1) / F_FT);
-  if (R1 <= 32) {
-    const size_t smem = sizeof(float) * fg_smem_floats<true>(R1);
-    return div_d ? launch(rc_feats_plan<true, true>, grid, FG_THREADS, smem,
-                          s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats)
-                 : launch(rc_feats_plan<true, false>, grid, FG_THREADS, smem,
-                          s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats);
-  }
-  const size_t smem = sizeof(float) * fg_smem_floats<false>(R1);
-  return div_d ? launch(rc_feats_plan<false, true>, grid, FG_THREADS, smem, s,
-                        P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats)
-               : launch(rc_feats_plan<false, false>, grid, FG_THREADS, smem,
-                        s, P, F, R, rc, X4, perm, row_ptr, cols, g, dfeats);
+  const Shape sh = feats_shape(P, F, R1);
+  if (R1 <= 32)
+    return div_d ? launch(rc_feats_plan<true, true>, sh.grid, sh.threads,
+                          sh.smem, s, P, F, R, rc, X4, perm, row_ptr, cols, g,
+                          dfeats)
+                 : launch(rc_feats_plan<true, false>, sh.grid, sh.threads,
+                          sh.smem, s, P, F, R, rc, X4, perm, row_ptr, cols, g,
+                          dfeats);
+  return div_d ? launch(rc_feats_plan<false, true>, sh.grid, sh.threads,
+                        sh.smem, s, P, F, R, rc, X4, perm, row_ptr, cols, g,
+                        dfeats)
+               : launch(rc_feats_plan<false, false>, sh.grid, sh.threads,
+                        sh.smem, s, P, F, R, rc, X4, perm, row_ptr, cols, g,
+                        dfeats);
 }
 
 // the plan's Xp, perm, row_ptr and n_pairs pairs [n_pairs, 4]; g [P, R+1,
@@ -1247,53 +1252,63 @@ int rc_bwd_coords_launch(int P, int F, int R, int div_d, float rc,
   return (int)cudaGetLastError();
 }
 
-// ---- K6: rows [Pr, 3] (global indices off ..), columns [Pc, 3] ----------
+// ---- K6 on a rect plan: rows (global indices off ..), columns ----------
 
-// feats [Pc, F] -> out [Pr, R+1, F]; F % 8 == 0; (R+1) * 8 <= 512 threads
-int rc_rect_fwd_launch(int Pr, int Pc, int off, int F, int R, int div_d,
-                       float rc, const float* Xr, const float* Mr,
-                       const float* Xc, const float* Mc, const float* feats,
-                       float* out, void* stream) {
+// the rect plan's Xr [Pr, 4], Xc [Pc, 4], perm_r, perm_c, row_ptr, cols;
+// feats [Pc, F] -> out [Pr, R+1, F], every row written (rows of a tile
+// that lists nothing get zeros). F % 8 == 0, R + 1 <= 63: K5's tilings,
+// tensor cores up to R+1 = 32, CUDA cores above.
+int rc_rect_plan_fwd_launch(int Pr, int Pc, int off, int F, int R, int div_d,
+                            float rc, const float* Xr, const float* Xc,
+                            const int* perm_r, const int* perm_c,
+                            const int* row_ptr, const int* cols,
+                            const float* feats, float* out, void* stream) {
   const int R1 = R + 1;
-  if (F % 8 != 0 || R1 * (F_FT / 8) > 512) return (int)cudaErrorInvalidValue;
-  if (Pr == 0) return 0;
-  const size_t smem = sizeof(float) * (F_TJ * R1 * F_TI + F_TJ * F_FT);
-  const dim3 grid((Pr + F_TI - 1) / F_TI, (F + F_FT - 1) / F_FT);
+  if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
+  if (Pr == 0 || F == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  int err = div_d ? prepare(rc_rect_fwd<true>, smem)
-                  : prepare(rc_rect_fwd<false>, smem);
-  if (err) return err;
-  if (div_d)
-    rc_rect_fwd<true><<<grid, R1 * (F_FT / 8), smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, feats, out);
-  else
-    rc_rect_fwd<false><<<grid, R1 * (F_FT / 8), smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, feats, out);
-  return (int)cudaGetLastError();
+  const PlanArgs pa{Pr,     Pc,     off,     reinterpret_cast<const float4*>(Xr),
+                    reinterpret_cast<const float4*>(Xc), perm_r, perm_c,
+                    row_ptr, cols, feats, out};
+  const Shape sh = fwd_shape(Pr, F, R1);
+  if (R1 <= 32)
+    return div_d ? launch_rect(rc_rect_plan_fwd_tc<true>, sh.grid,
+                               sh.threads, sh.smem, s, F, R, rc, pa)
+                 : launch_rect(rc_rect_plan_fwd_tc<false>, sh.grid,
+                               sh.threads, sh.smem, s, F, R, rc, pa);
+  return div_d ? launch_rect(rc_rect_plan_fwd_fma<true>, sh.grid, sh.threads,
+                             sh.smem, s, F, R, rc, pa)
+               : launch_rect(rc_rect_plan_fwd_fma<false>, sh.grid,
+                             sh.threads, sh.smem, s, F, R, rc, pa);
 }
 
-// g [Pr, R+1, F] -> dfeats [Pc, F]
-int rc_rect_bwd_feats_launch(int Pr, int Pc, int off, int F, int R,
-                             int div_d, float rc, const float* Xr,
-                             const float* Mr, const float* Xc,
-                             const float* Mc, const float* g, float* dfeats,
-                             void* stream) {
+// the rect plan's Xr, Xc, perm_r, perm_c, col_ptr [Tc + 1], rows; g [Pr,
+// R+1, F] -> dfeats [Pc, F], every column written (columns of a tile that
+// lists nothing get zeros). F % 8 == 0, R + 1 <= 63: tensor cores up to
+// R+1 = 32, CUDA cores above.
+int rc_rect_plan_feats_launch(int Pr, int Pc, int off, int F, int R,
+                              int div_d, float rc, const float* Xr,
+                              const float* Xc, const int* perm_r,
+                              const int* perm_c, const int* col_ptr,
+                              const int* rows, const float* g, float* dfeats,
+                              void* stream) {
   const int R1 = R + 1;
-  if (F % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (Pc == 0) return 0;
-  const size_t smem = sizeof(float) * (G_TI * R1 * (G_TJ + G_FT));
-  const dim3 grid((Pc + G_TJ - 1) / G_TJ, (F + G_FT - 1) / G_FT);
+  if (F % 8 != 0 || R1 > 63) return (int)cudaErrorInvalidValue;
+  if (Pc == 0 || F == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  int err = div_d ? prepare(rc_rect_bwd_feats<true>, smem)
-                  : prepare(rc_rect_bwd_feats<false>, smem);
-  if (err) return err;
-  if (div_d)
-    rc_rect_bwd_feats<true><<<grid, 128, smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, g, dfeats);
-  else
-    rc_rect_bwd_feats<false><<<grid, 128, smem, s>>>(
-        Pr, Pc, off, F, R, rc, Xr, Mr, Xc, Mc, g, dfeats);
-  return (int)cudaGetLastError();
+  const PlanArgs pa{Pr,     Pc,     off,     reinterpret_cast<const float4*>(Xr),
+                    reinterpret_cast<const float4*>(Xc), perm_r, perm_c,
+                    col_ptr, rows, g, dfeats};
+  const Shape sh = feats_shape(Pc, F, R1);
+  if (R1 <= 32)
+    return div_d ? launch_rect(rc_rect_plan_feats<true, true>, sh.grid,
+                               sh.threads, sh.smem, s, F, R, rc, pa)
+                 : launch_rect(rc_rect_plan_feats<true, false>, sh.grid,
+                               sh.threads, sh.smem, s, F, R, rc, pa);
+  return div_d ? launch_rect(rc_rect_plan_feats<false, true>, sh.grid,
+                             sh.threads, sh.smem, s, F, R, rc, pa)
+               : launch_rect(rc_rect_plan_feats<false, false>, sh.grid,
+                             sh.threads, sh.smem, s, F, R, rc, pa);
 }
 
 // the rect plan's Xr [Pr, 4], Xc [Pc, 4], perm_r, perm_c, row_ptr,

@@ -308,8 +308,8 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     edge-direction stream uses the u = (x_i - x_j)/d split:
     sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d. With ``shard``
     this rank's rows contract against the all-gathered streams of every
-    atom through K6 (``radial_contract_rect``), whose coordinate gradients
-    run on one rect tile plan a call: O(P/n) memory a rank."""
+    atom through K6 (``radial_contract_rect``), whose three kernels run on
+    one rect tile plan a call: O(P/n) memory a rank."""
     dt = torch.float32
     P = coords_ang.shape[0]
     C = cfg.hidden

@@ -30,16 +30,20 @@ K6 (``radial_contract_rect``) is the same contraction for one block of
 rows against all columns, the form atom-axis sharding runs: rows
 coords_rows [Pr, 3] with global indices ``row_offset`` .. and columns
 coords_cols [Pc, 3], feats [Pc, F] -> [Pr, R+1, F]; self-pairs are
-excluded by global index. Its forward and feats gradient run over every
-pair; its coordinate kernel runs on a ``rect_tile_plan`` (rows and columns
-each in the spatial order, the listed (row tile, column tile) pairs) and
-gives the gradients of the rows and of the columns from one S product per
-listed pair, in one launch. The PaiNN pallas mode's sharded branch builds
-one such plan per energy evaluation and passes it to every call.
+excluded by global index. Its three kernels run on one ``rect_tile_plan``
+(rows and columns each in the spatial order, the listed (row tile, column
+tile) pairs as a CSR by row tile and one by column tile): the forward
+walks each row tile's column list, the feats gradient each column tile's
+row list, and the coordinate kernel gives the gradients of the rows and of
+the columns from one S product per listed pair, in one launch. The PaiNN
+pallas mode's sharded branch builds one such plan per energy evaluation
+and passes it to every call; without one, each call builds its own and
+keeps it for its backward.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -212,7 +216,7 @@ def tile_plan(coords, mask, cutoff) -> TilePlan:
 
 
 class RectTilePlan(NamedTuple):
-    """The tile plan of K6's coordinate gradients (``rect_tile_plan``): one
+    """The tile plan of K6's three kernels (``rect_tile_plan``): one
     block of rows (global indices ``off`` ..) and all columns, each side in
     its own spatial order and tiles of ``TILE``.
 
@@ -242,31 +246,57 @@ class RectTilePlan(NamedTuple):
 
     def stats(self, R1=None, F=None) -> dict:
         """Row and column tiles, listed tile pairs and their share of all
-        Tr Tc, and with R1 and F the FLOP the coordinate kernel computes
-        per launch: one S product, 2 (R+1) F per pair, on every listed
-        tile pair. Synchronises with the device."""
+        Tr Tc, and with R1 and F the FLOP each of the three kernels
+        computes per launch: 2 (R+1) F per pair of every listed tile pair
+        (the forward and the feats gradient contract it, the coordinate
+        kernel forms one S product on it). Synchronises with the
+        device."""
         Tr, Tc = self.row_ptr.shape[0] - 1, self.col_ptr.shape[0] - 1
         listed = int(self.pairs.shape[0])
         out = {"row_tiles": Tr, "col_tiles": Tc, "listed": listed,
                "share": listed / max(Tr * Tc, 1)}
         if R1 is not None:
-            out["coords_flop"] = 2 * TILE * TILE * R1 * F * listed
+            out["flop"] = 2 * TILE * TILE * R1 * F * listed
         return out
 
 
+def _stage_clock(stages, device):
+    """``mark(name)``: records in ``stages`` the ms since the previous mark
+    (host clock, the device synchronised at each mark); without
+    ``stages`` a no-op."""
+    if stages is None:
+        return lambda name: None
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    sync()
+    last = [time.perf_counter()]
+
+    def mark(name):
+        sync()
+        now = time.perf_counter()
+        stages[name] = (now - last[0]) * 1e3
+        last[0] = now
+    return mark
+
+
 def rect_tile_plan(coords_rows, mask_rows, row_offset, coords_cols,
-                   mask_cols, cutoff) -> RectTilePlan:
-    """The tile plan of K6's coordinate gradients: rows and columns each
+                   mask_cols, cutoff, stages=None) -> RectTilePlan:
+    """The tile plan of K6's three kernels: rows and columns each
     ordered and tiled by ``_plan_tiles``, and the (row tile, column tile)
     pairs whose boxes lie within the cutoff (``_reach``), as CSRs by row
     tile and by column tile and as one list of pairs with both sides'
     slots. Plain PyTorch on the coordinates' device; the ``nonzero`` is
-    the one host synchronisation."""
+    the one host synchronisation. ``stages``, a dict, receives each
+    stage's ms (measurement only: it synchronises the device)."""
     plans["rect_built"] += 1
     dev = coords_rows.device
+    mark = _stage_clock(stages, dev)
     perm_r, xr, real_r, lo_r, hi_r = _plan_tiles(coords_rows, mask_rows)
+    mark("rows' order")
     perm_c, xc, real_c, lo_c, hi_c = _plan_tiles(coords_cols, mask_cols)
+    mark("columns' order")
     reach = _reach(lo_r, hi_r, lo_c, hi_c, cutoff)          # [Tr, Tc]
+    mark("reach")
     ptr = []
     for dim in (1, 0):
         p = torch.zeros(reach.shape[1 - dim] + 1, dtype=torch.int32,
@@ -274,7 +304,9 @@ def rect_tile_plan(coords_rows, mask_rows, row_offset, coords_cols,
         p[1:] = torch.cumsum(reach.sum(dim, dtype=torch.int32), 0)
         ptr.append(p)
     row_ptr, col_ptr = ptr
+    mark("CSR pointers")
     nz = reach.nonzero()                      # host synchronisation
+    mark("nonzero")
     pI, pJ = nz[:, 0], nz[:, 1]
     # row-major: the pairs are the row lists in order, so e_row = 0 .. n-1
     e_row = torch.arange(nz.shape[0], device=dev)
@@ -283,10 +315,12 @@ def rect_tile_plan(coords_rows, mask_rows, row_offset, coords_cols,
     rows = torch.empty(nz.shape[0], dtype=torch.int32, device=dev)
     rows[e_col.long()] = pI.int()
     pairs = torch.stack([pI, pJ, e_row, e_col], 1).to(torch.int32)
-    return RectTilePlan(int(row_offset), perm_r.to(torch.int32),
-                        perm_c.to(torch.int32), _xm(xr, real_r), _xm(xc, real_c),
-                        row_ptr, pJ.to(torch.int32), col_ptr, rows,
-                        pairs.contiguous())
+    plan = RectTilePlan(int(row_offset), perm_r.to(torch.int32),
+                        perm_c.to(torch.int32), _xm(xr, real_r),
+                        _xm(xc, real_c), row_ptr, pJ.to(torch.int32),
+                        col_ptr, rows, pairs.contiguous())
+    mark("column lists and pairs")
+    return plan
 
 
 def radial_contract_plain(coords, mask, feats, cutoff, n_radial,
@@ -452,42 +486,66 @@ def rect_coords_on_plan(plan, feats, g, cutoff, n_radial, div_d=False):
     return dxr, dxc
 
 
+def rect_contract_on_plan(plan, feats, cutoff, n_radial, div_d=False):
+    """K6's forward kernel on a ``rect_tile_plan``: feats [Pc, F]
+    (float32, contiguous, 16-byte aligned, on the card) -> [Pr, R+1, F].
+    A block of rows walks its row tile's column list. Every row is
+    written: rows of a tile that lists nothing get zeros."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    Pr, (Pc, F) = plan.xm_r.shape[0], feats.shape
+    out = torch.empty(Pr, n_radial + 1, F, device=feats.device,
+                      dtype=torch.float32)
+    call(load("radial_contract"), "rc_rect_plan_fwd_launch", Pr, Pc,
+         plan.off, F, n_radial, int(div_d), float(cutoff), ptr(plan.xm_r),
+         ptr(plan.xm_c), ptr(plan.perm_r), ptr(plan.perm_c),
+         ptr(plan.row_ptr), ptr(plan.cols), ptr(feats), ptr(out),
+         stream_ptr())
+    rect_launches["radial_contract_rect_fwd"] += 1
+    return out
+
+
+def rect_feats_on_plan(plan, g, cutoff, n_radial, div_d=False):
+    """K6's feats-gradient kernel on a ``rect_tile_plan``: g [Pr, R+1, F]
+    (float32, contiguous, 16-byte aligned, on the card) -> dfeats [Pc, F].
+    A block of columns walks its column tile's row list. Every column is
+    written: columns of a tile that lists nothing get zeros."""
+    from .cuda_build import call, load, ptr, stream_ptr
+    Pr, Pc, F = g.shape[0], plan.xm_c.shape[0], g.shape[2]
+    dfeats = torch.empty(Pc, F, device=g.device, dtype=torch.float32)
+    call(load("radial_contract"), "rc_rect_plan_feats_launch", Pr, Pc,
+         plan.off, F, n_radial, int(div_d), float(cutoff), ptr(plan.xm_r),
+         ptr(plan.xm_c), ptr(plan.perm_r), ptr(plan.perm_c),
+         ptr(plan.col_ptr), ptr(plan.rows), ptr(g), ptr(dfeats),
+         stream_ptr())
+    rect_launches["radial_contract_rect_bwd_feats"] += 1
+    return dfeats
+
+
 class _RadialContractRectFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cr, mr, row_offset, cc, mc, feats, cutoff, n_radial,
                 div_d, plan):
-        from .cuda_build import call, load, ptr, stream_ptr
-        cr, mr, cc, mc, feats = (_aligned(t) for t in (cr, mr, cc, mc, feats))
-        Pr, (Pc, F) = cr.shape[0], feats.shape
-        out = torch.empty(Pr, n_radial + 1, F, device=feats.device,
-                          dtype=torch.float32)
-        ctx.args = (Pr, Pc, int(row_offset), F, int(n_radial), int(div_d),
-                    float(cutoff))
-        call(load("radial_contract"), "rc_rect_fwd_launch", *ctx.args,
-             ptr(cr), ptr(mr), ptr(cc), ptr(mc), ptr(feats), ptr(out),
-             stream_ptr())
-        rect_launches["radial_contract_rect_fwd"] += 1
-        ctx.save_for_backward(cr, mr, cc, mc, feats)
+        feats = _aligned(feats)
+        if plan is None:
+            plan = rect_tile_plan(cr, mr, row_offset, cc, mc, cutoff)
+        out = rect_contract_on_plan(plan, feats, cutoff, n_radial, div_d)
+        # the backward reads the coordinates and masks from the plan
+        ctx.save_for_backward(feats)
         ctx.plan = plan
+        ctx.args = (float(cutoff), int(n_radial), bool(div_d))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        from .cuda_build import call, load, ptr, stream_ptr
-        cr, mr, cc, mc, feats = ctx.saved_tensors
-        Pr, Pc, off, F, n_radial, div_d, cutoff = ctx.args
+        (feats,) = ctx.saved_tensors
+        plan = ctx.plan
+        cutoff, n_radial, div_d = ctx.args
         g = _aligned(g.float())
         dcr = dcc = dfeats = None
         if ctx.needs_input_grad[5]:
-            dfeats = torch.empty_like(feats)
-            call(load("radial_contract"), "rc_rect_bwd_feats_launch",
-                 *ctx.args, ptr(cr), ptr(mr), ptr(cc), ptr(mc), ptr(g),
-                 ptr(dfeats), stream_ptr())
-            rect_launches["radial_contract_rect_bwd_feats"] += 1
+            dfeats = rect_feats_on_plan(plan, g, cutoff, n_radial, div_d)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[3]:
             # one launch serves both coordinate gradients
-            plan = ctx.plan if ctx.plan is not None else rect_tile_plan(
-                cr, mr, off, cc, mc, cutoff)
             dxr, dxc = rect_coords_on_plan(plan, feats, g, cutoff, n_radial,
                                            div_d)
             dcr = dxr if ctx.needs_input_grad[0] else None
@@ -502,8 +560,8 @@ def radial_contract_rect(coords_rows, mask_rows, row_offset, coords_cols,
     [Pr], columns [Pc, 3], mask_cols [Pc], feats [Pc, F]; returns
     [Pr, R+1, F]. ``row_offset`` is a Python int. On CUDA tensors ``plan``,
     a ``rect_tile_plan`` of these rows, columns, offset and cutoff, serves
-    the coordinate gradients (None: the backward builds its own); on the
-    CPU it is ignored."""
+    all three kernels (None: the call builds its own); on the CPU it is
+    ignored."""
     if not coords_rows.is_cuda:
         return radial_contract_rect_plain(coords_rows, mask_rows, row_offset,
                                           coords_cols, mask_cols, feats,

@@ -28,9 +28,9 @@ Cells (default: all six):
                 0's 1024 rows against all columns, the collectives
                 replaced by local copies (the kernels' work is the
                 rank's; the values are not the sharded call's): K6
-                (rc_rect_fwd, rc_rect_bwd_feats, rc_rect_coords_pairs and
-                rc_rect_coords_reduce) and the glue of the call's one rect
-                tile plan;
+                (rc_rect_plan_fwd_tc, rc_rect_plan_feats,
+                rc_rect_coords_pairs and rc_rect_coords_reduce, all on the
+                call's one rect tile plan) and the glue of that plan;
   painn-dense   the default uma-s-1p1 (dense) on the 300-atom cluster.
 
 For each cell: builds the calculator, warms it up, profiles ``n`` force
@@ -59,8 +59,8 @@ FAMILIES = (("K2 (conv_tf32<., node_ffn> + grid_sum)", ("node_ffn",
             ("edge conv products (conv_tf32<0, edge_conv>)", ("edge_conv",)),
             ("K5 (rc_fwd_*, rc_feats_plan, rc_coords_pairs + reduce)",
              ("rc_fwd_", "rc_feats_plan", "rc_coords_")),
-            ("K6 (rc_rect_fwd, rc_rect_bwd_feats, rc_rect_coords_pairs + "
-             "reduce)", ("rc_rect_",)))
+            ("K6 (rc_rect_plan_fwd_*, rc_rect_plan_feats, "
+             "rc_rect_coords_pairs + reduce)", ("rc_rect_",)))
 
 
 class RankShare:

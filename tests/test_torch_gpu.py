@@ -556,22 +556,33 @@ def _rc_system(P, seed):
 
 
 @pytest.mark.parametrize("div_d", [False, True])
-@pytest.mark.parametrize("Pc,Pr,off,F,R", [
-    (600, 184, 0, 72, 24), (600, 184, 184, 72, 24), (600, 184, 416, 16, 24),
-    (300, 184, 116, 16, 40)])
-def test_radial_contract_rect_kernels_match_plain(div_d, Pc, Pr, off, F, R):
-    """K6 at a ragged row block (Pr = 184) with masked atoms at nonzero
-    offsets: values and the feats, row and column coordinate gradients
-    against the plain version, one launch of each of the three kernels
-    (the coordinate kernel serves rows and columns); both tilings of the
-    coordinate kernel (R + 1 <= 32 and > 32); a second run repeats bit for
-    bit; guards."""
+@pytest.mark.parametrize("Pc,Pr,off,F,R,system", [
+    (600, 184, 0, 72, 24, "lattice"), (600, 184, 184, 72, 24, "lattice"),
+    (600, 184, 416, 16, 24, "lattice"), (300, 184, 116, 16, 40, "lattice"),
+    (583, 150, 211, 40, 24, "shuffled"), (583, 150, 300, 40, 32, "lattice"),
+    (583, 150, 433, 24, 32, "shuffled"), (600, 184, 100, 40, 24, "blobs"),
+    (600, 184, 300, 40, 32, "blobs"),
+    (600, 184, 200, 40, 24, "masked_tile")])
+def test_radial_contract_rect_kernels_match_plain(div_d, Pc, Pr, off, F, R,
+                                                  system):
+    """K6 at ragged row blocks (Pr = 184, 150) and column counts (583) with
+    masked atoms at nonzero offsets, in lattice order (column tiles out of
+    the block's reach: their lists are empty, their feats gradient is
+    zeros), shuffled (a row block spread over the whole box), as two blobs
+    40 A apart and with whole tiles of masked rows (row tiles that list
+    nothing: their forward rows are zeros): values
+    and the feats, row and column coordinate gradients against the plain
+    version, one launch of each of the three kernels on the call's one
+    rect plan; both routes of every kernel (R + 1 <= 32 on the tensor
+    cores, > 32 on CUDA cores); masked rows of the forward exactly 0; a
+    second run repeats bit for bit; guards."""
     _need_card()
-    coords, mask, gen = _rc_system(Pc, Pc + Pr + off)
+    gen = torch.Generator().manual_seed(Pc + Pr + off)
+    coords, mask = _k5_system(Pc, system, gen)
     feats = torch.randn(Pc, F, generator=gen).to(**F32)
     g = torch.randn(Pr, R + 1, F, generator=gen).to(**F32)
     rows = slice(off, off + Pr)
-    n0 = dict(rcm.rect_launches)
+    n0, built = dict(rcm.rect_launches), rcm.plans["rect_built"]
 
     def run(fn):
         cr = coords[rows].clone().requires_grad_(True)
@@ -581,11 +592,13 @@ def test_radial_contract_rect_kernels_match_plain(div_d, Pc, Pr, off, F, R):
         return [T, *torch.autograd.grad(T, [f, cr, cc], g)]
 
     got = run(rcm.radial_contract_rect)
+    assert [rcm.rect_launches[k] - n0[k] for k in n0] == [1, 1, 1]
+    assert rcm.plans["rect_built"] == built + 1
     ref = run(rcm.radial_contract_rect_plain)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert _close(a, b)
-    assert all(rcm.rect_launches[k] == n0[k] + 1 for k in n0)
+    assert bool((got[0][mask[rows] == 0] == 0).all())
     assert all(torch.equal(a, b)
                for a, b in zip(run(rcm.radial_contract_rect), got))
     args = (coords[rows], mask[rows], off, coords, mask, feats, 6.0, R,
@@ -676,15 +689,18 @@ def test_radial_contract_rect_fused_coords_match_plain(div_d, R, shuffled):
 
 
 @pytest.mark.parametrize("div_d", [False, True])
-@pytest.mark.parametrize("R", [24, 40])
-def test_radial_contract_rect_given_plan_matches_own_plan(div_d, R):
-    """A rect tile plan passed in serves the coordinate kernel: the result
-    and all three gradients are bitwise those of the call whose backward
-    builds its own plan, and no plan is built; a plan of other rows,
-    columns or offset raises."""
+@pytest.mark.parametrize("R,system", [(24, "lattice"), (40, "lattice"),
+                                      (24, "shuffled"), (32, "blobs")])
+def test_radial_contract_rect_given_plan_matches_own_plan(div_d, R, system):
+    """A rect tile plan passed in serves all three kernels: the result and
+    all three gradients are bitwise those of the call that builds its own
+    plan (one, in the forward, kept for the backward), no plan is built,
+    each kernel launches once a call, and two calls are bit for bit
+    equal; a plan of other rows, columns or offset raises."""
     _need_card()
     Pc, Pr, off, F = 500, 125, 250, 16
-    coords, mask, gen = _rc_system(Pc, R)
+    coords, mask = _k5_system(Pc, system, torch.Generator().manual_seed(R))
+    gen = torch.Generator().manual_seed(R + 1)
     feats = torch.randn(Pc, F, generator=gen).to(**F32)
     g = torch.randn(Pr, R + 1, F, generator=gen).to(**F32)
     rows = slice(off, off + Pr)
@@ -699,12 +715,15 @@ def test_radial_contract_rect_given_plan_matches_own_plan(div_d, R):
                                      R, div_d, **kw)
         return [T, *torch.autograd.grad(T, [cr, cc, f], g)]
 
-    built = rcm.plans["rect_built"]
+    built, n0 = rcm.plans["rect_built"], dict(rcm.rect_launches)
     own = run()
     assert rcm.plans["rect_built"] == built + 1
     given = run(plan=plan)
+    again = run(plan=plan)
     assert rcm.plans["rect_built"] == built + 1
+    assert [rcm.rect_launches[k] - n0[k] for k in n0] == [3, 3, 3]
     assert all(torch.equal(a, b) for a, b in zip(given, own))
+    assert all(torch.equal(a, b) for a, b in zip(again, given))
     args = (coords[rows], mask[rows], off, coords, mask, feats, 6.0, R,
             div_d)
     for other in (
@@ -764,3 +783,39 @@ def test_sharded_pallas_force_call_builds_one_rect_plan():
     for got in (res, one):
         assert np.abs(got["forces"] - ref["forces"]).max() \
             <= TOL * np.abs(ref["forces"]).max()
+
+
+def _cloud():
+    """96 atoms at normal coordinates (scale 3 A; closest pair 0.31 A):
+    the random normal cloud of ``scripts/gpu_random_cloud.py``."""
+    rng = np.random.default_rng(8)
+    return Structure(rng.choice([1, 6, 8], size=96).astype(np.int32),
+                     rng.normal(scale=3.0, size=(96, 3)))
+
+
+def test_sharded_pallas_random_cloud_matches_cpu_f64():
+    """uma-s-1p1 pallas on a random normal cloud (close pairs: the model's
+    split of the edge-direction stream amplifies the K6 forward's float32
+    rounding there, as the lattice never shows): the sharded branch (K6,
+    one rank) and the unsharded call (K5) on the card within 1e-4 of the
+    CPU float64 plain path (max|dF| / max|F|); one rect plan and 8 / 7 /
+    8 K6 launches a sharded call."""
+    from pdb2reaction_tpu_torch.parallel.spatial import (
+        make_spatial_energy_fn)
+    _need_card()
+    st = _cloud()
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    fn, w, _ = make_model(cfg, seed=3)
+    wc = tree_to(w, device="cuda")
+    cb = st.coords_bohr.reshape(-1)
+    ref = make_uma_calculator(st, model="uma-s-1p1", params=w, device="cpu",
+                              dtype=torch.float64).get_forces(cb)["forces"]
+    shard = Calculator(st, make_spatial_energy_fn(cfg, _OneRank()),
+                       params=wc, device="cuda")
+    built, n0 = rcm.plans["rect_built"], dict(rcm.rect_launches)
+    res = shard.get_forces(cb)["forces"]
+    assert rcm.plans["rect_built"] == built + 1
+    assert [rcm.rect_launches[k] - n0[k] for k in n0] == [8, 7, 8]
+    one = Calculator(st, fn, params=wc, device="cuda").get_forces(cb)
+    for got in (res, one["forces"]):
+        assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()

@@ -10,8 +10,13 @@ numpy and held against autograd; a numpy mirror of the kernel's walk over
 the rect tile plan (one S per listed (row tile, column tile) pair, both
 sides' partial sums in per-pair slots, each side reduced in its own list
 order through its permutation) held against the JAX reference's VJP, and
-faulty twins of it that must fail; the CPU wrapper takes the plain
-version, ignores ``plan=`` and launches nothing."""
+faulty twins of it that must fail; numpy mirrors of the forward kernel's
+walk (each row tile over its column list) and of the feats-gradient
+kernel's walk (each column tile over its row list, in chunks of 4 row
+atoms) on the same plan, held against the JAX reference's forward and
+its VJP in feats, and faulty twins of them that must fail; the CPU
+wrapper takes the plain version, ignores ``plan=`` and launches
+nothing."""
 
 import numpy as np
 import jax
@@ -311,3 +316,214 @@ def test_kernel_row_and_column_gradient_formulas(div_d, off, Pr):
                                     mask, feats, g, rc, R, div_d)
     _close(dxr, dcr.numpy())
     _close(dxc, dcc.numpy())
+
+
+def _adjacency(xa, ma, ga, xb, mb, gb, rc, R, div_d):
+    """A [a, b, R+1] between two sets of atoms (coordinates, masks, global
+    indices) as the kernels build a tile of it (csrc/radial_contract.cu:
+    pair_geo, a_column): pairs inside the cutoff, both atoms real, global
+    indices apart; sin((r+1) t) by the coupled rotation recurrence."""
+    diff = xa[:, None, :] - xb[None, :, :]
+    d = np.sqrt(np.maximum((diff ** 2).sum(-1), 1e-12))
+    within = ((d <= rc) & (ga[:, None] != gb[None, :]) & (ma[:, None] > 0)
+              & (mb[None, :] > 0))
+    d = np.where(within, d, 1.0)
+    s1, c1 = np.sin(np.pi / rc * d), np.cos(np.pi / rc * d)
+    env = np.where(within, 0.5 * (c1 + 1.0), 0.0)
+    scale = env / d * np.sqrt(2.0 / rc)
+    ench = env
+    if div_d:
+        scale, ench = scale / d, ench / d
+    A = np.empty(d.shape + (R + 1,))
+    s, c = s1, c1
+    for r in range(R):
+        A[..., r] = s * scale
+        s, c = s * c1 + c * s1, c * c1 - s * s1
+    A[..., R] = ench
+    return A
+
+
+def _plan_sides(xr, mr, off, xc, mc, rc, fault):
+    """The rect plan of (rows, columns) and each side padded to whole
+    tiles in plan order: (plan, rows (x, mask, global index, perm),
+    columns (the same)). ``fault == "plan_positions"`` gives plan
+    positions in place of global indices."""
+    plan = rect_tile_plan(torch.tensor(xr), torch.tensor(mr), off,
+                          torch.tensor(xc), torch.tensor(mc), rc)
+    sides = []
+    for x, m, perm, base, empty in ((xr, mr, plan.perm_r, off, -1),
+                                    (xc, mc, plan.perm_c, 0, -2)):
+        perm = perm.numpy().astype(np.int64)
+        T = -(-len(perm) // TILE)
+        xs, ms = np.zeros((T * TILE, 3)), np.zeros(T * TILE)
+        xs[:len(perm)], ms[:len(perm)] = x[perm], m[perm]
+        gid = np.full(T * TILE, empty)
+        gid[:len(perm)] = base + perm
+        if fault == "plan_positions":
+            gid = np.arange(T * TILE)
+        sides.append((xs, ms, gid, perm))
+    return plan, sides[0], sides[1]
+
+
+def _rect_fwd_mirror(xr, mr, off, xc, mc, feats, rc, R, div_d, fault=None):
+    """csrc/radial_contract.cu: fwd_tc / fwd_fma with RECT in numpy, on the
+    rect tile plan: each row tile walks its column list (row_ptr, cols) in
+    list order, builds the [rows, 32, R+1] adjacency tile of each listed
+    column tile from the plan's coordinates (self-pairs by global index,
+    off + perm_r against perm_c) and contracts it with the tile's feats
+    rows, read through perm_c; the rows go out through perm_r, and a row
+    tile that lists nothing writes zeros. ``fault``: "plan_positions"
+    tests self-pairs by plan position."""
+    plan, (xrs, mrs, gr, perm_r), (xcs, mcs, gc, perm_c) = _plan_sides(
+        xr, mr, off, xc, mc, rc, fault)
+    fs = np.zeros((len(xcs), feats.shape[1]))
+    fs[:len(perm_c)] = feats[perm_c]
+    row_ptr, cols = plan.row_ptr.numpy(), plan.cols.numpy()
+    acc = np.zeros((len(xrs), R + 1, feats.shape[1]))
+    for I in range(len(row_ptr) - 1):
+        a = slice(I * TILE, (I + 1) * TILE)
+        for J in cols[row_ptr[I]:row_ptr[I + 1]]:
+            b = slice(J * TILE, (J + 1) * TILE)
+            A = _adjacency(xrs[a], mrs[a], gr[a], xcs[b], mcs[b], gc[b], rc,
+                           R, div_d)
+            acc[a] += np.einsum("ijr,jf->irf", A, fs[b])
+    out = np.full((len(perm_r), R + 1, feats.shape[1]), np.nan)
+    out[perm_r] = acc[:len(perm_r)]
+    return out
+
+
+def _rect_feats_mirror(xr, mr, off, xc, mc, g, rc, R, div_d, fault=None):
+    """csrc/radial_contract.cu: feats_plan with RECT in numpy, on the rect
+    tile plan: each column tile walks its row list (col_ptr, rows) in list
+    order, in chunks of 4 row atoms, k = (i, r) contiguous as g's rows lie
+    (read through perm_r): dfeats[j] += sum_k A[j][k] g[k]; the columns go
+    out through perm_c into an output filled with NaN first, every column
+    tile writing its rows (zeros when its list is empty). ``fault``:
+    "plan_positions" tests self-pairs by plan position; "row_lists" walks
+    the forward's row lists (row_ptr, cols) as if they were the column
+    tile's; "empty_unwritten" leaves a column tile with an empty list
+    unwritten."""
+    plan, (xrs, mrs, gr, perm_r), (xcs, mcs, gc, perm_c) = _plan_sides(
+        xr, mr, off, xc, mc, rc, fault)
+    F = g.shape[2]
+    gs = np.zeros((len(xrs), R + 1, F))
+    gs[:len(perm_r)] = g[perm_r]
+    Tr, Tc = len(xrs) // TILE, len(xcs) // TILE
+    if fault == "row_lists":
+        ptr, lst = plan.row_ptr.numpy(), plan.cols.numpy()
+        ptr = np.concatenate([ptr, np.full(Tc - Tr, ptr[-1])]) \
+            if Tc > Tr else ptr
+    else:
+        ptr, lst = plan.col_ptr.numpy(), plan.rows.numpy()
+    out = np.full((len(perm_c), F), np.nan)
+    acc = np.zeros((len(xcs), F))
+    for J in range(Tc):
+        b = slice(J * TILE, (J + 1) * TILE)
+        listed = [I for I in lst[ptr[J]:ptr[J + 1]] if I < Tr]
+        if not listed and fault == "empty_unwritten":
+            continue
+        for I in listed:
+            for i0 in range(I * TILE, (I + 1) * TILE, 4):
+                a = slice(i0, i0 + 4)
+                A = _adjacency(xcs[b], mcs[b], gc[b], xrs[a], mrs[a], gr[a],
+                               rc, R, div_d)                # [32, 4, R+1]
+                acc[b] += A.reshape(TILE, -1) @ gs[a].reshape(-1, F)
+        cols = perm_c[J * TILE:(J + 1) * TILE]
+        out[cols] = acc[J * TILE:J * TILE + len(cols)]
+    return out
+
+
+def _system(kind, P, rng):
+    """"spread": uniform in a 30 A box; "blobs": two clusters 14 A apart,
+    the first half of the atoms in one (a row block of it leaves whole
+    column tiles out of reach: their lists are empty); "masked": spread
+    with 45% masked atoms (whole row tiles of them, which list nothing).
+    Masked atoms sit at the origin."""
+    if kind == "blobs":
+        x = rng.normal(scale=2.5, size=(P, 3))
+        x[P // 2:, 0] += 14.0
+    else:
+        x = rng.uniform(0.0, 30.0, (P, 3))
+    mask = (rng.uniform(size=P) > (0.45 if kind == "masked" else 0.15)) \
+        .astype(np.float64)
+    x[mask == 0] = 0.0
+    return x, mask
+
+
+def _jax_fwd_dfeats(coords, mask, off, Pr, feats, g, rc, R, div_d):
+    rows = slice(off, off + Pr)
+    T, vjp = jax.vjp(
+        lambda f: radial_contract_rect_reference(
+            jnp.asarray(coords[rows]), jnp.asarray(mask[rows]), off,
+            jnp.asarray(coords), jnp.asarray(mask), f, rc, R, div_d),
+        jnp.asarray(feats))
+    return T, vjp(jnp.asarray(g))[0]
+
+
+@pytest.mark.parametrize("div_d", [False, True])
+@pytest.mark.parametrize("system,off,Pr", [
+    ("spread", 0, 75), ("spread", 100, 75), ("spread", 260, 40),
+    ("blobs", 0, 150), ("blobs", 200, 100), ("masked", 0, 96),
+    ("masked", 130, 96), ("masked", 204, 96)])
+def test_rect_plan_forward_and_feats_mirrors_match_jax(div_d, system, off,
+                                                       Pr):
+    """The forward kernel's walk (row tiles over their column lists) and
+    the feats-gradient kernel's walk (column tiles over their row lists,
+    chunks of 4 row atoms), mirrored in numpy on the rect tile plan,
+    against the JAX reference's forward and its VJP in feats in f64: the
+    first, a middle and the last row block, ragged blocks and tiles,
+    masked atoms (their forward rows exactly 0), column tiles with empty
+    lists (blobs) and row tiles with empty lists (masked)."""
+    rng = np.random.default_rng(21 + off + div_d)
+    P, F, R, rc = 300, 6, 5, 4.0
+    coords, mask = _system(system, P, rng)
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(Pr, R + 1, F))
+    rows = slice(off, off + Pr)
+    plan = rect_tile_plan(torch.tensor(coords[rows]),
+                          torch.tensor(mask[rows]), off,
+                          torch.tensor(coords), torch.tensor(mask), rc)
+    empty_cols = int((np.diff(plan.col_ptr.numpy()) == 0).sum())
+    empty_rows = int((np.diff(plan.row_ptr.numpy()) == 0).sum())
+    if system == "blobs":
+        assert empty_cols > 0
+    if system == "masked":
+        assert empty_rows > 0
+    T_j, df_j = _jax_fwd_dfeats(coords, mask, off, Pr, feats, g, rc, R,
+                                div_d)
+    args = (coords[rows], mask[rows], off, coords, mask)
+    T_m = _rect_fwd_mirror(*args, feats, rc, R, div_d)
+    df_m = _rect_feats_mirror(*args, g, rc, R, div_d)
+    _close(T_m, T_j)
+    _close(df_m, df_j)
+    assert np.all(T_m[mask[rows] == 0] == 0.0)
+
+
+@pytest.mark.parametrize("fault", ["plan_positions", "row_lists",
+                                   "empty_unwritten"])
+def test_rect_plan_forward_and_feats_faulty_twins_fail(fault):
+    """The same check catches a forward or feats kernel that tests
+    self-pairs by plan position, a feats kernel that walks the row lists
+    in place of its column tile's, and one that leaves a column tile with
+    an empty list unwritten (its output was filled with NaN)."""
+    rng = np.random.default_rng(30)
+    P, F, R, rc, off, Pr = 300, 6, 5, 4.0, 40, 110
+    coords, mask = _system("blobs", P, rng)
+    feats = rng.normal(size=(P, F))
+    g = rng.normal(size=(Pr, R + 1, F))
+    rows = slice(off, off + Pr)
+    T_j, df_j = _jax_fwd_dfeats(coords, mask, off, Pr, feats, g, rc, R,
+                                False)
+    args = (coords[rows], mask[rows], off, coords, mask)
+
+    def both(fault):
+        return (_rect_fwd_mirror(*args, feats, rc, R, False,
+                                 fault if fault == "plan_positions"
+                                 else None),
+                _rect_feats_mirror(*args, g, rc, R, False, fault))
+
+    for a, b in zip(both(None), (T_j, df_j)):
+        _close(a, b)
+    with pytest.raises(AssertionError):
+        for a, b in zip(both(fault), (T_j, df_j)):
+            _close(a, b)

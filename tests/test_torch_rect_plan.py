@@ -133,10 +133,10 @@ def test_complete_smoke_cluster(shuffled, off):
     plan, ij = _check(x[off:off + 1024], m[off:off + 1024], off, x, m, 6.0)
     s = plan.stats(25, 1024)
     assert (s["row_tiles"], s["col_tiles"]) == (32, 128)
-    # lattice order: about a sixth of the tile pairs (the sharded slice's
-    # coordinate kernel computes ~37.6 GFLOP a launch); shuffled: more
+    # lattice order: about a sixth of the tile pairs (each of the sharded
+    # slice's K6 kernels computes ~37.6 GFLOP a launch); shuffled: more
     assert s["share"] <= (0.35 if shuffled else 0.2), s
-    assert s["coords_flop"] == 2 * 32 * 32 * 25 * 1024 * s["listed"]
+    assert s["flop"] == 2 * 32 * 32 * 25 * 1024 * s["listed"]
 
 
 def test_complete_two_blobs_leave_empty_tiles():
