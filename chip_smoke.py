@@ -81,7 +81,19 @@ Phases (any failure exits non-zero):
    run_opt with the same force calls on every rank; then, in the same
    group, the factory default make_uma_calculator(st, spatial=4)
    (uma-s-1p1, switched to the sharded gather layout) on the 300-atom
-   cluster against the unsharded gather mode.
+   cluster against the unsharded gather mode;
+12. the GSM string on phase 4's escn-md calculator, after phase 5: the
+   flagship MEP (gsm_mep through au_energy_force_batch_fn, max_nodes=10,
+   host loop, climb off, perpendicular RMS < 2e-2 Ha/Bohr; a warm-up,
+   then the measured run with its counts set to 0 just before and read
+   just after: (cycles + 1) x 12 force calls, counted once on the
+   calculator, K1 and K2 launched exactly 4 x force calls, endpoints
+   unchanged, energies finite); the climbing image on Lanczos tangents
+   (every HVP counted and timed, none may launch a kernel); the analytic
+   Hessian at 64 atoms with phase 5's weights (atoms 0 and 1 frozen) on
+   the card, six columns against the CPU in float64 and float32, and the
+   FD Hessian through the kernels; then the path-opt CLI as a subprocess
+   on the card.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -564,7 +576,7 @@ def escn_counts():
 def phase_force(calc, reps):
     """ms per force call over ``reps`` synchronised calls after one
     warm-up, peak memory, and a further call that must repeat the forces
-    bit for bit. Returns the forces."""
+    bit for bit. Returns (the forces, ms per call)."""
     import torch
     cb = calc.structure.coords_bohr.reshape(-1)
     layout = calc.cfg.edge_kernel
@@ -592,12 +604,13 @@ def phase_force(calc, reps):
         f"{same}; launches after {calc.force_calls} calls: {escn_counts()}")
     if not same:
         fail(f"{layout}: two force calls gave different forces")
-    return f
+    return f, ms
 
 
 def phase_reference(seed):
     """Card forces of each edge-kernel layout against the plain path on
-    the CPU in float64, same weights."""
+    the CPU in float64, same weights. Returns (the 64-atom structure, its
+    weights, the CPU float64 calculator) for phase 12."""
     import torch
     from pdb2reaction_tpu_torch.core.structure import Structure
     from pdb2reaction_tpu_torch.mlip.escn import (EDGE_KERNELS, ESCN_CONFIGS,
@@ -625,6 +638,7 @@ def phase_reference(seed):
         if not err <= FORCE_TOL:
             fail(f"{layout} card forces disagree with the CPU float64 plain "
                  "path")
+    return st, w, cpu
 
 
 def phase_opt(calc, cycles):
@@ -664,7 +678,7 @@ def phase_layout(st, layout, ref_forces, reps, cycles):
     calc = make_uma_calculator(st, model="escn-md", device="cuda", seed=0,
                                pad_multiple=64, edge_kernel=layout)
     zero_escn_counts()
-    f = phase_force(calc, reps)
+    f, _ = phase_force(calc, reps)
     if cycles:
         phase_opt(calc, cycles)
     launches = escn_counts()                 # read just after the path
@@ -682,6 +696,294 @@ def phase_layout(st, layout, ref_forces, reps, cycles):
     del calc
     torch.cuda.empty_cache()
     return {k: launches[k] for k in need[:2]}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the GSM string, HVPs and Hessians on the escn-md calculator
+# ---------------------------------------------------------------------------
+
+GSM_CONV = 2.0e-2   # perpendicular-force RMS criterion, Hartree/Bohr: the
+                    # criterion the JAX package's bench calibrated for
+                    # untrained weights (trained weights: 1e-3)
+HESS_TOL = 1e-3     # max|dH| / max|H_cpu64| on the checked columns: the
+#                     outer limit; the check holds the card to twice CPU
+#                     float32's own error, with a floor of HESS_FLOOR
+HESS_FLOOR = 1e-5
+MAIN_PATH = ("fused_edge_mega_fwd", "fused_edge_mega_bwd",
+             "fused_node_ffn_fwd", "fused_node_ffn_bwd")
+
+
+def all_counts():
+    """Every kernel wrapper's launch count."""
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    return {**escn_counts(), **rcm.launches, **rcm.rect_launches}
+
+
+def moved_counts(before):
+    return {k: v - before[k] for k, v in all_counts().items()
+            if v != before[k]}
+
+
+def endpoint_b(xyz, free, seed=1, scale=0.08):
+    """The flagship's second endpoint: A plus a seeded normal displacement
+    of ``scale`` Angstrom on the free atoms (float32, as the JAX
+    package's bench draws it)."""
+    rng = np.random.default_rng(seed)
+    disp = rng.normal(scale=scale, size=xyz.shape).astype(np.float32)
+    return xyz + disp * free[:, None]
+
+
+def gsm_flagship(calc, xA, xB, ms_force):
+    """The flagship MEP through the calculator's batched closure: one
+    warm-up, then the measured run with its counts set to 0 just before
+    and read just after. Returns the measured run's GsmResult."""
+    import torch
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    fm = calc.system.free_mask
+    eb = calc.au_energy_force_batch_fn()
+    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False)
+    t0 = time.perf_counter()
+    gsm_mep(eb, xA, xB, fm, max_cycles=8, stop_in_when_full=2, **kw)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    trace = []
+    zero_escn_counts()
+    before = all_counts()
+    n0 = calc.force_calls
+    t0 = time.perf_counter()
+    res = gsm_mep(eb, xA, xB, fm, max_cycles=60, stop_in_when_full=60,
+                  on_cycle=lambda c, r: trace.append(r), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = moved_counts(before)
+    M = 12
+    fc = res.force_calls
+    log(f"[gsm] flagship escn-md pallas-mega, {calc.n_atoms} atoms "
+        f"(P={calc.n_pad}), host loop, max_nodes=10, climb off, criterion "
+        f"perp RMS < {GSM_CONV} Ha/Bohr: {wall:.2f} s wall, {res.cycles} "
+        f"cycles, {fc} force calls, converged {res.converged}, final perp "
+        f"RMS {res.perp_rms:.4e} Ha/Bohr; {wall / fc * 1e3:.2f} ms per force "
+        f"call inside the MEP (phase 4: {ms_force:.2f} ms per get_forces); "
+        f"warm-up (8 cycles) {warm:.2f} s; launches {moved}")
+    log(f"[gsm] perp RMS by relaxation cycle: "
+        f"{[float(f'{r:.4e}') for r in trace]}")
+    if fc != (res.cycles + 1) * M:
+        fail(f"GSM force calls {fc} != (cycles + 1) x {M}")
+    if calc.force_calls - n0 != fc:
+        fail(f"the calculator counted {calc.force_calls - n0} force calls "
+             f"for the string's {fc}")
+    want = {k: 4 * fc for k in MAIN_PATH}
+    if moved != want:
+        fail(f"GSM launches {moved}, expected {want} (4 layers a call)")
+    ends = (res.images[0], res.images[-1])
+    if not (np.array_equal(ends[0], xA.cpu().numpy())
+            and np.array_equal(ends[1], xB.cpu().numpy())):
+        fail("the GSM endpoints moved")
+    if not np.all(np.isfinite(res.energies)) \
+            or not np.all(np.isfinite(res.images)):
+        fail("the GSM string has non-finite energies or images")
+    return res
+
+
+def gsm_climb(calc, xA, xB):
+    """The same string with the climbing image on Lanczos tangents; every
+    HVP counted and timed, and checked to launch no kernel."""
+    import torch
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    hvp = calc.au_hvp_fn()
+    st = {"n": 0, "s": 0.0, "moved": {}}
+
+    def counted(x, v):
+        before = all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hvp(x, v)
+        torch.cuda.synchronize()
+        st["s"] += time.perf_counter() - t0
+        st["n"] += 1
+        for k, d in moved_counts(before).items():
+            st["moved"][k] = st["moved"].get(k, 0) + d
+        return out
+
+    n0 = calc.force_calls
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = gsm_mep(calc.au_energy_force_batch_fn(), xA, xB,
+                  calc.system.free_mask, max_nodes=10, climb=True,
+                  climb_lanczos=True, climb_rms=GSM_CONV,
+                  conv_perp_rms=GSM_CONV, lanczos_iters=10, max_cycles=30,
+                  stop_in_when_full=30, hvp_fn=counted)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = st["n"]
+    log(f"[gsm] climbing image with Lanczos tangents: {wall:.2f} s wall, "
+        f"{res.cycles} cycles, {res.force_calls} force calls, converged "
+        f"{res.converged}, HEI {res.hei_idx}, final perp RMS "
+        f"{res.perp_rms:.4e}; {n} HVPs ({n // 10} Lanczos runs of 10), "
+        f"{st['s'] / max(n, 1) * 1e3:.1f} ms per HVP at {calc.n_atoms} atoms "
+        f"(the first of a run builds the graph), {st['s'] / max(n // 10, 1):.2f}"
+        f" s per Lanczos run; peak memory {peak:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held after the "
+        f"run; kernel launches inside HVPs: {st['moved']}")
+    if n < 10 or n % 10:
+        fail(f"the climbing image did not switch on with Lanczos tangents "
+             f"({n} HVPs)")
+    if st["moved"]:
+        fail(f"kernels launched inside HVPs: {st['moved']}")
+    if calc.force_calls - n0 != res.force_calls \
+            or res.force_calls != (res.cycles + 1) * 12:
+        fail("climbing GSM force-call accounting is off")
+
+
+def hessians_64(ref64):
+    """The analytic Hessian on the card (all-plain, 192 HVPs, one host copy)
+    against CPU float64 and float32 HVP columns, and the FD Hessian through
+    the kernels, at 64 atoms with atoms 0 and 1 frozen."""
+    import torch
+    from pdb2reaction_tpu_torch.constants import H_EVAA_2_AU
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    st, w, _ = ref64
+    frozen = [0, 1]
+    cb = st.coords_bohr.reshape(-1)
+    n3 = cb.size
+    gpu = make_uma_calculator(st, model="escn-md", device="cuda", params=w,
+                              freeze_atoms=frozen)
+    gpu.get_forces(cb)                        # warm-up of the force path
+    before = all_counts()
+    n0 = gpu.force_calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = gpu.get_hessian(cb)["hessian"]
+    torch.cuda.synchronize()
+    t_an = time.perf_counter() - t0
+    moved = moved_counts(before)
+    # get_hessian ends with one force call at the point: its launches and
+    # nothing else
+    if moved != {k: 4 for k in MAIN_PATH} or gpu.force_calls - n0 != 1:
+        fail(f"kernel launches during the analytic Hessian: {moved}")
+    fro = np.arange(6)
+    if H.shape != (n3, n3) or not np.array_equal(H, H.T) \
+            or np.any(H[fro] != 0) or np.any(H[:, fro] != 0) \
+            or not np.all(np.isfinite(H)):
+        fail("the card Hessian is not symmetric, finite and zero on the "
+             "frozen atoms")
+    cols = list(range(6, 12))                 # atoms 2 and 3
+
+    def columns(dtype):
+        c = make_uma_calculator(st, model="escn-md", device="cpu",
+                                dtype=dtype, params=w, freeze_atoms=frozen)
+        hvp, x = c.au_hvp_fn(), c.pad_bohr(cb)
+        out = []
+        for k in cols:
+            v = torch.zeros_like(x)
+            v.view(-1)[k] = 1.0
+            out.append(hvp(x, v).reshape(-1)[:n3].double().numpy())
+        return np.stack(out) * H_EVAA_2_AU
+
+    t0 = time.perf_counter()
+    H64 = columns(torch.float64)
+    t_cpu = time.perf_counter() - t0
+    H32 = columns(torch.float32)
+    scale = np.abs(H64).max()
+    err = float(np.abs(H[:, cols].T - H64).max() / scale)
+    err32 = float(np.abs(H32 - H64).max() / scale)
+    limit = min(HESS_TOL, max(2 * err32, HESS_FLOOR))
+    log(f"[hess] escn-md 64 atoms (atoms 0, 1 frozen), analytic Hessian on "
+        f"the card (all-plain f32, {n3} HVPs): {t_an:.2f} s; 6 "
+        f"columns (atoms 2, 3) against CPU float64: max|dH|/max|H| = "
+        f"{err:.3e} (CPU float32's own: {err32:.3e}; pass at <= "
+        f"{limit:.3e} = max(2x float32's, {HESS_FLOOR}), outer limit "
+        f"{HESS_TOL}); CPU float64 columns {t_cpu:.1f} s; launches "
+        f"during get_hessian: {moved} (its one force call)")
+    if not err <= limit:
+        fail("the card's analytic Hessian disagrees with CPU float64")
+    gpu.hessian_calc_mode = "FiniteDifference"
+    n_free = int(gpu.free_dof_mask.sum())
+    before = all_counts()
+    n0 = gpu.force_calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Hfd = gpu.get_hessian(cb)["hessian"]
+    torch.cuda.synchronize()
+    t_fd = time.perf_counter() - t0
+    moved = moved_counts(before)
+    calls = gpu.force_calls - n0
+    err_fd = float(np.abs(Hfd - H).max() / np.abs(H).max())
+    log(f"[hess] FD Hessian on the card through the kernels (eps 1e-3 A, "
+        f"f32 forces): {t_fd:.2f} s, {calls} force calls (2 x {n_free} "
+        f"displaced + 1 at the point), max|H_fd - H|/max|H| = {err_fd:.3e} "
+        f"(no bound); launches {moved}")
+    want = {k: 4 * (2 * n_free + 1) for k in MAIN_PATH}
+    if calls != 2 * n_free + 1 or moved != want:
+        fail(f"FD Hessian accounting: {calls} calls, launches {moved}, "
+             f"expected {want}")
+    # a second derivative through the kernels themselves must raise
+    c = gpu._to_pad_ang(cb).requires_grad_(True)
+    e = gpu.energy_fn(c, gpu.system, gpu.params)
+    try:
+        torch.autograd.grad(e, c, create_graph=True)
+        said = "no error"
+    except RuntimeError as ex:
+        said = str(ex)
+    log(f"[hess] create_graph backward through K1/K2 on the card: {said}")
+    if "double backward" not in said:
+        fail("a create_graph backward through the kernels did not raise")
+
+
+def path_opt_cli(st, xyzB):
+    """``python -m pdb2reaction_tpu_torch path-opt`` on the two endpoints
+    as a subprocess on the card."""
+    import shutil
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz_frames, write_xyz
+    out = os.path.join(HERE, "result_smoke", "path_opt")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    a, b = os.path.join(out, "A.xyz"), os.path.join(out, "B.xyz")
+    write_xyz(a, st)
+    write_xyz(b, st.copy(coords=xyzB))
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "path-opt",
+           "-i", a, "-i", b, "--model", "escn-md", "--max-nodes", "10",
+           "--max-cycles", "10", "--climb", "False", "-q", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    res = os.path.join(out, "result_path_opt")
+    trj = os.path.join(res, "final_geometries.trj")
+    n = len(read_xyz_frames(trj)) if os.path.exists(trj) else 0
+    tail = [ln for ln in r.stdout.splitlines() if ln.startswith("[path-opt]")]
+    log(f"[gsm] path-opt CLI (escn-md, 300 atoms, max_nodes=10, 10 cycles, "
+        f"climb off) as a subprocess: rc {r.returncode}, {wall:.1f} s with "
+        f"start-up, {n} frames in final_geometries.trj; {tail}")
+    if r.returncode not in (0, 3):
+        fail(f"path-opt exited {r.returncode}: {r.stderr[-3000:]}")
+    if n != 12 or not os.path.exists(os.path.join(res, "hei.xyz")):
+        fail("path-opt did not write a 12-frame final_geometries.trj and "
+             "hei.xyz")
+
+
+def phase_gsm(calc, ms_force, ref64):
+    """Phase 12: the GSM string on the escn-md calculator of phase 4, the
+    Hessians at 64 atoms with phase 5's weights, and path-opt."""
+    import torch
+    from pdb2reaction_tpu_torch.constants import ANG2BOHR
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    st = calc.structure
+    free = calc.system.free_mask[: calc.n_atoms].cpu().numpy()
+    xyzB = endpoint_b(st.coords, free)
+    xA = calc.pad_bohr(st.coords_bohr)
+    xB = calc.pad_bohr(xyzB * ANG2BOHR)
+    gsm_flagship(calc, xA, xB, ms_force)
+    gsm_climb(calc, xA, xB)
+    hessians_64(ref64)
+    path_opt_cli(st, xyzB)
+    log(f"[gsm] phase 12 wall {time.perf_counter() - t0:.1f} s; device "
+        f"memory held {held:.2f} GiB before, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after")
 
 
 # ---------------------------------------------------------------------------
@@ -1545,7 +1847,7 @@ def main():
         # ---- the escn main path: counts set to 0 just before, read just
         # after
         zero_escn_counts()
-        f_mega = phase_force(calc, reps=5)
+        f_mega, ms_force = phase_force(calc, reps=5)
         phase_opt(calc, cycles=10)
         main_path = ("fused_edge_mega_fwd", "fused_edge_mega_bwd",
                      "fused_node_ffn_fwd", "fused_node_ffn_bwd")
@@ -1558,7 +1860,9 @@ def main():
                                      cycles=5))
         launches.update(phase_layout(st, "pallas", f_mega, reps=5,
                                      cycles=0))
-        phase_reference(seed=0)
+        ref64 = phase_reference(seed=0)
+        # ---- the GSM path on the escn-md calculator: its own counts
+        phase_gsm(calc, ms_force, ref64)
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

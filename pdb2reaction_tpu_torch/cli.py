@@ -1,16 +1,20 @@
-"""Command-line interface of the port: the ``opt`` subcommand.
+"""Command-line interface of the port: the ``opt`` and ``path-opt``
+subcommands.
 
-Same flags as the JAX package's ``opt`` (``pdb2reaction_tpu/cli.py``) plus
+Same flags as the JAX package's (``pdb2reaction_tpu/cli.py``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Flags whose features are not ported yet are accepted and raise when used
 with a non-default value. The other subcommands are later port items.
 
     python -m pdb2reaction_tpu_torch opt -i x.xyz -q 0      # uma-s-1p1
+    python -m pdb2reaction_tpu_torch path-opt -i a.xyz -i b.xyz -q 0 \
+        --model escn-md                                     # GSM MEP
 
-``--spatial N`` shards the atom axis over N ranks, one process each,
+``opt --spatial N`` shards the atom axis over N ranks, one process each,
 launched by ``torchrun`` (WORLD_SIZE must equal N). Every rank runs the
 same L-BFGS loop on the same forces; rank 0 alone logs and writes
-``result_opt/``:
+``result_opt/``. ``path-opt`` refuses ``--spatial`` above 1 (its HVPs
+under sharding are a later port item):
 
     torchrun --nproc-per-node 4 -m pdb2reaction_tpu_torch opt -i x.xyz \
         -q 0 --spatial 4 --device cpu
@@ -51,18 +55,8 @@ def parse_freeze(spec: str) -> List[int]:
     return out
 
 
-def _opt_parser(sub):
-    p = sub.add_parser("opt", help="Single-structure geometry optimization.")
-    p.add_argument("-i", "--input", dest="input_path", required=True,
-                   type=Path)
-    p.add_argument("--opt-mode", default="light", help="light|lbfgs.")
-    p.add_argument("--coord-type", default="cart", choices=["cart", "dlc"])
-    p.add_argument("--thresh", default="gau")
-    p.add_argument("--max-cycles", type=int, default=10000)
-    p.add_argument("--dist-freeze", default="")
-    p.add_argument("--bias-k", type=float, default=10.0)
-    p.add_argument("--one-based", type=_bool, default=True)
-    p.add_argument("--dump-restart", type=int, default=0)
+def _common_options(p) -> None:
+    """The options every workflow subcommand of the JAX package takes."""
     p.add_argument("-q", "--charge", type=int, default=None)
     p.add_argument("-s", "--spin", type=int, default=None)
     p.add_argument("-m", "--mult", "--multiplicity", dest="multiplicity",
@@ -73,7 +67,8 @@ def _opt_parser(sub):
     p.add_argument("--ref-pdb", type=Path, default=None)
     p.add_argument("--dump", type=_bool, default=False)
     p.add_argument("--calc-mode", default="uma",
-                   choices=["uma", "morse", "lj"])
+                   choices=["uma", "morse", "lj"],
+                   help="uma (the MLIP) or an analytic test potential.")
     p.add_argument("--model", default="uma-s-1p1",
                    help="Model config name: PaiNN-class uma-s-1p1 "
                         "(default), uma-m-1p1, small, uma-s-1p1-bf16, or "
@@ -93,40 +88,101 @@ def _opt_parser(sub):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; hand-written kernels) or cpu "
                         "(plain PyTorch path).")
+
+
+def _opt_parser(sub):
+    p = sub.add_parser("opt", help="Single-structure geometry optimization.")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--opt-mode", default="light", help="light|lbfgs.")
+    p.add_argument("--coord-type", default="cart", choices=["cart", "dlc"])
+    p.add_argument("--thresh", default="gau")
+    p.add_argument("--max-cycles", type=int, default=10000)
+    p.add_argument("--dist-freeze", default="")
+    p.add_argument("--bias-k", type=float, default=10.0)
+    p.add_argument("--one-based", type=_bool, default=True)
+    p.add_argument("--dump-restart", type=int, default=0)
+    _common_options(p)
+    p.set_defaults(func=opt_cmd)
+    return p
+
+
+def _path_opt_parser(sub):
+    p = sub.add_parser("path-opt",
+                       help="Two-endpoint MEP search (GSM; DMF is not "
+                            "ported yet).")
+    p.add_argument("-i", "--input", dest="input_paths", action="append",
+                   required=True, type=Path,
+                   help="An endpoint; give it twice.")
+    p.add_argument("--mep-mode", default="gsm", choices=["gsm", "dmf"])
+    p.add_argument("--max-nodes", type=int, default=10)
+    p.add_argument("--max-cycles", type=int, default=300,
+                   help="String-optimizer cycle cap.")
+    p.add_argument("--opt-mode", default="light",
+                   help="Endpoint preoptimization mode: light|lbfgs "
+                        "(heavy|rfo is not ported yet).")
+    p.add_argument("--thresh", default=None,
+                   help="Convergence preset for the string optimizer and "
+                        "endpoint preopt.")
+    p.add_argument("--preopt", type=_bool, default=False,
+                   help="Preoptimize each endpoint before alignment + GSM.")
+    p.add_argument("--preopt-max-cycles", type=int, default=10000)
+    p.add_argument("--align", type=_bool, default=True)
+    p.add_argument("--climb", type=_bool, default=True,
+                   help="Enable the GSM climbing image.")
+    p.add_argument("--fix-ends", type=_bool, default=False,
+                   help="Keep endpoint images fixed during GSM.")
+    p.add_argument("--gsm-loop", default="auto",
+                   choices=["auto", "device", "host"],
+                   help="GSM loop: auto and host run the host loop; the "
+                        "device loop is not ported yet.")
+    _common_options(p)
+    p.set_defaults(func=path_opt_cmd)
     return p
 
 
 def _reject_unported(a) -> None:
     unported = {
-        "--dist-freeze": bool(a.dist_freeze),
-        "--dump-restart": a.dump_restart != 0,
+        "--dist-freeze": bool(getattr(a, "dist_freeze", "")),
+        "--dump-restart": getattr(a, "dump_restart", 0) != 0,
         "--ref-pdb": a.ref_pdb is not None,
         "--dump": a.dump,
         "--workers": a.workers != 1,
         "--ligand-charge": a.ligand_charge is not None,
         "--args-yaml": a.args_yaml is not None,
         "--profile": a.profile is not None,
+        "--gsm-loop device": getattr(a, "gsm_loop", "auto") == "device",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise SystemExit(f"{', '.join(bad)} {_LATER}")
 
 
-def opt_cmd(a) -> int:
-    from .parallel import init_spatial, shutdown
-    from .workflows.opt import run_opt
-    _reject_unported(a)
+def _charge_spin(a):
     spin = a.spin if a.spin is not None else a.multiplicity
     # an .xyz carries no charge: 0 unless -q is given
     charge = a.charge if a.charge is not None else 0
+    return charge, spin
+
+
+def _init_spatial(a, cmd: str) -> None:
+    from .parallel import init_spatial
     if a.spatial > 1:
         ws = int(os.environ.get("WORLD_SIZE", "1"))
         if ws != a.spatial:
             raise SystemExit(
                 f"--spatial {a.spatial} runs one process per shard: launch "
                 f"with `torchrun --nproc-per-node {a.spatial} -m "
-                f"pdb2reaction_tpu_torch opt ...` (WORLD_SIZE is {ws})")
+                f"pdb2reaction_tpu_torch {cmd} ...` (WORLD_SIZE is {ws})")
         init_spatial(device=a.device)
+
+
+def opt_cmd(a) -> int:
+    from .parallel import shutdown
+    from .workflows.opt import run_opt
+    _reject_unported(a)
+    charge, spin = _charge_spin(a)
+    _init_spatial(a, "opt")
     try:
         res = run_opt(
             a.input_path, charge=charge, spin=spin,
@@ -134,9 +190,34 @@ def opt_cmd(a) -> int:
             thresh=a.thresh, max_cycles=a.max_cycles,
             freeze_atoms=parse_freeze(a.freeze_atoms),
             calc_mode=a.calc_mode, model=a.model, device=a.device,
-            spatial=a.spatial, out_dir=a.out_dir or "./result_opt/")
+            spatial=a.spatial, hessian_calc_mode=a.hessian_calc_mode,
+            out_dir=a.out_dir or "./result_opt/")
     finally:
         shutdown()
+    return 0 if res["converged"] else 3
+
+
+def path_opt_cmd(a) -> int:
+    from .workflows.path_opt import run_path_opt
+    _reject_unported(a)
+    if len(a.input_paths) != 2:
+        raise SystemExit("path-opt takes exactly two endpoints: -i A -i B")
+    charge, spin = _charge_spin(a)
+    try:
+        res = run_path_opt(
+            list(a.input_paths), charge=charge, spin=spin,
+            freeze_atoms=parse_freeze(a.freeze_atoms),
+            auto_freeze_links=a.auto_freeze_links, mep_mode=a.mep_mode,
+            preopt=a.preopt, preopt_mode=a.opt_mode, thresh=a.thresh,
+            preopt_max_cycles=a.preopt_max_cycles, align=a.align,
+            calc_mode=a.calc_mode, model=a.model, device=a.device,
+            spatial=a.spatial, hessian_calc_mode=a.hessian_calc_mode,
+            out_dir=a.out_dir or "./result_path_opt/",
+            stopt_kw={"max_cycles": a.max_cycles},
+            gs_kw={"max_nodes": a.max_nodes, "climb": a.climb,
+                   "fix_ends": a.fix_ends})
+    except NotImplementedError as e:     # DMF, RFO, --spatial > 1
+        raise SystemExit(str(e))
     return 0 if res["converged"] else 3
 
 
@@ -146,5 +227,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         description="pdb2reaction_tpu_torch: the PyTorch/CUDA port.")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _opt_parser(sub)
+    _path_opt_parser(sub)
     a = parser.parse_args(argv)
-    sys.exit(opt_cmd(a))
+    sys.exit(a.func(a))

@@ -1,4 +1,4 @@
-"""XYZ reading (one or more frames) and writing.
+"""XYZ / multi-frame TRJ reading and writing.
 
 Coordinates in Angstrom; a written frame's comment line carries its
 energy in Hartree when one is given.
@@ -6,8 +6,9 @@ energy in Hartree when one is given.
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -43,6 +44,29 @@ def read_xyz(path) -> Structure:
     return read_xyz_frames(path)[0]
 
 
+def parse_energy_comment(comment: str) -> Optional[float]:
+    """Extract an energy (Hartree) from an XYZ comment line if present."""
+    if not comment:
+        return None
+    # bare float first token, or "E = x" / "energy: x" styles
+    for pat in (r"^\s*([-+]?\d+\.\d+(?:[eE][-+]?\d+)?)\s*$",
+                r"[Ee]nergy\s*[:=]?\s*([-+]?\d+\.?\d*(?:[eE][-+]?\d+)?)",
+                r"E\s*=\s*([-+]?\d+\.?\d*(?:[eE][-+]?\d+)?)"):
+        m = re.search(pat, comment)
+        if m:
+            try:
+                return float(m.group(1))
+            except ValueError:
+                continue
+    # fall back: first parseable float token
+    for tok in comment.split():
+        try:
+            return float(tok)
+        except ValueError:
+            continue
+    return None
+
+
 def format_xyz(struct: Structure, comment: Optional[str] = None) -> str:
     lines = [str(struct.n_atoms),
              comment if comment is not None else struct.comment]
@@ -57,3 +81,13 @@ def write_xyz(path, struct: Structure, comment: Optional[str] = None,
         comment = f"{energy:.12f}"
     Path(path).write_text(format_xyz(struct, comment))
 
+
+def write_trj(path, frames: Sequence[Structure],
+              energies: Optional[Sequence[float]] = None) -> None:
+    """Frames one after another; each comment line carries its energy
+    (Hartree) when ``energies`` is given."""
+    blocks = []
+    for k, st in enumerate(frames):
+        comment = f"{energies[k]:.12f}" if energies is not None else st.comment
+        blocks.append(format_xyz(st, comment))
+    Path(path).write_text("".join(blocks))

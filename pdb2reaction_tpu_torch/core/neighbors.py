@@ -14,6 +14,12 @@ from __future__ import annotations
 import torch
 
 
+def pairwise_distances(coords):
+    """[P, 3] -> [P, P] Euclidean distances (safe gradient at 0 via eps)."""
+    diff = coords[:, None, :] - coords[None, :, :]
+    return torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-24))
+
+
 def dense_neighbors_rows(coords, atom_mask, cutoff, max_neighbors: int,
                          i0: int, n_rows: int):
     """Neighbour indices/mask for the ``n_rows`` atoms starting at row

@@ -6,25 +6,41 @@ Same contract as ``pdb2reaction_tpu/mlip/calculator.py``:
 - ``get_forces(coords_bohr)``  -> {"energy", "forces"}: forces flat 3N in
   Hartree/Bohr, frozen atoms zeroed
 - ``get_forces_batch(coords [B, 3N])`` -> {"energy" [B], "forces" [B, 3N]}
+- ``get_hessian(coords_bohr)`` -> {..., "hessian"} [3N, 3N] Hartree/Bohr^2
+  (the free block alone with ``return_partial_hessian``), frozen rows and
+  columns zeroed
 
 The potential is ``energy_fn(coords_ang [P, 3], system, params) -> eV``
 over a padded system on the calculator's device; forces are autograd
 gradients. The device defaults to the card, as the JAX calculator runs
 on its accelerator: without one it raises, and the CPU runs only when
 the caller passes ``device="cpu"``. ``force_calls`` counts every force
-evaluation, batched images included. The analytic Hessian is not ported
-yet (``get_hessian`` raises).
+evaluation, batched images and finite-difference displacements included;
+the closures the engines call count their own evaluations.
+
+Second derivatives (the analytic Hessian, HVPs) differentiate
+``energy_fn_hessian`` when one is given, else ``energy_fn``. The CUDA
+kernels' autograd functions have no double backward (their backwards
+are ``cuda_build.first_order``: one taken with ``create_graph`` raises),
+and a calculator whose force path runs them is given an all-plain
+variant here (``mlip/uma.py``), as the JAX factory gives its Hessian
+closure the XLA variant.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
-from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU
+from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU, H_EVAA_2_AU
 from ..core.structure import Structure, pad_to
+
+_SENTINEL = object()
+_SPATIAL_TODO = ("under atom-axis sharding is not ported yet (ROADMAP.md "
+                 "queue 1 item 9: Hessian tangents over ranks)")
 
 
 def resolve_device(device) -> torch.device:
@@ -52,10 +68,15 @@ class Calculator:
         *,
         params: Any = None,
         freeze_atoms=None,
+        hessian_calc_mode: str = "Analytical",
+        return_partial_hessian: bool = False,
+        hessian_double: bool = True,
+        fd_step: float = 1.0e-3,
         pad_multiple: int = 8,
         device="cuda",
         dtype: torch.dtype = torch.float64,
         weights_source: str = "analytic",
+        energy_fn_hessian: Callable = None,
     ):
         if freeze_atoms is not None:
             structure = structure.copy()
@@ -67,7 +88,16 @@ class Calculator:
         self.n_atoms = structure.n_atoms
         self.n_pad = self.system.n_pad
         self.energy_fn = energy_fn
+        self.energy_fn_hessian = energy_fn_hessian
         self.params = params
+        if hessian_calc_mode == "auto":
+            hessian_calc_mode = "Analytical"
+        self.hessian_calc_mode = hessian_calc_mode or "FiniteDifference"
+        self.return_partial_hessian = return_partial_hessian
+        self.hessian_double = hessian_double
+        self.fd_step = float(fd_step)
+        # atom-axis shards of the potential (set by make_uma_calculator)
+        self.spatial = 1
         # dtype of the coordinates handed to the potential (the model may
         # compute in its own dtype); Hartree/Bohr results are float64
         self.dtype = dtype
@@ -82,6 +112,21 @@ class Calculator:
         out = np.zeros((self.n_pad, 3), dtype=np.float64)
         out[: self.n_atoms] = c
         return torch.as_tensor(out, dtype=self.dtype, device=self.device)
+
+    @property
+    def free_dof_mask(self) -> np.ndarray:
+        """[3N] bool over real atoms: movable DOFs."""
+        m = self.system.free_mask[: self.n_atoms].cpu().numpy() > 0
+        return np.repeat(m, 3)
+
+    def pack(self, params=_SENTINEL):
+        """(system, params) for the packed-signature closures."""
+        return (self.system,
+                self.params if params is _SENTINEL else params)
+
+    def _no_spatial(self, what: str) -> None:
+        if self.spatial > 1:
+            raise NotImplementedError(f"{what} {_SPATIAL_TODO}")
 
     def _eforce_ang(self, coords_ang: torch.Tensor):
         """(E eV, F eV/Angstrom [P, 3] with frozen and padding rows zero)."""
@@ -106,31 +151,196 @@ class Calculator:
         return {"energy": float(e_ev) * EV2AU, "forces": f.reshape(-1)}
 
     def get_forces_batch(self, coords_bohr_batch) -> Dict[str, Any]:
-        """B images, one after another: [B, 3N] or [B, N, 3] Bohr."""
+        """B images through ``au_energy_force_batch_fn``: [B, 3N] or
+        [B, N, 3] Bohr."""
         cb = np.asarray(coords_bohr_batch, dtype=np.float64)
-        cb = cb.reshape(cb.shape[0], -1)
-        es, fs = [], []
-        for c in cb:
-            r = self.get_forces(c)
-            es.append(r["energy"])
-            fs.append(r["forces"])
-        return {"energy": np.asarray(es), "forces": np.stack(fs)}
+        B = cb.shape[0]
+        x = np.zeros((B, self.n_pad, 3), dtype=np.float64)
+        x[:, : self.n_atoms] = cb.reshape(B, -1, 3)
+        e, f = self.au_energy_force_batch_fn()(
+            torch.as_tensor(x, device=self.device))
+        f = f[:, : self.n_atoms].reshape(B, -1)
+        return {"energy": e.cpu().numpy(), "forces": f.cpu().numpy()}
 
     def get_hessian(self, coords_bohr) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "the analytic Hessian (double backward through the plain path) "
-            "is the next port item: see ROADMAP.md")
+        self._no_spatial("The Hessian")
+        mode = self.hessian_calc_mode
+        if not mode or mode not in ("Analytical", "FiniteDifference"):
+            mode = "FiniteDifference"
+        if mode == "Analytical":
+            H_au = self._analytic_hessian(coords_bohr)
+        else:
+            H_au = self._fd_hessian(coords_bohr)
+        res = self.get_forces(coords_bohr)
+        free = self.free_dof_mask
+        if self.return_partial_hessian:
+            H_au = H_au[np.ix_(free, free)]
+        else:
+            Hm = np.zeros_like(H_au)
+            Hm[np.ix_(free, free)] = H_au[np.ix_(free, free)]
+            H_au = Hm
+        dtype = np.float64 if self.hessian_double else np.float32
+        res["hessian"] = H_au.astype(dtype)
+        return res
 
-    # -- padded Bohr conveniences used by engines -------------------------------
+    # -- second derivatives ------------------------------------------------------
+    # Reverse over reverse: one forward and one create_graph backward give
+    # the gradient g(c) with its graph, and each H v is one more backward,
+    # the VJP of g with v (H is symmetric). Chosen over forward over
+    # reverse (torch.func.jvp of torch.func.grad) because every op of the
+    # plain paths has a double backward in autograd, while forward mode
+    # needs functorch-compatible code (the models' constant caches and the
+    # detached neighbour search), and because one graph then serves every
+    # tangent at one point: a Hessian builds it once, a Lanczos run once
+    # per point.
+    def _grad_graph(self, coords_ang, system, params):
+        """(c, g = dE/dc with its graph) at coords_ang [P, 3] (Angstrom)
+        through the Hessian closure."""
+        fn = self.energy_fn_hessian or self.energy_fn
+        c = coords_ang.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = fn(c, system, params)
+            (g,) = torch.autograd.grad(e, c, create_graph=True)
+        return c, g
+
+    @staticmethod
+    def _vjp(c, g, v):
+        """H v [P, 3] (eV/Angstrom^2 per unit tangent) on a graph of
+        ``_grad_graph``; zero when g does not depend on c."""
+        if not g.requires_grad:
+            return torch.zeros_like(c)
+        (hv,) = torch.autograd.grad(g, c, grad_outputs=v.to(g.dtype),
+                                    retain_graph=True, allow_unused=True)
+        return torch.zeros_like(c) if hv is None else hv
+
+    def _analytic_hessian(self, coords_bohr) -> np.ndarray:
+        """H e_k for the unit tangent of every real-atom DOF on one graph,
+        the rows gathered on the device and copied to the host once;
+        symmetrised as 0.5 (H + H^T)."""
+        c, g = self._grad_graph(self._to_pad_ang(coords_bohr), self.system,
+                                self.params)
+        n3 = self.n_atoms * 3
+        rows = []
+        v = torch.zeros_like(c)
+        flat = v.view(-1)
+        for k in range(n3):
+            flat.zero_()
+            flat[k] = 1.0
+            rows.append(self._vjp(c, g, v).reshape(-1)[:n3])
+        H = torch.stack(rows).double().cpu().numpy()
+        H = 0.5 * (H + H.T)
+        return H * H_EVAA_2_AU
+
+    def _fd_hessian(self, coords_bohr) -> np.ndarray:
+        """Central differences over the free DOFs (eps = ``fd_step``
+        Angstrom) through the force path, 2 n_free force calls, the
+        forces gathered on the device and copied to the host once."""
+        c0 = self._to_pad_ang(coords_bohr)
+        eps = self.fd_step
+        free = self.free_dof_mask
+        n3 = self.n_atoms * 3
+        dof_ids = np.nonzero(free)[0]
+        B = dof_ids.size
+        out = []
+        for j in range(2 * B):
+            c = c0.clone()
+            c.view(-1)[int(dof_ids[j % B])] += eps if j < B else -eps
+            c.requires_grad_(True)
+            e = self.energy_fn(c, self.system, self.params)
+            (gr,) = torch.autograd.grad(e, c)
+            out.append(-gr.reshape(-1)[:n3])
+        self.force_calls += 2 * B
+        f = torch.stack(out).double().cpu().numpy()
+        fp, fm = f[:B], f[B:]
+        H = np.zeros((n3, n3), dtype=np.float64)
+        # column k = -(F(x + e_k) - F(x - e_k)) / (2 eps)   [eV/Ang^2]
+        H[:, dof_ids] = (-(fp - fm) / (2.0 * eps)).T
+        H = 0.5 * (H + H.T)
+        return H * H_EVAA_2_AU
+
+    # -- padded Bohr closures used by engines -------------------------------------
+    def _au_eforce(self, coords_bohr_pad):
+        """(E Hartree 0-d float64 tensor, F Hartree/Bohr [P, 3] float64)."""
+        c = coords_bohr_pad.to(self.dtype) * BOHR2ANG
+        e_ev, f = self._eforce_ang(c)
+        return e_ev.double() * EV2AU, f.double() * F_EVAA_2_AU
+
     def au_energy_force_fn(self):
         """coords_bohr_pad [P, 3] tensor -> (E Hartree float, F Hartree/Bohr
         [P, 3] float64 tensor, frozen and padding rows zero). Every call
         counts as a force call."""
         def fn(coords_bohr_pad):
-            c = coords_bohr_pad.to(self.dtype) * BOHR2ANG
-            e_ev, f = self._eforce_ang(c)
+            e, f = self._au_eforce(coords_bohr_pad)
             self.force_calls += 1
-            return float(e_ev) * EV2AU, f.double() * F_EVAA_2_AU
+            return float(e), f
+        return fn
+
+    def au_energy_force_batch_fn(self):
+        """[B, P, 3] Bohr tensor -> (E [B] Hartree, F [B, P, 3] Hartree/Bohr),
+        float64 tensors on the device, frozen and padding rows zero. The
+        images run one after another (the JAX calculator's lax.map with
+        one image a step) with no host sync between them; each counts as a
+        force call. One closure per (calculator, params)."""
+        cached = getattr(self, "_batch_closure", None)
+        if cached is not None and cached[0] is self.params:
+            return cached[1]
+
+        def fn(coords_batch):
+            es, fs = [], []
+            for c in coords_batch:
+                e, f = self._au_eforce(c)
+                es.append(e)
+                fs.append(f)
+            self.force_calls += len(es)
+            return torch.stack(es), torch.stack(fs)
+
+        self._batch_closure = (self.params, fn)
+        return fn
+
+    def au_hvp_fn_p(self):
+        """(coords_bohr_pad [P, 3], v_pad [P, 3], packed) -> H v [P, 3], the
+        JAX package's ``au_hvp_p``: the Hessian of the energy in
+        Angstrom (eV/Angstrom^2) times v, frozen and padding rows zeroed;
+        direction-exact in Bohr space too (the two differ by a positive
+        factor). ``packed = calc.pack()``. The last point's graph is kept:
+        repeated products at one coordinate tensor (a Lanczos run) share
+        one forward and first backward. The graph is dropped with that
+        tensor. Counts no force call."""
+        self._no_spatial("HVPs")
+        state = {}
+
+        def fn(coords_bohr_pad, v_pad, packed):
+            system, params = packed
+            hit = state.get("x")
+            if not (hit is not None and hit[0]() is coords_bohr_pad
+                    and hit[1] == coords_bohr_pad._version
+                    and hit[2] is system and hit[3] is params):
+                state.clear()
+                c = coords_bohr_pad.to(self.dtype) * BOHR2ANG
+                state["x"] = (weakref.ref(coords_bohr_pad),
+                              coords_bohr_pad._version, system, params)
+                state["graph"] = self._grad_graph(c, system, params)
+                weakref.finalize(coords_bohr_pad, state.clear)
+            c, g = state["graph"]
+            hv = self._vjp(c, g, v_pad.reshape(c.shape).to(c.dtype))
+            return (hv * system.free_mask[:, None].to(hv.dtype)).detach()
+
+        return fn
+
+    def au_hvp_fn(self):
+        """Bound HVP closure (coords_pad, v_pad) -> H v, one per
+        (calculator, params)."""
+        self._no_spatial("HVPs")
+        cached = getattr(self, "_hvp_closure", None)
+        if cached is not None and cached[0] is self.params:
+            return cached[1]
+        hvp_p = self.au_hvp_fn_p()
+        packed = self.pack()
+
+        def fn(coords_pad, v_pad):
+            return hvp_p(coords_pad, v_pad, packed)
+
+        self._hvp_closure = (self.params, fn)
         return fn
 
     def pad_bohr(self, coords_bohr) -> torch.Tensor:

@@ -12,6 +12,7 @@ Nothing is built when a module is imported: the CPU paths never need
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -28,6 +31,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, dict] = {}     # name -> {"seconds", "ptxas"}
+
+
+def first_order(backward):
+    """Marks a kernel autograd Function's ``backward``: the kernels have
+    no double backward, so a backward taken with ``create_graph=True``
+    (a Hessian, an HVP) raises here rather than give a second derivative
+    without the kernel's own terms. ``once_differentiable`` alone would
+    raise only where a cotangent requires grad."""
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "a CUDA kernel's autograd function has no double backward: "
+                "differentiate twice through the all-plain variant "
+                '(edge_kernel="xla", plain radial contraction)')
+        return backward(ctx, *grads)
+    return wrapper
 
 
 def _nvcc() -> str:

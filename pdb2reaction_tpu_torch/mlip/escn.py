@@ -23,6 +23,13 @@ one contraction. Each node FFN is one call of K2 (``fused_node_ffn``).
 Every kernel takes its CUDA version on CUDA tensors and its plain
 PyTorch version on CPU tensors. Forces are autograd gradients of the
 energy.
+
+"xla" is the all-plain variant, the JAX package's name for it: the
+"pallas-mega" layout through the plain K1 (``fused_edge_mega_plain``,
+which gathers with plain ``x[src]``) and the plain node FFN
+(``ffn_plain``) on any device. Nothing there launches a kernel, so the
+path is twice differentiable: the Hessian closures of ``mlip/uma.py``
+run it.
 """
 
 from __future__ import annotations
@@ -37,13 +44,16 @@ import torch
 from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
 from .escn_edge_kernel import (fused_edge_block, fused_edge_chain,
-                               fused_edge_mega, gather_src, pack_d, _rot_nz)
-from .escn_ffn_kernel import fused_node_ffn
+                               fused_edge_mega, fused_edge_mega_plain,
+                               gather_src, pack_d, _rot_nz)
+from .escn_ffn_kernel import ffn_plain, fused_node_ffn
 from .so3 import (_const, edge_rot_mat, num_coeffs, s2_grid_tables,
                   s2_grid_tables_midpoint, wigner_full)
 
 _TODO = "see ROADMAP.md queue 1 item 10 (eSCN full and gate branches)"
 EDGE_KERNELS = ("pallas-mega", "pallas-full", "pallas")
+# every edge layout the port runs: the kernel layouts and the all-plain one
+EDGE_LAYOUTS = EDGE_KERNELS + ("xla",)
 
 
 @dataclass(frozen=True)
@@ -70,7 +80,7 @@ class ESCNConfig:
     remat_blocks: bool = False
     edge_act: str = "s2"            # "s2" (ported) or "gate" (not yet)
     edge_grid_scale: int = 1
-    edge_kernel: str = "pallas-mega"    # one of EDGE_KERNELS
+    edge_kernel: str = "pallas-mega"    # one of EDGE_LAYOUTS
     dtype: Any = torch.float32
 
     @property
@@ -315,15 +325,10 @@ def _edge_grid_tables(lmax: int, mmax: int, scale: int = 1):
 
 
 def check_edge_kernel(cfg: ESCNConfig):
-    """Raise for an edge-kernel layout the port does not run."""
-    if cfg.edge_kernel == "xla":
-        raise NotImplementedError(
-            'edge_kernel="xla" (the all-plain variant the JAX package uses '
-            "for Hessians) comes with the Hessian port: see ROADMAP.md "
-            "queue 1 item 1")
-    if cfg.edge_kernel not in EDGE_KERNELS:
+    """Raise for an edge layout the port does not run."""
+    if cfg.edge_kernel not in EDGE_LAYOUTS:
         raise ValueError(f"edge_kernel={cfg.edge_kernel!r}: one of "
-                         f"{EDGE_KERNELS}")
+                         f"{EDGE_LAYOUTS}")
 
 
 def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
@@ -407,7 +412,7 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
 
 
 _EDGE_FN = {"pallas-mega": fused_edge_mega, "pallas-full": fused_edge_block,
-            "pallas": fused_edge_chain}
+            "pallas": fused_edge_chain, "xla": fused_edge_mega_plain}
 
 
 def _block_edge_args(s, blk, cfg: ESCNConfig, x):
@@ -417,7 +422,7 @@ def _block_edge_args(s, blk, cfg: ESCNConfig, x):
     E = P * K
     xn = _equi_rms_norm(x, blk["norm_1"], cfg)
     w = _pack_conv_weights(blk, s["alpha"], cfg)
-    if cfg.edge_kernel == "pallas-mega":
+    if cfg.edge_kernel in ("pallas-mega", "xla"):
         return (cfg, xn.permute(1, 2, 0).reshape(M * C, P), s["src"],
                 s["es_t"], s["Dp_t"], s["Dpe_t"], w, s["edge_tabs"])
     rows = xn.reshape(P, M * C)
@@ -442,7 +447,7 @@ def _edge_message(s, cfg: ESCNConfig, args):
     call (not yet divided by avg_degree)."""
     out = _EDGE_FN[cfg.edge_kernel](*args)
     P, K = s["env"].shape
-    if cfg.edge_kernel == "pallas-mega":
+    if cfg.edge_kernel in ("pallas-mega", "xla"):
         return out.reshape(-1, cfg.sphere_channels, P).permute(2, 0, 1)
     if cfg.edge_kernel == "pallas-full":
         return out.reshape(-1, cfg.sphere_channels, P, K).sum(-1) \
@@ -465,7 +470,10 @@ def _block(s, blk, cfg: ESCNConfig, x):
     mask = s["atom_mask"][:, None, None]
     msg = _edge_message(s, cfg, _block_edge_args(s, blk, cfg, x))
     x = (x + msg / cfg.avg_degree) * mask
-    return (x + fused_node_ffn(*_block_ffn_args(s, blk, cfg, x))) * mask
+    cfg_, xn2, weights, tables = _block_ffn_args(s, blk, cfg, x)
+    ffn = (ffn_plain(xn2, weights, tables) if cfg.edge_kernel == "xla"
+           else fused_node_ffn(cfg_, xn2, weights, tables))
+    return (x + ffn) * mask
 
 
 def first_layer_kernel_args(coords_ang, system, params, cfg: ESCNConfig):

@@ -26,8 +26,9 @@ hand-written kernels (``csrc/escn_edge.cu``) behind
 ``torch.autograd.Function`` with a kernel backward too. The kernels run
 f32 and raise on anything else, and they compute input cotangents only:
 they raise if a weight requires grad (weight gradients belong to the
-training port). ``gather_src`` is the callers' source gather on the
-K3/K4 paths, with a deterministic backward on CUDA.
+training port), and their backwards are first order only
+(``cuda_build.first_order``). ``gather_src`` is the callers' source
+gather on the K3/K4 paths, with a deterministic backward on CUDA.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .cuda_build import first_order
 from .so3 import _const
 
 # launches of the CUDA kernels, counted where each is launched
@@ -263,6 +265,7 @@ class _GatherFn(torch.autograd.Function):
         return x.index_select(0, src)
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         src, live = ctx.saved_tensors
@@ -329,6 +332,7 @@ class _MegaFn(torch.autograd.Function):
         return y.T
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
@@ -397,6 +401,7 @@ class _BlockFn(torch.autograd.Function):
         return y.T
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
@@ -452,6 +457,7 @@ class _ChainFn(torch.autograd.Function):
         return out.T
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg

@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from .cuda_build import first_order
+
 # launches of the CUDA kernels, counted where each is launched
 launches = {"fused_node_ffn_fwd": 0, "fused_node_ffn_bwd": 0}
 # the epilogues of the kernels' GEMM (enum Epi of csrc/tf32_gemm.cuh)
@@ -146,6 +148,7 @@ class _FfnFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         xc, *ops = ctx.saved_tensors

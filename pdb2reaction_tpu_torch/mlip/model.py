@@ -39,8 +39,9 @@ from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
-from .radial_contract import (radial_contract, radial_contract_rect,
-                              rect_tile_plan, tile_plan)
+from .radial_contract import (radial_contract, radial_contract_plain,
+                              radial_contract_rect, rect_tile_plan,
+                              tile_plan)
 
 
 @dataclass(frozen=True)
@@ -300,7 +301,7 @@ def energy_fn_dense(coords_ang, system, params, cfg) -> torch.Tensor:
 
 
 def energy_fn_pallas(coords_ang, system, params, cfg,
-                     shard=None) -> torch.Tensor:
+                     shard=None, plain=False) -> torch.Tensor:
     """Every radial contraction through K5 (``radial_contract``): on CUDA
     the adjacency is built tile by tile inside the kernels and never
     stored, on one tile plan that the call builds for all of its
@@ -309,7 +310,10 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     sum_j A u_k phi = x_ik (B phi) - B (x_k phi), B = A/d. With ``shard``
     this rank's rows contract against the all-gathered streams of every
     atom through K6 (``radial_contract_rect``), whose three kernels run on
-    one rect tile plan a call: O(P/n) memory a rank."""
+    one rect tile plan a call: O(P/n) memory a rank. ``plain`` runs K5's
+    plain version (``radial_contract_plain``) on any device instead:
+    twice differentiable, the Hessian closure's route (it stores the
+    [P, P, R+1] adjacency)."""
     dt = torch.float32
     P = coords_ang.shape[0]
     C = cfg.hidden
@@ -324,12 +328,19 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     # one rect plan of this rank's rows every K6 call (never cached across
     # calls: the optimizer moves the atoms)
     plan = None
-    if x_full.is_cuda:
+    if plain and shard is not None:
+        raise NotImplementedError(
+            "the plain pallas mode under atom-axis sharding: Hessians "
+            "under sharding are ROADMAP.md queue 1 item 9")
+    if x_full.is_cuda and not plain:
         plan = (tile_plan(x_full, mask_full, cfg.cutoff) if shard is None
                 else rect_tile_plan(x, atom_mask, i0, x_full, mask_full,
                                     cfg.cutoff))
 
     def contract(feats, div_d=False):
+        if plain:
+            return radial_contract_plain(x_full, mask_full, feats,
+                                         cfg.cutoff, cfg.n_radial, div_d)
         if shard is None:
             return radial_contract(x_full, mask_full, feats, cfg.cutoff,
                                    cfg.n_radial, div_d, plan=plan)
@@ -381,6 +392,18 @@ def make_energy_fn(cfg: ModelConfig):
     """The Calculator's ``fn(coords, system, params)`` for a config."""
     def fn(coords, system, params):
         return energy_fn(coords, system, params, cfg)
+    return fn
+
+
+def make_hessian_energy_fn(cfg: ModelConfig):
+    """The Hessian closure for a config: the pallas mode on K5's plain
+    version (the kernels have no double backward), the dense and gather
+    modes as they are (plain PyTorch, twice differentiable)."""
+    if cfg.mp_mode != "pallas":
+        return make_energy_fn(cfg)
+
+    def fn(coords, system, params):
+        return energy_fn_pallas(coords, system, params, cfg, plain=True)
     return fn
 
 

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .cuda_build import first_order
 from .radial import cosine_envelope
 
 # launches of the CUDA kernels, counted where each is launched: K5's and
@@ -397,6 +398,7 @@ class _RadialContractFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         (feats,) = ctx.saved_tensors
@@ -536,6 +538,7 @@ class _RadialContractRectFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order
     def backward(ctx, g):
         (feats,) = ctx.saved_tensors
         plan = ctx.plan

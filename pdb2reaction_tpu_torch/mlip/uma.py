@@ -11,7 +11,16 @@ chemically. For eSCN the MoLE expert banks are merged once with the
 system's (task, charge, spin) routing (exact), and ``edge_kernel`` (else
 the ``PDB2R_TPU_ESCN_KERNEL`` variable, else "pallas-mega") picks the
 message layout: "pallas-mega" (K1), "pallas-full" (K3) or "pallas" (K4),
-as in the JAX factory.
+as in the JAX factory, or "xla", the all-plain variant.
+
+Second derivatives (the analytic Hessian, HVPs) never reach a kernel:
+the kernels' autograd functions have no double backward. As in the JAX
+factory, the eSCN calculator gets the all-plain variant
+(``edge_kernel="xla"``) as its ``energy_fn_hessian``
+whenever its force path runs a kernel, and the PaiNN pallas mode gets
+itself on K5's plain version; dense and gather differentiate themselves.
+``hessian_calc_mode`` "auto" resolves to "Analytical", as in the JAX
+factory (an FD Hessian through f32 kernel forces is noise-limited).
 
 The device defaults to CUDA, where the force path runs the hand-written
 kernels. Asking for CUDA without a card raises; CPU runs only when the
@@ -42,7 +51,8 @@ from ..parallel.spatial import make_spatial_energy_fn
 from .calculator import Calculator, resolve_device
 from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
                    init_escn_params, premerge_escn_params, tree_to)
-from .model import CONFIGS, init_params, make_energy_fn
+from .model import (CONFIGS, init_params, make_energy_fn,
+                    make_hessian_energy_fn)
 
 
 def _spatial_group(spatial: int, device):
@@ -93,6 +103,10 @@ def make_uma_calculator(
     spatial: Optional[int] = None,
     edge_kernel: Optional[str] = None,
     mp_mode: Optional[str] = None,
+    hessian_calc_mode: str = "auto",
+    return_partial_hessian: bool = False,
+    hessian_double: bool = True,
+    fd_step: float = 1.0e-3,
 ) -> Calculator:
     """Calculator for a named configuration. ``dtype`` is the model's
     compute type (None: the configuration's own; the CUDA kernels take
@@ -143,18 +157,30 @@ def make_uma_calculator(
     params = tree_to(params, dtype=cfg.dtype)
     params["charge"] = torch.as_tensor(float(charge))
     params["spin"] = torch.as_tensor(float(spin))
+    fn_h = None
     if escn:
         params["task"] = torch.as_tensor(float(params.get("task", 0)))
         params = premerge_escn_params(params, cfg)
         fn = escn_energy_fn(cfg)
+        if cfg.edge_kernel != "xla":
+            fn_h = escn_energy_fn(dataclasses.replace(cfg, edge_kernel="xla"))
     else:
         params["atom_ref"] = params["atom_ref"].float()
         fn = (make_spatial_energy_fn(cfg, group) if group
               else make_energy_fn(cfg))
+        if not group and cfg.mp_mode == "pallas":
+            fn_h = make_hessian_energy_fn(cfg)
     if group:
         pad_multiple = math.lcm(int(pad_multiple), spatial)
+    if hessian_calc_mode == "auto":
+        hessian_calc_mode = "Analytical"
     calc = Calculator(structure, fn, params=params,
-                      freeze_atoms=freeze_atoms, pad_multiple=pad_multiple,
-                      device=dev, weights_source=source)
+                      freeze_atoms=freeze_atoms,
+                      hessian_calc_mode=hessian_calc_mode,
+                      return_partial_hessian=return_partial_hessian,
+                      hessian_double=hessian_double, fd_step=fd_step,
+                      pad_multiple=pad_multiple, device=dev,
+                      weights_source=source, energy_fn_hessian=fn_h)
     calc.cfg = cfg
+    calc.spatial = spatial
     return calc

@@ -1,0 +1,196 @@
+"""Two-endpoint MEP workflow (``path-opt`` subcommand).
+
+Counterpart of ``pdb2reaction_tpu/workflows/path_opt.py``: the GSM string
+between two endpoints, with optional per-endpoint preoptimization
+(L-BFGS), freeze-guided Kabsch alignment before the MEP, the highest
+energy image preferring internal maxima, and the trajectory and HEI
+written as ``final_geometries.trj`` and ``hei.xyz``.
+
+Not ported yet, and refused: DMF (``mep_mode="dmf"``, ROADMAP.md queue 1
+item 11), RFO endpoint preoptimization (item 5) and atom-axis sharding
+(``spatial > 1``: the climbing image's HVPs under sharding are item 9).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+
+from ..bio.align import align_sequence_inplace
+from ..constants import AU2KCALPERMOL, BOHR2ANG
+from ..engines.gsm import GS_KW, STOPT_KW, gsm_mep
+from ..engines.thresholds import get_thresholds
+from . import common
+from .config import format_elapsed, normalize_choice, pretty_block
+from .opt import optimize_structure
+
+_DMF = ("mep_mode='dmf' (the DMF engine) is not ported yet: ROADMAP.md "
+        "queue 1 item 11")
+_SPATIAL = ("path-opt under atom-axis sharding (spatial > 1) is not ported "
+            "yet: the climbing image's HVPs over ranks are ROADMAP.md queue "
+            "1 item 9")
+
+
+def run_mep_between(
+    structA, structB, calc, *, mep_mode: str = "gsm",
+    gs_kw: Optional[Dict[str, Any]] = None,
+    stopt_kw: Optional[Dict[str, Any]] = None,
+    dmf_kw: Optional[Dict[str, Any]] = None,
+    verbose: bool = True,
+):
+    """One MEP segment between two aligned structures on a shared
+    calculator; returns the ``GsmResult``. The calculator's batched
+    closure counts every image evaluation itself, so its
+    ``force_calls`` rises by exactly ``res.force_calls`` here (the JAX
+    package adds the engine's count afterwards instead)."""
+    if mep_mode == "dmf":
+        raise NotImplementedError(_DMF)
+    kw = {**GS_KW, **(gs_kw or {})}
+    skw = {**STOPT_KW, **(stopt_kw or {})}
+    lanczos = bool(kw["climb"]) and bool(kw.get("climb_lanczos", True))
+
+    def cb(cyc, E, rms, grown, climb):
+        if verbose:
+            print(f"[gsm] cycle {cyc}: grown {grown}, rms(F_perp) = "
+                  f"{rms:.2e}, climb = {climb}")
+
+    return gsm_mep(
+        calc.au_energy_force_batch_fn(),
+        calc.pad_bohr(structA.coords_bohr),
+        calc.pad_bohr(structB.coords_bohr),
+        calc.system.free_mask,
+        max_nodes=kw["max_nodes"], perp_thresh=kw["perp_thresh"],
+        max_cycles=skw["max_cycles"],
+        stop_in_when_full=skw["stop_in_when_full"],
+        scale_step=skw.get("scale_step", "global"),
+        climb=kw["climb"], climb_rms=kw["climb_rms"],
+        climb_lanczos=lanczos,
+        fix_ends=bool(kw.get("fix_ends",
+                             kw.get("fix_first", True)
+                             and kw.get("fix_last", True))),
+        hvp_fn=calc.au_hvp_fn() if lanczos else None,
+        reparam_every=kw["reparam_every"],
+        reparam_every_full=kw["reparam_every_full"],
+        max_micro_cycles=kw.get("max_micro_cycles", 10),
+        callback=cb if verbose else None,
+        print_every=skw.get("print_every", 10),
+    )
+
+
+def run_path_opt(
+    input_paths: Sequence,                # two endpoint files
+    *,
+    charge: Optional[int] = None,
+    spin: Optional[int] = None,
+    freeze_atoms: Sequence = (),
+    auto_freeze_links: bool = True,
+    mep_mode: str = "gsm",
+    preopt: bool = True,
+    preopt_mode: str = "lbfgs",
+    preopt_thresh: str = "gau_loose",
+    preopt_max_cycles: int = 10000,
+    thresh: Optional[str] = None,
+    align: bool = True,
+    calc_mode: str = "uma",
+    model: str = "uma-s-1p1",
+    device="cuda",
+    out_dir="./result_path_opt/",
+    verbose: bool = True,
+    gs_kw: Optional[Dict[str, Any]] = None,
+    stopt_kw: Optional[Dict[str, Any]] = None,
+    dmf_kw: Optional[Dict[str, Any]] = None,
+    **calc_kw,
+) -> Dict[str, Any]:
+    """GSM between the two endpoint files; writes
+    ``final_geometries.trj`` and ``hei.xyz`` under ``out_dir``.
+    ``thresh`` (a preset name) sets the string's perpendicular-force
+    criteria and the endpoint preoptimization's threshold. Link-atom
+    freezing (``auto_freeze_links``) needs PDB input, which this port
+    does not read yet, so .xyz endpoints freeze only what is given.
+    ``spatial > 1`` raises (module docstring)."""
+    t0 = time.time()
+    assert len(input_paths) == 2, "path-opt needs exactly two endpoints"
+    if int(calc_kw.get("spatial", 1)) > 1:
+        raise NotImplementedError(_SPATIAL)
+    mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
+    if mep_mode == "dmf":
+        raise NotImplementedError(_DMF)
+    preopt_mode = normalize_choice(preopt_mode, choices=("lbfgs", "rfo"))
+    if preopt and preopt_mode != "lbfgs":
+        raise NotImplementedError(
+            f"preopt_mode={preopt_mode!r}: RFO is not ported yet "
+            "(ROADMAP.md queue 1 item 5)")
+    # route engine keys out of calc_kw into the nested kw dicts
+    gs_kw = dict(gs_kw or {})
+    stopt_kw = dict(stopt_kw or {})
+    for k in list(calc_kw):
+        for table, dst in ((GS_KW, gs_kw), (STOPT_KW, stopt_kw)):
+            if k in table:
+                dst[k] = calc_kw.pop(k)
+                break
+    if thresh is not None:
+        # one preset drives the string's perpendicular-force criteria and
+        # the endpoint preoptimizations
+        preset = get_thresholds(str(thresh))
+        rms = float(preset.rms_force)
+        if not math.isfinite(rms):          # baker: rms unchecked
+            rms = float(preset.max_force)
+        gs_kw.setdefault("perp_thresh", rms)
+        gs_kw.setdefault("climb_rms", rms)
+        gs_kw.setdefault("climb_lanczos_rms", rms)
+        preopt_thresh = str(thresh)
+    structs = [common.load_structure(p) for p in input_paths]
+    q, s = common.resolve_charge_spin(structs[0], charge, spin)
+    for st in structs:
+        st.freeze = common.merge_freeze(st, [int(f) for f in freeze_atoms])
+    A, B = structs
+    if A.n_atoms != B.n_atoms or list(A.numbers) != list(B.numbers):
+        raise ValueError("Endpoints must share atom count and ordering")
+
+    calc = common.make_calculator(A, calc_mode=calc_mode, charge=q, spin=s,
+                                  freeze_atoms=A.freeze, model=model,
+                                  device=device, **calc_kw)
+    if verbose:
+        print(pretty_block("path-opt", {
+            "mep_mode": mep_mode, "preopt": preopt, "align": align,
+            "charge": q, "spin": s, "calc_mode": calc_mode,
+            "model": model, "device": str(calc.device), "gs": gs_kw,
+            "sopt": stopt_kw}))
+    if preopt:
+        for st in structs:
+            coords, e, conv, cyc = optimize_structure(
+                st, calc, opt_mode=preopt_mode, thresh=preopt_thresh,
+                max_cycles=preopt_max_cycles)
+            st.coords = coords * BOHR2ANG
+            if verbose:
+                print(f"[path-opt] preopt endpoint: E = {e:.6f} Ha "
+                      f"({'conv' if conv else 'max cycles'})")
+    if align:
+        align_sequence_inplace(structs)
+
+    res = run_mep_between(A, B, calc, mep_mode=mep_mode, gs_kw=gs_kw,
+                          stopt_kw=stopt_kw, dmf_kw=dmf_kw, verbose=verbose)
+
+    out = Path(out_dir)
+    n = calc.n_atoms
+    frames = [img[:n] for img in res.images]
+    hei = res.hei_idx
+    paths = common.write_trajectory(out, "final_geometries", A, frames,
+                                    res.energies)
+    paths += common.write_outputs(out, "hei", A, frames[hei],
+                                  energy=res.energies[hei])
+    if verbose:
+        Erel = (res.energies - res.energies[0]) * AU2KCALPERMOL
+        print(f"[path-opt] HEI = image {hei}; barrier = "
+              f"{Erel[hei]:.2f} kcal/mol; converged = {res.converged}; "
+              f"{res.cycles} cycles, {res.force_calls} GSM force calls")
+        print(f"[path-opt] elapsed {format_elapsed(t0)}")
+    return {"images_bohr": frames, "energies": np.asarray(res.energies),
+            "hei_idx": hei, "converged": res.converged,
+            "cycles": res.cycles, "mep_force_calls": res.force_calls,
+            "outputs": paths, "structures": structs, "calculator": calc,
+            "force_calls": calc.force_calls}

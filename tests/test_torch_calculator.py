@@ -67,8 +67,13 @@ def test_frozen_counts_and_batch():
     assert abs(e - r["energy"]) < 1e-12 and tcalc.force_calls == 5
     np.testing.assert_allclose(tcalc.unpad(fp).reshape(-1), r["forces"],
                                atol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tcalc.get_hessian(cb)
+    # the Hessian is ported: symmetric, frozen rows and columns zero, and
+    # one force call beside it
+    H = tcalc.get_hessian(cb)["hessian"]
+    assert H.shape == (cb.size, cb.size) and tcalc.force_calls == 6
+    np.testing.assert_allclose(H, H.T, rtol=0, atol=1e-12)
+    frozen = ~tcalc.free_dof_mask
+    assert np.all(H[frozen] == 0.0) and np.all(H[:, frozen] == 0.0)
 
 
 def test_cuda_without_card_raises():

@@ -163,15 +163,26 @@ def test_variants_agree_in_f64():
 
 @pytest.mark.parametrize("edge_kernel", ["xla", "pallas-mega-v2"])
 def test_unported_or_unknown_edge_kernel_raises(edge_kernel):
+    """An unknown edge layout raises. "xla", the all-plain variant, is
+    ported: it runs and gives the default layout's plain-path energy."""
     zs, xyz, n_pad = cluster(4, 8, 0)
     sysp = pad_to(Structure(zs, xyz), n_pad=n_pad)
     cfg = dataclasses.replace(TCFG["escn-test"], edge_kernel=edge_kernel)
-    err = NotImplementedError if edge_kernel == "xla" else ValueError
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "edge_kernel"):
-        escn_energy(sysp.coords.float(), sysp, init_escn_params(cfg), cfg)
+    params = init_escn_params(cfg)
     st = Structure(zs, xyz)
-    with pytest.raises(err):
+    if edge_kernel == "xla":
+        params.update(charge=torch.tensor(0.0), spin=torch.tensor(1.0),
+                      task=torch.tensor(0.0))
+        e = escn_energy(sysp.coords.float(), sysp, params, cfg)
+        e0 = escn_energy(sysp.coords.float(), sysp, params,
+                         TCFG["escn-test"])
+        assert float(e) == float(e0)
+        make_uma_calculator(st, model="escn-test", device="cpu",
+                            edge_kernel=edge_kernel)
+        return
+    with pytest.raises(ValueError, match="edge_kernel"):
+        escn_energy(sysp.coords.float(), sysp, params, cfg)
+    with pytest.raises(ValueError):
         make_uma_calculator(st, model="escn-test", device="cpu",
                             edge_kernel=edge_kernel)
 

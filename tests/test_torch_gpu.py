@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pdb2reaction_tpu_torch.constants import ANG2BOHR
 from pdb2reaction_tpu_torch.core.structure import Structure
 from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
 from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
@@ -819,3 +820,154 @@ def test_sharded_pallas_random_cloud_matches_cpu_f64():
     one = Calculator(st, fn, params=wc, device="cuda").get_forces(cb)
     for got in (res, one["forces"]):
         assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# Hessians, HVPs and the GSM string on the card
+# ---------------------------------------------------------------------------
+
+HESS_TOL = 1e-3     # max|dH| / max|H_cpu64|: the outer limit
+HESS_FLOOR = 1e-5   # the floor under twice CPU float32's own error
+MAIN_PATH = ("fused_edge_mega_fwd", "fused_edge_mega_bwd",
+             "fused_node_ffn_fwd", "fused_node_ffn_bwd")
+
+
+def _all_counts():
+    return {**ek.launches, **fk.launches, **rcm.launches,
+            **rcm.rect_launches}
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _all_counts().items()
+            if v != before[k]}
+
+
+def _lattice(n, seed):
+    """Jittered 1.8 A lattice of n atoms (the smoke cluster's geometry)."""
+    rng = np.random.default_rng(seed)
+    zs = rng.choice([1, 6, 7, 8], size=n).astype(np.int32)
+    g = int(np.ceil(n ** (1 / 3)))
+    pts = np.stack(np.meshgrid(*[np.arange(g)] * 3), -1).reshape(-1, 3)
+    return Structure(zs, pts[:n] * 1.8 + rng.normal(scale=0.15,
+                                                    size=(n, 3)))
+
+
+def _hess_limit(err32):
+    """What the card's Hessian error may be: twice CPU float32's own, at
+    least HESS_FLOOR, at most HESS_TOL."""
+    return min(HESS_TOL, max(2 * err32, HESS_FLOOR))
+
+
+def _hvp_columns(calc, cb, cols):
+    hvp, x = calc.au_hvp_fn(), calc.pad_bohr(cb)
+    out = []
+    for k in cols:
+        v = torch.zeros_like(x)
+        v.view(-1)[k] = 1.0
+        out.append(hvp(x, v).reshape(-1)[:cb.size].double().cpu().numpy())
+    return np.stack(out)
+
+
+def test_escn_hessian_on_card_matches_cpu_f64():
+    """escn-test on the card (forces through K1 and K2, the Hessian through
+    the all-plain variant) against the CPU: the analytic Hessian and HVPs
+    within ``_hess_limit`` of float64, and no kernel launched but
+    get_hessian's one force call."""
+    _need_card()
+    st = _lattice(10, seed=3)
+    w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=2)
+    kw = dict(model="escn-test", params=w, freeze_atoms=[0])
+    gpu = make_uma_calculator(st, **kw)
+    c64 = make_uma_calculator(st, device="cpu", dtype=torch.float64, **kw)
+    c32 = make_uma_calculator(st, device="cpu", dtype=torch.float32, **kw)
+    cb = st.coords_bohr.reshape(-1)
+    before = _all_counts()
+    H = gpu.get_hessian(cb)["hessian"]
+    assert _moved(before) == {k: 2 for k in MAIN_PATH}   # 2 layers, 1 call
+    H64 = c64.get_hessian(cb)["hessian"]
+    err = np.abs(H - H64).max() / np.abs(H64).max()
+    err32 = np.abs(c32.get_hessian(cb)["hessian"] - H64).max() \
+        / np.abs(H64).max()
+    assert err <= _hess_limit(err32)
+    np.testing.assert_array_equal(H, H.T)
+    assert np.all(H[:3] == 0) and np.all(H[:, :3] == 0)
+    cols = [3, 7, 20]
+    before = _all_counts()
+    hv = _hvp_columns(gpu, cb, cols)
+    assert _moved(before) == {}
+    hv64 = _hvp_columns(c64, cb, cols)
+    err = np.abs(hv - hv64).max() / np.abs(hv64).max()
+    err32 = np.abs(_hvp_columns(c32, cb, cols) - hv64).max() \
+        / np.abs(hv64).max()
+    assert err <= _hess_limit(err32)
+
+
+def test_escn_md_hvp_columns_on_card_64_atoms():
+    """escn-md at 64 atoms: three HVP columns on the card (the all-plain
+    variant) against CPU float64 within ``_hess_limit``, with no kernel
+    launched; a create_graph backward through the kernels raises."""
+    _need_card()
+    st = _lattice(64, seed=1)
+    w = init_escn_params(ESCN_CONFIGS["escn-md"], seed=0)
+    gpu = make_uma_calculator(st, model="escn-md", params=w)
+    cpu = make_uma_calculator(st, model="escn-md", params=w, device="cpu",
+                              dtype=torch.float64)
+    c32 = make_uma_calculator(st, model="escn-md", params=w, device="cpu",
+                              dtype=torch.float32)
+    cb = st.coords_bohr.reshape(-1)
+    cols = [0, 95, 191]
+    before = _all_counts()
+    hv = _hvp_columns(gpu, cb, cols)
+    assert _moved(before) == {}
+    hv64 = _hvp_columns(cpu, cb, cols)
+    scale = np.abs(hv64).max()
+    err32 = np.abs(_hvp_columns(c32, cb, cols) - hv64).max() / scale
+    assert np.abs(hv - hv64).max() / scale <= _hess_limit(err32)
+    c = gpu._to_pad_ang(cb).requires_grad_(True)
+    e = gpu.energy_fn(c, gpu.system, gpu.params)
+    with pytest.raises(RuntimeError, match="double backward"):
+        torch.autograd.grad(e, c, create_graph=True)
+
+
+def test_morse_gsm_on_card_matches_cpu():
+    """The Morse H3 string with the climbing image and Lanczos tangents,
+    float64 throughout: the card run equals the CPU run."""
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    from pdb2reaction_tpu_torch.mlip import potentials
+    _need_card()
+    a = [[0, 0, 0], [0.686, 0, 0], [2.4, 0, 0]]
+    b = np.array([[0, 0, 0], [2.4 - 0.686, 0, 0], [2.4, 0, 0]]) * ANG2BOHR
+    runs = []
+    for dev in ("cuda", "cpu"):
+        st = Structure.from_symbols(["H"] * 3, a, freeze=[0, 2])
+        c = Calculator(st, potentials.make_morse(), device=dev)
+        runs.append(gsm_mep(c.au_energy_force_batch_fn(),
+                            c.pad_bohr(st.coords_bohr), c.pad_bohr(b),
+                            c.system.free_mask, max_nodes=9, max_cycles=300,
+                            conv_perp_rms=5e-4, hvp_fn=c.au_hvp_fn()))
+    g, c = runs
+    assert g.converged and (g.cycles, g.hei_idx) == (c.cycles, c.hei_idx)
+    assert np.abs(g.images - c.images).max() <= 1e-10
+    assert np.abs(g.energies - c.energies).max() <= 1e-12
+
+
+def test_flagship_gsm_accounting_on_card():
+    """escn-md on the 300-atom cluster, max_nodes=10, 8 cycles: (cycles +
+    1) x 12 force calls, counted once on the calculator, and K1 and K2
+    launched 4 times each (fwd and bwd) per force call."""
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    _need_card()
+    st = _lattice(300, seed=0)
+    calc = make_uma_calculator(st, model="escn-md", seed=0, pad_multiple=64)
+    rng = np.random.default_rng(1)
+    xB = st.coords + rng.normal(scale=0.08, size=st.coords.shape)
+    before, n0 = _all_counts(), calc.force_calls
+    res = gsm_mep(calc.au_energy_force_batch_fn(),
+                  calc.pad_bohr(st.coords_bohr),
+                  calc.pad_bohr(xB * ANG2BOHR), calc.system.free_mask,
+                  max_nodes=10, max_cycles=8, stop_in_when_full=2,
+                  conv_perp_rms=2e-2, climb=False)
+    fc = res.force_calls
+    assert fc == (res.cycles + 1) * 12 and calc.force_calls - n0 == fc
+    assert _moved(before) == {k: 4 * fc for k in MAIN_PATH}
+    assert np.all(np.isfinite(res.energies))

@@ -57,3 +57,17 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
                            capture_output=True, text=True, timeout=300)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_workflow_modules_import_without_jax():
+    """The engine, alignment, potential and path modules are among the
+    modules the isolation check imports."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = _SCRIPT.replace("print(len(names))", "print(' '.join(names))")
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    names = set(r.stdout.split())
+    for mod in ("engines.gsm", "bio.align", "mlip.potentials",
+                "workflows.path_opt", "workflows.common", "cli"):
+        assert f"pdb2reaction_tpu_torch.{mod}" in names, mod

@@ -54,3 +54,24 @@ def test_opt_cli_writes_final_geometry(tmp_path):
     assert lines[0] == "4" and len(lines) == 6
     assert np.isfinite(float(lines[1]))            # energy in Hartree
     assert "[opt]" in r.stdout
+
+
+def test_opt_cli_morse_potential(tmp_path):
+    """``--calc-mode morse`` runs ``opt`` on the analytic potential (no
+    weights), to convergence, and takes ``--hessian-calc-mode``."""
+    xyz = tmp_path / "h3.xyz"
+    xyz.write_text("3\n\nH 0.0 0.0 0.0\nH 0.9 0.1 0.0\nH 2.4 0.0 0.0\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(
+        [sys.executable, "-m", "pdb2reaction_tpu_torch", "opt", "-i",
+         str(xyz), "--calc-mode", "morse", "--device", "cpu", "-q", "0",
+         "--freeze-atoms", "0,2", "--hessian-calc-mode",
+         "FiniteDifference"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "[opt] converged" in r.stdout
+    out = (tmp_path / "result_opt" / "final_geometry.xyz").read_text()
+    lines = out.splitlines()
+    assert lines[0] == "3" and float(lines[1]) < 0.0
+    # the frozen atoms stay where they were
+    assert lines[2].split()[1:] == ["0.000000000000000"] * 3
