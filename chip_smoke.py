@@ -93,7 +93,27 @@ Phases (any failure exits non-zero):
    Hessian at 64 atoms with phase 5's weights (atoms 0 and 1 frozen) on
    the card, six columns against the CPU in float64 and float32, and the
    FD Hessian through the kernels; then the path-opt CLI as a subprocess
-   on the card.
+   on the card;
+13. path-search (run_path_search, escn-md with phase 4's seed-0 weights,
+   the 300-atom cluster padded to 320) from A to B, B being A with one H
+   moved to 1.05 Angstrom from its nearest C, N or O (the lowest-index H
+   within 2.2 Angstrom of one; the bond it forms is checked first):
+   max_depth 1, opt threshold gau_loose, max_nodes 10, 10 string cycles,
+   climbing image on, no preopt. Counts set to 0 just before the run and
+   read just after: K1 and K2 forward launches 4 x (force + energy
+   calls), backward 4 x force calls, nothing else, and none inside an
+   HVP; the output tree checked (mep.trj, summary.yaml listing every
+   segment, summary.log, each segment's trajectory, summary and, when
+   reactive, hei.xyz; finite energies and images). Then the path-search
+   CLI as a subprocess on the card (max_depth 0, climb off);
+14. the production-dims golden (lmax 4, mmax 2, C = 128, 4 experts, 2
+   layers; its state dict rebuilt from its seed by
+   scripts/make_escn_golden.py and saved as a .pt) through
+   make_uma_calculator(checkpoint=...) on the card: K1 and K2 in
+   float32, 2 + 2 launches a force call, energies and forces of both
+   golden structures against the same weights on the CPU plain path in
+   float64 and against the independent numpy executor's goldens
+   (energy rtol 2e-5; forces rtol 1e-3, atol 2e-5 eV/Angstrom).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -719,6 +739,15 @@ def all_counts():
     return {**escn_counts(), **rcm.launches, **rcm.rect_launches}
 
 
+def zero_all_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    zero_escn_counts()
+    for d in (rcm.launches, rcm.rect_launches):
+        for k in d:
+            d[k] = 0
+
+
 def moved_counts(before):
     return {k: v - before[k] for k, v in all_counts().items()
             if v != before[k]}
@@ -984,6 +1013,281 @@ def phase_gsm(calc, ms_force, ref64):
     log(f"[gsm] phase 12 wall {time.perf_counter() - t0:.1f} s; device "
         f"memory held {held:.2f} GiB before, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: path-search on escn-md; phase 14: the md golden through .pt
+# ---------------------------------------------------------------------------
+
+GOLDEN_RTOL_E = 2e-5    # the JAX package's pallas-mega-against-XLA bar on
+GOLDEN_RTOL_F = 1e-3    # the converted production-dims golden: energy
+GOLDEN_ATOL_F = 2e-5    # rtol; forces rtol and atol (eV/Angstrom)
+
+
+def moved_h(zs, xyz):
+    """B of the search: A with the lowest-index H whose nearest C, N or O
+    lies within 2.2 Angstrom moved to 1.05 Angstrom from that atom along
+    their axis. Returns (B, the H's index, the heavy atom's index)."""
+    heavy = np.nonzero(np.isin(zs, (6, 7, 8)))[0]
+    for i in np.nonzero(zs == 1)[0]:
+        d = np.linalg.norm(xyz[heavy] - xyz[i], axis=1)
+        if d.min() <= 2.2:
+            j = int(heavy[np.argmin(d)])
+            out = xyz.copy()
+            out[i] = xyz[j] + 1.05 * (xyz[i] - xyz[j]) / d.min()
+            return out, int(i), j
+    fail("no hydrogen within 2.2 Angstrom of a C, N or O")
+
+
+class counted_hvps:
+    """Every HVP closure a calculator hands out while this is entered is
+    counted and timed (synchronised), with the kernel launches made
+    inside it."""
+
+    def __init__(self):
+        self.n, self.s, self.moved = 0, 0.0, {}
+
+    def __enter__(self):
+        from pdb2reaction_tpu_torch.mlip.calculator import Calculator
+        self.cls, self.orig = Calculator, Calculator.au_hvp_fn
+        outer = self
+
+        def au_hvp_fn(calc):
+            hvp = outer.orig(calc)
+
+            def fn(x, v):
+                import torch
+                before = all_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = hvp(x, v)
+                torch.cuda.synchronize()
+                outer.s += time.perf_counter() - t0
+                outer.n += 1
+                for k, d in moved_counts(before).items():
+                    outer.moved[k] = outer.moved.get(k, 0) + d
+                return out
+            return fn
+
+        Calculator.au_hvp_fn = au_hvp_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.au_hvp_fn = self.orig
+
+
+def search_files(out, res):
+    """The output tree of a path-search run; fails on a missing file, a
+    summary that does not list the run's segments or a non-finite
+    energy or image."""
+    segs = res["segments"]
+    for f in ("mep.trj", "summary.yaml", "summary.log"):
+        if not os.path.exists(os.path.join(out, f)):
+            fail(f"path-search wrote no {f}")
+    for i, sg in enumerate(segs):
+        d = os.path.join(out, f"seg_{i:03d}_mep")
+        need = ["final_geometries.trj", "summary.yaml"] + (
+            ["hei.xyz"] if sg.is_reactive else [])
+        missing = [f for f in need if not os.path.exists(os.path.join(d, f))]
+        if missing:
+            fail(f"path-search segment {i} ({sg.kind}) lacks {missing}")
+        if not (np.all(np.isfinite(sg.energies))
+                and all(np.all(np.isfinite(x)) for x in sg.images_bohr)):
+            fail(f"path-search segment {i} has non-finite energies or "
+                 "images")
+    with open(os.path.join(out, "summary.yaml")) as fh:
+        doc = json.load(fh)
+    if doc["n_segments"] != len(segs) or len(doc["segments"]) != len(segs):
+        fail(f"summary.yaml lists {doc['n_segments']} segments, the run "
+             f"returned {len(segs)}")
+    return doc
+
+
+def phase_search(st):
+    """Phase 13: run_path_search on escn-md (seed 0, phase 4's weights) at
+    300 atoms padded to 320, A -> B with one H moved onto a heavy atom:
+    counts set to 0 just before and read just after the run."""
+    import shutil
+    import torch
+    from pdb2reaction_tpu_torch.bio.bonds import compare_structures
+    from pdb2reaction_tpu_torch.constants import ANG2BOHR, AU2KCALPERMOL
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.workflows.path_search import run_path_search
+    out = os.path.join(HERE, "result_smoke", "path_search")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    xyzB, h, heavy = moved_h(st.numbers, st.coords)
+    bc = compare_structures(st.numbers, st.coords * ANG2BOHR,
+                            xyzB * ANG2BOHR)
+    if not bc.formed_covalent:
+        fail(f"moving H{h} onto atom {heavy} formed no bond")
+    a, b = os.path.join(out, "A.xyz"), os.path.join(out, "B.xyz")
+    write_xyz(a, st)
+    write_xyz(b, st.copy(coords=xyzB))
+    torch.cuda.reset_peak_memory_stats()
+    zero_all_counts()
+    before = all_counts()
+    t0 = time.perf_counter()
+    with counted_hvps() as hv:
+        res = run_path_search(
+            [a, b], charge=0, spin=1, model="escn-md", device="cuda", seed=0,
+            pad_multiple=64, out_dir=os.path.join(out, "run"), verbose=False,
+            search_kw={"max_depth": 1, "opt_thresh": "gau_loose",
+                       "preopt": False},
+            gs_kw={"max_nodes": 10}, stopt_kw={"max_cycles": 10})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = moved_counts(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fc, ec = res["force_calls"], res["energy_calls"]
+    segs = res["segments"]
+    kinds = {k: sum(1 for s in segs if s.kind == k)
+             for k in ("seg", "kink", "bridge")}
+    log(f"[search] escn-md pallas-mega, {st.n_atoms} atoms (P=320), A -> B "
+        f"with H{h} moved to 1.05 A from atom {heavy} (formed "
+        f"{sorted(bc.formed_covalent)}, broken "
+        f"{sorted(bc.broken_covalent)}); max_depth 1, opt gau_loose, "
+        f"max_nodes 10, 10 string cycles, climb on, no preopt: "
+        f"{wall:.2f} s wall")
+    log(f"[search] {len(segs)} segments {kinds}, "
+        f"{sum(1 for s in segs if s.is_reactive)} reactive, "
+        f"{res['segments_run']} MEPs run; {fc} force calls, {ec} energy "
+        f"calls; {hv.n} HVPs in {hv.s:.2f} s ({hv.s / max(hv.n, 1) * 1e3:.1f}"
+        f" ms each; launches inside: {hv.moved}); "
+        f"{(wall - hv.s) / max(fc + ec, 1) * 1e3:.2f} ms per force or "
+        f"energy call over the rest of the wall; launches {moved}; peak "
+        f"memory {peak:.2f} GiB")
+    log(f"[search] segments: {[(s.kind, s.is_reactive, s.hei_idx, len(s.images_bohr), round(s.barrier_au * AU2KCALPERMOL, 3)) for s in segs]}")
+    want = {"fused_edge_mega_fwd": 4 * (fc + ec),
+            "fused_edge_mega_bwd": 4 * fc,
+            "fused_node_ffn_fwd": 4 * (fc + ec),
+            "fused_node_ffn_bwd": 4 * fc}
+    if moved != want:
+        fail(f"path-search launches {moved}, expected {want} (K1 and K2 "
+             "forward 4 x (force + energy calls), backward 4 x force "
+             "calls, nothing else)")
+    if hv.moved:
+        fail(f"kernels launched inside HVPs: {hv.moved}")
+    search_files(os.path.join(out, "run"), res)
+    return st.copy(coords=xyzB)
+
+
+def path_search_cli(st, stB):
+    """Phase 13b: ``python -m pdb2reaction_tpu_torch path-search`` as a
+    subprocess on the card."""
+    import shutil
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    out = os.path.join(HERE, "result_smoke", "path_search_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    a, b = os.path.join(out, "A.xyz"), os.path.join(out, "B.xyz")
+    write_xyz(a, st)
+    write_xyz(b, stB)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "path-search",
+           "-i", a, "-i", b, "--model", "escn-md", "--max-depth", "0",
+           "--max-nodes", "10", "--max-cycles", "10", "--climb", "False",
+           "--thresh", "gau_loose", "--preopt", "False", "-q", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    res = os.path.join(out, "result_path_search")
+    tail = [ln for ln in r.stdout.splitlines()
+            if ln.startswith(("[path-search]", "[diagram]"))]
+    log(f"[search] path-search CLI (escn-md, 300 atoms, max_depth 0, "
+        f"max_nodes 10, 10 cycles, climb off) as a subprocess: rc "
+        f"{r.returncode}, {wall:.1f} s with start-up; {tail}")
+    if r.returncode != 0:
+        fail(f"path-search exited {r.returncode}: {r.stderr[-3000:]}")
+    for f in ("mep.trj", "summary.yaml"):
+        if not os.path.exists(os.path.join(res, f)):
+            fail(f"the path-search CLI wrote no {f}")
+
+
+def golden_state_dict():
+    """The production-dims golden's state dict rebuilt from its seed
+    (``scripts/make_escn_golden.py``), its fingerprint checked, and the
+    fixture."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    try:
+        from make_escn_golden import MD_CFG, make_state_dict
+    finally:
+        sys.path.pop(0)
+    g = np.load(os.path.join(HERE, "tests", "fixtures",
+                             "escn_golden_md.npz"))
+    sd = make_state_dict(MD_CFG, seed=int(g["cfg_seed"]))
+    fp = np.array([float(np.sum(v)) for _, v in sorted(sd.items())][:8])
+    if not np.allclose(fp, g["sd_fingerprint"], rtol=1e-12, atol=0):
+        fail("the golden state dict's fingerprint drifted (numpy RNG "
+             "stream)")
+    return sd, g
+
+
+def phase_golden():
+    """Phase 14: the production-dims golden (lmax 4, mmax 2, C = 128, 4
+    experts, 2 layers) through make_uma_calculator(checkpoint=x.pt) on
+    the card, K1 and K2 in float32, against the same converted weights
+    on the CPU plain path in float64 and against the independent numpy
+    executor's goldens."""
+    import torch
+    from pdb2reaction_tpu_torch.constants import AU2EV, F_EVAA_2_AU
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    sd, g = golden_state_dict()
+    os.makedirs(os.path.join(HERE, "result_smoke"), exist_ok=True)
+    pt = os.path.join(HERE, "result_smoke", "golden_md.pt")
+    torch.save({"state_dict": {k: torch.as_tensor(v)
+                               for k, v in sd.items()}}, pt)
+
+    def ev(calc, st):
+        r = calc.get_forces(st.coords_bohr.reshape(-1))
+        return r["energy"] * AU2EV, r["forces"].reshape(-1, 3) / F_EVAA_2_AU
+
+    def worst(e, f, e_ref, f_ref):
+        """(|dE| / |E_ref| over GOLDEN_RTOL_E, the largest force excess
+        |dF| / (atol + rtol |F_ref|)): both at most 1 to pass."""
+        return (abs(e - e_ref) / (GOLDEN_RTOL_E * abs(e_ref)),
+                float(np.max(np.abs(f - f_ref) / (
+                    GOLDEN_ATOL_F + GOLDEN_RTOL_F * np.abs(f_ref)))))
+
+    for i in range(2):
+        q, s, t = (int(v) for v in g[f"struct{i}_cqt"])
+        st = Structure(g[f"struct{i}_numbers"], g[f"struct{i}_coords"])
+        gpu = make_uma_calculator(st, checkpoint=pt, device="cuda",
+                                  charge=q, spin=s, task=t)
+        cpu = make_uma_calculator(st, checkpoint=pt, device="cpu",
+                                  dtype=torch.float64, charge=q, spin=s,
+                                  task=t)
+        if gpu.weights_source != f"converted:{pt}" \
+                or gpu.cfg.edge_kernel != "pallas-mega":
+            fail(f"the .pt route gave {gpu.weights_source}, "
+                 f"{gpu.cfg.edge_kernel}")
+        zero_all_counts()
+        before = all_counts()
+        e, f = ev(gpu, st)
+        moved = moved_counts(before)
+        e64, f64 = ev(cpu, st)
+        e_g, f_g = float(g[f"struct{i}_energy"]), g[f"struct{i}_forces"]
+        vs64, vsg = worst(e, f, e64, f64), worst(e, f, e_g, f_g)
+        log(f"[golden] md struct{i} ({st.n_atoms} atoms, P={gpu.n_pad}, "
+            f"q={q} s={s} task={t}) converted .pt on the card (f32 K1/K2): "
+            f"E = {e:.8f} eV; against CPU float64 |dE| = {abs(e - e64):.3e} "
+            f"eV, max|dF| = {np.abs(f - f64).max():.3e} eV/A; against the "
+            f"golden |dE| = {abs(e - e_g):.3e} eV, max|dF| = "
+            f"{np.abs(f - f_g).max():.3e} eV/A (CPU float64 against the "
+            f"golden {abs(e64 - e_g):.3e} / {np.abs(f64 - f_g).max():.3e}); "
+            f"share of the bound used (energy rtol {GOLDEN_RTOL_E}, forces "
+            f"rtol {GOLDEN_RTOL_F} atol {GOLDEN_ATOL_F}): vs CPU64 "
+            f"{vs64[0]:.3f} / {vs64[1]:.3f}, vs golden {vsg[0]:.3f} / "
+            f"{vsg[1]:.3f}; launches {moved}")
+        if max(vs64 + vsg) > 1.0:
+            fail(f"md golden struct{i}: the card's energy or forces miss "
+                 "the bound")
+        want = {k: 2 for k in MAIN_PATH}
+        if moved != want:
+            fail(f"md golden launches {moved}, expected {want} (2 layers)")
 
 
 # ---------------------------------------------------------------------------
@@ -1863,6 +2167,12 @@ def main():
         ref64 = phase_reference(seed=0)
         # ---- the GSM path on the escn-md calculator: its own counts
         phase_gsm(calc, ms_force, ref64)
+        # ---- path-search (its own counts), its CLI, the md golden
+        t0 = time.perf_counter()
+        stB = phase_search(st)
+        path_search_cli(st, stB)
+        phase_golden()
+        log(f"[search] phases 13-14 wall {time.perf_counter() - t0:.1f} s")
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

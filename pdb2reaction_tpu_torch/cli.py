@@ -1,5 +1,5 @@
-"""Command-line interface of the port: the ``opt`` and ``path-opt``
-subcommands.
+"""Command-line interface of the port: the ``opt``, ``path-opt`` and
+``path-search`` subcommands.
 
 Same flags as the JAX package's (``pdb2reaction_tpu/cli.py``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
@@ -9,6 +9,8 @@ with a non-default value. The other subcommands are later port items.
     python -m pdb2reaction_tpu_torch opt -i x.xyz -q 0      # uma-s-1p1
     python -m pdb2reaction_tpu_torch path-opt -i a.xyz -i b.xyz -q 0 \
         --model escn-md                                     # GSM MEP
+    python -m pdb2reaction_tpu_torch path-search -i a.xyz -i b.xyz \
+        -q 0 --calc-mode morse --device cpu                 # recursive MEPs
 
 ``opt --spatial N`` shards the atom axis over N ranks, one process each,
 launched by ``torchrun`` (WORLD_SIZE must equal N). Every rank runs the
@@ -141,6 +143,45 @@ def _path_opt_parser(sub):
     return p
 
 
+def _path_search_parser(sub):
+    p = sub.add_parser("path-search",
+                       help="Recursive multi-step MEP search between "
+                            "structures.")
+    p.add_argument("-i", "--input", dest="input_paths", action="append",
+                   required=True, type=Path,
+                   help="A structure, in reaction order; give two or more.")
+    p.add_argument("--mep-mode", default="gsm", choices=["gsm", "dmf"])
+    p.add_argument("--max-depth", type=int, default=3)
+    p.add_argument("--refine-mode", default="hei", choices=["hei", "minima"])
+    p.add_argument("--kink-max-nodes", type=int, default=5)
+    p.add_argument("--max-nodes", type=int, default=10)
+    p.add_argument("--max-cycles", type=int, default=300,
+                   help="String-optimizer cycle cap per segment.")
+    p.add_argument("--opt-mode", default="light",
+                   choices=["light", "heavy", "lbfgs", "rfo"],
+                   type=str.lower,
+                   help="Optimizer of the preopt and HEI refinements: "
+                        "light|lbfgs (heavy|rfo is not ported yet).")
+    p.add_argument("--thresh", default=None,
+                   help="Convergence preset for in-search optimizations.")
+    p.add_argument("--preopt", type=_bool, default=True,
+                   help="Optimize each input before the search.")
+    p.add_argument("--align", type=_bool, default=True,
+                   help="Align all inputs to the first after preopt.")
+    p.add_argument("--climb", type=_bool, default=True)
+    p.add_argument("--ref-full-pdb", action="append", default=None,
+                   type=Path,
+                   help="Full-system PDB template(s) for merged outputs "
+                        "(not ported yet).")
+    p.add_argument("--gsm-loop", default="auto",
+                   choices=["auto", "device", "host"],
+                   help="GSM loop: auto and host run the host loop; the "
+                        "device loop is not ported yet.")
+    _common_options(p)
+    p.set_defaults(func=path_search_cmd)
+    return p
+
+
 def _reject_unported(a) -> None:
     unported = {
         "--dist-freeze": bool(getattr(a, "dist_freeze", "")),
@@ -151,7 +192,10 @@ def _reject_unported(a) -> None:
         "--ligand-charge": a.ligand_charge is not None,
         "--args-yaml": a.args_yaml is not None,
         "--profile": a.profile is not None,
-        "--gsm-loop device": getattr(a, "gsm_loop", "auto") == "device",
+        "--gsm-loop device (the GSM device loop, left out of ROADMAP.md "
+        "queue 1 item 2)": getattr(a, "gsm_loop", "auto") == "device",
+        "--ref-full-pdb (the full-system PDB merge, ROADMAP.md queue 1 "
+        "item 6)": bool(getattr(a, "ref_full_pdb", None)),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -221,6 +265,35 @@ def path_opt_cmd(a) -> int:
     return 0 if res["converged"] else 3
 
 
+def path_search_cmd(a) -> int:
+    from .workflows.path_search import run_path_search
+    _reject_unported(a)
+    if len(a.input_paths) < 2:
+        raise SystemExit("path-search takes two or more structures: "
+                         "-i A -i B [-i C ...]")
+    charge, spin = _charge_spin(a)
+    skw = {"max_depth": a.max_depth, "refine_mode": a.refine_mode,
+           "kink_max_nodes": a.kink_max_nodes,
+           "opt_mode": normalize_choice(a.opt_mode), "preopt": a.preopt}
+    if a.thresh is not None:
+        skw["opt_thresh"] = a.thresh
+    try:
+        run_path_search(
+            list(a.input_paths), charge=charge, spin=spin,
+            freeze_atoms=parse_freeze(a.freeze_atoms),
+            auto_freeze_links=a.auto_freeze_links, mep_mode=a.mep_mode,
+            align=a.align, calc_mode=a.calc_mode, model=a.model,
+            device=a.device, spatial=a.spatial,
+            hessian_calc_mode=a.hessian_calc_mode,
+            out_dir=a.out_dir or "./result_path_search/",
+            stopt_kw={"max_cycles": a.max_cycles},
+            gs_kw={"max_nodes": a.max_nodes, "climb": a.climb},
+            search_kw=skw)
+    except NotImplementedError as e:     # DMF, RFO, --spatial > 1
+        raise SystemExit(str(e))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         prog="pdb2r-torch",
@@ -228,5 +301,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _opt_parser(sub)
     _path_opt_parser(sub)
+    _path_search_parser(sub)
     a = parser.parse_args(argv)
     sys.exit(a.func(a))

@@ -3,12 +3,19 @@
 
 ``model`` names a PaiNN-class configuration (``mlip/model.py``:
 ``uma-s-1p1``, the default as in the JAX package, ``uma-m-1p1``,
-``small``, ``uma-s-1p1-bf16``) or an eSCN one (``escn*``). Weights: the
-caller's ``params`` (for example JAX weights carried across with
-``from_jax.params_from_jax``), else the deterministic seeded surrogate,
-announced by a loud warning because its energies mean nothing
-chemically. For eSCN the MoLE expert banks are merged once with the
-system's (task, charge, spin) routing (exact), and ``edge_kernel`` (else
+``small``, ``uma-s-1p1-bf16``) or an eSCN one (``escn*``). Weights, in
+this order: the caller's ``params`` (for example JAX weights carried
+across with ``from_jax.params_from_jax``); a fairchem-style ``.pt``
+checkpoint, given as ``checkpoint`` or else named by the
+``PDB2R_TPU_UMA_PT`` variable, converted by ``mlip/convert.py`` with
+the eSCN configuration inferred from its tensor shapes (``model`` is
+then not read) and tagged ``converted:<path>``; else the deterministic
+seeded surrogate, announced by a loud warning because its energies mean
+nothing chemically. Orbax checkpoints (the JAX package's other
+checkpoint route) need a JAX library: carry them across with
+``from_jax`` instead. For eSCN the MoLE expert banks are merged once
+with the system's (task, charge, spin) routing (exact), and
+``edge_kernel`` (else
 the ``PDB2R_TPU_ESCN_KERNEL`` variable, else "pallas-mega") picks the
 message layout: "pallas-mega" (K1), "pallas-full" (K3) or "pallas" (K4),
 as in the JAX factory, or "xla", the all-plain variant.
@@ -49,6 +56,7 @@ from ..core.structure import Structure
 from ..parallel.distributed import current_group
 from ..parallel.spatial import make_spatial_energy_fn
 from .calculator import Calculator, resolve_device
+from .convert import convert_checkpoint
 from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
                    init_escn_params, premerge_escn_params, tree_to)
 from .model import (CONFIGS, init_params, make_energy_fn,
@@ -93,6 +101,8 @@ def make_uma_calculator(
     spin: int = 1,
     freeze_atoms: Optional[Sequence[int]] = None,
     params: Optional[dict] = None,
+    checkpoint: Optional[str] = None,
+    task: Optional[int] = None,
     seed: int = 0,
     device="cuda",
     dtype: Optional[torch.dtype] = None,
@@ -112,9 +122,20 @@ def make_uma_calculator(
     compute type (None: the configuration's own; the CUDA kernels take
     float32, and the PaiNN pallas mode computes in float32 whatever it
     is). ``params`` may be raw or premerged (eSCN). ``mp_mode`` picks the
-    PaiNN-class layout (None: the configuration's own)."""
+    PaiNN-class layout (None: the configuration's own). ``task`` is the
+    eSCN task index of the routing (None: ``params["task"]``, else 0)."""
     spatial = int(spatial or 1)
-    escn = model.startswith("escn")
+    if checkpoint is not None and not str(checkpoint).endswith(".pt"):
+        raise NotImplementedError(
+            f"checkpoint={checkpoint!r}: the port reads fairchem-style .pt "
+            "checkpoints; an orbax checkpoint of the JAX package needs a "
+            "JAX library, so carry its tree across with "
+            "from_jax.params_from_jax and pass it as params=")
+    pt_path = checkpoint or (None if params is not None
+                             else os.environ.get("PDB2R_TPU_UMA_PT"))
+    if pt_path and params is not None:
+        raise ValueError("give params= or a checkpoint, not both")
+    escn = bool(pt_path) or model.startswith("escn")
     if escn and spatial > 1:
         raise NotImplementedError(
             f"spatial={spatial} with eSCN model {model!r}: eSCN under "
@@ -124,14 +145,17 @@ def make_uma_calculator(
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
                          "take edge_kernel")
     group = _spatial_group(spatial, device) if spatial > 1 else None
-    if escn:
+    dev = resolve_device(group.device if group else device)
+    if pt_path:
+        params, cfg = convert_checkpoint(pt_path)
+        weights_source = f"converted:{pt_path}"
+    elif escn:
         cfg = ESCN_CONFIGS[model]
     elif model in CONFIGS:
         cfg = CONFIGS[model]
     else:
         raise KeyError(f"unknown model {model!r}: one of "
                        f"{sorted(CONFIGS) + sorted(ESCN_CONFIGS)}")
-    dev = resolve_device(group.device if group else device)
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
     if mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=str(mp_mode))
@@ -159,7 +183,8 @@ def make_uma_calculator(
     params["spin"] = torch.as_tensor(float(spin))
     fn_h = None
     if escn:
-        params["task"] = torch.as_tensor(float(params.get("task", 0)))
+        params["task"] = torch.as_tensor(float(
+            task if task is not None else params.get("task", 0)))
         params = premerge_escn_params(params, cfg)
         fn = escn_energy_fn(cfg)
         if cfg.edge_kernel != "xla":

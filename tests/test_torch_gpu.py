@@ -971,3 +971,100 @@ def test_flagship_gsm_accounting_on_card():
     assert fc == (res.cycles + 1) * 12 and calc.force_calls - n0 == fc
     assert _moved(before) == {k: 4 * fc for k in MAIN_PATH}
     assert np.all(np.isfinite(res.energies))
+
+
+def test_compare_structures_on_card_equals_cpu():
+    """Bond changes on the card: the same formed and broken sets as the
+    CPU, both distance matrices within 1e-12 Bohr."""
+    from pdb2reaction_tpu_torch.bio.bonds import compare_structures
+    _need_card()
+    st = _lattice(300, seed=0)
+    rng = np.random.default_rng(2)
+    xb = st.coords + rng.normal(scale=0.12, size=st.coords.shape)
+    a, b = st.coords * ANG2BOHR, xb * ANG2BOHR
+    g = compare_structures(st.numbers, a, b, device="cuda")
+    c = compare_structures(st.numbers, a, b, device="cpu")
+    assert g.formed_covalent and g.broken_covalent
+    assert (g.formed_covalent, g.broken_covalent) == \
+        (c.formed_covalent, c.broken_covalent)
+    assert np.abs(g.distances_1 - c.distances_1).max() <= 1e-12
+    assert np.abs(g.distances_2 - c.distances_2).max() <= 1e-12
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_md_golden_through_pt_on_card(tmp_path, i):
+    """The production-dims golden (lmax 4, mmax 2, C = 128) through
+    make_uma_calculator(checkpoint=x.pt) on the card, K1 and K2 in
+    float32 (2 + 2 launches a force call), against CPU float64 on the
+    same converted weights and against the independent goldens: energy
+    rtol 2e-5, forces rtol 1e-3 and atol 2e-5 eV/Angstrom."""
+    import sys
+    from pathlib import Path
+    from pdb2reaction_tpu_torch.constants import AU2EV, F_EVAA_2_AU
+    _need_card()
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "scripts"))
+    try:
+        from make_escn_golden import MD_CFG, make_state_dict
+    finally:
+        sys.path.remove(str(root / "scripts"))
+    g = np.load(root / "tests" / "fixtures" / "escn_golden_md.npz")
+    sd = make_state_dict(MD_CFG, seed=int(g["cfg_seed"]))
+    pt = tmp_path / "golden_md.pt"
+    torch.save({"state_dict": {k: torch.as_tensor(v)
+                               for k, v in sd.items()}}, pt)
+    q, s, t = (int(v) for v in g[f"struct{i}_cqt"])
+    st = Structure(g[f"struct{i}_numbers"], g[f"struct{i}_coords"])
+    out = {}
+    for dev, dt in (("cuda", None), ("cpu", torch.float64)):
+        calc = make_uma_calculator(st, checkpoint=str(pt), device=dev,
+                                   dtype=dt, charge=q, spin=s, task=t)
+        before = _all_counts()
+        r = calc.get_forces(st.coords_bohr.reshape(-1))
+        if dev == "cuda":
+            assert _moved(before) == {k: 2 for k in MAIN_PATH}
+        out[dev] = (r["energy"] * AU2EV,
+                    r["forces"].reshape(-1, 3) / F_EVAA_2_AU)
+    e, f = out["cuda"]
+    for e_ref, f_ref in (out["cpu"], (float(g[f"struct{i}_energy"]),
+                                      g[f"struct{i}_forces"])):
+        np.testing.assert_allclose(e, e_ref, rtol=2e-5)
+        np.testing.assert_allclose(f, f_ref, rtol=1e-3, atol=2e-5)
+
+
+def test_morse_path_search_on_card_matches_cpu(tmp_path):
+    """run_path_search on Morse H3, float64 throughout: the card's
+    summary equals the CPU's (floats within 1e-9, all else exactly) and
+    its bond changes ran on the card."""
+    import json
+    from pdb2reaction_tpu_torch.workflows.path_search import run_path_search
+    _need_card()
+    for name, x in (("A", 0.686), ("B", 1.714)):
+        (tmp_path / f"{name}.xyz").write_text(
+            f"3\n{name}\nH 0.0 0.0 0.0\nH {x} 0.0 0.0\nH 2.4 0.0 0.0\n")
+    docs = {}
+    for dev in ("cuda", "cpu"):
+        res = run_path_search([tmp_path / "A.xyz", tmp_path / "B.xyz"],
+                              charge=0, calc_mode="morse", device=dev,
+                              freeze_atoms=[0, 2], verbose=False,
+                              out_dir=tmp_path / dev,
+                              gs_kw={"max_nodes": 9})
+        assert str(res["calculator"].device).startswith(dev)
+        docs[dev] = json.loads((tmp_path / dev / "summary.yaml").read_text())
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert set(a) == set(b)
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(a, float):
+            assert abs(a - b) <= 1e-9
+        else:
+            assert a == b
+
+    same(docs["cuda"], docs["cpu"])
+    assert docs["cuda"]["segments"][0]["reactive"]

@@ -71,3 +71,64 @@ def test_workflow_modules_import_without_jax():
     for mod in ("engines.gsm", "bio.align", "mlip.potentials",
                 "workflows.path_opt", "workflows.common", "cli"):
         assert f"pdb2reaction_tpu_torch.{mod}" in names, mod
+
+
+_BLOCKED = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "pdb2reaction_tpu", "yaml", "matplotlib",
+             "click"):
+    sys.modules[name] = None          # any import of these now fails
+import pdb2reaction_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith("__main__")]
+for n in names:
+    importlib.import_module(n)
+print(" ".join(names))
+"""
+
+
+def test_path_search_modules_import_without_yaml_matplotlib_click():
+    """The card's installation has no matplotlib (and need not have
+    PyYAML or click): every module of the port imports with those three
+    blocked as well as JAX."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    names = set(r.stdout.split())
+    for mod in ("runtime.checkpoint", "bio.bonds", "workflows.summary",
+                "workflows.trj2fig", "workflows.path_search",
+                "mlip.convert", "mlip.uma", "cli"):
+        assert f"pdb2reaction_tpu_torch.{mod}" in names, mod
+
+
+def test_path_search_runs_without_matplotlib(tmp_path):
+    """path-search with matplotlib (and PyYAML, click, JAX) blocked: the
+    two PNGs are skipped with a warning each, everything else is
+    written, and the diagram's levels are in summary.yaml."""
+    (tmp_path / "A.xyz").write_text(
+        "3\nA\nH 0.0 0.0 0.0\nH 0.686 0.0 0.0\nH 2.4 0.0 0.0\n")
+    (tmp_path / "B.xyz").write_text(
+        "3\nB\nH 0.0 0.0 0.0\nH 1.714 0.0 0.0\nH 2.4 0.0 0.0\n")
+    script = _BLOCKED.replace('print(" ".join(names))', """
+from pdb2reaction_tpu_torch import cli
+cli.main(["path-search", "-i", "A.xyz", "-i", "B.xyz", "-q", "0",
+          "--calc-mode", "morse", "--device", "cpu", "--freeze-atoms",
+          "0,2", "--max-nodes", "7", "--out-dir", "ps"])
+""")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = tmp_path / "ps"
+    assert "energy_diagram.png skipped" in r.stdout
+    assert "mep_plot.png skipped" in r.stdout
+    assert not (out / "energy_diagram.png").exists()
+    assert not (out / "mep_plot.png").exists()
+    for f in ("mep.trj", "summary.yaml", "summary.log",
+              "seg_000_mep/final_geometries.trj", "seg_000_mep/hei.xyz",
+              "seg_000_mep/summary.yaml"):
+        assert (out / f).exists(), f
+    import json
+    doc = json.loads((out / "summary.yaml").read_text())
+    assert doc["diagram"]["chain"] == "R --> TS1 --> P"

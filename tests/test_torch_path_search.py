@@ -1,0 +1,232 @@
+"""Port ``path-search`` (``workflows/path_search.py``, ``summary.py``,
+the CLI) against the JAX package's:
+
+- twins of ``tests/test_path_search.py``: the single-step search on
+  Morse H3 through the CLI (the output tree, a reactive segment, the
+  stitched MEP from R to P), the kink case (no covalent change) and the
+  stitch dropping a duplicated boundary image;
+- whole searches on Morse H3 through both packages' ``run_path_search``
+  at odd ``max_nodes`` (at an even count the two middle images tie to
+  the last bit and the string may come out mirrored): a reactive step,
+  a kink, and three inputs (two pairs). The same segment kinds,
+  reactive flags, HEI indices and image counts; energies within 1e-8
+  Hartree, images within 1e-7 Bohr (the bound ``test_torch_gsm.py``
+  holds the H3 string to); ``summary.yaml`` equal to the JAX package's
+  under ``yaml.safe_load`` (floats within 1e-8, everything else
+  exactly), the segment-level ones too. Force calls are not compared:
+  the JAX Cartesian L-BFGS counts none (ROADMAP.md queue 3);
+- the refusals of what is not ported, each naming its ROADMAP item,
+  through the CLI and the library, before any output is written."""
+
+import numpy as np
+import pytest
+import yaml
+
+from pdb2reaction_tpu.workflows import path_search as j_ps
+from pdb2reaction_tpu_torch import cli
+from pdb2reaction_tpu_torch.core import io_xyz
+from pdb2reaction_tpu_torch.workflows.path_search import (PathSearch,
+                                                          SegmentReport,
+                                                          run_path_search)
+
+H3A = "3\nreactant\nH 0.0 0.0 0.0\nH 0.686 0.0 0.0\nH 2.4 0.0 0.0\n"
+H3B = "3\nproduct\nH 0.0 0.0 0.0\nH 1.714 0.0 0.0\nH 2.4 0.0 0.0\n"
+# conformational variant of A (no covalent change): middle H off-axis
+H3K = "3\nkink\nH 0.0 0.0 0.0\nH 0.64 0.25 0.0\nH 2.4 0.0 0.0\n"
+COMMON = ["-q", "0", "--calc-mode", "morse", "--freeze-atoms", "0,2",
+          "--device", "cpu"]
+
+
+def _write(tmp_path, name, text):
+    p = tmp_path / name
+    p.write_text(text)
+    return p
+
+
+def _cli(args):
+    with pytest.raises(SystemExit) as e:
+        cli.main(args)
+    return e.value.code
+
+
+def test_path_search_single_step(tmp_path):
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    out = tmp_path / "ps"
+    assert _cli(["path-search", "-i", str(a), "-i", str(b), "--max-nodes",
+                 "8", "--out-dir", str(out)] + COMMON) == 0
+    for f in ("mep.trj", "summary.yaml", "summary.log",
+              "energy_diagram.png", "mep_plot.png",
+              "seg_000_mep/hei.xyz", "seg_000_mep/final_geometries.trj",
+              "seg_000_mep/summary.yaml"):
+        assert (out / f).exists(), f
+    log = (out / "summary.log").read_text()
+    assert "reactive" in log and "bonds formed" in log
+    # the stitched MEP is continuous and covers R -> P
+    frames = io_xyz.read_xyz_frames(out / "mep.trj")
+    assert frames[0].coords[1, 0] == pytest.approx(0.705, abs=0.05)
+    assert frames[-1].coords[1, 0] == pytest.approx(1.695, abs=0.05)
+    doc = yaml.safe_load((out / "summary.yaml").read_text())
+    assert doc["diagram"]["chain"] == "R --> TS1 --> P"
+    seg = yaml.safe_load((out / "seg_000_mep" / "summary.yaml").read_text())
+    assert seg["pair_index"] == 0 and seg["weights"] == "analytic"
+
+
+def test_path_search_kink(tmp_path):
+    a = _write(tmp_path, "A.xyz", H3A)
+    k = _write(tmp_path, "K.xyz", H3K)
+    out = tmp_path / "ps"
+    assert _cli(["path-search", "-i", str(a), "-i", str(k), "--out-dir",
+                 str(out)] + COMMON) == 0
+    summary = yaml.safe_load((out / "summary.yaml").read_text())
+    # after preopt both conformers relax into the same well: a pure kink
+    # segment or nothing reactive
+    assert all(not s["reactive"] for s in summary["segments"])
+
+
+def test_stitch_drops_duplicate_boundary_image():
+    c = [np.full((3, 3), float(k)) for k in range(4)]
+    seg_a = SegmentReport(images_bohr=[c[0], c[1], c[2]],
+                          energies=[0.0, 0.5, 0.1], hei_idx=1,
+                          is_reactive=True)
+    seg_b = SegmentReport(images_bohr=[c[2], c[3]],
+                          energies=[0.1, 0.0], hei_idx=0,
+                          is_reactive=True)
+    ps = PathSearch.__new__(PathSearch)
+    ps.kw = {"rmsd_dedup_thresh": 1e-3, "bridge_rmsd_thresh": 1e9}
+    ps.verbose = False
+    out = ps._stitch([seg_a, seg_b])
+    assert len(out) == 2
+    # boundary image dropped from the later segment, hei reindexed
+    assert len(out[1].images_bohr) == 1
+    assert out[1].energies == [0.0]
+    assert out[1].hei_idx == 0
+
+
+def test_trj_energies_and_profile_match_jax(tmp_path):
+    """read_trj_energies and plot_profile's CSV as the JAX package's on
+    the same trajectory (each reference frame choice)."""
+    from pdb2reaction_tpu.workflows import trj2fig as j_trj2fig
+    from pdb2reaction_tpu_torch.workflows import trj2fig
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    res = run_path_search([a, b], charge=0, calc_mode="morse", device="cpu",
+                          freeze_atoms=[0, 2], verbose=False,
+                          out_dir=tmp_path / "ps", gs_kw={"max_nodes": 7})
+    trj = tmp_path / "ps" / "mep.trj"
+    es = trj2fig.read_trj_energies(trj)
+    assert es == j_trj2fig.read_trj_energies(trj)
+    assert np.abs(np.subtract(es, res["mep_energies"])).max() <= 1e-12
+    for ref in ("first", "min", "last", "none"):
+        for mod, tag in ((trj2fig, "port"), (j_trj2fig, "jax")):
+            mod.plot_profile(tmp_path / f"{tag}_{ref}.png", es,
+                             reference=ref,
+                             csv_path=tmp_path / f"{tag}_{ref}.csv")
+        assert (tmp_path / f"port_{ref}.png").exists()
+        assert (tmp_path / f"port_{ref}.csv").read_text() == \
+            (tmp_path / f"jax_{ref}.csv").read_text()
+
+
+def _same(a, b, where=""):
+    """Equal YAML documents: floats within 1e-8, all else exactly."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (where, a, b)
+        for k in a:
+            _same(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    elif isinstance(a, float) or isinstance(b, float):
+        assert abs(a - b) <= 1e-8, (where, a, b)
+    else:
+        assert a == b, (where, a, b)
+
+
+@pytest.mark.parametrize("inputs,max_nodes,kinds", [
+    (["A", "B"], 9, ["seg"]),
+    (["A", "K"], 7, ["kink"]),
+    (["A", "B", "A"], 7, ["seg", "seg"]),
+])
+def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
+    texts = {"A": H3A, "B": H3B, "K": H3K}
+    paths = [_write(tmp_path, f"{k}{i}.xyz", texts[k])
+             for i, k in enumerate(inputs)]
+    kw = dict(charge=0, calc_mode="morse", freeze_atoms=[0, 2],
+              verbose=False, gs_kw={"max_nodes": max_nodes})
+    rj = j_ps.run_path_search(paths, out_dir=tmp_path / "jax", **kw)
+    rt = run_path_search(paths, out_dir=tmp_path / "port", device="cpu",
+                         **kw)
+    sj, st = rj["segments"], rt["segments"]
+    assert [s.kind for s in st] == [s.kind for s in sj] == kinds
+    for a, b in zip(st, sj):
+        assert (a.is_reactive, a.is_kink, a.hei_idx, a.pair_index,
+                len(a.images_bohr)) == \
+            (b.is_reactive, b.is_kink, b.hei_idx, b.pair_index,
+             len(b.images_bohr))
+        assert a.bond_summary == b.bond_summary
+        assert np.abs(np.subtract(a.energies, b.energies)).max() <= 1e-8
+        assert max(np.abs(x - y).max() for x, y in
+                   zip(a.images_bohr, b.images_bohr)) <= 1e-7
+    assert len(rt["mep_frames_bohr"]) == len(rj["mep_frames_bohr"])
+    assert np.abs(np.subtract(rt["mep_energies"],
+                              rj["mep_energies"])).max() <= 1e-8
+    # summary.yaml (the run's and each segment's) as the JAX package's
+    for rel in ["summary.yaml"] + [f"seg_{i:03d}_mep/summary.yaml"
+                                   for i in range(len(st))]:
+        _same(yaml.safe_load((tmp_path / "port" / rel).read_text()),
+              yaml.safe_load((tmp_path / "jax" / rel).read_text()), rel)
+    if kinds == ["kink"]:
+        assert rt["segments_run"] == 0 and rt["energy_calls"] == 2
+    else:
+        assert rt["segments_run"] >= len(kinds)
+    # the calculator counted every evaluation, L-BFGS's included
+    assert rt["force_calls"] > 0
+
+
+@pytest.mark.parametrize("flags,said", [
+    (["--ref-full-pdb", "full.pdb"], "item 6"),
+    (["--mep-mode", "dmf"], "item 11"),
+    (["--opt-mode", "heavy"], "item 5"),
+    (["--spatial", "2"], "item 9"),
+    (["--gsm-loop", "device"], "item 2"),
+])
+def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    out = tmp_path / "ps"
+    with pytest.raises(SystemExit) as e:
+        cli.main(["path-search", "-i", str(a), "-i", str(b), "--out-dir",
+                  str(out)] + COMMON + flags)
+    assert said in str(e.value.code)
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("kw,said", [
+    ({"full_template": "full.pdb"}, "item 6"),
+    ({"mep_mode": "dmf"}, "item 11"),
+    ({"beta_ev": 5.0}, "item 11"),
+    ({"dmf_kw": {"n_images": 8}}, "item 11"),
+    ({"search_kw": {"opt_mode": "rfo"}}, "item 5"),
+    ({"opt_mode": "heavy"}, "item 5"),
+    ({"spatial": 2}, "item 9"),
+])
+def test_run_path_search_refuses_unported(tmp_path, kw, said):
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    with pytest.raises(NotImplementedError, match=said):
+        run_path_search([a, b], charge=0, calc_mode="morse", device="cpu",
+                        out_dir=tmp_path / "ps", verbose=False, **kw)
+    assert not (tmp_path / "ps").exists()
+
+
+def test_path_search_needs_two_inputs_of_one_system(tmp_path):
+    a = _write(tmp_path, "A.xyz", H3A)
+    o = _write(tmp_path, "O.xyz", "3\nwater\nO 0 0 0\nH 0.96 0 0\n"
+                                  "H -0.24 0.93 0\n")
+    with pytest.raises(ValueError, match=">= 2"):
+        run_path_search([a], charge=0, calc_mode="morse", device="cpu")
+    with pytest.raises(ValueError, match="ordering"):
+        run_path_search([a, o], charge=0, calc_mode="morse", device="cpu",
+                        out_dir=tmp_path / "ps")
+    assert _cli(["path-search", "-i", str(a)] + COMMON) != 0
