@@ -113,7 +113,22 @@ Phases (any failure exits non-zero):
    float32, 2 + 2 launches a force call, energies and forces of both
    golden structures against the same weights on the CPU plain path in
    float64 and against the independent numpy executor's goldens
-   (energy rtol 2e-5; forces rtol 1e-3, atol 2e-5 eV/Angstrom).
+   (energy rtol 2e-5; forces rtol 1e-3, atol 2e-5 eV/Angstrom);
+15. stage 4 on escn-md (phase 4's weights, P = 320) from phase 13's TS
+   guess (the HEI of its reactive segment with the highest barrier, of
+   any segment when none is reactive), the atoms beyond 3 Angstrom of the
+   formed bond frozen: run_tsopt light (Hessian dimer, max_cycles 200,
+   flatten_max_iter 1) and heavy (RS-I-RFO, max_cycles 100), run_freq
+   and run_irc (30 cycles a branch) on the light result, each with its
+   counts set to 0 just before and read just after: K1 and K2 forward
+   launches 4 x (force + energy calls), backward 4 x force calls, none
+   inside a Hessian (one all-plain HVP a free DOF); wall, cycles, calls,
+   Hessians and their seconds, the frequencies and the thermochemistry,
+   the IRC's host time a cycle outside the force call, peak memory;
+   every output file and finite results checked. Then the tsopt (heavy,
+   3 cycles), freq and irc (3 cycles) CLIs as subprocesses, and the
+   Morse H3 engines (RS-I-RFO, the dimer, the IRC) on the card against
+   the CPU: equal cycles and force calls, 1e-8 Bohr, 1e-10 Hartree.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -866,9 +881,10 @@ def gsm_climb(calc, xA, xB):
 
 
 def hessians_64(ref64):
-    """The analytic Hessian on the card (all-plain, 192 HVPs, one host copy)
-    against CPU float64 and float32 HVP columns, and the FD Hessian through
-    the kernels, at 64 atoms with atoms 0 and 1 frozen."""
+    """The analytic Hessian on the card (all-plain, one HVP a free DOF:
+    186, one host copy) against CPU float64 and float32 HVP columns, and
+    the FD Hessian through the kernels, at 64 atoms with atoms 0 and 1
+    frozen."""
     import torch
     from pdb2reaction_tpu_torch.constants import H_EVAA_2_AU
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
@@ -919,7 +935,8 @@ def hessians_64(ref64):
     err32 = float(np.abs(H32 - H64).max() / scale)
     limit = min(HESS_TOL, max(2 * err32, HESS_FLOOR))
     log(f"[hess] escn-md 64 atoms (atoms 0, 1 frozen), analytic Hessian on "
-        f"the card (all-plain f32, {n3} HVPs): {t_an:.2f} s; 6 "
+        f"the card (all-plain f32, {int(gpu.free_dof_mask.sum())} HVPs): "
+        f"{t_an:.2f} s; 6 "
         f"columns (atoms 2, 3) against CPU float64: max|dH|/max|H| = "
         f"{err:.3e} (CPU float32's own: {err32:.3e}; pass at <= "
         f"{limit:.3e} = max(2x float32's, {HESS_FLOOR}), outer limit "
@@ -1169,7 +1186,7 @@ def phase_search(st):
     if hv.moved:
         fail(f"kernels launched inside HVPs: {hv.moved}")
     search_files(os.path.join(out, "run"), res)
-    return st.copy(coords=xyzB)
+    return st.copy(coords=xyzB), res, (h, heavy)
 
 
 def path_search_cli(st, stB):
@@ -1288,6 +1305,361 @@ def phase_golden():
         want = {k: 2 for k in MAIN_PATH}
         if moved != want:
             fail(f"md golden launches {moved}, expected {want} (2 layers)")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: stage 4 (tsopt, freq, irc) on escn-md from phase 13's TS guess
+# ---------------------------------------------------------------------------
+
+STAGE4_RADIUS = 3.0     # Angstrom: the active region around the formed bond
+ENGINE_X_TOL = 1e-8     # Bohr: the Morse engines on the card against CPU
+ENGINE_E_TOL = 1e-10    # Hartree
+
+
+class stage4_meter:
+    """While entered: every analytic Hessian (count, synchronised seconds,
+    its HVPs and the kernel launches inside it, which must be none), the
+    time inside the engines' force calls (``Calculator._au_eforce``), and
+    the IRC branch loops' time and cycles."""
+
+    def __init__(self):
+        self.hess, self.hess_s, self.hvps = 0, 0.0, 0
+        self.inside, self.force_s = {}, 0.0
+        self.irc_s, self.irc_cycles = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        from pdb2reaction_tpu_torch.engines import irc
+        from pdb2reaction_tpu_torch.mlip.calculator import Calculator
+        self.saved = [(Calculator, k, Calculator.__dict__[k]) for k in
+                      ("_analytic_hessian", "_vjp", "_au_eforce")] + [
+            (irc, "_make_branch_runner", irc._make_branch_runner)]
+        (_, _, hess), (_, _, vjp0), (_, _, eforce), (_, _, runner) = \
+            self.saved
+        m = self
+
+        def timed(fn, add):
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                add(time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        def analytic_hessian(calc, x):
+            before = all_counts()
+            out = timed(hess, lambda dt: setattr(m, "hess_s",
+                                                 m.hess_s + dt))(calc, x)
+            m.hess += 1
+            for k, d in moved_counts(before).items():
+                m.inside[k] = m.inside.get(k, 0) + d
+            return out
+
+        def vjp(c, g, v):
+            m.hvps += 1
+            return vjp0.__func__(c, g, v)
+
+        def add_force(dt):
+            m.force_s += dt
+
+        def make_runner(*a, **kw):
+            resume = runner(*a, **kw)
+
+            def timed_resume(st, *ra):
+                c0 = st.cycle
+                out = timed(resume, lambda dt: setattr(
+                    m, "irc_s", m.irc_s + dt))(st, *ra)
+                m.irc_cycles += out.cycle - c0
+                return out
+            return timed_resume
+
+        Calculator._analytic_hessian = analytic_hessian
+        Calculator._vjp = staticmethod(vjp)
+        Calculator._au_eforce = timed(eforce, add_force)
+        irc._make_branch_runner = make_runner
+        return self
+
+    def __exit__(self, *exc):
+        for owner, k, v in self.saved:
+            setattr(owner, k, v)
+
+
+def morse_engines(device):
+    """The Morse H3 double well through rfo_optimize (TS mode),
+    hessian_dimer and eulerpc_irc on ``device``: (coordinates, energies,
+    cycles, force calls) of each."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.engines.dimer import hessian_dimer
+    from pdb2reaction_tpu_torch.engines.irc import eulerpc_irc
+    from pdb2reaction_tpu_torch.engines.rfo import rfo_optimize
+    from pdb2reaction_tpu_torch.mlip import potentials
+    from pdb2reaction_tpu_torch.mlip.calculator import Calculator
+    out = {}
+
+    def calc_at(x1):
+        st = Structure.from_symbols(["H"] * 3, [[0, 0, 0], [x1, 0, 0],
+                                                [2.4, 0, 0]], freeze=[0, 2])
+        return Calculator(st, potentials.make_morse(), device=device), st
+
+    c, st = calc_at(1.05)
+    H0 = c.get_hessian(st.coords_bohr.reshape(-1))["hessian"]
+    r = rfo_optimize(c.au_energy_force_fn(), c.pad_bohr(st.coords_bohr),
+                     c.system.free_mask, c.n_atoms, hessian0=H0, mode="ts",
+                     roots=[0], thresh="baker", hessian_update="bofill",
+                     max_cycles=300)
+    if r.x.device.type != torch.device(device).type:
+        fail(f"rfo_optimize returned its geometry on {r.x.device}")
+    out["rfo"] = (r.x.cpu().numpy(), [r.e], r.cycles, c.force_calls)
+    c, st = calc_at(1.05)
+    d = hessian_dimer(c, c.pad_bohr(st.coords_bohr), flatten_max_iter=0)
+    out["dimer"] = (d.x.cpu().numpy(), [d.e], d.cycles, c.force_calls)
+    c, st = calc_at(1.2)
+    i = eulerpc_irc(c, c.pad_bohr(st.coords_bohr), max_cycles=80,
+                    rms_grad_thresh=5e-4)
+    out["irc"] = (np.concatenate([np.stack(b.coords) for b in
+                                  (i.forward, i.backward)]),
+                  i.forward.energies + i.backward.energies,
+                  len(i.forward.coords) + len(i.backward.coords),
+                  c.force_calls)
+    return out
+
+
+def morse_card_vs_cpu():
+    """Phase 15a: the Morse engines on the card against the CPU: the same
+    cycles and force calls, coordinates within ENGINE_X_TOL, energies
+    within ENGINE_E_TOL (a tensor left on the wrong device fails here)."""
+    gpu, cpu = morse_engines("cuda"), morse_engines("cpu")
+    for k in gpu:
+        (xg, eg, cg, fg), (xc, ec, cc, fc) = gpu[k], cpu[k]
+        dx = float(np.abs(xg - xc).max())
+        de = float(np.abs(np.subtract(eg, ec)).max())
+        log(f"[stage4] Morse H3 {k} on the card against the CPU: cycles "
+            f"{cg} / {cc}, force calls {fg} / {fc}, max|dx| {dx:.2e} Bohr, "
+            f"max|dE| {de:.2e} Ha")
+        if cg != cc or fg != fc or not dx <= ENGINE_X_TOL \
+                or not de <= ENGINE_E_TOL:
+            fail(f"the Morse {k} engine on the card disagrees with the CPU")
+
+
+def stage4_guess(search, bond):
+    """Phase 13's TS guess: the HEI of its reactive segment with the
+    highest barrier (of any segment's when none is reactive), and the
+    active atoms within STAGE4_RADIUS of either atom of the formed bond."""
+    from pdb2reaction_tpu_torch.constants import BOHR2ANG
+    segs = search["segments"]
+    pool = [s for s in segs if s.is_reactive] or segs
+    seg = max(pool, key=lambda s: s.barrier_au)
+    x = np.asarray(seg.images_bohr[seg.hei_idx]) * BOHR2ANG
+    d = np.linalg.norm(x[:, None, :] - x[list(bond)][None], axis=-1)
+    active = np.nonzero(d.min(axis=1) <= STAGE4_RADIUS)[0]
+    return x, seg, [int(i) for i in range(len(x)) if i not in set(active)]
+
+
+def stage4_run(tag, run, calc, check_files):
+    """One workflow with its counts set to 0 just before and read just
+    after: the launch identity, finite results, its outputs."""
+    import torch
+    n_f, n_e = calc.force_calls, calc.energy_calls
+    zero_all_counts()
+    before = all_counts()
+    with stage4_meter() as m:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fc, ec = calc.force_calls - n_f, calc.energy_calls - n_e
+    moved = moved_counts(before)
+    per = m.hvps / max(m.hess, 1)
+    log(f"[stage4] {tag}: {wall:.2f} s wall; cycles "
+        f"{res.get('cycles', '-')}, converged {res.get('converged', '-')}; "
+        f"{fc} force calls, {ec} energy calls (the engines' force calls "
+        f"{m.force_s:.2f} s); "
+        f"{m.hess} Hessians in {m.hess_s:.2f} s, {per:.0f} HVPs each; "
+        f"launches {moved}")
+    want = {"fused_edge_mega_fwd": 4 * (fc + ec),
+            "fused_edge_mega_bwd": 4 * fc,
+            "fused_node_ffn_fwd": 4 * (fc + ec),
+            "fused_node_ffn_bwd": 4 * fc}
+    if moved != {k: v for k, v in want.items() if v}:
+        fail(f"{tag}: launches {moved}, expected {want} (K1 and K2 "
+             "forward 4 x (force + energy calls), backward 4 x force calls)")
+    if m.inside:
+        fail(f"{tag}: kernels launched inside Hessians: {m.inside}")
+    missing = [f for f in check_files if not os.path.exists(f)]
+    if missing:
+        fail(f"{tag} wrote no {missing}")
+    return res, m, wall
+
+
+def phase_stage4(calc, st, search, bond, smi_line):
+    """Phase 15: run_tsopt (light, then heavy), run_freq and run_irc on
+    escn-md (phase 4's weights, P = 320) from phase 13's TS guess, with
+    the atoms beyond STAGE4_RADIUS of the formed bond frozen; the three
+    CLI subcommands as subprocesses; the Morse engines on the card
+    against the CPU."""
+    import shutil
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.freq import run_freq
+    from pdb2reaction_tpu_torch.workflows.irc import run_irc
+    from pdb2reaction_tpu_torch.workflows.tsopt import run_tsopt
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "result_smoke", "stage4")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    x, seg, freeze = stage4_guess(search, bond)
+    guess = st.copy(coords=x)
+    gpath = os.path.join(out, "ts_guess.xyz")
+    write_xyz(gpath, guess)
+    n_act = st.n_atoms - len(freeze)
+    log(f"[stage4] {smi_line}; TS guess: the HEI (image {seg.hei_idx}) of "
+        f"a {seg.kind} segment (reactive {seg.is_reactive}, barrier "
+        f"{seg.barrier_au:.6f} Ha); active region: {n_act} atoms within "
+        f"{STAGE4_RADIUS} A of atoms {list(bond)}, {len(freeze)} frozen")
+    c4 = make_uma_calculator(guess, model="escn-md", device="cuda",
+                             params=calc.params, pad_multiple=64,
+                             freeze_atoms=freeze)
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(charge=0, verbose=False, calculator=c4)
+    dl = os.path.join(out, "light")
+    ra, _, _ = stage4_run("(a) tsopt light (Hessian dimer, max_cycles 200, "
+                          "flatten_max_iter 1)", lambda: run_tsopt(
+                              gpath, opt_mode="light", max_cycles=200,
+                              hessian_dimer_kw={"flatten_max_iter": 1},
+                              out_dir=dl, **kw), c4,
+                          [os.path.join(dl, f) for f in (
+                              "final_geometry.xyz", "imag_mode.trj")])
+    dh = os.path.join(out, "heavy")
+    rb, _, _ = stage4_run("(b) tsopt heavy (RS-I-RFO, max_cycles 100)",
+                          lambda: run_tsopt(gpath, opt_mode="heavy",
+                                            max_cycles=100, out_dir=dh,
+                                            **kw), c4,
+                          [os.path.join(dh, f) for f in (
+                              "final_geometry.xyz", "imag_mode.trj")])
+    ts_path = os.path.join(dl, "final_geometry.xyz")
+    df = os.path.join(out, "freq")
+    rc, _, _ = stage4_run("(c) freq on (a)'s geometry", lambda: run_freq(
+        ts_path, out_dir=df, **kw), c4, [os.path.join(df, f) for f in (
+            "frequencies_cm-1.txt", "thermoanalysis.yaml")])
+    di = os.path.join(out, "irc")
+    rd, m_irc, _ = stage4_run("(d) irc from (a)'s geometry (max_cycles 30 "
+                              "a branch)", lambda: run_irc(
+                                  ts_path, out_dir=di, max_cycles=30, **kw),
+                              c4, [os.path.join(di, f) for f in (
+                                  "finished_irc.trj", "forward_irc.trj",
+                                  "backward_irc.trj", "irc_data.npz")])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for tag, r in (("tsopt light", ra), ("tsopt heavy", rb)):
+        log(f"[stage4] {tag}: E = {r['energy']:.8f} Ha, n_imag "
+            f"{r['n_imag']}, lowest mode "
+            f"{np.min(r['freqs_cm']) if len(r['freqs_cm']) else 'none'} "
+            f"cm-1")
+        if not (np.isfinite(r["energy"]) and np.all(np.isfinite(
+                r["coords_bohr"])) and np.all(np.isfinite(r["freqs_cm"]))):
+            fail(f"{tag}: non-finite energy, geometry or frequency")
+    th = rc["thermo"]
+    n_imag = int((rc["freqs_cm"] < 0).sum())
+    log(f"[stage4] freq: {len(rc['freqs_cm'])} modes, {n_imag} imaginary, "
+        f"lowest {np.min(rc['freqs_cm']):.1f} cm-1; thermo at 298.15 K: "
+        f"ZPE {th.zpe:.6f} Ha, G - E = {th.gibbs_corr:.6f} Ha, G = "
+        f"{th.gibbs:.8f} Ha")
+    if not (np.all(np.isfinite(rc["freqs_cm"])) and np.isfinite(th.gibbs)
+            and np.all(np.isfinite(rc["hessian"]))):
+        fail("freq: non-finite frequencies, Hessian or thermochemistry")
+    ir = rd["result"]
+    host = (m_irc.irc_s - m_irc.force_s) / max(m_irc.irc_cycles, 1)
+    log(f"[stage4] irc: forward {len(ir.forward.coords)} / backward "
+        f"{len(ir.backward.coords)} points (converged "
+        f"{ir.forward.converged} / {ir.backward.converged}); branch loops "
+        f"{m_irc.irc_s:.2f} s over {m_irc.irc_cycles} cycles, "
+        f"{host * 1e3:.1f} ms a cycle outside the force call (DWI field, "
+        f"corrector, predictor, Bofill)")
+    if not (np.all(np.isfinite(rd["energies"])) and all(
+            np.all(np.isfinite(f)) for f in rd["frames_bohr"])):
+        fail("irc: non-finite energies or frames")
+    log(f"[stage4] peak memory over (a)-(d) {peak:.2f} GiB")
+    irc_cycle_alone(st.n_atoms, freeze)
+    stage4_cli(gpath, ts_path, freeze)
+    morse_card_vs_cpu()
+    log(f"[stage4] phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def irc_cycle_alone(n_atoms, freeze, reps=3):
+    """A steady IRC cycle's integration alone at the phase's size (3N
+    mass-weighted coordinates, its freeze list): the corrector's four
+    midpoint passes and 500 Euler sub-steps on a DWI surface of seeded
+    points and symmetric Hessians, 584 field evaluations, through the
+    engine's own functions. Median of ``reps`` synchronised runs."""
+    import torch
+    from pdb2reaction_tpu_torch.engines.irc import (_sym, dwi_field,
+                                                    integrate_cycle)
+    n3 = 3 * n_atoms
+    gen = torch.Generator().manual_seed(0)
+    free = torch.ones(n_atoms, 3, dtype=torch.float64)
+    free[freeze] = 0.0
+    free = free.reshape(-1).cuda()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen,
+                           dtype=torch.float64).cuda()
+
+    Q = rnd(2, n3) * free
+    field = dwi_field(Q, rnd(2), rnd(2, n3) * 1e-2 * free,
+                      torch.stack([_sym(rnd(n3, n3)), _sym(rnd(n3, n3))]),
+                      free)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = integrate_cycle(field, Q[0], Q[1], 0.1, 500, free)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(q).all()):
+        fail("the IRC cycle's integration gave non-finite coordinates")
+    log(f"[stage4] one steady IRC cycle's integration alone at 3N = {n3} "
+        f"(corrector + 500 Euler sub-steps, 584 DWI field evaluations): "
+        f"{sorted(times)[len(times) // 2] * 1e3:.1f} ms (median of "
+        f"{reps}; {[round(t * 1e3, 1) for t in times]})")
+
+
+def stage4_cli(gpath, ts_path, freeze):
+    """Phase 15e: ``tsopt --opt-mode heavy --max-cycles 3``, ``freq`` and
+    ``irc --max-cycles 3`` as subprocesses on the card (escn-md, seed 0,
+    the same freeze list): exit codes and outputs. tsopt exits 3 when its
+    three cycles end unconverged, and that is reported, not required."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = ["--model", "escn-md", "-q", "0", "--freeze-atoms",
+            ",".join(map(str, freeze))]
+    out = os.path.dirname(gpath)
+    runs = (("tsopt", gpath, ["--opt-mode", "heavy", "--max-cycles", "3"],
+             (0, 3), ("final_geometry.xyz", "imag_mode.trj")),
+            ("freq", ts_path, [], (0,),
+             ("frequencies_cm-1.txt", "thermoanalysis.yaml")),
+            ("irc", ts_path, ["--max-cycles", "3"], (0,),
+             ("finished_irc.trj", "irc_data.npz")))
+    for cmd, src, extra, ok, files in runs:
+        d = os.path.join(out, f"cli_{cmd}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pdb2reaction_tpu_torch",
+                            cmd, "-i", src, "--out-dir", d] + base + extra,
+                           cwd=out, env=env, capture_output=True, text=True,
+                           timeout=600)
+        tail = [ln for ln in r.stdout.splitlines()
+                if ln.startswith(f"[{cmd}")][-2:]
+        log(f"[stage4] {cmd} CLI as a subprocess: rc {r.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s with start-up; {tail}")
+        if r.returncode not in ok:
+            fail(f"the {cmd} CLI exited {r.returncode}: {r.stderr[-3000:]}")
+        missing = [f for f in files if not os.path.exists(
+            os.path.join(d, f))]
+        if missing:
+            fail(f"the {cmd} CLI wrote no {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -2169,10 +2541,12 @@ def main():
         phase_gsm(calc, ms_force, ref64)
         # ---- path-search (its own counts), its CLI, the md golden
         t0 = time.perf_counter()
-        stB = phase_search(st)
+        stB, search, bond = phase_search(st)
         path_search_cli(st, stB)
         phase_golden()
         log(f"[search] phases 13-14 wall {time.perf_counter() - t0:.1f} s")
+        # ---- stage 4 from phase 13's TS guess: its own counts
+        phase_stage4(calc, st, search, bond, smi_line)
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

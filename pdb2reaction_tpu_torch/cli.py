@@ -1,5 +1,5 @@
-"""Command-line interface of the port: the ``opt``, ``path-opt`` and
-``path-search`` subcommands.
+"""Command-line interface of the port: the ``opt``, ``path-opt``,
+``path-search``, ``tsopt``, ``freq`` and ``irc`` subcommands.
 
 Same flags as the JAX package's (``pdb2reaction_tpu/cli.py``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
@@ -11,6 +11,10 @@ with a non-default value. The other subcommands are later port items.
         --model escn-md                                     # GSM MEP
     python -m pdb2reaction_tpu_torch path-search -i a.xyz -i b.xyz \
         -q 0 --calc-mode morse --device cpu                 # recursive MEPs
+    python -m pdb2reaction_tpu_torch tsopt -i ts.xyz -q 0 \
+        --opt-mode heavy --model escn-md                    # RS-I-RFO
+    python -m pdb2reaction_tpu_torch freq -i ts.xyz -q 0    # + thermo
+    python -m pdb2reaction_tpu_torch irc -i ts.xyz -q 0     # EulerPC
 
 ``opt --spatial N`` shards the atom axis over N ranks, one process each,
 launched by ``torchrun`` (WORLD_SIZE must equal N). Every rank runs the
@@ -96,7 +100,8 @@ def _opt_parser(sub):
     p = sub.add_parser("opt", help="Single-structure geometry optimization.")
     p.add_argument("-i", "--input", dest="input_path", required=True,
                    type=Path)
-    p.add_argument("--opt-mode", default="light", help="light|lbfgs.")
+    p.add_argument("--opt-mode", default="light",
+                   help="light|lbfgs or heavy|rfo.")
     p.add_argument("--coord-type", default="cart", choices=["cart", "dlc"])
     p.add_argument("--thresh", default="gau")
     p.add_argument("--max-cycles", type=int, default=10000)
@@ -122,7 +127,7 @@ def _path_opt_parser(sub):
                    help="String-optimizer cycle cap.")
     p.add_argument("--opt-mode", default="light",
                    help="Endpoint preoptimization mode: light|lbfgs "
-                        "(heavy|rfo is not ported yet).")
+                        "or heavy|rfo.")
     p.add_argument("--thresh", default=None,
                    help="Convergence preset for the string optimizer and "
                         "endpoint preopt.")
@@ -161,7 +166,7 @@ def _path_search_parser(sub):
                    choices=["light", "heavy", "lbfgs", "rfo"],
                    type=str.lower,
                    help="Optimizer of the preopt and HEI refinements: "
-                        "light|lbfgs (heavy|rfo is not ported yet).")
+                        "light|lbfgs or heavy|rfo.")
     p.add_argument("--thresh", default=None,
                    help="Convergence preset for in-search optimizations.")
     p.add_argument("--preopt", type=_bool, default=True,
@@ -182,10 +187,81 @@ def _path_search_parser(sub):
     return p
 
 
-def _reject_unported(a) -> None:
+def _tsopt_parser(sub):
+    p = sub.add_parser("tsopt", help="Transition-state optimization "
+                                     "(Hessian dimer or RS-I-RFO).")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--opt-mode", default="light",
+                   help="light|dimer or heavy|rsirfo.")
+    p.add_argument("--coord-type", default="cart", choices=["cart", "dlc"],
+                   help="Coordinates of the rsirfo mode (dlc is not ported "
+                        "yet); the dimer runs Cartesian.")
+    p.add_argument("--thresh", default="baker")
+    p.add_argument("--max-cycles", type=int, default=10000)
+    p.add_argument("--flatten-imag-mode", type=_bool, default=False,
+                   help="Run the extra-imaginary-mode flatten loop (light "
+                        "mode; False sets flatten_max_iter=0).")
+    p.add_argument("--dump-restart", type=int, default=0,
+                   help="Dump dimer-pass carries every N cycles for a "
+                        "mid-run restart; 0 disables.")
+    _common_options(p)
+    p.set_defaults(func=tsopt_cmd)
+    return p
+
+
+def _freq_parser(sub):
+    p = sub.add_parser("freq", help="Vibrational analysis and "
+                                    "thermochemistry.")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("-T", "--temperature", type=float, default=298.15)
+    p.add_argument("--pressure", type=float, default=101325.0)
+    p.add_argument("--max-write-modes", "--max-write",
+                   dest="max_write_modes", type=int, default=10,
+                   help="How many modes to export (after --sort).")
+    p.add_argument("--amplitude-ang", type=float, default=0.8,
+                   help="Mode-animation amplitude [Angstrom].")
+    p.add_argument("--n-frames", type=int, default=20,
+                   help="Frames per mode animation.")
+    p.add_argument("--sort", dest="sort_modes", default="value",
+                   choices=["value", "abs"],
+                   help="Export order: by value or by absolute value.")
+    _common_options(p)
+    p.set_defaults(func=freq_cmd)
+    return p
+
+
+def _irc_parser(sub):
+    p = sub.add_parser("irc", help="Intrinsic reaction coordinate "
+                                   "(EulerPC).")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--step-length", "--step-size", dest="step_length",
+                   type=float, default=0.10,
+                   help="Step length in mass-weighted coordinates.")
+    p.add_argument("--max-cycles", type=int, default=125)
+    p.add_argument("--root", type=int, default=0,
+                   help="Imaginary-mode index of the first displacement.")
+    p.add_argument("--forward", type=_bool, default=True)
+    p.add_argument("--backward", type=_bool, default=True)
+    p.add_argument("--hessian-recalc", type=int, default=None,
+                   help="Exact Hessian every N cycles of a branch; default "
+                        "Bofill updates from the TS Hessian alone.")
+    p.add_argument("--dump-restart", type=int, default=0,
+                   help="Dump the branch carry every N cycles for a "
+                        "mid-run restart; 0 disables.")
+    _common_options(p)
+    p.set_defaults(func=irc_cmd)
+    return p
+
+
+def _reject_unported(a, supported=()) -> None:
     unported = {
-        "--dist-freeze": bool(getattr(a, "dist_freeze", "")),
-        "--dump-restart": getattr(a, "dump_restart", 0) != 0,
+        "--dist-freeze (the distance restraints, ROADMAP.md queue 1 item "
+        "6)": bool(getattr(a, "dist_freeze", "")),
+        "--dump-restart": ("--dump-restart" not in supported
+                           and getattr(a, "dump_restart", 0) != 0),
         "--ref-pdb": a.ref_pdb is not None,
         "--dump": a.dump,
         "--workers": a.workers != 1,
@@ -226,6 +302,13 @@ def opt_cmd(a) -> int:
     from .workflows.opt import run_opt
     _reject_unported(a)
     charge, spin = _charge_spin(a)
+    if a.coord_type != "cart":          # before any rank builds a model
+        from .workflows.opt import _DLC
+        raise SystemExit(_DLC)
+    if a.spatial > 1 and normalize_choice(a.opt_mode) == "rfo":
+        raise SystemExit("opt --opt-mode heavy under atom-axis sharding "
+                         "(--spatial > 1): the Hessian over ranks is not "
+                         "ported yet, ROADMAP.md queue 1 item 9")
     _init_spatial(a, "opt")
     try:
         res = run_opt(
@@ -294,6 +377,60 @@ def path_search_cmd(a) -> int:
     return 0
 
 
+def _stage4_kw(a):
+    """The options tsopt, freq and irc pass to their workflows alike."""
+    charge, spin = _charge_spin(a)
+    return dict(charge=charge, spin=spin,
+                freeze_atoms=parse_freeze(a.freeze_atoms),
+                auto_freeze_links=a.auto_freeze_links,
+                calc_mode=a.calc_mode, model=a.model, device=a.device,
+                spatial=a.spatial, hessian_calc_mode=a.hessian_calc_mode)
+
+
+def tsopt_cmd(a) -> int:
+    from .workflows.tsopt import run_tsopt
+    _reject_unported(a, supported=("--dump-restart",))
+    try:
+        res = run_tsopt(
+            a.input_path, opt_mode=a.opt_mode, coord_type=a.coord_type,
+            thresh=a.thresh, max_cycles=a.max_cycles,
+            dump_restart=a.dump_restart,
+            hessian_dimer_kw={"flatten_max_iter":
+                              10 if a.flatten_imag_mode else 0},
+            out_dir=a.out_dir or "./result_tsopt/", **_stage4_kw(a))
+    except NotImplementedError as e:     # dlc RS-I-RFO, --spatial > 1
+        raise SystemExit(str(e))
+    return 0 if res["converged"] else 3
+
+
+def freq_cmd(a) -> int:
+    from .workflows.freq import run_freq
+    _reject_unported(a)
+    try:
+        run_freq(a.input_path, temperature=a.temperature,
+                 pressure=a.pressure, max_write_modes=a.max_write_modes,
+                 amplitude_ang=a.amplitude_ang, n_frames=a.n_frames,
+                 sort_modes=a.sort_modes,
+                 out_dir=a.out_dir or "./result_freq/", **_stage4_kw(a))
+    except NotImplementedError as e:     # --spatial > 1
+        raise SystemExit(str(e))
+    return 0
+
+
+def irc_cmd(a) -> int:
+    from .workflows.irc import run_irc
+    _reject_unported(a, supported=("--dump-restart",))
+    try:
+        run_irc(a.input_path, step_length=a.step_length,
+                max_cycles=a.max_cycles, root=a.root, forward=a.forward,
+                backward=a.backward, hessian_recalc=a.hessian_recalc,
+                dump_restart=a.dump_restart,
+                out_dir=a.out_dir or "./result_irc/", **_stage4_kw(a))
+    except NotImplementedError as e:     # --spatial > 1
+        raise SystemExit(str(e))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         prog="pdb2r-torch",
@@ -302,5 +439,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     _opt_parser(sub)
     _path_opt_parser(sub)
     _path_search_parser(sub)
+    _tsopt_parser(sub)
+    _freq_parser(sub)
+    _irc_parser(sub)
     a = parser.parse_args(argv)
     sys.exit(a.func(a))

@@ -1,8 +1,9 @@
-"""Single-structure geometry optimization (``opt`` subcommand), L-BFGS in
-Cartesian coordinates.
+"""Single-structure geometry optimization (``opt`` subcommand): L-BFGS
+("light") or RFO from an exact Hessian ("heavy"), in Cartesian
+coordinates.
 
-RFO, delocalized internals, harmonic bias and distance-freeze restraints
-are later port items and raise here.
+Delocalized internals (ROADMAP.md queue 1 item 11), harmonic bias and
+distance-freeze restraints (item 6) are later port items and raise here.
 """
 
 from __future__ import annotations
@@ -14,29 +15,40 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from ..engines.lbfgs import lbfgs_minimize
+from ..engines.rfo import RFO_KW, rfo_optimize
 from ..mlip.calculator import Calculator
 from ..parallel.distributed import is_main_rank
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 
 OPT_MODES = ("lbfgs", "rfo")
-_LATER = "a later port item (ROADMAP.md queue 1 items 5 and 11)"
+_DLC = ("coord_type='dlc' (delocalized internal coordinates) is not ported "
+        "yet: ROADMAP.md queue 1 item 11")
 
 
 def optimize_structure(struct, calc: Calculator, *, opt_mode: str = "lbfgs",
                        coord_type: str = "cart", thresh: str = "gau",
                        max_cycles: int = 10000, max_step_lbfgs: float = 0.30,
-                       callback=None, **engine_kw):
+                       trust_radius: float = 0.10, callback=None,
+                       **engine_kw):
     """Minimize with a prepared calculator; returns
-    (coords_bohr [N,3], energy, converged, cycles)."""
-    if opt_mode != "lbfgs" or coord_type != "cart":
-        raise NotImplementedError(
-            f"opt_mode={opt_mode!r}, coord_type={coord_type!r}: {_LATER}")
+    (coords_bohr [N,3], energy, converged, cycles). ``opt_mode="rfo"``
+    starts from the exact Hessian at the input geometry."""
+    if coord_type != "cart":
+        raise NotImplementedError(f"{_DLC} (coord_type={coord_type!r})")
     x0 = calc.pad_bohr(struct.coords_bohr)
-    res = lbfgs_minimize(calc.au_energy_force_fn(), x0,
-                         calc.system.free_mask, thresh=thresh,
-                         max_cycles=max_cycles, max_step=max_step_lbfgs,
-                         callback=callback, **engine_kw)
+    if opt_mode == "rfo":
+        H0 = calc.get_hessian(struct.coords_bohr.reshape(-1))["hessian"]
+        res = rfo_optimize(calc.au_energy_force_fn(), x0,
+                           calc.system.free_mask, calc.n_atoms, hessian0=H0,
+                           thresh=thresh, max_cycles=max_cycles,
+                           trust_radius=trust_radius, callback=callback,
+                           **engine_kw)
+    else:
+        res = lbfgs_minimize(calc.au_energy_force_fn(), x0,
+                             calc.system.free_mask, thresh=thresh,
+                             max_cycles=max_cycles, max_step=max_step_lbfgs,
+                             callback=callback, **engine_kw)
     return calc.unpad(res.x), float(res.e), bool(res.converged), \
         int(res.cycles)
 
@@ -73,8 +85,9 @@ def run_opt(
     freeze = common.merge_freeze(struct, [int(i) for i in freeze_atoms])
     struct.freeze = freeze
     opt_mode = normalize_choice(opt_mode, choices=OPT_MODES)
-    engine_keys = {"keep_last", "beta", "gamma_mult", "line_search",
-                   "max_step_lbfgs"}
+    engine_keys = (set(RFO_KW) - {"thresh", "max_cycles"}) | {
+        "keep_last", "beta", "gamma_mult", "max_step_lbfgs", "trust_radius",
+        "gdiis", "gdiis_thresh"}
     engine_kw = {k: calc_kw.pop(k) for k in list(calc_kw)
                  if k in engine_keys}
     if calc is None:

@@ -2,13 +2,13 @@
 
 Counterpart of ``pdb2reaction_tpu/workflows/path_opt.py``: the GSM string
 between two endpoints, with optional per-endpoint preoptimization
-(L-BFGS), freeze-guided Kabsch alignment before the MEP, the highest
+(L-BFGS or RFO), freeze-guided Kabsch alignment before the MEP, the highest
 energy image preferring internal maxima, and the trajectory and HEI
 written as ``final_geometries.trj`` and ``hei.xyz``.
 
 Not ported yet, and refused: DMF (``mep_mode="dmf"``, ROADMAP.md queue 1
-item 11), RFO endpoint preoptimization (item 5) and atom-axis sharding
-(``spatial > 1``: the climbing image's HVPs under sharding are item 9).
+item 11) and atom-axis sharding (``spatial > 1``: the climbing image's
+HVPs under sharding are item 9).
 """
 
 from __future__ import annotations
@@ -120,10 +120,6 @@ def run_path_opt(
     if mep_mode == "dmf":
         raise NotImplementedError(_DMF)
     preopt_mode = normalize_choice(preopt_mode, choices=("lbfgs", "rfo"))
-    if preopt and preopt_mode != "lbfgs":
-        raise NotImplementedError(
-            f"preopt_mode={preopt_mode!r}: RFO is not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
     # route engine keys out of calc_kw into the nested kw dicts
     gs_kw = dict(gs_kw or {})
     stopt_kw = dict(stopt_kw or {})

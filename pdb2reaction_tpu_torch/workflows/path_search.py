@@ -21,10 +21,11 @@ compressed R -> TS -> IM -> P diagram, ``summary.yaml`` and
 run in the same ``out_dir`` restores its segments.
 
 Every force evaluation is the calculator's (``force_calls``); the kink
-endpoints' energies are ``energy_calls``. Not ported yet, and refused
-before anything runs: the full-system PDB merge (``full_template``,
-ROADMAP.md queue 1 item 6), DMF (``mep_mode="dmf"`` and the DMF keys,
-item 11), RFO (``opt_mode="rfo"``, item 5) and ``spatial > 1`` (item 9).
+endpoints' energies are ``energy_calls``. The optimizations run L-BFGS
+or, with ``opt_mode="rfo"``, RFO from an exact Hessian. Not ported yet,
+and refused before anything runs: the full-system PDB merge
+(``full_template``, ROADMAP.md queue 1 item 6), DMF (``mep_mode="dmf"``
+and the DMF keys, item 11) and ``spatial > 1`` (item 9).
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ BOND_KW: Dict[str, Any] = {
 _DMF_KEYS = ("n_images", "beta_ev", "correlated", "fbenm_only_endpoints",
              "bond_scale", "delta_scale", "k_fix", "eps_vel",
              "spacing_weight", "fbenm_cycles", "tol")
-_RFO = ("opt_mode={!r}: RFO is not ported yet (ROADMAP.md queue 1 item 5)")
 _MERGE = ("full_template (--ref-full-pdb): the full-system PDB merge needs "
           "PDB input and bio/merge, ROADMAP.md queue 1 item 6")
 
@@ -355,8 +355,6 @@ def run_path_search(
     skw = {**SEARCH_KW, **search_kw}
     skw["opt_mode"] = normalize_choice(skw["opt_mode"],
                                        choices=("lbfgs", "rfo"))
-    if skw["opt_mode"] != "lbfgs":
-        raise NotImplementedError(_RFO.format(skw["opt_mode"]))
 
     structs = [common.load_structure(p) for p in input_paths]
     for st in structs[1:]:

@@ -1068,3 +1068,73 @@ def test_morse_path_search_on_card_matches_cpu(tmp_path):
 
     same(docs["cuda"], docs["cpu"])
     assert docs["cuda"]["segments"][0]["reactive"]
+
+
+def _morse_h3(x1, device):
+    from pdb2reaction_tpu_torch.mlip import potentials
+    st = Structure.from_symbols(["H"] * 3, [[0, 0, 0], [x1, 0, 0],
+                                            [2.4, 0, 0]], freeze=[0, 2])
+    return Calculator(st, potentials.make_morse(), device=device), st
+
+
+@pytest.mark.parametrize("engine", ["rfo", "dimer", "irc"])
+def test_stage4_morse_engines_on_card_match_cpu(engine):
+    """RS-I-RFO, the Hessian dimer and EulerPC on the Morse double well on
+    the card against the CPU (phase 15 of chip_smoke): equal cycles and
+    force calls, 1e-8 Bohr, 1e-10 Hartree, results on the card."""
+    _need_card()
+    from pdb2reaction_tpu_torch.engines.dimer import hessian_dimer
+    from pdb2reaction_tpu_torch.engines.irc import eulerpc_irc
+    from pdb2reaction_tpu_torch.engines.rfo import rfo_optimize
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c, st = _morse_h3(1.2 if engine == "irc" else 1.05, dev)
+        x0 = c.pad_bohr(st.coords_bohr)
+        if engine == "rfo":
+            H0 = c.get_hessian(st.coords_bohr.reshape(-1))["hessian"]
+            r = rfo_optimize(c.au_energy_force_fn(), x0, c.system.free_mask,
+                             c.n_atoms, hessian0=H0, mode="ts", roots=[0],
+                             thresh="baker", hessian_update="bofill",
+                             max_cycles=300)
+            assert r.x.device.type == dev and r.converged
+            out[dev] = (r.x.cpu().numpy(), [r.e], r.cycles, c.force_calls)
+        elif engine == "dimer":
+            d = hessian_dimer(c, x0, flatten_max_iter=0)
+            assert d.x.device.type == dev and d.converged
+            out[dev] = (d.x.cpu().numpy(), [d.e], d.cycles, c.force_calls)
+        else:
+            i = eulerpc_irc(c, x0, max_cycles=80, rms_grad_thresh=5e-4)
+            b = (i.forward, i.backward)
+            out[dev] = (np.concatenate([np.stack(x.coords) for x in b]),
+                        i.forward.energies + i.backward.energies,
+                        sum(len(x.coords) for x in b), c.force_calls)
+    (xg, eg, cg, fg), (xc, ec, cc, fc) = out["cuda"], out["cpu"]
+    assert cg == cc and fg == fc
+    assert np.abs(xg - xc).max() <= 1e-8
+    assert np.abs(np.subtract(eg, ec)).max() <= 1e-10
+
+
+def test_stage4_escn_hessian_on_card_free_tangents():
+    """The analytic Hessian on the card with frozen atoms: one HVP a free
+    DOF, no kernel launch inside, zero frozen rows, and the free block
+    within 1e-4 of CPU float64 (float32 plain path)."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    zs = rng.choice([1, 6, 8], size=12).astype(np.int32)
+    st = Structure(zs, rng.normal(scale=1.5, size=(12, 3)))
+    free_atoms = [2, 5, 7]
+    frozen = [i for i in range(12) if i not in free_atoms]
+    cb = st.coords_bohr.reshape(-1)
+    gpu = make_uma_calculator(st, model="escn-test", device="cuda", seed=0,
+                              freeze_atoms=frozen)
+    cpu = make_uma_calculator(st, model="escn-test", device="cpu", seed=0,
+                              dtype=torch.float64, freeze_atoms=frozen)
+    before = {**ek.launches, **fk.launches}
+    Hg = gpu._analytic_hessian(cb)
+    assert {**ek.launches, **fk.launches} == before
+    Hc = cpu._analytic_hessian(cb)
+    free = gpu.free_dof_mask
+    assert free.sum() == 9
+    assert np.all(Hg[~free] == 0) and np.all(Hg[:, ~free] == 0)
+    fb = np.ix_(free, free)
+    assert np.abs(Hg[fb] - Hc[fb]).max() <= 1e-4 * np.abs(Hc[fb]).max()

@@ -27,6 +27,7 @@ from pdb2reaction_tpu.core.structure import Structure as JStructure
 from pdb2reaction_tpu.mlip import potentials as jpot
 from pdb2reaction_tpu.mlip.calculator import Calculator as JCalculator
 from pdb2reaction_tpu.mlip.model import energy_fn as j_painn_energy
+from pdb2reaction_tpu_torch.constants import H_EVAA_2_AU
 from pdb2reaction_tpu_torch.core.structure import Structure
 from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
 from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
@@ -259,3 +260,37 @@ def test_kernel_functions_refuse_double_backward(fn):
     with torch.enable_grad(), pytest.raises(RuntimeError,
                                             match="double backward"):
         fn.backward(None, torch.zeros(1))
+
+
+def test_analytic_hessian_takes_free_tangents_only():
+    """The analytic Hessian runs one HVP a free DOF: on a frozen
+    escn-test system it equals, bit for bit on the free block, the
+    symmetrised rows of every real-atom tangent, and is zero elsewhere."""
+    _, tc, cb = _pair_of("escn-test", freeze=[0, 3])
+    n3 = cb.size
+    free = tc.free_dof_mask
+    seen = []
+    orig = Calculator._vjp
+
+    def spy(c, g, v):
+        seen.append(int(torch.nonzero(v.reshape(-1))[0]))
+        return orig(c, g, v)
+
+    Calculator._vjp = staticmethod(spy)
+    try:
+        H = tc._analytic_hessian(cb)
+    finally:
+        Calculator._vjp = staticmethod(orig)
+    assert seen == list(np.nonzero(free)[0])
+    c, g = tc._grad_graph(tc._to_pad_ang(cb), tc.system, tc.params)
+    rows = []
+    for k in range(n3):
+        v = torch.zeros_like(c)
+        v.view(-1)[k] = 1.0
+        rows.append(Calculator._vjp(c, g, v).reshape(-1)[:n3])
+    R = torch.stack(rows).double().numpy()
+    full = 0.5 * (R + R.T) * H_EVAA_2_AU
+    fb = np.ix_(free, free)
+    np.testing.assert_array_equal(H[fb], full[fb])
+    assert np.all(H[~free] == 0.0) and np.all(H[:, ~free] == 0.0)
+    np.testing.assert_array_equal(tc.get_hessian(cb)["hessian"], H)

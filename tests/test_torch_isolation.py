@@ -132,3 +132,32 @@ cli.main(["path-search", "-i", "A.xyz", "-i", "B.xyz", "-q", "0",
     import json
     doc = json.loads((out / "summary.yaml").read_text())
     assert doc["diagram"]["chain"] == "R --> TS1 --> P"
+
+
+def test_stage4_modules_import_and_run_without_jax_or_yaml(tmp_path):
+    """The stage-4 engines and workflows import with JAX, PyYAML,
+    matplotlib and click blocked, and ``freq`` writes its
+    thermochemistry (JSON, which YAML readers take) without them."""
+    (tmp_path / "w.xyz").write_text(
+        "3\nwater\nO 0.0 0.0 0.0\nH 0.96 0.02 0.0\nH -0.23 0.93 0.01\n")
+    script = _BLOCKED.replace('print(" ".join(names))', """
+from pdb2reaction_tpu_torch import cli
+try:
+    cli.main(["freq", "-i", "w.xyz", "-q", "0", "--calc-mode", "morse",
+              "--device", "cpu", "--out-dir", "fq"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+print(" ".join(names))
+""")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    names = set(r.stdout.split())
+    for mod in ("engines.dof", "engines.vib", "engines.thermo",
+                "engines.rfo", "engines.dimer", "engines.irc",
+                "workflows.freq", "workflows.tsopt", "workflows.irc"):
+        assert f"pdb2reaction_tpu_torch.{mod}" in names, mod
+    import json
+    doc = json.loads((tmp_path / "fq" / "thermoanalysis.yaml").read_text())
+    assert doc["zpe"] > 0 and doc["n_imag"] >= 0

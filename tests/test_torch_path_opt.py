@@ -7,7 +7,7 @@
   preoptimization: the same HEI, convergence and force calls, energies
   to 1e-9 Hartree, and the calculator's count equal to the string's (the
   port's batched closure counts the images; the workflow adds nothing);
-- the refusals (DMF, RFO preoptimization) and the ``path-opt`` CLI on the
+- the refusals (DMF, ``spatial > 1``) and the ``path-opt`` CLI on the
   CPU with ``--calc-mode morse``, writing ``final_geometries.trj`` and
   ``hei.xyz``."""
 
@@ -122,9 +122,6 @@ def test_run_mep_between_counts_once_and_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         run_path_opt(paths, charge=0, mep_mode="dmf", calc_mode="morse",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_path_opt(paths, charge=0, preopt=True, preopt_mode="heavy",
-                     calc_mode="morse", device="cpu")
     # atom-axis sharding is refused before anything runs (the climbing
     # image's HVPs over ranks are item 9)
     for mode in ("morse", "uma"):

@@ -187,7 +187,6 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
 @pytest.mark.parametrize("flags,said", [
     (["--ref-full-pdb", "full.pdb"], "item 6"),
     (["--mep-mode", "dmf"], "item 11"),
-    (["--opt-mode", "heavy"], "item 5"),
     (["--spatial", "2"], "item 9"),
     (["--gsm-loop", "device"], "item 2"),
 ])
@@ -207,8 +206,6 @@ def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
     ({"mep_mode": "dmf"}, "item 11"),
     ({"beta_ev": 5.0}, "item 11"),
     ({"dmf_kw": {"n_images": 8}}, "item 11"),
-    ({"search_kw": {"opt_mode": "rfo"}}, "item 5"),
-    ({"opt_mode": "heavy"}, "item 5"),
     ({"spatial": 2}, "item 9"),
 ])
 def test_run_path_search_refuses_unported(tmp_path, kw, said):
