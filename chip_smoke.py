@@ -128,7 +128,25 @@ Phases (any failure exits non-zero):
    every output file and finite results checked. Then the tsopt (heavy,
    3 cycles), freq and irc (3 cycles) CLIs as subprocesses, and the
    Morse H3 engines (RS-I-RFO, the dimer, the IRC) on the card against
-   the CPU: equal cycles and force calls, 1e-8 Bohr, 1e-10 Hartree.
+   the CPU: equal cycles and force calls, 1e-8 Bohr, 1e-10 Hartree;
+16. all (run_all) on an enzyme-like reactant / product PDB pair: the
+   active site of scripts/tpu_all_e2e.py (a macrocyclic LIG whose C2-O1
+   bond breaks, SER/ASN tips 2.3 Angstrom away, waters; n_res 48, seed
+   0) inside an outer GLY/ALA body with blank element columns (4000-6000
+   atoms in all), escn-md with phase 4's seed-0 weights: the element
+   preflight, extraction on the card (2.6 Angstrom, ligand charge 0),
+   path-search (max_depth 1, max_nodes 10), the full-system merge, and
+   stage 4 (tsopt, endpoint minimization, IRC, freq) on each reactive
+   segment, the pocket atoms beyond 4 Angstrom of C2 and O1 frozen and
+   the unconverged parts capped (ALL_CAPS). Counts set to 0 just before
+   the run and read just after: K1 and K2 forward launches 4 x (force +
+   energy calls), backward 4 x force calls, none inside a Hessian; the
+   pocket and full atom counts, every merged PDB at the full atom count,
+   the output tree, at least one reactive segment and no stage-4 entry
+   holding an error, finite energies, frequencies and thermochemistry;
+   each stage's wall and calls, the Hessians, ms per force call and peak
+   memory printed. Then the default subcommand (no subcommand: all) as a
+   subprocess, stage 4 off.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -1663,6 +1681,428 @@ def stage4_cli(gpath, ts_path, freeze):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: all on an enzyme-like PDB pair
+# ---------------------------------------------------------------------------
+
+ALL_ACTIVE_RADIUS = 4.0   # Angstrom around the ligand's C2 and O1: the
+                          # pocket atoms farther from both are frozen
+ALL_BODY_SPACING = 4.0    # Angstrom: the outer protein body's lattice
+ALL_BODY_RADII = (10.0, 25.0)
+ALL_CAPS = {"string cycles (max_cycles)": 20,
+            "tsopt max_cycles_total": 10, "tsopt flatten_max_iter": 10,
+            "endpoint minimization max_cycles": 20, "irc max_cycles": 10}
+ALL_KINKS = 10            # search_kw max_consecutive_kinks (default 2)
+ALL_POCKET_ATOMS = 202    # the JAX package's extract_api pocket of the
+                          # active site, which the body leaves unchanged
+                          # (held on the CPU in tests/test_torch_all.py)
+
+
+def _pdb_atom(serial, name, resname, chain, resseq, xyz, record="ATOM",
+              element=None):
+    return dict(record=record, serial=serial, name=name, resname=resname,
+                chain=chain, resseq=resseq, element=element or name[0],
+                occupancy=1.0, bfactor=0.0, x=xyz[0], y=xyz[1], z=xyz[2])
+
+
+def _fib_sphere(n):
+    """Fibonacci sphere directions: evenly spaced residue placements."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([np.sin(phi) * np.cos(theta),
+                     np.sin(phi) * np.sin(theta), np.cos(phi)], -1)
+
+
+def build_enzyme_pdb(path, *, n_res=48, n_wat=12, stretch=None, seed=0):
+    """The active site of ``scripts/tpu_all_e2e.py`` (the same text on the
+    same arguments): a 35-carbon macrocyclic LIG with O1 on its C2 at
+    1.30 Angstrom (``stretch`` moves O1 out: the product), SER / ASN side
+    chains whose tips sit 2.3 Angstrom from the ligand and a shell of
+    waters. Returns the atom count."""
+    from pdb2reaction_tpu_torch.core import io_pdb
+    rng = np.random.default_rng(seed)
+    atoms = []
+    serial = [0]
+
+    def add(name, resname, chain, resseq, xyz, record="ATOM", element=None):
+        serial[0] += 1
+        atoms.append(_pdb_atom(serial[0], name, resname, chain, resseq,
+                               tuple(xyz), record=record, element=element))
+
+    lig_xyz = []
+    for k in range(12):
+        a = 2 * np.pi * k / 12
+        lig_xyz.append((4.2 * np.cos(a), 4.2 * np.sin(a), 0.7))
+    for k in range(12):
+        a = 2 * np.pi * (k + 0.5) / 12
+        lig_xyz.append((4.2 * np.cos(a), 4.2 * np.sin(a), -0.7))
+    for xyz in ((0.0, 0.0, 0.0), (1.5, 0, 0), (-1.5, 0, 0), (0, 1.5, 0),
+                (0, -1.5, 0), (0, 0, 1.4), (0, 0, -1.4),
+                (2.85, 0, 0.7), (-2.85, 0, -0.7), (0, 2.85, -0.7),
+                (0, -2.85, 0.7)):
+        lig_xyz.append(xyz)
+    lig_xyz = np.asarray(lig_xyz)
+    c1 = lig_xyz[0]
+    u1 = np.array([1.0, 0.0, 0.0])
+    o1 = c1 + (stretch if stretch else 1.30) * u1
+    resseq = 500
+    for i, xyz in enumerate(lig_xyz):
+        add(f"C{i + 2}", "LIG", "A", resseq, xyz, record="HETATM",
+            element="C")
+    add("O1", "LIG", "A", resseq, o1, record="HETATM", element="O")
+    # residues and waters see both O1 positions, so R and P place them
+    # alike and nothing sits on the dissociation path
+    lig_all = np.vstack([lig_xyz, (c1 + 1.30 * u1)[None],
+                         (c1 + 2.40 * u1)[None]])
+
+    def surface_tip(u, offset):
+        ts = np.arange(0.0, 14.0, 0.05)
+        pts = ts[:, None] * u[None]
+        dmin = np.linalg.norm(pts[:, None] - lig_all[None], axis=-1).min(1)
+        inside = np.nonzero(dmin < offset)[0]
+        k = inside[-1] if inside.size else 0
+        return ts[min(k + 1, len(ts) - 1)] * u
+
+    dirs = _fib_sphere(n_res + n_wat)
+    wat_dirs, res_dirs = dirs[:n_wat], dirs[n_wat:]
+    tips = []
+
+    def clashes(pt, lim=2.2):
+        return any(np.linalg.norm(pt - t) < lim for t in tips)
+
+    for ri, u in enumerate(res_dirs):
+        tip = surface_tip(u, 2.3)
+        if clashes(tip):
+            continue
+        tips.append(tip)
+        p = np.cross(u, [0.0, 0.0, 1.0])
+        if np.linalg.norm(p) < 0.3:
+            p = np.cross(u, [1.0, 0.0, 0.0])
+        p /= np.linalg.norm(p)
+        jitter = rng.normal(scale=0.03, size=3)
+        resseq = 10 + ri
+        if ri % 2 == 0:   # SER: OG (tip) - CB - CA - backbone
+            add("OG", "SER", "A", resseq, tip + jitter, element="O")
+            cb = tip + 1.43 * u
+            ca = cb + 1.54 * u
+            add("CB", "SER", "A", resseq, cb, element="C")
+            add("CA", "SER", "A", resseq, ca, element="C")
+            add("N", "SER", "A", resseq, ca + 1.46 * (0.8 * u + 0.6 * p),
+                element="N")
+            c = ca + 1.52 * (0.8 * u - 0.6 * p)
+            add("C", "SER", "A", resseq, c, element="C")
+            add("O", "SER", "A", resseq, c + 1.23 * u, element="O")
+        else:             # ASN: OD1 (tip) - CG (+ND2) - CB - CA - backbone
+            add("OD1", "ASN", "A", resseq, tip + jitter, element="O")
+            cg = tip + 1.25 * u
+            add("CG", "ASN", "A", resseq, cg, element="C")
+            add("ND2", "ASN", "A", resseq, cg + 1.33 * (0.87 * u + 0.5 * p),
+                element="N")
+            cb = cg + 1.52 * (0.87 * u - 0.5 * p)
+            ca = cb + 1.54 * u
+            add("CB", "ASN", "A", resseq, cb, element="C")
+            add("CA", "ASN", "A", resseq, ca, element="C")
+            add("N", "ASN", "A", resseq, ca + 1.46 * (0.8 * u + 0.6 * p),
+                element="N")
+            c = ca + 1.52 * (0.8 * u - 0.6 * p)
+            add("C", "ASN", "A", resseq, c, element="C")
+            add("O", "ASN", "A", resseq, c + 1.23 * u, element="O")
+
+    for wi, u in enumerate(wat_dirs):
+        w = surface_tip(u, 2.45)
+        if clashes(w):
+            continue
+        tips.append(w)
+        add("O", "HOH", "A", 800 + wi,
+            w + rng.normal(scale=0.05, size=3),
+            record="HETATM", element="O")
+
+    lines = [io_pdb.format_pdb_line(a, (a["x"], a["y"], a["z"]))
+             for a in atoms]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines + ["END"]) + "\n")
+    return len(atoms)
+
+
+def add_outer_body(path, seed=1):
+    """Append the outer protein body to the PDB at ``path``: GLY and ALA
+    residues in full backbone (N, CA, C, O; CB for ALA) on a jittered
+    cubic lattice of ALL_BODY_SPACING between the radii ALL_BODY_RADII
+    around the ligand, lattice points within 4.2 Angstrom of an atom of
+    the active site left out (a residue reaches 2.2 Angstrom from its
+    point), element columns blank (the preflight repairs them). Returns
+    (atoms added, the smallest distance from a body atom to a ligand
+    atom)."""
+    from pdb2reaction_tpu_torch.core import io_pdb
+    rng = np.random.default_rng(seed)
+    lines = [ln for ln in open(path).read().splitlines() if ln != "END"]
+    site = io_pdb.parse_pdb_atoms(path)
+    sxyz = np.array([[a["x"], a["y"], a["z"]] for a in site])
+    lig = sxyz[[a["resname"] == "LIG" for a in site]]
+    r0, r1 = ALL_BODY_RADII
+    n = int(np.ceil(r1 / ALL_BODY_SPACING))
+    ax = np.arange(-n, n + 1) * ALL_BODY_SPACING
+    pts = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    rad = np.linalg.norm(pts, axis=1)
+    pts = pts[(rad >= r0) & (rad <= r1)]
+    pts = pts + rng.uniform(-0.3, 0.3, size=pts.shape)
+    d_site = np.linalg.norm(pts[:, None] - sxyz[None], axis=-1).min(1)
+    pts = pts[d_site > 4.2]
+    offsets = {"N": (-1.2, 0.4, 0.0), "CA": (0.0, 0.0, 0.0),
+               "C": (1.2, 0.5, 0.0), "O": (1.3, 1.7, 0.0),
+               "CB": (-0.1, -0.8, 1.3)}
+    serial = len(site)
+    body = []
+    for k, p in enumerate(pts):
+        resname = "ALA" if k % 2 else "GLY"
+        for name in ("N", "CA", "C", "O") + (("CB",) if k % 2 else ()):
+            serial += 1
+            xyz = p + np.asarray(offsets[name]) + rng.normal(scale=0.05,
+                                                             size=3)
+            body.append(xyz)
+            lines.append(io_pdb.format_pdb_line(dict(
+                record="ATOM", serial=serial, name=name, resname=resname,
+                chain="B", resseq=1000 + k, element=""), xyz))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines + ["END"]) + "\n")
+    body = np.asarray(body)
+    return len(body), float(np.linalg.norm(body[:, None] - lig[None],
+                                           axis=-1).min())
+
+
+def all_pair(out):
+    """R.pdb and P.pdb of phase 16 under ``out``; returns their paths,
+    the atom count and the body's smallest distance to the ligand."""
+    r, p = os.path.join(out, "R.pdb"), os.path.join(out, "P.pdb")
+    n_site = build_enzyme_pdb(r, n_res=48, seed=0)
+    build_enzyme_pdb(p, n_res=48, stretch=2.40, seed=0)
+    n_body, d_lig = add_outer_body(r)
+    add_outer_body(p)
+    return r, p, n_site, n_body, d_lig
+
+
+def all_active(r, p, scratch):
+    """The pocket indices to freeze: the port's extraction of the pair
+    (deterministic, as run_all's will be) and the pocket atoms farther
+    than ALL_ACTIVE_RADIUS from the ligand's C2 and O1 in both models."""
+    from pdb2reaction_tpu_torch.bio.extract import extract_api
+    from pdb2reaction_tpu_torch.core import io_pdb
+    outs = [os.path.join(scratch, f"pocket_{k}.pdb") for k in "RP"]
+    extract_api([r, p], "LIG", outs, ligand_charge=0, device="cuda")
+    near = None
+    for o in outs:
+        atoms = io_pdb.parse_pdb_atoms(o)
+        x = np.array([[a["x"], a["y"], a["z"]] for a in atoms])
+        ends = [i for i, a in enumerate(atoms) if a["resname"] == "LIG"
+                and a["name"] in ("C2", "O1")]
+        if len(ends) != 2:
+            fail(f"the pocket {o} lacks the ligand's C2 or O1")
+        d = np.linalg.norm(x[:, None] - x[ends][None], axis=-1).min(1)
+        m = d <= ALL_ACTIVE_RADIUS
+        near = m if near is None else near | m
+    if len(near) != ALL_POCKET_ATOMS:
+        fail(f"the extraction on the card gave a {len(near)}-atom pocket, "
+             f"not the reference's {ALL_POCKET_ATOMS}")
+    return [i for i in range(len(near)) if not near[i]], len(near)
+
+
+def all_checks(out, res, n_full, n_pocket):
+    """The output tree, atom counts and finite results of the run."""
+    from pdb2reaction_tpu_torch.core import io_pdb
+    summary = json.load(open(os.path.join(out, "summary.yaml")))
+    need = ["summary.log", "stage2_path/mep.trj", "stage2_path/mep_full.pdb",
+            "stage3_merged/mep_full.pdb"]
+    need += [f"stage1_extract/pocket_elem_fixed_{k}.pdb" for k in "RP"]
+    missing = [f for f in need if not os.path.exists(os.path.join(out, f))]
+    if missing:
+        fail(f"all wrote no {missing}")
+    pocket = io_pdb.read_pdb(os.path.join(
+        out, "stage1_extract", "pocket_elem_fixed_R.pdb"))
+    if pocket.n_atoms != n_pocket:
+        fail(f"run_all's pocket has {pocket.n_atoms} atoms, the phase's "
+             f"own extraction {n_pocket}")
+    fulls = [os.path.join(r, f) for r, _, fs in os.walk(out) for f in fs
+             if f.endswith("_full.pdb")]
+    for f in fulls:
+        text = open(f).read()
+        models = max(text.count("MODEL "), 1)
+        n = text.count("\nATOM  ") + text.count("\nHETATM") + \
+            text.startswith(("ATOM", "HETATM"))
+        if n != models * n_full:
+            fail(f"{f}: {n} atom records in {models} models, not "
+                 f"{n_full} each")
+    seg4 = [s for s in summary["stage4"]]
+    if not any(s["reactive"] for s in summary["segments"]) or not seg4:
+        fail("all found no reactive segment (stage 4 ran on none)")
+    errors = [(e["segment"], k) for e in seg4 for k, v in e.items()
+              if isinstance(v, dict) and "error" in v]
+    if errors:
+        fail(f"stage-4 entries hold errors: {errors} ({seg4})")
+    for e in seg4:
+        d = os.path.join(out, f"stage4_seg_{e['segment']:03d}")
+        files = ["hei_guess.xyz", "tsopt/final_geometry.xyz",
+                 "ts_final.xyz", "reactant_opt.xyz", "product_opt.xyz",
+                 "irc.trj"] + [f"freq/{t}/{f}" for t in
+                               ("reactant", "ts", "product")
+                               for f in ("frequencies_cm-1.txt",
+                                         "thermoanalysis.yaml")]
+        missing = [f for f in files if not os.path.exists(os.path.join(d,
+                                                                       f))]
+        if missing:
+            fail(f"segment {e['segment']} lacks {missing}")
+        vals = [e["tsopt"]["energy_au"], *e["endpoints"].values(),
+                *e["irc"]["endpoints_au"]]
+        for t in ("reactant", "ts", "product"):
+            th = json.load(open(os.path.join(d, "freq", t,
+                                             "thermoanalysis.yaml")))
+            fr = np.loadtxt(os.path.join(d, "freq", t,
+                                         "frequencies_cm-1.txt"))
+            vals += [e["thermo"][t]["G_au"], e["thermo"][t]["ZPE_au"],
+                     th["gibbs"], *np.atleast_1d(fr)]
+        if not np.all(np.isfinite(vals)):
+            fail(f"segment {e['segment']}: non-finite energies, "
+                 "frequencies or thermochemistry")
+    return summary, len(fulls)
+
+
+def phase_all(smi_line):
+    """Phase 16: run_all on the enzyme-like R/P pair (escn-md, seed 0,
+    pocket atoms beyond ALL_ACTIVE_RADIUS of the reacting C2-O1 frozen)
+    with its counts set to 0 just before and read just after; then the
+    default subcommand as a subprocess."""
+    import shutil
+    import torch
+    from pdb2reaction_tpu_torch.constants import AU2KCALPERMOL
+    from pdb2reaction_tpu_torch.workflows.allflow import run_all
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "result_smoke", "all")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(os.path.join(out, "pre"))
+    r, p, n_site, n_body, d_lig = all_pair(out)
+    n_full = n_site + n_body
+    freeze, n_pocket = all_active(r, p, os.path.join(out, "pre"))
+    log(f"[all] {smi_line}; R/P: the {n_site}-atom active site of "
+        f"scripts/tpu_all_e2e.py (n_res 48, seed 0; P with C2-O1 at 2.40 "
+        f"A) plus a {n_body}-atom GLY/ALA body (blank element columns, "
+        f"{ALL_BODY_RADII[0]}-{ALL_BODY_RADII[1]} A, nearest to the ligand "
+        f"{d_lig:.2f} A): {n_full} atoms; pocket {n_pocket} atoms, "
+        f"{n_pocket - len(freeze)} active (within {ALL_ACTIVE_RADIUS} A of "
+        f"C2 or O1), {len(freeze)} frozen")
+    log(f"[all] caps: {ALL_CAPS}; search max_depth 1, opt gau_loose, no "
+        f"preopt; max_consecutive_kinks raised from 2 to {ALL_KINKS} (an "
+        f"untrained surrogate may make every refinement a kink)")
+    torch.cuda.reset_peak_memory_stats()
+    zero_all_counts()
+    before = all_counts()
+    with stage4_meter() as m:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_all(
+            [r, p], center="LIG", ligand_charge=0, model="escn-md",
+            device="cuda", seed=0, pad_multiple=64, freeze_atoms=freeze,
+            tsopt=True, do_freq=True, preopt=False, verbose=False,
+            out_dir=os.path.join(out, "run"), gs_kw={"max_nodes": 10},
+            max_cycles=ALL_CAPS["string cycles (max_cycles)"],
+            search_kw={"max_depth": 1, "opt_thresh": "gau_loose",
+                       "max_consecutive_kinks": ALL_KINKS},
+            tsopt_kw={"max_cycles_total":
+                      ALL_CAPS["tsopt max_cycles_total"],
+                      "flatten_max_iter": ALL_CAPS["tsopt flatten_max_iter"]},
+            opt_post_kw={"max_cycles":
+                         ALL_CAPS["endpoint minimization max_cycles"]},
+            irc_kw={"max_cycles": ALL_CAPS["irc max_cycles"]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    moved = moved_counts(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fc, ec = res["force_calls"], res["energy_calls"]
+    calc = res["calculator"]
+    log(f"[all] run_all: {wall:.2f} s wall, {fc} force calls, {ec} energy "
+        f"calls (P = {calc.n_pad}); {m.hess} Hessians in {m.hess_s:.2f} s "
+        f"({m.hvps} HVPs, {m.hvps / max(m.hess, 1):.0f} each); the engines' "
+        f"force calls {m.force_s:.2f} s, "
+        f"{m.force_s / max(fc, 1) * 1e3:.2f} ms each; peak memory "
+        f"{peak:.2f} GiB; launches {moved}")
+    for name, ph in res["force_call_phases"].items():
+        log(f"[all] stage {name}: {ph['seconds']:.2f} s, {ph['calls']} "
+            f"force calls, {ph['energy_calls']} energy calls")
+    want = {"fused_edge_mega_fwd": 4 * (fc + ec),
+            "fused_edge_mega_bwd": 4 * fc,
+            "fused_node_ffn_fwd": 4 * (fc + ec),
+            "fused_node_ffn_bwd": 4 * fc}
+    if moved != want:
+        fail(f"all: launches {moved}, expected {want} (K1 and K2 forward "
+             "4 x (force + energy calls), backward 4 x force calls, "
+             "nothing else)")
+    if m.inside:
+        fail(f"all: kernels launched inside Hessians: {m.inside}")
+    summary, n_merged = all_checks(os.path.join(out, "run"), res, n_full,
+                                   n_pocket)
+    segs = summary["segments"]
+    log(f"[all] {len(segs)} segments "
+        f"({sum(1 for s in segs if s['reactive'])} reactive): "
+        f"{[(s['kind'], s['reactive'], s['barrier_kcal']) for s in segs]}; "
+        f"chain {summary['diagram']['chain']}; {n_merged} merged PDBs of "
+        f"{n_full} atoms a frame")
+    for e in summary["stage4"]:
+        ts = e["tsopt"]
+        log(f"[all] segment {e['segment']}: tsopt converged "
+            f"{ts['converged']}, n_imag {ts['n_imag']}, barrier "
+            f"{(ts['energy_au'] - e['endpoints']['reactant']) * AU2KCALPERMOL:.2f}"
+            f" kcal/mol over the minimized reactant; IRC ends "
+            f"{e['irc']['matches_minima']}; G (Ha) "
+            f"{ {t: round(v['G_au'], 6) for t, v in e['thermo'].items()} }")
+    del res, calc
+    torch.cuda.empty_cache()
+    all_cli(r, p, freeze, n_full)
+    log(f"[all] phase 16 wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(moved)
+
+
+def all_cli(r, p, freeze, n_full):
+    """Phase 16b: ``python -m pdb2reaction_tpu_torch -i R.pdb -i P.pdb
+    --center LIG --ligand-charge 0 --model escn-md ...`` with no
+    subcommand (the default all), stage 4 off, as a subprocess on the
+    card: rc 0 and the tree through stage3_merged."""
+    out = os.path.join(os.path.dirname(r), "cli")
+    os.makedirs(out)
+    y = os.path.join(out, "args.yaml")
+    with open(y, "w") as fh:
+        fh.write("search:\n  max_depth: 0\n  opt_thresh: gau_loose\n"
+                 f"  max_consecutive_kinks: {ALL_KINKS}\n")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "-i", r, "-i", p,
+           "--center", "LIG", "--ligand-charge", "0", "--model", "escn-md",
+           "--max-nodes", "6", "--max-cycles", "5", "--preopt", "False",
+           "--freeze-atoms", ",".join(map(str, freeze)), "--args-yaml", y,
+           "--out-dir", os.path.join(out, "result_all")]
+    t0 = time.perf_counter()
+    rr = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                        text=True, timeout=600)
+    tail = [ln for ln in rr.stdout.splitlines()
+            if ln.startswith(("[all]", "[diagram]"))][-2:]
+    log(f"[all] the default subcommand (all; escn-md, max_depth 0 from "
+        f"--args-yaml, max_nodes 6, 5 string cycles, stage 4 off) as a "
+        f"subprocess: rc {rr.returncode}, {time.perf_counter() - t0:.1f} s "
+        f"with start-up; {tail}")
+    if rr.returncode != 0:
+        fail(f"the all CLI exited {rr.returncode}: {rr.stderr[-3000:]}")
+    res = os.path.join(out, "result_all")
+    need = ["elem_fixed_R.pdb", "stage1_extract/pocket_elem_fixed_R.pdb",
+            "stage2_path/mep.trj", "stage2_path/mep_full.pdb",
+            "stage3_merged/mep_full.pdb", "summary.yaml", "summary.log"]
+    missing = [f for f in need if not os.path.exists(os.path.join(res, f))]
+    if missing:
+        fail(f"the all CLI wrote no {missing}")
+    with open(os.path.join(res, "stage3_merged", "mep_full.pdb")) as fh:
+        text = fh.read()
+    n = text.count("\nATOM  ") + text.count("\nHETATM")
+    if n != text.count("MODEL ") * n_full:
+        fail("the all CLI's merged MEP does not carry the full atom count")
+
+
+# ---------------------------------------------------------------------------
 # PaiNN-class uma-s-1p1: K5 and the pallas-mode path
 # ---------------------------------------------------------------------------
 
@@ -2492,7 +2932,6 @@ def main():
              "repository")
     name, count, smi_line = phase_device()
     phase_build()
-
     from pdb2reaction_tpu_torch.core.structure import Structure
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
     zs, xyz = cluster(300, seed=0)
@@ -2547,6 +2986,8 @@ def main():
         log(f"[search] phases 13-14 wall {time.perf_counter() - t0:.1f} s")
         # ---- stage 4 from phase 13's TS guess: its own counts
         phase_stage4(calc, st, search, bond, smi_line)
+        # ---- all on the enzyme-like PDB pair: its own counts
+        phase_all(smi_line)
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

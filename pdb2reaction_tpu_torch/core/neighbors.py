@@ -7,10 +7,14 @@ Tie order: the JAX package takes the K nearest with ``jax.lax.top_k``,
 which keeps the lower index first among equal distances. ``torch.topk``
 promises no order among ties, so this module sorts distances with a
 STABLE sort (equal keys keep their index order) and takes the first K.
+
+``radius_query`` serves the pocket extraction (``bio/extract.py``): every
+atom within a cutoff of any of a set of centres.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -59,3 +63,33 @@ def neighbor_vectors(coords, idx, mask, origin=None):
     dist = torch.sqrt(torch.clamp((vec * vec).sum(-1), min=1e-24))
     dist = torch.where(mask > 0, dist, torch.ones_like(dist))
     return vec, dist
+
+
+def radius_query(coords, centers, cutoff: float, device="cuda",
+                 chunk: int = 256):
+    """Every (atom, centre) pair with dx*dx + dy*dy + dz*dz <= cutoff^2,
+    as an [H, 2] int64 numpy array (atom, centre), in float64 on
+    ``device`` in chunks of ``chunk`` centres. The squares are summed in
+    that order, as the JAX package's native cell list does; there is no
+    |a|^2 + |b|^2 - 2ab expansion (its rounding would move atoms across
+    the boundary). Row order is not part of the result's meaning. CUDA
+    without a card raises (``mlip.calculator.resolve_device``)."""
+    from ..mlip.calculator import resolve_device
+    dev = resolve_device(device)
+    a = torch.as_tensor(np.asarray(coords, dtype=np.float64).reshape(-1, 3),
+                        device=dev)
+    c = torch.as_tensor(np.asarray(centers, dtype=np.float64).reshape(-1, 3),
+                        device=dev)
+    c2 = float(cutoff) * float(cutoff)
+    hits = []
+    for c0 in range(0, c.shape[0], chunk):
+        cc = c[c0:c0 + chunk]
+        dx = a[None, :, 0] - cc[:, None, 0]
+        dy = a[None, :, 1] - cc[:, None, 1]
+        dz = a[None, :, 2] - cc[:, None, 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        q, i = torch.nonzero(d2 <= c2, as_tuple=True)
+        hits.append(torch.stack([i, q + c0], dim=1))
+    if not hits:
+        return np.zeros((0, 2), dtype=np.int64)
+    return torch.cat(hits).cpu().numpy()

@@ -11,13 +11,16 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..constants import ANG2BOHR
 from .. import elements
+
+if TYPE_CHECKING:
+    from .io_gjf import GjfTemplate
 
 
 @dataclass
@@ -33,6 +36,7 @@ class Structure:
     pdb_atoms: Optional[List[Dict[str, Any]]] = None
     source_path: Optional[str] = None
     input_suffix: Optional[str] = None
+    gjf_template: Optional["GjfTemplate"] = None  # a .gjf/.com input's
 
     def __post_init__(self):
         self.numbers = np.asarray(self.numbers, dtype=np.int32)

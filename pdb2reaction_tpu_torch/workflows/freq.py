@@ -79,8 +79,8 @@ def run_freq(
 ) -> Dict[str, Any]:
     """Frequencies and thermochemistry of the structure in ``input_path``.
     ``calculator`` reuses a prepared calculator for that structure (its
-    freeze list wins). Link-atom freezing needs PDB input, which the port
-    does not read yet: ``auto_freeze_links`` is accepted and inert."""
+    freeze list wins). ``auto_freeze_links`` freezes the parents of a
+    PDB input's link hydrogens."""
     t0 = time.time()
     if int(calc_kw.get("spatial", 1)) > 1:
         raise NotImplementedError(_SPATIAL)
@@ -89,7 +89,9 @@ def run_freq(
     if calculator is not None:
         freeze = list(calculator.structure.freeze or [])
     else:
-        freeze = common.merge_freeze(struct, [int(f) for f in freeze_atoms])
+        freeze = common.merge_freeze(
+            struct, [common.resolve_atom_spec(f, struct)
+                     for f in freeze_atoms], auto_freeze_links)
     struct.freeze = freeze
     calc = calculator or common.make_calculator(
         struct, calc_mode=calc_mode, charge=q, spin=s, freeze_atoms=freeze,

@@ -66,7 +66,9 @@ def run_irc(
     if calculator is not None:
         freeze = list(calculator.structure.freeze or [])
     else:
-        freeze = common.merge_freeze(struct, [int(f) for f in freeze_atoms])
+        freeze = common.merge_freeze(
+            struct, [common.resolve_atom_spec(f, struct)
+                     for f in freeze_atoms], auto_freeze_links)
     struct.freeze = freeze
     kw = {**IRC_KW, **{k: v for k, v in irc_kw.items() if k in IRC_KW}}
     calc = calculator or common.make_calculator(

@@ -1,19 +1,22 @@
 """Single-structure geometry optimization (``opt`` subcommand): L-BFGS
 ("light") or RFO from an exact Hessian ("heavy"), in Cartesian
-coordinates.
+coordinates, optionally under harmonic distance restraints (``bias_pairs``
+at given targets, ``dist_freeze`` at the input's distances;
+``engines/bias.py``).
 
-Delocalized internals (ROADMAP.md queue 1 item 11), harmonic bias and
-distance-freeze restraints (item 6) are later port items and raise here.
+Delocalized internals (ROADMAP.md queue 1 item 11) are a later port item
+and raise here.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..engines.bias import biased_calculator, dist_freeze_pairs
 from ..engines.lbfgs import lbfgs_minimize
 from ..engines.rfo import RFO_KW, rfo_optimize
 from ..mlip.calculator import Calculator
@@ -63,27 +66,50 @@ def run_opt(
     thresh: str = "gau",
     max_cycles: int = 10000,
     freeze_atoms: Sequence = (),
+    auto_freeze_links: bool = True,
+    bias_pairs: Optional[List[Tuple[Any, Any, float]]] = None,
+    bias_k: float = 10.0,
+    dist_freeze: Optional[List[Tuple[Any, Any]]] = None,
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
     out_dir="./result_opt/",
+    convert_files: bool = True,
     verbose: bool = True,
     calc: Optional[Calculator] = None,
     **calc_kw,
 ) -> Dict[str, Any]:
     """Optimize the structure in ``input_path`` and write
-    ``final_geometry.xyz`` under ``out_dir``. ``calc`` reuses a prepared
-    calculator for that structure (weights, device) instead of building
-    one from ``model``. Under atom-axis sharding (``spatial=n`` in
-    ``calc_kw``, or a sharded ``calc``) every rank runs the same loop on
-    the same forces, and rank 0 alone logs and writes."""
+    ``final_geometry.xyz`` (and its .pdb / .gjf companions) under
+    ``out_dir``. ``calc`` reuses a prepared calculator for that structure
+    (weights, device) instead of building one from ``model``.
+    ``bias_pairs`` (i, j, target Angstrom) and ``dist_freeze`` (i, j, held
+    at the input's distance) add harmonic restraints of ``bias_k``
+    eV/Angstrom^2; atoms may be indices or 'RES SEQ NAME' selectors.
+    Under atom-axis sharding (``spatial=n`` in ``calc_kw``, or a sharded
+    ``calc``) every rank runs the same loop on the same forces, and rank
+    0 alone logs and writes."""
     t0 = time.time()
     writer = is_main_rank()
     verbose = verbose and writer
+    common.set_convert_enabled(convert_files)
     struct = common.load_structure(input_path)
     q, s = common.resolve_charge_spin(struct, charge, spin)
-    freeze = common.merge_freeze(struct, [int(i) for i in freeze_atoms])
+    freeze = common.merge_freeze(
+        struct, [common.resolve_atom_spec(f, struct) for f in freeze_atoms],
+        auto_freeze_links)
     struct.freeze = freeze
+    pairs, targets = [], []
+    for (i, j, t) in bias_pairs or ():
+        pairs.append((common.resolve_atom_spec(i, struct),
+                      common.resolve_atom_spec(j, struct)))
+        targets.append(float(t))
+    if dist_freeze:
+        df_pairs = [(common.resolve_atom_spec(i, struct),
+                     common.resolve_atom_spec(j, struct))
+                    for (i, j) in dist_freeze]
+        pairs.extend(df_pairs)
+        targets.extend(dist_freeze_pairs(struct.coords, df_pairs))
     opt_mode = normalize_choice(opt_mode, choices=OPT_MODES)
     engine_keys = (set(RFO_KW) - {"thresh", "max_cycles"}) | {
         "keep_last", "beta", "gamma_mult", "max_step_lbfgs", "trust_radius",
@@ -94,12 +120,15 @@ def run_opt(
         calc = common.make_calculator(struct, calc_mode=calc_mode, charge=q,
                                       spin=s, freeze_atoms=freeze,
                                       model=model, device=device, **calc_kw)
+    if pairs:
+        calc = biased_calculator(calc, pairs, targets, bias_k)
     if verbose:
         print(pretty_block("opt", {
             "opt_mode": opt_mode, "coord_type": coord_type,
             "thresh": thresh, "max_cycles": max_cycles, "charge": q,
             "spin": s, "calc_mode": calc_mode, "model": model,
-            "device": str(calc.device), "freeze_atoms": list(freeze)}))
+            "device": str(calc.device), "freeze_atoms": list(freeze),
+            "dist_freeze": dist_freeze, "bias_k": bias_k}))
 
     def cb(cyc, e, f):
         if verbose:

@@ -108,10 +108,9 @@ def run_path_opt(
     """GSM between the two endpoint files; writes
     ``final_geometries.trj`` and ``hei.xyz`` under ``out_dir``.
     ``thresh`` (a preset name) sets the string's perpendicular-force
-    criteria and the endpoint preoptimization's threshold. Link-atom
-    freezing (``auto_freeze_links``) needs PDB input, which this port
-    does not read yet, so .xyz endpoints freeze only what is given.
-    ``spatial > 1`` raises (module docstring)."""
+    criteria and the endpoint preoptimization's threshold.
+    ``auto_freeze_links`` freezes the parents of a PDB input's link
+    hydrogens. ``spatial > 1`` raises (module docstring)."""
     t0 = time.time()
     assert len(input_paths) == 2, "path-opt needs exactly two endpoints"
     if int(calc_kw.get("spatial", 1)) > 1:
@@ -142,7 +141,9 @@ def run_path_opt(
     structs = [common.load_structure(p) for p in input_paths]
     q, s = common.resolve_charge_spin(structs[0], charge, spin)
     for st in structs:
-        st.freeze = common.merge_freeze(st, [int(f) for f in freeze_atoms])
+        st.freeze = common.merge_freeze(
+            st, [common.resolve_atom_spec(f, st) for f in freeze_atoms],
+            auto_freeze_links)
     A, B = structs
     if A.n_atoms != B.n_atoms or list(A.numbers) != list(B.numbers):
         raise ValueError("Endpoints must share atom count and ordering")

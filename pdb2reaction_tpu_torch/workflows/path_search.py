@@ -13,19 +13,26 @@ its highest-energy image (HEI +- 1, or the nearest path minima with
 - the segments are stitched: a duplicated boundary image is dropped,
   and an interface gap gets a bridge MEP.
 
+``refine_path=False`` in ``search_kw`` runs one MEP a pair instead, with
+no recursion.
+
 Then ``mep.trj``, one ``seg_NNN_mep/`` per segment (its trajectory, its
 HEI for a reactive segment and a segment-level ``summary.yaml``), the
 compressed R -> TS -> IM -> P diagram, ``summary.yaml`` and
-``summary.log``. Every finished MEP is memoized under
+``summary.log``. With ``full_template`` (one full-system PDB, or one per
+input in reaction order) every pocket frame is merged back into the full
+structure (``bio/merge.py``; the background blended from the pair's two
+templates across each merged set of frames): ``mep_full.pdb``,
+``seg_NNN_mep/final_geometries_full.pdb`` and, for a reactive segment,
+``seg_NNN_mep/hei_full.pdb``. Every finished MEP is memoized under
 ``<out_dir>/checkpoint`` by a content key of its endpoints, so a second
 run in the same ``out_dir`` restores its segments.
 
 Every force evaluation is the calculator's (``force_calls``); the kink
 endpoints' energies are ``energy_calls``. The optimizations run L-BFGS
 or, with ``opt_mode="rfo"``, RFO from an exact Hessian. Not ported yet,
-and refused before anything runs: the full-system PDB merge
-(``full_template``, ROADMAP.md queue 1 item 6), DMF (``mep_mode="dmf"``
-and the DMF keys, item 11) and ``spatial > 1`` (item 9).
+and refused before anything runs: DMF (``mep_mode="dmf"`` and the DMF
+keys, ROADMAP.md queue 1 item 11) and ``spatial > 1`` (item 9).
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..bio.align import align_sequence_inplace, rmsd
+from ..bio import merge as bio_merge
+from ..bio.align import align_sequence_inplace, kabsch, rmsd
 from ..bio.bonds import compare_structures, summarize_changes
 from ..constants import AU2KCALPERMOL, BOHR2ANG
+from ..core import io_pdb
 from ..engines.gsm import GS_KW, STOPT_KW
 from ..runtime.checkpoint import CheckpointStore, content_key
 from . import common
@@ -73,8 +82,6 @@ BOND_KW: Dict[str, Any] = {
 _DMF_KEYS = ("n_images", "beta_ev", "correlated", "fbenm_only_endpoints",
              "bond_scale", "delta_scale", "k_fix", "eps_vel",
              "spacing_weight", "fbenm_cycles", "tol")
-_MERGE = ("full_template (--ref-full-pdb): the full-system PDB merge needs "
-          "PDB input and bio/merge, ROADMAP.md queue 1 item 6")
 
 
 @dataclass
@@ -323,9 +330,9 @@ def run_path_search(
     """The recursive search over ``input_paths`` (two or more files of
     one system, in reaction order); writes the output tree under
     ``out_dir``. Engine and search keys may also come flat in
-    ``calc_kw``. Link-atom freezing (``auto_freeze_links``) needs PDB
-    input, which this port does not read yet, so .xyz inputs freeze only
-    what is given."""
+    ``calc_kw``. ``auto_freeze_links`` freezes the parents of a PDB
+    input's link hydrogens; atoms to freeze may be indices or 'RES SEQ
+    NAME' selectors."""
     t0 = time.time()
     if len(input_paths) < 2:
         raise ValueError("path-search needs >= 2 structures")
@@ -346,8 +353,6 @@ def run_path_search(
     # everything not ported is refused before anything runs
     if dmf_kw:
         raise NotImplementedError(f"{_DMF} (DMF keys {sorted(dmf_kw)})")
-    if full_template is not None:
-        raise NotImplementedError(_MERGE)
     if normalize_choice(mep_mode, choices=("gsm", "dmf")) == "dmf":
         raise NotImplementedError(_DMF)
     if int(calc_kw.get("spatial", 1)) > 1:
@@ -362,7 +367,11 @@ def run_path_search(
             raise ValueError("Inputs must share atom count and ordering")
     q, s = common.resolve_charge_spin(structs[0], charge, spin)
     for st in structs:
-        st.freeze = common.merge_freeze(st, [int(f) for f in freeze_atoms])
+        st.freeze = common.merge_freeze(
+            st, [common.resolve_atom_spec(f, st) for f in freeze_atoms],
+            auto_freeze_links)
+    full_struct, merge_full = (_full_merger(full_template, structs)
+                               if full_template is not None else (None, None))
     calc = common.make_calculator(structs[0], calc_mode=calc_mode, charge=q,
                                   spin=s, freeze_atoms=structs[0].freeze,
                                   model=model, device=device, **calc_kw)
@@ -390,7 +399,12 @@ def run_path_search(
     all_segments: List[SegmentReport] = []
     for pi, (a, b) in enumerate(zip(structs[:-1], structs[1:])):
         searcher.kink_streak = 0
-        segs = searcher.build(a.coords_bohr, b.coords_bohr, depth=0)
+        if skw.get("refine_path", True):
+            segs = searcher.build(a.coords_bohr, b.coords_bohr, depth=0)
+        else:
+            # one MEP per adjacent pair, no recursion
+            imgs, es, h, cv = searcher._mep(a.coords_bohr, b.coords_bohr)
+            segs = [searcher._segment(imgs, es, h, cv)]
         for sg in segs:
             sg.pair_index = pi
         all_segments.extend(segs)
@@ -400,6 +414,7 @@ def run_path_search(
     paths: List[Path] = []
     mep_frames: List[np.ndarray] = []
     mep_energies: List[float] = []
+    mep_pairs: List[int] = []
     for si, seg in enumerate(all_segments):
         seg_dir = out / f"seg_{si:03d}_mep"
         paths += common.write_trajectory(seg_dir, "final_geometries",
@@ -415,13 +430,30 @@ def run_path_search(
         seg_summary["weights"] = calc.weights_source
         paths.append(write_summary_yaml(seg_dir / "summary.yaml",
                                         seg_summary))
+        if merge_full is not None:
+            paths += _write_full(
+                seg_dir / "final_geometries_full.pdb", full_struct,
+                lambda: merge_full(seg.images_bohr,
+                                   [seg.pair_index] * len(seg.images_bohr)),
+                seg.energies, f"segment {si}")
+            if seg.is_reactive:
+                paths += _write_full(
+                    seg_dir / "hei_full.pdb", full_struct,
+                    lambda: merge_full([seg.images_bohr[seg.hei_idx]],
+                                       [seg.pair_index]),
+                    [seg.energies[seg.hei_idx]], f"segment {si} HEI")
         start = 1 if (mep_frames and rmsd(mep_frames[-1],
                                           seg.images_bohr[0]) < 1e-3) else 0
         mep_frames.extend(seg.images_bohr[start:])
         mep_energies.extend(seg.energies[start:])
+        mep_pairs.extend([seg.pair_index] * (len(seg.images_bohr) - start))
 
     paths += common.write_trajectory(out, "mep", structs[0], mep_frames,
                                      mep_energies)
+    if merge_full is not None:
+        paths += _write_full(out / "mep_full.pdb", full_struct,
+                             lambda: merge_full(mep_frames, mep_pairs),
+                             mep_energies, "MEP")
 
     summary = segments_summary(all_segments)
     summary["weights"] = calc.weights_source
@@ -460,6 +492,70 @@ def run_path_search(
             "segments_run": searcher.segments_run,
             "force_calls": calc.force_calls,
             "energy_calls": calc.energy_calls}
+
+
+def _full_merger(full_template, structs):
+    """(the full structure, ``merge``): the merge of pocket frames into
+    the full system, on one template or one per input in reaction order,
+    each chain-aligned onto the one before. ``merge(frames_bohr,
+    pair_idx)`` returns the full-system coordinates (Angstrom) of each
+    frame; a run of frames of one pair blends that pair's two templates
+    as the background, from the first (fraction 0) to the second
+    (fraction 1) across the run, so a single frame takes the first
+    template's background."""
+    tmpl_paths = ([full_template] if isinstance(full_template, (str, Path))
+                  else list(full_template))
+    if len(tmpl_paths) not in (1, len(structs)):
+        raise ValueError(
+            f"--ref-full-pdb needs 1 or {len(structs)} templates (one per "
+            f"input), got {len(tmpl_paths)}")
+    tmpl_structs = [io_pdb.read_pdb(p) for p in tmpl_paths]
+    n0 = tmpl_structs[0].n_atoms
+    for ts_ in tmpl_structs[1:]:
+        if ts_.n_atoms != n0:
+            raise ValueError("[merge] Atom count mismatch among "
+                             f"--ref-full-pdb templates: {n0} vs "
+                             f"{ts_.n_atoms}")
+    tmpl_coords = [tmpl_structs[0].coords.copy()]
+    for ts_ in tmpl_structs[1:]:
+        R, t = kabsch(ts_.coords, tmpl_coords[-1])
+        tmpl_coords.append(ts_.coords @ R + t)
+    full_struct, pocket = tmpl_structs[0], structs[0]
+    nT = len(tmpl_coords)
+
+    def merge(frames_bohr, pair_idx):
+        out_coords = []
+        i = 0
+        while i < len(frames_bohr):
+            j = i
+            while j < len(frames_bohr) and pair_idx[j] == pair_idx[i]:
+                j += 1
+            pi = min(int(pair_idx[i]), nT - 2) if nT > 1 else 0
+            A = tmpl_coords[pi]
+            B = tmpl_coords[pi + 1] if nT > 1 else A
+            M = j - i
+            for k in range(M):
+                tf = 0.0 if M == 1 else k / (M - 1.0)
+                out_coords.append(bio_merge.merge_pocket_into_full(
+                    full_struct, pocket,
+                    np.asarray(frames_bohr[i + k]) * BOHR2ANG,
+                    full_coords_ang=(1.0 - tf) * A + tf * B).coords)
+            i = j
+        return out_coords
+
+    return full_struct, merge
+
+
+def _write_full(path, full_struct, merged, energies, what):
+    """Write the frames ``merged()`` returns as a multi-MODEL PDB on the
+    full structure; a failed merge prints a warning and writes nothing."""
+    try:
+        io_pdb.write_pdb_frames(path, full_struct, merged(),
+                                energies=energies)
+    except Exception as e:
+        print(f"[path-search] WARNING: full merge of {what} failed: {e}")
+        return []
+    return [Path(path)]
 
 
 def segments_summary(segments: List[SegmentReport]) -> Dict[str, Any]:

@@ -1,24 +1,26 @@
-"""Summary writers and the compressed energy diagram of path-search.
+"""Summary writers and energy diagrams.
 
-Counterpart of the part of ``pdb2reaction_tpu/workflows/summary.py``
-that path-search uses: ``summary.yaml``, the human ``summary.log``
-(per-segment barriers and bond-change blocks; the TS frequency blocks
-and the output tree come with the stage-4 workflows, ROADMAP.md queue 1
-items 5-6) and the compressed R -> TS1 -> IM1_1 -> ... -> P diagram.
+Counterpart of ``pdb2reaction_tpu/workflows/summary.py``:
+``summary.yaml``, the human ``summary.log`` (per-segment barriers,
+bond-change blocks, each segment's TS frequencies with the imaginary-mode
+warnings of ``_freq_warnings``, the output tree), the compressed
+R -> TS1 -> IM1_1 -> ... -> P diagram, level diagrams and the merged IRC
+plot.
 
 Neither PyYAML nor matplotlib is a dependency. ``summary.yaml`` is
 written as JSON with an indent of 2, which is valid YAML and reads back
 equal under ``yaml.safe_load``. matplotlib is imported inside the
-drawing function only; where it is missing the caller skips the PNG with
-a warning (``path_search.run_path_search``), and the diagram's labels,
-energies and chain still go into ``summary.yaml``.
+drawing functions only; where it is missing the callers skip the PNG
+with a warning (``path_search.run_path_search``,
+``allflow.run_all``), and the diagram's labels, energies and chain still
+go into ``summary.yaml``.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -32,13 +34,38 @@ def write_summary_yaml(path, summary: Dict[str, Any]) -> Path:
     return path
 
 
+def _freq_warnings(freqs_cm: Optional[Sequence[float]]) -> List[str]:
+    """TS quality diagnostics: no imaginary mode, more than one, or a
+    shallow one (|nu| < 50 cm-1); a mode counts as imaginary below -5
+    cm-1."""
+    if freqs_cm is None or len(freqs_cm) == 0:
+        return []
+    freqs = np.asarray(freqs_cm)
+    n_imag = int((freqs < -5.0).sum())
+    warns = []
+    if n_imag == 0:
+        warns.append("WARNING: no imaginary mode — structure may not be a TS")
+    elif n_imag > 1:
+        warns.append(f"WARNING: {n_imag} imaginary modes — higher-order "
+                     "saddle; consider tsopt flattening")
+    if n_imag >= 1 and abs(float(freqs.min())) < 50.0:
+        warns.append("WARNING: |imaginary frequency| < 50 cm-1 — shallow "
+                     "TS, barrier may be unreliable")
+    return warns
+
+
 def write_summary_log(path, summary: Dict[str, Any], *,
-                      elapsed: str = "") -> Path:
-    """The human summary: segment table (barrier, dE, E_TS) and each
-    segment's bond changes."""
+                      elapsed: str = "", command: str = "",
+                      freq_blocks: Optional[Dict[int, Sequence[float]]] = None,
+                      tree_root: Optional[Path] = None) -> Path:
+    """The human summary: the command, the segment table (barrier, dE,
+    E_TS), each segment's bond changes and, from ``freq_blocks``, its TS
+    frequencies with warnings, then the tree under ``tree_root``."""
     lines: List[str] = []
     bar = "=" * 72
     lines += [bar, "pdb2reaction-tpu summary", bar, ""]
+    if command:
+        lines += [f"Command: {command}", ""]
     segs = summary.get("segments", [])
     lines.append(f"Segments: {len(segs)} "
                  f"({sum(1 for s in segs if s.get('reactive'))} reactive)")
@@ -56,6 +83,22 @@ def write_summary_log(path, summary: Dict[str, Any], *,
         if s.get("bond_changes"):
             lines += [f"--- segment {s['index']} bond changes ---",
                       s["bond_changes"], ""]
+        if freq_blocks and s["index"] in freq_blocks:
+            freqs = freq_blocks[s["index"]]
+            lines.append(f"--- segment {s['index']} TS frequencies ---")
+            imag = [f for f in freqs if f < 0]
+            lines.append("imaginary: " +
+                         (", ".join(f"{f:.1f}" for f in imag) or "none"))
+            lines += _freq_warnings(freqs)
+            lines.append("")
+    if tree_root is not None and Path(tree_root).exists():
+        lines += ["--- output tree ---"]
+        root = Path(tree_root)
+        for p in sorted(root.rglob("*")):
+            rel = p.relative_to(root)
+            indent = "  " * (len(rel.parts) - 1)
+            lines.append(f"{indent}{rel.name}")
+        lines.append("")
     if elapsed:
         lines.append(f"Elapsed: {elapsed}")
     path = Path(path)
@@ -192,9 +235,38 @@ def compressed_diagram(segments) -> Dict[str, Any]:
             "chain": " ".join(chain)}
 
 
-def build_energy_diagram(path, segments):
-    """Draw :func:`compressed_diagram` to ``path`` (needs matplotlib) and
-    return it."""
+def build_energy_diagram(path, segments, *, unit: str = "kcal",
+                         labels: Optional[List[str]] = None):
+    """Draw :func:`compressed_diagram` to ``path`` (needs matplotlib),
+    ``labels`` replacing its first names, and return it."""
     diag = compressed_diagram(segments)
-    build_levels_diagram(path, list(diag["labels"]), diag["energies_au"])
+    names = list(diag["labels"])
+    if labels:
+        names = labels[: len(names)] + names[len(labels):]
+    build_levels_diagram(path, names, diag["energies_au"], unit=unit)
     return diag
+
+
+def build_irc_overview(path, seg_profiles: Dict[int, List[float]],
+                       *, unit: str = "kcal"):
+    """Every segment's IRC energy profile on one axes (needs
+    matplotlib)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    conv = AU2KCALPERMOL if unit == "kcal" else 1.0
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    for si, energies in sorted(seg_profiles.items()):
+        if not energies:
+            continue
+        e = [(x - energies[0]) * conv for x in energies]
+        ax.plot(range(len(e)), e, "-o", ms=3, label=f"segment {si}")
+    ax.set_xlabel("IRC frame")
+    ax.set_ylabel(f"dE ({'kcal/mol' if unit == 'kcal' else 'au'})")
+    ax.legend()
+    ax.spines[["top", "right"]].set_visible(False)
+    fig.tight_layout()
+    fig.savefig(path, dpi=150)
+    plt.close(fig)
+    return Path(path)

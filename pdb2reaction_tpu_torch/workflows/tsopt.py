@@ -83,7 +83,9 @@ def run_tsopt(
     if calculator is not None:
         freeze = list(calculator.structure.freeze or [])
     else:
-        freeze = common.merge_freeze(struct, [int(f) for f in freeze_atoms])
+        freeze = common.merge_freeze(
+            struct, [common.resolve_atom_spec(f, struct)
+                     for f in freeze_atoms], auto_freeze_links)
     struct.freeze = freeze
     mode = str(opt_mode).strip().lower()
     mode = _TS_ALIASES.get(mode, mode)

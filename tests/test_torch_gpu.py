@@ -1138,3 +1138,76 @@ def test_stage4_escn_hessian_on_card_free_tangents():
     assert np.all(Hg[~free] == 0) and np.all(Hg[:, ~free] == 0)
     fb = np.ix_(free, free)
     assert np.abs(Hg[fb] - Hc[fb]).max() <= 1e-4 * np.abs(Hc[fb]).max()
+
+
+def test_biased_escn_md_on_card_kernels_in_forces_none_in_hessian():
+    """The distance restraints on escn-md on the card (engines/bias.py):
+    a biased force call launches K1 and K2 4 + 4 times like the plain
+    one, its forces are the plain forces plus the restraint's, and its
+    analytic Hessian launches no kernel (the restraint wraps the all-plain
+    closure too); the Hessian's free block within 1e-4 of the CPU's in
+    float64."""
+    _need_card()
+    from pdb2reaction_tpu_torch.engines.bias import (bias_params,
+                                                     biased_calculator,
+                                                     make_biased_energy_fn)
+    rng = np.random.default_rng(5)
+    zs = rng.choice([1, 6, 8], size=24).astype(np.int32)
+    st = Structure(zs, rng.normal(scale=2.5, size=(24, 3)))
+    frozen = list(range(4, 24))
+    pairs, targets, k = [(0, 1), (2, 3)], [1.2, 1.6], 20.0
+    cb = st.coords_bohr.reshape(-1)
+    base = make_uma_calculator(st, model="escn-md", device="cuda", seed=0,
+                               freeze_atoms=frozen)
+    calc = biased_calculator(base, pairs, targets, k)
+    alone = Calculator(st, make_biased_energy_fn(
+        lambda c, s, p: 0.0 * c.sum(), pairs), params=bias_params(targets, k),
+        freeze_atoms=frozen, device="cpu")
+    before = {**ek.launches, **fk.launches}
+    f = calc.get_forces(cb)["forces"]
+    moved = {n: v - before[n] for n, v in {**ek.launches,
+                                           **fk.launches}.items()}
+    assert moved["fused_edge_mega_fwd"] == moved["fused_edge_mega_bwd"] \
+        == moved["fused_node_ffn_fwd"] == moved["fused_node_ffn_bwd"] == 4
+    want = base.get_forces(cb)["forces"] + alone.get_forces(cb)["forces"]
+    assert np.abs(f - want).max() <= 1e-4 * np.abs(want).max()
+    before = {**ek.launches, **fk.launches}
+    H = calc._analytic_hessian(cb)
+    assert {**ek.launches, **fk.launches} == before
+    cpu = biased_calculator(
+        make_uma_calculator(st, model="escn-md", device="cpu", seed=0,
+                            dtype=torch.float64, freeze_atoms=frozen),
+        pairs, targets, k)
+    Hc = cpu._analytic_hessian(cb)
+    free = calc.free_dof_mask
+    fb = np.ix_(free, free)
+    assert np.abs(H[fb] - Hc[fb]).max() <= 1e-4 * np.abs(Hc[fb]).max()
+
+
+def test_extract_on_card_matches_cpu(tmp_path):
+    """extract_api(device="cuda") writes the CPU's pocket byte for byte,
+    with the same counts and charge summary (radius queries on the card,
+    float64)."""
+    _need_card()
+    from pdb2reaction_tpu_torch.bio.extract import extract_api
+    from pdb2reaction_tpu_torch.core.neighbors import radius_query
+    import chip_smoke
+    r, p = tmp_path / "R.pdb", tmp_path / "P.pdb"
+    chip_smoke.build_enzyme_pdb(r, seed=0)
+    chip_smoke.build_enzyme_pdb(p, stretch=2.40, seed=0)
+    chip_smoke.add_outer_body(r)
+    chip_smoke.add_outer_body(p)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        outs = [tmp_path / f"{dev}_{k}.pdb" for k in "RP"]
+        res[dev] = extract_api([r, p], "LIG", outs, ligand_charge=0,
+                               radius_het2het=3.0, device=dev)
+        res[dev]["text"] = [o.read_bytes() for o in outs]
+    for key in ("text", "counts", "charge_summary"):
+        assert res["cuda"][key] == res["cpu"][key], key
+    rng = np.random.default_rng(0)
+    pts, ctr = rng.uniform(-9, 9, (3000, 3)), rng.uniform(-5, 5, (300, 3))
+    hits = {dev: set(map(tuple, radius_query(pts, ctr, 2.6,
+                                             device=dev).tolist()))
+            for dev in ("cuda", "cpu")}
+    assert hits["cuda"] == hits["cpu"] and hits["cpu"]

@@ -98,7 +98,11 @@ def test_path_search_modules_import_without_yaml_matplotlib_click():
     names = set(r.stdout.split())
     for mod in ("runtime.checkpoint", "bio.bonds", "workflows.summary",
                 "workflows.trj2fig", "workflows.path_search",
-                "mlip.convert", "mlip.uma", "cli"):
+                "mlip.convert", "mlip.uma", "cli", "core.io_pdb",
+                "core.io_gjf", "bio.residues", "bio.add_elem",
+                "bio.extract", "bio.merge", "engines.bias",
+                "workflows.config", "workflows.common", "workflows.allflow",
+                "runtime.profiling"):
         assert f"pdb2reaction_tpu_torch.{mod}" in names, mod
 
 
@@ -161,3 +165,50 @@ print(" ".join(names))
     import json
     doc = json.loads((tmp_path / "fq" / "thermoanalysis.yaml").read_text())
     assert doc["zpe"] > 0 and doc["n_imag"] >= 0
+
+
+def test_all_runs_without_jax_yaml_matplotlib_click(tmp_path):
+    """The default subcommand (all) on the R/P complex of
+    tests/test_extract.py with JAX, PyYAML, matplotlib and click blocked:
+    --args-yaml read by the port's own reader, the element preflight,
+    every PNG skipped with a warning, the PDB, merge and summary outputs
+    written."""
+    import shutil
+    from test_extract import build_complex_pdb
+    r = tmp_path / "R.pdb"
+    build_complex_pdb(r)
+    (tmp_path / "P.pdb").write_text(r.read_text().replace(
+        "1.200   0.000   0.000", "2.300   0.000   0.000"))
+    for name in ("R.pdb", "P.pdb"):     # blank element columns: the
+        p = tmp_path / name             # preflight repairs them
+        p.write_text("\n".join(ln[:76].rstrip() for ln in
+                               p.read_text().splitlines()) + "\n")
+    (tmp_path / "args.yaml").write_text(
+        "# search depth for a short run\nsearch:\n  max_depth: 0\n")
+    script = _BLOCKED.replace('print(" ".join(names))', """
+from pdb2reaction_tpu_torch import cli
+try:
+    cli.main(["-i", "R.pdb", "-i", "P.pdb", "--center", "LIG",
+              "--ligand-charge", "0", "--calc-mode", "morse", "--device",
+              "cpu", "--max-nodes", "7", "--preopt", "False",
+              "--args-yaml", "args.yaml", "--out-dir", "all"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+""")
+    # one intra-op thread, as tests/test_torch_all.py runs run_all
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = tmp_path / "all"
+    assert "energy_diagram_all.png skipped" in r.stdout
+    assert "max_depth: 0" in r.stdout
+    assert not list(out.rglob("*.png"))
+    for f in ("elem_fixed_R.pdb", "stage1_extract/pocket_elem_fixed_R.pdb",
+              "stage2_path/mep_full.pdb", "stage3_merged/mep_full.pdb",
+              "summary.yaml", "summary.log"):
+        assert (out / f).exists(), f
+    import json
+    doc = json.loads((out / "summary.yaml").read_text())
+    assert doc["n_segments"] >= 1 and doc["stage4"] == []
+    shutil.rmtree(out)

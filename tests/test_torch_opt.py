@@ -45,8 +45,8 @@ def test_opt_cli_writes_final_geometry(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "pdb2reaction_tpu_torch", "opt", "-i",
          str(xyz), "--model", "escn-test", "--device", "cpu",
-         "--max-cycles", "3"], cwd=tmp_path, env=env, capture_output=True,
-        text=True, timeout=300)
+         "--max-cycles", "3", "-q", "0"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
     assert r.returncode in (0, 3), r.stderr
     out = tmp_path / "result_opt" / "final_geometry.xyz"
     assert out.exists()

@@ -184,7 +184,7 @@ def test_opt_cli_default_model_runs_uma_s_1p1(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run(
         [sys.executable, "-m", "pdb2reaction_tpu_torch", "opt", "-i",
-         str(xyz), "--device", "cpu", "--max-cycles", "2"], cwd=tmp_path,
+         str(xyz), "--device", "cpu", "--max-cycles", "2", "-q", "0"], cwd=tmp_path,
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode in (0, 3), r.stderr
     assert "model 'uma-s-1p1'" in r.stderr       # the surrogate warning

@@ -15,6 +15,11 @@ the CLI) against the JAX package's:
   under ``yaml.safe_load`` (floats within 1e-8, everything else
   exactly), the segment-level ones too. Force calls are not compared:
   the JAX Cartesian L-BFGS counts none (ROADMAP.md queue 3);
+- the full-system merge (``--ref-full-pdb`` / ``full_template``) on
+  the pocket of ``tests/test_extract.py``'s complex: every merged PDB
+  carries the full atom count, and its frames are the JAX package's
+  ``merge_pocket_into_full`` of the pocket frames over the blended
+  templates;
 - the refusals of what is not ported, each naming its ROADMAP item,
   through the CLI and the library, before any output is written."""
 
@@ -185,7 +190,7 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
 
 
 @pytest.mark.parametrize("flags,said", [
-    (["--ref-full-pdb", "full.pdb"], "item 6"),
+    (["--dump", "True"], "--dump"),
     (["--mep-mode", "dmf"], "item 11"),
     (["--spatial", "2"], "item 9"),
     (["--gsm-loop", "device"], "item 2"),
@@ -202,7 +207,7 @@ def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
 
 
 @pytest.mark.parametrize("kw,said", [
-    ({"full_template": "full.pdb"}, "item 6"),
+    ({"mep_mode": "DMF"}, "item 11"),
     ({"mep_mode": "dmf"}, "item 11"),
     ({"beta_ev": 5.0}, "item 11"),
     ({"dmf_kw": {"n_images": 8}}, "item 11"),
@@ -227,3 +232,151 @@ def test_path_search_needs_two_inputs_of_one_system(tmp_path):
         run_path_search([a, o], charge=0, calc_mode="morse", device="cpu",
                         out_dir=tmp_path / "ps")
     assert _cli(["path-search", "-i", str(a)] + COMMON) != 0
+
+
+def _pocket_pair(tmp_path):
+    """R and P of ``tests/test_extract.py``'s complex (P with the ligand's
+    C1-O1 bond broken) and their pockets, extracted by the port."""
+    from test_extract import build_complex_pdb
+    from pdb2reaction_tpu_torch.bio.extract import extract_api
+    r, p = tmp_path / "R.pdb", tmp_path / "P.pdb"
+    build_complex_pdb(r)
+    p.write_text(r.read_text().replace("1.200   0.000   0.000",
+                                       "2.300   0.000   0.000"))
+    pockets = [tmp_path / "pocket_R.pdb", tmp_path / "pocket_P.pdb"]
+    extract_api([r, p], "LIG", pockets, device="cpu")
+    return [r, p], pockets
+
+
+def _check_merged(out, templates, pockets):
+    """Every merged PDB has the full atom count, and mep_full.pdb's
+    frames are JAX's merge of mep.trj's frames: the background blended
+    from R to the chain-aligned P across the frames."""
+    from pdb2reaction_tpu.bio.align import kabsch as j_kabsch
+    from pdb2reaction_tpu.bio.merge import merge_pocket_into_full
+    from pdb2reaction_tpu.core import io_pdb as j_pdb
+    from pdb2reaction_tpu_torch.core import io_pdb
+    full = [j_pdb.read_pdb(t) for t in templates]
+    n_full = full[0].n_atoms
+    pocket = j_pdb.read_pdb(pockets[0])
+    assert pocket.n_atoms < n_full
+    merged = sorted(out.glob("seg_*_mep/*_full.pdb")) + [out
+                                                         / "mep_full.pdb"]
+    assert any(m.name == "hei_full.pdb" for m in merged)
+    for m in merged:
+        text = m.read_text()
+        n_models = text.count("MODEL ")
+        assert n_models >= 1
+        assert text.count("\nATOM  ") + text.count("\nHETATM") \
+            == n_models * n_full, m
+        assert io_pdb.read_pdb(m).n_atoms == n_full
+    frames = io_xyz.read_xyz_frames(out / "mep.trj")
+    R, t = j_kabsch(full[1].coords, full[0].coords)
+    A, B = full[0].coords, full[1].coords @ R + t
+    blocks = (out / "mep_full.pdb").read_text().split("ENDMDL")[:-1]
+    assert len(blocks) == len(frames) >= 3
+    M = len(frames)
+    for k, (fr, block) in enumerate(zip(frames, blocks)):
+        tf = k / (M - 1.0)
+        want = merge_pocket_into_full(full[0], pocket, fr.coords,
+                                      full_coords_ang=(1 - tf) * A
+                                      + tf * B).coords
+        got = np.array([[float(ln[30:38]), float(ln[38:46]),
+                         float(ln[46:54])] for ln in block.splitlines()
+                        if ln.startswith(("ATOM", "HETATM"))])
+        np.testing.assert_allclose(got, want, rtol=0, atol=6e-4)
+    return n_full
+
+
+SEARCH_SMALL = {"max_depth": 0, "preopt": False}
+
+
+def test_run_path_search_full_template_merge(tmp_path):
+    """``full_template``: the pocket frames merged into the full system."""
+    templates, pockets = _pocket_pair(tmp_path)
+    out = tmp_path / "ps"
+    res = run_path_search(pockets, charge=1, calc_mode="morse",
+                          device="cpu", out_dir=out, verbose=False,
+                          full_template=templates,
+                          search_kw=SEARCH_SMALL, gs_kw={"max_nodes": 7},
+                          stopt_kw={"max_cycles": 30})
+    assert _check_merged(out, templates, pockets) == 22
+    assert (out / "mep_full.pdb") in res["outputs"]
+    # a template of another atom count is refused before the search
+    with pytest.raises(ValueError, match="1 or 2 templates"):
+        run_path_search(pockets, charge=1, calc_mode="morse", device="cpu",
+                        out_dir=tmp_path / "x", verbose=False,
+                        full_template=templates * 2)
+    assert not (tmp_path / "x").exists()
+
+
+def test_path_search_cli_ref_full_pdb_merge(tmp_path):
+    """``--ref-full-pdb R.pdb --ref-full-pdb P.pdb`` through the CLI."""
+    templates, pockets = _pocket_pair(tmp_path)
+    out = tmp_path / "ps"
+    assert _cli(["path-search", "-i", str(pockets[0]), "-i",
+                 str(pockets[1]), "--ref-full-pdb", str(templates[0]),
+                 "--ref-full-pdb", str(templates[1]), "--max-depth", "0",
+                 "--preopt", "False", "--max-nodes", "7", "--max-cycles",
+                 "30", "-q", "1", "--calc-mode", "morse", "--device",
+                 "cpu", "--out-dir", str(out)]) == 0
+    assert _check_merged(out, templates, pockets) == 22
+    # the pocket trajectories got their PDB companions too
+    assert (out / "mep.pdb").exists()
+
+
+def test_multi_template_merge_and_segment_summaries(tmp_path):
+    """Twin of tests/test_path_search.py:109, and at max_nodes 7 the
+    merged MEP byte for byte JAX's."""
+    from test_path_search import _h3_pdb
+    from pdb2reaction_tpu.workflows.path_search import \
+        run_path_search as j_run
+    a = _h3_pdb(tmp_path / "A.pdb", 0.686)
+    b = _h3_pdb(tmp_path / "B.pdb", 1.714)
+    ta = _h3_pdb(tmp_path / "TA.pdb", 0.686, extra_x=10.0)
+    tb = _h3_pdb(tmp_path / "TB.pdb", 1.714, extra_x=13.0)
+    out = tmp_path / "ps"
+    run_path_search([a, b], charge=0, calc_mode="morse", device="cpu",
+                    freeze_atoms=[0, 2], full_template=[ta, tb],
+                    out_dir=out, verbose=False, gs_kw={"max_nodes": 6})
+    assert (out / "mep_full.pdb").exists()
+    xs = []
+    n_atoms_per_model = set()
+    cur = 0
+    for line in (out / "mep_full.pdb").read_text().splitlines():
+        if line.startswith("MODEL"):
+            cur = 0
+        elif line.startswith(("ATOM", "HETATM")):
+            cur += 1
+            if " GLY " in line:
+                xs.append(float(line[30:38]))
+        elif line.startswith("ENDMDL"):
+            n_atoms_per_model.add(cur)
+    assert n_atoms_per_model == {4}
+    assert xs[0] == pytest.approx(10.0, abs=0.3)
+    assert xs[-1] > xs[0] + 0.8
+    assert all(x2 >= x1 - 0.05 for x1, x2 in zip(xs, xs[1:]))
+    seg_summaries = sorted(out.glob("seg_*_mep/summary.yaml"))
+    assert seg_summaries
+    doc = yaml.safe_load(seg_summaries[0].read_text())
+    assert doc["pair_index"] == 0
+    assert doc["segments"][0]["pair_index"] == 0
+    assert "weights" in doc
+    with pytest.raises(ValueError, match="templates"):
+        run_path_search([a, b], charge=0, calc_mode="morse", device="cpu",
+                        freeze_atoms=[0, 2], full_template=[ta, tb, ta],
+                        out_dir=tmp_path / "bad", verbose=False)
+    # at an odd node count the merged files are JAX's byte for byte
+    kw = dict(charge=0, calc_mode="morse", freeze_atoms=[0, 2],
+              full_template=[ta, tb], verbose=False)
+    run_path_search([a, b], device="cpu", out_dir=tmp_path / "p7",
+                    gs_kw={"max_nodes": 7}, **kw)
+    j_run([a, b], out_dir=tmp_path / "j7",
+          gs_kw={"max_nodes": 7, "loop": "host"}, **kw)
+    fulls = sorted(p.relative_to(tmp_path / "j7")
+                   for p in (tmp_path / "j7").rglob("*_full.pdb"))
+    assert fulls == sorted(p.relative_to(tmp_path / "p7")
+                           for p in (tmp_path / "p7").rglob("*_full.pdb"))
+    for f in fulls:
+        assert (tmp_path / "p7" / f).read_bytes() == \
+            (tmp_path / "j7" / f).read_bytes(), f

@@ -2,8 +2,8 @@
 
 - twins of ``tests/test_rfo.py:21, 36, 89`` (water minimization, the
   double-well TS, GDIIS against plain RFO) on the port. The twin of
-  ``test_biased_calculator_shifts_minimum`` waits for the harmonic bias
-  (``engines/bias.py``), which is ROADMAP.md queue 1 item 6;
+  ``test_biased_calculator_shifts_minimum`` (the harmonic bias,
+  ``engines/bias.py``) is in ``tests/test_torch_config_bias.py``;
 - ``_secular_rfo_step``, ``_bfgs_update`` and ``_bofill_update`` against
   JAX's on seeded inputs, to 1e-12;
 - ``rfo_optimize`` against JAX's in min mode (plain, and with the GDIIS

@@ -226,6 +226,7 @@ def test_opt_cli_under_torchrun(tmp_path):
          "2", "--master-addr", "127.0.0.1", "--master-port",
          str(_free_port()), "-m", "pdb2reaction_tpu_torch", "opt", "-i",
          str(path), "--device", "cpu", "--spatial", "2", "--model", "small",
+         "-q", "0",
          "--thresh", "gau_loose", "--max-cycles", "200"], cwd=tmp_path,
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
