@@ -146,7 +146,28 @@ Phases (any failure exits non-zero):
    holding an error, finite energies, frequencies and thermochemistry;
    each stage's wall and calls, the Hessians, ms per force call and peak
    memory printed. Then the default subcommand (no subcommand: all) as a
-   subprocess, stage 4 off.
+   subprocess, stage 4 off;
+17. the scans on escn-md (phase 4's weights, P = 320; phase 15's active
+   region, the atoms within 3 Angstrom of phase 13's bond, the rest
+   frozen; wells of SCAN_K): (a) run_scan, two stages (the bond 0.3
+   Angstrom shorter in 0.1 Angstrom steps, then it and a second pair
+   together; gau_loose, 20 cycles a step, endopt capped at 10 cycles,
+   dump), each stage's last biased frame within SCAN_TOL of its targets,
+   then the same call again, every stage resumed from its checkpoint
+   with no force call; (b) run_scan_nd, a 3 x 3 L-BFGS grid (15 cycles a
+   relaxation, 9 energy calls, surface.csv of 9 rows), then one grid
+   point in rfo mode (two biased Hessians); (c) the scan and scan3d
+   (2 x 2 x 2) CLIs as subprocesses; (d) run_all on phase 16's reactant
+   alone with scan_stages in full-structure indices (LIG C2-O1 to 2.40
+   Angstrom, remapped onto the pocket; no preopt or endopt), max_depth
+   0, max_nodes 6, 5 string cycles, stage 4 off: the scan product's
+   pocket C2-O1 within SCAN1B_TOL of 2.40, the path stage and merged
+   PDBs at the full atom count; (e) run_dft's RHF/STO-3G engine on the
+   card against the CPU for H2, HeH+ and H3+. Every run has its counts
+   set to 0 just before and read just after: K1 and K2 forward launches
+   4 x (force + energy calls), backward 4 x force calls, none inside a
+   Hessian; wall, calls, ms a force call, Hessians and peak memory
+   printed on [scan] lines.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -2103,6 +2124,329 @@ def all_cli(r, p, freeze, n_full):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the scans, stage 1b of all and the mini DFT engine on the card
+# ---------------------------------------------------------------------------
+
+SCAN_K = 300.0          # eV/Angstrom^2: wells stiff enough that a relaxed
+                        # step ends within SCAN_TOL of its target
+SCAN_TOL = 0.02         # Angstrom: a stage's last biased frame
+SCAN1B_TOL = 0.05       # Angstrom: stage 1b's product at its target
+DFT_E_TOL = 1e-10       # Hartree: the mini engine on the card against the
+DFT_Q_TOL = 1e-8        # CPU (charges in e)
+H2_RHF = -1.1168        # Hartree: RHF/STO-3G H2 at 0.74 A (JAX's bar)
+
+
+def scan_run(tag, run):
+    """One scan workflow with its counts set to 0 just before and read
+    just after: the launch identity over its force and energy calls (the
+    result's), none inside a Hessian; its wall, Hessians and ms a force
+    call printed."""
+    import torch
+    zero_all_counts()
+    before = all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with stage4_meter() as m:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fc, ec = res["force_calls"], res["energy_calls"]
+    moved = moved_counts(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[scan] {tag}: {wall:.2f} s wall; {fc} force calls, {ec} energy "
+        f"calls, {m.force_s / max(fc, 1) * 1e3:.2f} ms a force call; "
+        f"{m.hess} Hessians in {m.hess_s:.2f} s ({m.hvps} HVPs); peak "
+        f"memory {peak:.2f} GiB; launches {moved}")
+    want = {"fused_edge_mega_fwd": 4 * (fc + ec),
+            "fused_edge_mega_bwd": 4 * fc,
+            "fused_node_ffn_fwd": 4 * (fc + ec),
+            "fused_node_ffn_bwd": 4 * fc}
+    if moved != {k: v for k, v in want.items() if v}:
+        fail(f"{tag}: launches {moved}, expected {want} (K1 and K2 forward "
+             "4 x (force + energy calls), backward 4 x force calls)")
+    if m.inside:
+        fail(f"{tag}: kernels launched inside Hessians: {m.inside}")
+    return res, m, wall
+
+
+def _pair_near(x, active, exclude, want=2.5):
+    """The pair of active atoms outside ``exclude`` whose distance is the
+    closest to ``want`` Angstrom."""
+    cand = [i for i in active if i not in exclude]
+    best = None
+    for a in range(len(cand)):
+        for b in range(a + 1, len(cand)):
+            i, j = cand[a], cand[b]
+            d = abs(float(np.linalg.norm(x[i] - x[j])) - want)
+            if best is None or d < best[0]:
+                best = (d, i, j)
+    return best[1], best[2]
+
+
+def phase_scans(calc, st, bond, smi_line):
+    """Phase 17: run_scan (two stages, then again from its checkpoints),
+    run_scan_nd (a 3 x 3 L-BFGS grid, then one RFO point), the scan and
+    scan3d CLIs, run_all's stage 1b on phase 16's reactant alone and
+    run_dft's mini engine, on escn-md with phase 4's weights."""
+    import shutil
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz, write_xyz
+    from pdb2reaction_tpu_torch.workflows.scan import run_scan
+    from pdb2reaction_tpu_torch.workflows.scan_nd import run_scan_nd
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "result_smoke", "scans")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    x = st.coords
+    d = np.linalg.norm(x[:, None, :] - x[list(bond)][None], axis=-1)
+    active = [int(i) for i in np.nonzero(d.min(axis=1) <= STAGE4_RADIUS)[0]]
+    freeze = [i for i in range(st.n_atoms) if i not in set(active)]
+    h, heavy = bond
+    p2 = _pair_near(x, active, set(bond))
+    p3 = _pair_near(x, active, set(bond) | set(p2))
+
+    def dist(c, p):
+        return float(np.linalg.norm(c[p[0]] - c[p[1]]))
+
+    d0, d2, d3 = dist(x, bond), dist(x, p2), dist(x, p3)
+    path = os.path.join(out, "A.xyz")
+    write_xyz(path, st)
+    log(f"[scan] {smi_line}; escn-md pallas-mega, {st.n_atoms} atoms "
+        f"(P = 320), phase 4's weights; active region {len(active)} atoms "
+        f"within {STAGE4_RADIUS} A of H{h} or atom {heavy}, {len(freeze)} "
+        f"frozen; pairs {tuple(bond)} at {d0:.3f} A, {p2} at {d2:.3f} A, "
+        f"{p3} at {d3:.3f} A; wells k = {SCAN_K} eV/A^2")
+    kw = dict(charge=0, model="escn-md", device="cuda", params=calc.params,
+              pad_multiple=64, freeze_atoms=freeze, bias_k=SCAN_K,
+              verbose=False)
+
+    # (a) run_scan: two stages, then the same call from the checkpoints
+    stages = [[(h, heavy, d0 - 0.3)],
+              [(h, heavy, d0 - 0.4), (p2[0], p2[1], d2 - 0.2)]]
+    sdir = os.path.join(out, "scan")
+
+    def scan():
+        return run_scan(path, stages, relax_thresh="gau_loose",
+                        relax_max_cycles=20, endopt=True, opt_max_cycles=10,
+                        dump=True, out_dir=sdir, **kw)
+
+    ra, _, _ = scan_run("(a) run_scan, 2 stages (0.1 A steps, gau_loose, "
+                        "20 cycles a step, endopt capped at 10)", scan)
+    for si, (stage, res) in enumerate(zip(stages, ra["stages"])):
+        last = np.asarray(res["frames_bohr"][-2]) * 0.529177210903
+        off = [abs(dist(last, (i, j)) - t) for i, j, t in stage]
+        log(f"[scan] stage {si + 1}: {len(res['frames_bohr']) - 1} steps "
+            f"and the endopt; last biased frame off its targets by "
+            f"{[round(o, 4) for o in off]} A; E {res['energies']}")
+        if max(off) > SCAN_TOL or not np.all(np.isfinite(res["energies"])):
+            fail(f"scan stage {si + 1} ended {max(off):.4f} A off its "
+                 f"targets (limit {SCAN_TOL}) or with non-finite energies")
+    need = ["stage_01.trj", "stage_02.trj", "final_geometry.xyz", "scan.trj"]
+    missing = [f for f in need if not os.path.exists(os.path.join(sdir, f))]
+    if missing:
+        fail(f"run_scan wrote no {missing}")
+    rb, _, _ = scan_run("(a) the same run_scan again (from its checkpoints)",
+                        scan)
+    if rb["force_calls"] != 0 or not np.array_equal(rb["coords_bohr"],
+                                                    ra["coords_bohr"]):
+        fail(f"the rerun made {rb['force_calls']} force calls or ended "
+             "elsewhere: the checkpoints were not resumed")
+
+    # (b) run_scan_nd: a 3 x 3 L-BFGS grid, then one RFO grid point
+    axes = [{"pair": tuple(bond), "values": [d0, d0 - 0.1, d0 - 0.2]},
+            {"pair": p2, "values": [d2, d2 - 0.1, d2 - 0.2]}]
+    gdir = os.path.join(out, "grid")
+    rg, _, _ = scan_run("(b) run_scan_nd, 3 x 3 grid, lbfgs, 15 cycles a "
+                        "relaxation", lambda: run_scan_nd(
+                            path, axes, relax_mode="lbfgs",
+                            relax_max_cycles=15, out_dir=gdir, **kw))
+    rows = np.loadtxt(os.path.join(gdir, "surface.csv"), delimiter=",",
+                      skiprows=1)
+    log(f"[scan] grid energies (Ha): {rg['surface'][:, 2].tolist()}")
+    if rows.shape != (9, 3) or rg["energy_calls"] != 9 or not np.all(
+            np.isfinite(rg["surface"])):
+        fail(f"the grid gave {rows.shape} rows, {rg['energy_calls']} "
+             "energy calls, or non-finite energies")
+    one = [{"pair": tuple(bond), "values": [d0 - 0.1]},
+           {"pair": p2, "values": [d2 - 0.1]}]
+    rr, m_rfo, _ = scan_run("(b) run_scan_nd, one grid point, rfo from the "
+                            "biased exact Hessian, 5 cycles", lambda:
+                            run_scan_nd(path, one, relax_mode="rfo",
+                                        relax_max_cycles=5,
+                                        out_dir=os.path.join(out, "rfo"),
+                                        **kw))
+    if m_rfo.hess != 2 or m_rfo.hvps != 2 * 3 * len(active) \
+            or not np.all(np.isfinite(rr["surface"])):
+        fail(f"the RFO grid point ran {m_rfo.hess} Hessians of "
+             f"{m_rfo.hvps} HVPs in all (expected 2 of {3 * len(active)})")
+
+    # (c) the scan and scan3d CLIs as subprocesses
+    scan_cli(out, path, freeze, bond, p2, p3, d0, d2, d3)
+    # (d) all with --scan-lists on phase 16's reactant alone
+    scan_all(out)
+    # (e) the mini DFT engine on the card against the CPU
+    mini_dft_card(out)
+    log(f"[scan] phase 17 wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def scan_cli(out, path, freeze, bond, p2, p3, d0, d2, d3):
+    """Phase 17c: ``scan`` (one stage, no preopt or endopt, --dump) and
+    ``scan3d`` (a 2 x 2 x 2 grid: spans of 0.1 A at a 0.15 A maximum
+    step, 5 cycles a relaxation) as subprocesses
+    on the card: exit codes and outputs."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = ["--model", "escn-md", "-q", "0", "--freeze-atoms",
+            ",".join(map(str, freeze)), "--bias-k", str(SCAN_K)]
+
+    def one_based(p, t, *rest):
+        return ",".join(str(v) for v in (p[0] + 1, p[1] + 1, t) + rest)
+
+    runs = (("scan", ["--scan-list", one_based(bond, round(d0 - 0.2, 4)),
+                      "--preopt", "False", "--endopt", "False",
+                      "--relax-max-cycles", "10", "--dump", "True"],
+             ("stage_01.trj", "final_geometry.xyz", "scan.trj"), None),
+            ("scan3d", ["--scan", one_based(bond, round(d0 - 0.1, 4), 0.15),
+                        "--scan", one_based(p2, round(d2 - 0.1, 4), 0.15),
+                        "--scan", one_based(p3, round(d3 - 0.1, 4), 0.15),
+                        "--preopt", "False", "--thresh", "gau_loose",
+                        "--relax-max-cycles", "5"], ("surface.csv",), 8))
+    for cmd, extra, files, n_rows in runs:
+        d = os.path.join(out, f"cli_{cmd}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pdb2reaction_tpu_torch",
+                            cmd, "-i", path, "--out-dir", d] + base + extra,
+                           cwd=out, env=env, capture_output=True, text=True,
+                           timeout=600)
+        tail = [ln for ln in r.stdout.splitlines()
+                if ln.startswith(f"[{cmd}")][-2:]
+        log(f"[scan] (c) the {cmd} CLI as a subprocess: rc {r.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s with start-up; {tail}")
+        if r.returncode != 0:
+            fail(f"the {cmd} CLI exited {r.returncode}: {r.stderr[-3000:]}")
+        missing = [f for f in files if not os.path.exists(
+            os.path.join(d, f))]
+        if missing:
+            fail(f"the {cmd} CLI wrote no {missing}")
+        if n_rows is not None:
+            rows = np.loadtxt(os.path.join(d, "surface.csv"), delimiter=",",
+                              skiprows=1)
+            if rows.shape != (n_rows, 4) or not np.all(np.isfinite(rows)):
+                fail(f"the {cmd} CLI's surface.csv has shape {rows.shape}")
+
+
+def scan_all(out):
+    """Phase 17d: run_all on phase 16's reactant PDB alone with
+    scan_stages in full-structure indices (LIG C2-O1 to 2.40 A), remapped
+    onto the pocket; the pocket atoms beyond ALL_ACTIVE_RADIUS of C2 and
+    O1 frozen; max_depth 0, max_nodes 6, 5 string cycles, stage 4 off."""
+    from pdb2reaction_tpu_torch.bio.extract import extract_api
+    from pdb2reaction_tpu_torch.core import io_pdb
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz
+    from pdb2reaction_tpu_torch.workflows.allflow import run_all
+    d = os.path.join(out, "all")
+    os.makedirs(os.path.join(d, "pre"))
+    r = os.path.join(d, "R.pdb")
+    n_site = build_enzyme_pdb(r, n_res=48, seed=0)
+    n_body, _ = add_outer_body(r)
+    n_full = n_site + n_body
+    full = io_pdb.parse_pdb_atoms(r)
+    ends = [i for n in ("C2", "O1") for i, a in enumerate(full)
+            if a["resname"] == "LIG" and a["name"] == n]
+    pre = os.path.join(d, "pre", "pocket.pdb")
+    extract_api([r], "LIG", [pre], ligand_charge=0, device="cuda")
+    patoms = io_pdb.parse_pdb_atoms(pre)
+    pends = [i for n in ("C2", "O1") for i, a in enumerate(patoms)
+             if a["resname"] == "LIG" and a["name"] == n]
+    px = np.array([[a["x"], a["y"], a["z"]] for a in patoms])
+    near = np.linalg.norm(px[:, None] - px[pends][None], axis=-1).min(1)
+    freeze = [int(i) for i in np.nonzero(near > ALL_ACTIVE_RADIUS)[0]]
+    log(f"[scan] (d) all with --scan-lists: R alone ({n_full} atoms), LIG "
+        f"C2 / O1 = full-structure atoms {ends} (serials "
+        f"{[i + 1 for i in ends]}), pocket ({len(patoms)} atoms) atoms "
+        f"{pends}; {len(patoms) - len(freeze)} active within "
+        f"{ALL_ACTIVE_RADIUS} A of them")
+    run_dir = os.path.join(d, "run")
+    res, _, _ = scan_run(
+        "(d) run_all, stage 1b (C2-O1 1.30 -> 2.40 A, 0.1 A steps, 15 "
+        "cycles a step, no preopt or endopt) and path-search (max_depth 0, "
+        "max_nodes 6, 5 string cycles), stage 4 off", lambda: run_all(
+            [r], center="LIG", ligand_charge=0, model="escn-md",
+            device="cuda", seed=0, pad_multiple=64, freeze_atoms=freeze,
+            scan_stages=[[(ends[0], ends[1], 2.40)]], preopt=False,
+            verbose=False, out_dir=run_dir, gs_kw={"max_nodes": 6},
+            max_cycles=5, search_kw={"max_depth": 0,
+                                     "opt_thresh": "gau_loose",
+                                     "max_consecutive_kinks": ALL_KINKS},
+            scan_kw={"preopt": False, "endopt": False,
+                     "relax_max_cycles": 15, "bias_k": SCAN_K}))
+    for name, ph in res["force_call_phases"].items():
+        log(f"[scan] (d) stage {name}: {ph['seconds']:.2f} s, "
+            f"{ph['calls']} force calls, {ph['energy_calls']} energy calls")
+    pocket = io_pdb.parse_pdb_atoms(os.path.join(
+        run_dir, "stage1_extract", "pocket_elem_fixed_R.pdb"))
+    if [(a["name"], a["resname"], a["resseq"]) for a in pocket] != \
+            [(a["name"], a["resname"], a["resseq"]) for a in patoms]:
+        fail("run_all's pocket differs from the phase's own extraction")
+    prod = read_xyz(os.path.join(run_dir, "stage1b_scan",
+                                 "scan_product.xyz")).coords
+    got = float(np.linalg.norm(prod[pends[0]] - prod[pends[1]]))
+    log(f"[scan] (d) scan_product.xyz: pocket C2-O1 {got:.4f} A (target "
+        f"2.40); input {float(np.linalg.norm(px[pends[0]] - px[pends[1]])):.4f} A")
+    if abs(got - 2.40) > SCAN1B_TOL:
+        fail(f"stage 1b's product holds C2-O1 at {got:.4f} A, not 2.40 +- "
+             f"{SCAN1B_TOL}: the scan did not drive the pocket's pair")
+    need = ["stage2_path/mep.trj", "stage2_path/mep_full.pdb",
+            "stage3_merged/mep_full.pdb", "summary.yaml", "summary.log"]
+    missing = [f for f in need if not os.path.exists(os.path.join(run_dir,
+                                                                   f))]
+    if missing:
+        fail(f"all with --scan-lists wrote no {missing}")
+    with open(os.path.join(run_dir, "stage2_path", "mep_full.pdb")) as fh:
+        text = fh.read()
+    n = text.count("\nATOM  ") + text.count("\nHETATM") + \
+        text.startswith(("ATOM", "HETATM"))
+    if n != max(text.count("MODEL "), 1) * n_full:
+        fail("the merged MEP of all --scan-lists lacks the full atom count")
+    with open(os.path.join(run_dir, "summary.yaml")) as fh:
+        segs = json.load(fh)["segments"]
+    log(f"[scan] (d) {len(segs)} segments from the input to the scan "
+        f"product: {[(s['kind'], s['reactive']) for s in segs]}")
+
+
+def mini_dft_card(out):
+    """Phase 17e: run_dft's RHF/STO-3G engine on the card and on the CPU
+    for H2, HeH+ and H3+."""
+    from pdb2reaction_tpu_torch.workflows.dft import run_dft
+    mols = {"H2": ("2\n\nH 0 0 0\nH 0.74 0 0\n", 0),
+            "HeH+": ("2\n\nHe 0 0 0\nH 0.772 0 0\n", 1),
+            "H3+": ("3\n\nH 0 0 0\nH 0.87 0 0\nH 0.435 0.75 0\n", 1)}
+    for name, (text, q) in mols.items():
+        p = os.path.join(out, f"{name}.xyz")
+        with open(p, "w") as fh:
+            fh.write(text)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[dev] = run_dft(p, charge=q, spin=1, engine="mini",
+                               device=dev, verbose=False, out_dir=os.path.join(
+                                   out, f"dft_{name}_{dev}"))
+            got[dev]["s"] = time.perf_counter() - t0
+        g, c = got["cuda"], got["cpu"]
+        de = abs(g["energy_au"] - c["energy_au"])
+        dq = max(float(np.abs(np.subtract(g[k], c[k])).max())
+                 for k in ("mulliken_charges", "meta_lowdin_charges"))
+        log(f"[scan] (e) mini RHF/STO-3G {name}: E {g['energy_au']:.10f} Ha "
+            f"on the card ({g['s'] * 1e3:.1f} ms), |dE| {de:.2e} Ha and "
+            f"max|dq| {dq:.2e} e against the CPU")
+        if not (de <= DFT_E_TOL and dq <= DFT_Q_TOL and g["converged"]):
+            fail(f"the mini engine on the card disagrees with the CPU on "
+                 f"{name}")
+        if name == "H2" and abs(g["energy_au"] - H2_RHF) > 2e-3:
+            fail(f"H2 at {g['energy_au']:.6f} Ha, not {H2_RHF} +- 2e-3")
+
+
+# ---------------------------------------------------------------------------
 # PaiNN-class uma-s-1p1: K5 and the pallas-mode path
 # ---------------------------------------------------------------------------
 
@@ -2988,6 +3332,8 @@ def main():
         phase_stage4(calc, st, search, bond, smi_line)
         # ---- all on the enzyme-like PDB pair: its own counts
         phase_all(smi_line)
+        # ---- the scans, stage 1b and the mini DFT engine: their own counts
+        phase_scans(calc, st, bond, smi_line)
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``all`` (the default), ``opt``,
-``path-opt``, ``path-search``, ``tsopt``, ``freq``, ``irc``,
-``extract``, ``add-elem-info``, ``trj2fig`` and ``align-freeze-atoms``.
+``scan``, ``scan2d``, ``scan3d``, ``path-opt``, ``path-search``,
+``tsopt``, ``freq``, ``irc``, ``dft``, ``extract``, ``add-elem-info``,
+``trj2fig`` and ``align-freeze-atoms``.
 
 Same flags as the JAX package's (``pdb2reaction_tpu/cli.py``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
@@ -10,10 +11,11 @@ overrides any option from the file's sections (YAML wins; see
 ``--ligand-charge`` derives the charge of a PDB input, ``--ref-pdb``
 lends a PDB template to .xyz/.gjf inputs and ``--profile DIR`` writes a
 torch.profiler Chrome trace. Not ported, and refused with their
-ROADMAP.md items: ``scan``, ``scan2d``, ``scan3d`` and
-``all --scan-lists`` (queue 1 item 7), ``dft`` and ``all --dft True``
-(item 12), DMF (item 11), ``--spatial > 1`` outside ``opt`` (item 9),
-``--gsm-loop device``, ``--workers`` and ``--dump``.
+ROADMAP.md items: DMF (item 11), ``--spatial > 1`` outside ``opt``
+(item 9), ``--gsm-loop device``, ``--workers`` and ``--dump`` outside
+``opt`` and ``scan`` (the other JAX commands write nothing with it).
+``--args-yaml`` is refused by ``scan2d``, ``scan3d`` and ``dft``, whose
+JAX commands read no YAML.
 
     python -m pdb2reaction_tpu_torch -i R.pdb -i P.pdb --center LIG \
         --ligand-charge 0 --model escn-md                   # all
@@ -22,6 +24,9 @@ ROADMAP.md items: ``scan``, ``scan2d``, ``scan3d`` and
         -q 0 --calc-mode morse --device cpu                 # recursive MEPs
     python -m pdb2reaction_tpu_torch tsopt -i ts.xyz -q 0 \
         --opt-mode heavy --model escn-md                    # RS-I-RFO
+    python -m pdb2reaction_tpu_torch scan -i x.xyz -q 0 \
+        --scan-list 1,2,1.5 --model escn-md                 # staged scan
+    python -m pdb2reaction_tpu_torch dft -i h2.xyz -q 0 --engine mini
     python -m pdb2reaction_tpu_torch extract -i c.pdb -c LIG -o p.pdb
 
 ``opt --spatial N`` shards the atom axis over N ranks, one process each,
@@ -45,11 +50,8 @@ from .workflows.config import (apply_yaml_overrides, load_yaml_dict,
                                normalize_choice)
 
 _LATER = "is not ported yet (see ROADMAP.md)"
-# the subcommands still to port: what each is, its ROADMAP.md queue 1 item
-_UNPORTED = {"scan": ("the staged 1-D scan", 7),
-             "scan2d": ("the 2-D distance-grid scan", 7),
-             "scan3d": ("the 3-D distance-grid scan", 7),
-             "dft": ("the DFT single point", 12)}
+_SPATIAL = ("under atom-axis sharding (--spatial > 1) is not ported yet: "
+            "ROADMAP.md queue 1 item 9")
 
 
 def _bool(v: str) -> bool:
@@ -93,6 +95,57 @@ def _parse_pairs(spec: str, one_based: bool = False) -> List[Tuple]:
             toks = [t.strip() for t in grp.split(",")]
             out.append((_idx(toks[0], one_based), _idx(toks[1], one_based)))
     return out
+
+
+def _parse_scan_stages(specs, one_based: bool = False) -> List[List[Tuple]]:
+    """One stage per spec 'i,j,target[;k,l,target...]'."""
+    stages = []
+    for spec in specs:
+        stage = []
+        for grp in spec.split(";"):
+            grp = grp.strip()
+            if grp:
+                toks = [t.strip() for t in grp.split(",")]
+                stage.append((_idx(toks[0], one_based),
+                              _idx(toks[1], one_based), float(toks[2])))
+        if stage:
+            stages.append(stage)
+    return stages
+
+
+def _scan_axes(specs, one_based: bool = False) -> List[Dict[str, Any]]:
+    """Grid axes from 'i,j,end[,step[,start]]' specs."""
+    axes = []
+    for spec in specs:
+        toks = [t.strip() for t in spec.split(",")]
+        ax: Dict[str, Any] = {"pair": (_idx(toks[0], one_based),
+                                       _idx(toks[1], one_based)),
+                              "end": float(toks[2])}
+        if len(toks) > 3:
+            ax["step"] = float(toks[3])
+        if len(toks) > 4:
+            ax["start"] = float(toks[4])
+        axes.append(ax)
+    return axes
+
+
+def _parse_scan_list(raw: str, one_based: bool, step: float):
+    """'[(i,j,low,high),...]' quadruples: each axis swept from low to high
+    at steps of at most ``step`` Angstrom."""
+    import ast
+    axes = []
+    for i, j, low, high in ast.literal_eval(str(raw)):
+        axes.append({"pair": (_idx(str(int(i)), one_based),
+                              _idx(str(int(j)), one_based)),
+                     "start": float(low), "end": float(high),
+                     "step": float(step)})
+    return axes
+
+
+def _split_func_basis(spec: str):
+    if "/" not in spec:
+        raise SystemExit(f"--func-basis expects 'FUNC/BASIS', got {spec!r}")
+    return spec.split("/", 1)
 
 
 def _common_options(p) -> None:
@@ -156,9 +209,103 @@ def _opt_parser(sub):
     p.add_argument("--one-based", type=_bool, default=True,
                    help="Integer atom indices of --dist-freeze are "
                         "1-based.")
-    p.add_argument("--dump-restart", type=int, default=0)
+    p.add_argument("--dump-restart", type=int, default=0,
+                   help="Dump the L-BFGS carry every N cycles for a mid-run "
+                        "restart (Cartesian L-BFGS); 0 disables.")
     _common_options(p)
     p.set_defaults(func=opt_cmd)
+
+
+def _scan_parser(sub):
+    p = sub.add_parser("scan", help="Staged 1-D relaxed bond scan.")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--scan-list", dest="scan_lists", action="append",
+                   required=True,
+                   help="Stage spec 'i,j,target[;k,l,target]' (repeatable).")
+    p.add_argument("--step", "--max-step-size", dest="step_ang", type=float,
+                   default=0.10,
+                   help="Largest change of a scanned distance a step "
+                        "[Angstrom].")
+    p.add_argument("--bias-k", type=float, default=10.0,
+                   help="Harmonic well strength k [eV/Angstrom^2].")
+    p.add_argument("--preopt", type=_bool, default=True,
+                   help="Unbiased optimization before the scan.")
+    p.add_argument("--endopt", type=_bool, default=True,
+                   help="Unbiased optimization of each stage's result.")
+    p.add_argument("--relax-max-cycles", type=int, default=500,
+                   help="Cycle cap of each step's relaxation.")
+    p.add_argument("--one-based", type=_bool, default=True,
+                   help="Integer (i, j) indices are 1-based.")
+    _common_options(p)
+    p.set_defaults(func=scan_cmd)
+
+
+def _scan_nd_parser(sub, ndim: int):
+    p = sub.add_parser(f"scan{ndim}d",
+                       help=f"{ndim}-D relaxed distance-grid scan.")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--scan", dest="scans", action="append", default=[],
+                   help=f"Axis 'i,j,end[,step[,start]]' (exactly {ndim}).")
+    if ndim == 3:
+        p.add_argument("--csv", dest="csv_path", type=Path, default=None,
+                       help="Existing surface.csv to re-plot (alias of "
+                            "--plot-only).")
+    p.add_argument("--scan-list", dest="scan_list_raw", default=None,
+                   help="List of quadruples '[(i,j,low,high),...]'; "
+                        "alternative to --scan.")
+    p.add_argument("--max-step-size", type=float, default=0.20,
+                   help="Largest grid step of an axis without its own "
+                        "[Angstrom].")
+    p.add_argument("--opt-mode", default="light",
+                   choices=["light", "heavy", "lbfgs", "rfo"],
+                   type=str.lower,
+                   help="Grid relaxation: light|lbfgs or heavy|rfo.")
+    p.add_argument("--thresh", default="baker",
+                   help="Relaxation convergence preset.")
+    p.add_argument("--preopt", type=_bool, default=True,
+                   help="Unbiased optimization before the scan.")
+    p.add_argument("--plot-only", type=Path, default=None,
+                   help="Re-plot an existing surface.csv.")
+    p.add_argument("--bias-k", type=float, default=100.0,
+                   help="Harmonic well strength k [eV/Angstrom^2].")
+    p.add_argument("--relax-max-cycles", type=int, default=10000,
+                   help="Cycle cap of each grid relaxation.")
+    p.add_argument("--one-based", type=_bool, default=True,
+                   help="Integer (i, j) axis indices are 1-based.")
+    p.add_argument("--baseline", default="min", choices=["min", "first"],
+                   help="Zero of the plotted surface.")
+    p.add_argument("--zmin", type=float, default=None,
+                   help="Lower colour-scale bound [kcal/mol].")
+    p.add_argument("--zmax", type=float, default=None,
+                   help="Upper colour-scale bound [kcal/mol].")
+    _common_options(p)
+    p.set_defaults(func=scan_nd_cmd, ndim=ndim)
+
+
+def _dft_parser(sub):
+    p = sub.add_parser("dft", help="DFT single point (CPU PySCF, or the "
+                                   "built-in RHF/STO-3G engine).")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   type=Path)
+    p.add_argument("--func", default="wb97m-v")
+    p.add_argument("--basis", default="def2-svp")
+    p.add_argument("--func-basis", default=None,
+                   help="'FUNC/BASIS'; overrides --func and --basis.")
+    p.add_argument("--max-cycle", type=int, default=100,
+                   help="Largest number of SCF iterations.")
+    p.add_argument("--conv-tol", type=float, default=1e-9,
+                   help="SCF convergence tolerance [Hartree].")
+    p.add_argument("--grid-level", type=int, default=3,
+                   help="Integration grid level (PySCF grids.level).")
+    p.add_argument("--engine", default="cpu", type=str.lower,
+                   choices=["gpu", "cpu", "auto", "mini"],
+                   help="cpu: PySCF on the CPU; gpu and auto take it too "
+                        "(no gpu4pyscf backend is ported); mini: the "
+                        "built-in RHF/STO-3G engine (H and He) on --device.")
+    _common_options(p)
+    p.set_defaults(func=dft_cmd)
 
 
 def _path_opt_parser(sub):
@@ -323,8 +470,14 @@ def _all_parser(sub):
                    dest="selected_resn", default="",
                    help="Force-include residue IDs (comma separated).")
     p.add_argument("--scan-lists", dest="scan_lists", action="append",
-                   default=[], help="Staged scans (not ported yet: "
-                                    "ROADMAP.md queue 1 item 7).")
+                   default=[],
+                   help="Stage spec 'i,j,target[;k,l,target]' (repeatable) "
+                        "in full-structure indices: stage 1b scans one "
+                        "input to make the second endpoint.")
+    p.add_argument("--one-based", type=_bool, default=True,
+                   help="Integer --scan-lists indices are 1-based.")
+    p.add_argument("--scan-one-based", type=_bool, default=None,
+                   help="Overrides --one-based for the scan.")
     p.add_argument("--refine-path", type=_bool, default=True)
     p.add_argument("--tsopt", dest="do_tsopt", type=_bool, default=False,
                    help="TS optimization + IRC per reactive segment.")
@@ -335,8 +488,8 @@ def _all_parser(sub):
                    help="Frequencies and thermochemistry of R, TS and P "
                         "per reactive segment.")
     p.add_argument("--dft", dest="do_dft", type=_bool, default=False,
-                   help="DFT single points (not ported yet: ROADMAP.md "
-                        "queue 1 item 12).")
+                   help="DFT single points of R, TS and P per reactive "
+                        "segment.")
     p.add_argument("--ref-full-pdb", type=Path, default=None,
                    help="Full-system PDB template for merged mirrors.")
     p.add_argument("--verbose", type=_bool, default=True)
@@ -354,7 +507,24 @@ def _all_parser(sub):
     p.add_argument("--freq-amplitude-ang", type=float, default=None)
     p.add_argument("--freq-n-frames", type=int, default=None)
     p.add_argument("--freq-sort", choices=["value", "abs"], default=None)
-    for name in ("--tsopt-out-dir", "--freq-out-dir"):
+    # None keeps the scan command's own default
+    p.add_argument("--scan-bias-k", type=float, default=None)
+    p.add_argument("--scan-preopt", type=_bool, default=None)
+    p.add_argument("--scan-endopt", type=_bool, default=None)
+    p.add_argument("--scan-max-step-size", type=float, default=None)
+    p.add_argument("--scan-relax-max-cycles", type=int, default=None)
+    p.add_argument("--dft-func-basis", default=None,
+                   help="'FUNC/BASIS' of the stage-4 DFT single points.")
+    p.add_argument("--dft-max-cycle", type=int, default=100)
+    p.add_argument("--dft-conv-tol", type=float, default=1e-9)
+    p.add_argument("--dft-grid-level", type=int, default=3)
+    p.add_argument("--dft-engine", default="gpu", type=str.lower,
+                   choices=["gpu", "cpu", "auto", "mini"],
+                   help="SCF engine: gpu, auto and cpu run PySCF on the CPU "
+                        "(no gpu4pyscf backend is ported); mini the "
+                        "built-in RHF/STO-3G engine on --device.")
+    for name in ("--scan-out-dir", "--tsopt-out-dir", "--freq-out-dir",
+                 "--dft-out-dir"):
         p.add_argument(name, type=Path, default=None)
     _search_options(p)
     _common_options(p)
@@ -445,11 +615,11 @@ def _reject_unported(a, supported=()) -> None:
     unported = {
         "--dump-restart": ("--dump-restart" not in supported
                            and getattr(a, "dump_restart", 0) != 0),
-        "--dump": a.dump,
+        "--dump": "--dump" not in supported and a.dump,
         "--workers": a.workers != 1,
         "--workers-per-node": a.workers_per_node != 1,
-        "--gsm-loop device (the GSM device loop, left out of ROADMAP.md "
-        "queue 1 item 2)": getattr(a, "gsm_loop", "auto") == "device",
+        "--gsm-loop device (the GSM device loop, left out on purpose: "
+        "ROADMAP.md queue 1)": getattr(a, "gsm_loop", "auto") == "device",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -492,19 +662,22 @@ def _init_spatial(a, cmd: str) -> None:
 def opt_cmd(a) -> int:
     from .parallel import shutdown
     from .workflows.opt import run_opt
-    _reject_unported(a)
+    _reject_unported(a, supported=("--dump", "--dump-restart"))
     charge, spin = _charge_spin(a)
     if a.coord_type != "cart":          # before any rank builds a model
         from .workflows.opt import _DLC
         raise SystemExit(_DLC)
     cfg = dict(opt_mode=normalize_choice(a.opt_mode),
                coord_type=a.coord_type, thresh=a.thresh,
-               max_cycles=a.max_cycles, bias_k=a.bias_k)
+               max_cycles=a.max_cycles, dump=a.dump, bias_k=a.bias_k,
+               dump_restart=a.dump_restart)
     _yaml(a, cfg, [("opt",), ("lbfgs",), ("rfo",)])
     if a.spatial > 1 and normalize_choice(cfg["opt_mode"]) == "rfo":
         raise SystemExit("opt --opt-mode heavy under atom-axis sharding "
                          "(--spatial > 1): the Hessian over ranks is not "
                          "ported yet, ROADMAP.md queue 1 item 9")
+    if a.spatial > 1 and cfg["dump_restart"]:
+        raise SystemExit(f"opt --dump-restart {_SPATIAL}")
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
     _init_spatial(a, "opt")
     try:
@@ -516,6 +689,85 @@ def opt_cmd(a) -> int:
     finally:
         shutdown()
     return 0 if res["converged"] else 3
+
+
+def scan_cmd(a) -> int:
+    from .workflows.scan import run_scan
+    _reject_unported(a, supported=("--dump",))
+    if a.spatial > 1:
+        raise SystemExit(f"scan {_SPATIAL}")
+    charge, spin = _charge_spin(a)
+    stages = _parse_scan_stages(a.scan_lists, a.one_based)
+    cfg: Dict[str, Any] = dict(step_ang=a.step_ang, bias_k=a.bias_k,
+                               preopt=a.preopt, endopt=a.endopt,
+                               relax_max_cycles=a.relax_max_cycles,
+                               dump=a.dump)
+    _yaml(a, cfg, [("scan",), ("bias",)])
+    cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
+    run_scan(a.input_path, stages, charge=charge, spin=spin,
+             out_dir=a.out_dir or "./result_scan/", **_calc_opts(a), **cfg)
+    return 0
+
+
+def _no_yaml(a, cmd: str) -> None:
+    if a.args_yaml:
+        raise SystemExit(f"{cmd} reads no --args-yaml (nor does the JAX "
+                         "package's): give its options on the command line")
+
+
+def scan_nd_cmd(a) -> int:
+    from .workflows.scan_nd import run_scan_nd
+    ndim, cmd = a.ndim, f"scan{a.ndim}d"
+    _reject_unported(a)
+    _no_yaml(a, cmd)
+    if a.spatial > 1:
+        raise SystemExit(f"{cmd} {_SPATIAL}")
+    plot_only = a.plot_only or getattr(a, "csv_path", None)
+    if a.scan_list_raw:
+        axes = _parse_scan_list(a.scan_list_raw, a.one_based,
+                                a.max_step_size)
+    else:
+        if not a.scans and not plot_only:
+            raise SystemExit(f"{cmd} needs --scan axes or --scan-list")
+        axes = _scan_axes(a.scans, a.one_based)
+        for ax in axes:
+            ax.setdefault("step", a.max_step_size)
+    if not plot_only and len(axes) != ndim:
+        raise SystemExit(f"{cmd} needs exactly {ndim} axes, got {len(axes)}")
+    charge, spin = _charge_spin(a)
+    run_scan_nd(a.input_path, axes, charge=charge, spin=spin,
+                out_dir=a.out_dir, plot_only=plot_only, bias_k=a.bias_k,
+                relax_max_cycles=a.relax_max_cycles,
+                relax_mode=normalize_choice(a.opt_mode),
+                relax_thresh=a.thresh, preopt=a.preopt,
+                baseline=a.baseline, zmin=a.zmin, zmax=a.zmax,
+                hessian_calc_mode=a.hessian_calc_mode, **_calc_opts(a))
+    return 0
+
+
+def dft_cmd(a) -> int:
+    from .workflows.dft import ScfNotConverged, run_dft
+    _reject_unported(a)
+    _no_yaml(a, "dft")
+    func, basis = a.func, a.basis
+    if a.func_basis:
+        func, basis = _split_func_basis(a.func_basis)
+    if a.engine in ("gpu", "auto"):
+        print("[dft] NOTE: no gpu4pyscf backend is ported; using PySCF on "
+              "the CPU (the reference's own fallback)")
+    charge, spin = _charge_spin(a)
+    try:
+        run_dft(a.input_path, charge=charge, spin=spin, func=func,
+                basis=basis, max_cycle=a.max_cycle, conv_tol=a.conv_tol,
+                grid_level=a.grid_level, engine=a.engine, device=a.device,
+                out_dir=a.out_dir or "./result_dft/")
+    except ScfNotConverged as e:
+        print(f"[dft] ERROR: {e}", file=sys.stderr)
+        return 3
+    except ImportError as e:
+        print(f"[dft] ERROR: {e}", file=sys.stderr)
+        return 2
+    return 0
 
 
 def path_opt_cmd(a) -> int:
@@ -624,18 +876,21 @@ def irc_cmd(a) -> int:
 
 def all_cmd(a) -> int:
     from .workflows import common
-    from .workflows.allflow import DFT_TODO, SCAN_TODO, run_all
+    from .workflows.allflow import run_all
     _reject_unported(a)
-    if a.scan_lists:
-        raise SystemExit(SCAN_TODO)
-    if a.do_dft:
-        raise SystemExit(DFT_TODO)
     # all takes --ligand-charge at the extraction and hands the charge to
     # every stage: nested stages never see the process default (their
     # intermediates are .xyz files, where it is refused)
     ligand_charge = common.get_default_ligand_charge()
     common.set_default_ligand_charge(None)
     charge, spin = _charge_spin(a)
+    scan_ob = a.one_based if a.scan_one_based is None else a.scan_one_based
+    dft_kw: Dict[str, Any] = dict(max_cycle=a.dft_max_cycle,
+                                  conv_tol=a.dft_conv_tol,
+                                  grid_level=a.dft_grid_level,
+                                  engine=a.dft_engine)
+    if a.dft_func_basis:
+        dft_kw["func"], dft_kw["basis"] = _split_func_basis(a.dft_func_basis)
     freq_kw: Dict[str, Any] = dict(temperature=a.freq_temperature,
                                    pressure=a.freq_pressure)
     for key, val in (("max_write_modes", a.freq_max_write),
@@ -646,8 +901,9 @@ def all_cmd(a) -> int:
             freq_kw[key] = val
     cfg: Dict[str, Any] = dict(
         center=a.center, ligand_charge=ligand_charge,
+        scan_stages=_parse_scan_stages(a.scan_lists, scan_ob) or None,
         mep_mode=a.mep_mode, refine_path=a.refine_path, tsopt=a.do_tsopt,
-        do_irc=a.do_irc, do_freq=a.do_freq,
+        do_irc=a.do_irc, do_freq=a.do_freq, do_dft=a.do_dft,
         opt_mode=normalize_choice(a.opt_mode), thresh=a.thresh,
         max_cycles=a.max_cycles, preopt=a.preopt, verbose=a.verbose,
         full_template=a.ref_full_pdb,
@@ -658,12 +914,18 @@ def all_cmd(a) -> int:
             selected_resn=[t for t in a.selected_resn.split(",")
                            if t.strip()] or None),
         gs_kw={"max_nodes": a.max_nodes, "climb": a.climb},
+        scan_kw={k: v for k, v in dict(
+            bias_k=a.scan_bias_k, preopt=a.scan_preopt,
+            endopt=a.scan_endopt, step_ang=a.scan_max_step_size,
+            relax_max_cycles=a.scan_relax_max_cycles).items()
+            if v is not None},
         opt_post_kw=dict(opt_mode=normalize_choice(a.opt_mode_post),
                          thresh=a.thresh_post),
         tsopt_kw=dict(max_cycles_total=a.tsopt_max_cycles,
                       flatten_max_iter=10 if a.flatten_imag_mode else 0),
-        freq_kw=freq_kw, tsopt_out_dir=a.tsopt_out_dir,
-        freq_out_dir=a.freq_out_dir)
+        freq_kw=freq_kw, dft_kw=dft_kw, scan_out_dir=a.scan_out_dir,
+        tsopt_out_dir=a.tsopt_out_dir, freq_out_dir=a.freq_out_dir,
+        dft_out_dir=a.dft_out_dir)
     _yaml(a, cfg, [("all",), ("search",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
     try:
@@ -786,18 +1048,19 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _all_parser(sub)
     _opt_parser(sub)
+    _scan_parser(sub)
+    _scan_nd_parser(sub, 2)
+    _scan_nd_parser(sub, 3)
     _path_opt_parser(sub)
     _path_search_parser(sub)
     _tsopt_parser(sub)
     _freq_parser(sub)
     _irc_parser(sub)
+    _dft_parser(sub)
     _extract_parser(sub)
     _add_elem_parser(sub)
     _trj2fig_parser(sub)
     _align_parser(sub)
-    for name, (what, item) in _UNPORTED.items():    # listed in --help
-        sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP.md "
-                                  f"queue 1 item {item}).")
     parser.commands = set(sub.choices)
     return parser
 
@@ -808,9 +1071,5 @@ def main(argv: Optional[List[str]] = None) -> None:
     if argv and argv[0] not in parser.commands \
             and argv[0] not in ("-h", "--help"):
         argv = ["all"] + argv           # the default subcommand
-    if argv and argv[0] in _UNPORTED and not {"-h", "--help"} & set(argv):
-        what, item = _UNPORTED[argv[0]]
-        raise SystemExit(f"{argv[0]}: {what} {_LATER}: ROADMAP.md queue 1 "
-                         f"item {item}")
     a = parser.parse_args(argv)
     sys.exit(_run(a))

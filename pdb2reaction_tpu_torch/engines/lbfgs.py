@@ -8,6 +8,13 @@ one or two force calls, each of which runs on the calculator's device.
 
 Units: Bohr coordinates, Hartree energies. Every force evaluation passes
 through ``energy_force_fn``; the Calculator's closure counts them.
+
+``restart={"store", "name", "every"}`` makes a run restartable, as the
+JAX package's ``restart`` contract: the loop's carry (``LBFGSState``) is
+dumped through ``runtime/checkpoint.save_state`` every ``every`` cycles
+and at the end, keyed by a content hash of x0 and the settings; a rerun
+with the same x0 and settings resumes from the last dump, any other run
+ignores it.
 """
 
 from __future__ import annotations
@@ -31,6 +38,20 @@ LBFGS_KW: Dict[str, Any] = {
     "min_step_norm": 1e-8,
     "print_every": 100,
 }
+
+
+class LBFGSState(NamedTuple):
+    """The host loop's carry: what a restart dump holds."""
+    x: torch.Tensor         # [3P] Bohr
+    e: torch.Tensor         # () Hartree
+    f: torch.Tensor         # [3P] Hartree/Bohr
+    s_hist: torch.Tensor    # [M, 3P]
+    y_hist: torch.Tensor    # [M, 3P]
+    rho: torch.Tensor       # [M]
+    n_hist: torch.Tensor    # () int
+    cycle: torch.Tensor     # () int
+    done: torch.Tensor      # () bool
+    gamma: torch.Tensor     # () float
 
 
 class OptResult(NamedTuple):
@@ -87,10 +108,11 @@ def lbfgs_minimize(
     gamma_mult: bool = False,
     line_search: bool = True,
     callback: Optional[Callable] = None,
+    restart: Optional[Dict[str, Any]] = None,
     **_ignored,
 ) -> OptResult:
     """Minimize; ``callback(cycle, e, f_flat_numpy)`` fires after every
-    cycle."""
+    cycle. ``restart``: see the module docstring."""
     th = get_thresholds(thresh)
     x = x0_bohr_pad.detach().reshape(-1).to(torch.float64)
     dev = x.device
@@ -102,12 +124,26 @@ def lbfgs_minimize(
         e, f = energy_force_fn(xf.reshape(-1, 3))
         return float(e), f.reshape(-1).to(torch.float64)
 
-    e, f = eff(x)
     M = keep_last
-    s_hist = torch.zeros(M, D, dtype=torch.float64, device=dev)
-    y_hist = torch.zeros(M, D, dtype=torch.float64, device=dev)
-    rho = torch.zeros(M, dtype=torch.float64, device=dev)
-    n_hist, cycle, done, gamma = 0, 0, False, 1.0
+    rkey, hit = None, None
+    if restart:
+        from ..runtime.checkpoint import content_key, load_state
+        every = int(restart.get("every", 50)) or 50
+        rkey = content_key(x, extra=f"lbfgs:{thresh}:{keep_last}:{max_step}")
+        hit = load_state(restart["store"], restart["name"], LBFGSState,
+                         expect_key=rkey)
+    if hit is not None:
+        st = LBFGSState(*(t.to(dev) for t in hit[1]))
+        x, e, f = st.x.to(torch.float64), float(st.e), st.f
+        s_hist, y_hist, rho = st.s_hist, st.y_hist, st.rho
+        n_hist, cycle = int(st.n_hist), int(st.cycle)
+        done, gamma = bool(st.done), float(st.gamma)
+    else:
+        e, f = eff(x)
+        s_hist = torch.zeros(M, D, dtype=torch.float64, device=dev)
+        y_hist = torch.zeros(M, D, dtype=torch.float64, device=dev)
+        rho = torch.zeros(M, dtype=torch.float64, device=dev)
+        n_hist, cycle, done, gamma = 0, 0, False, 1.0
 
     while not done and cycle < max_cycles:
         d = _two_loop(f, s_hist, y_hist, rho, n_hist, gamma, beta) * mask
@@ -151,6 +187,14 @@ def lbfgs_minimize(
         cycle += 1
         if callback is not None:
             callback(cycle, e, f.cpu().numpy())
+        if rkey is not None and (done or cycle % every == 0
+                                 or cycle >= max_cycles):
+            from ..runtime.checkpoint import save_state
+            save_state(restart["store"], restart["name"], LBFGSState(
+                x, torch.tensor(e), f, s_hist, y_hist, rho,
+                torch.tensor(n_hist), torch.tensor(cycle),
+                torch.tensor(done), torch.tensor(gamma)),
+                {"key": rkey, "done": bool(done)})
 
     return OptResult(x=x.reshape(-1, 3), e=e, f=f.reshape(-1, 3),
                      cycles=cycle, converged=bool(done))

@@ -9,6 +9,11 @@ layout under ``out_dir``:
   ``center`` for PDB inputs (``bio/extract.py``, radius queries on the
   calculator's device); its total charge, rounded, is the workflow's
   charge when none is given;
+- stage 1b, ``stage1b_scan/`` for one input with ``scan_stages``: the
+  staged scan (``workflows/scan.py``, preopt and endopt on unless
+  ``scan_kw`` says otherwise) of the input (its pocket, the stages'
+  full-structure indices remapped onto it), whose result
+  ``scan_product.xyz`` becomes the second endpoint of stage 2;
 - stage 2, ``stage2_path/``: the recursive path search
   (``workflows/path_search.py``) over the pockets, with the inputs as
   the full-system templates of the merge (or ``full_template``);
@@ -21,17 +26,20 @@ layout under ``out_dir``:
   to the minima (``irc.trj``), and frequencies with thermochemistry of
   R, TS and P (``freq/{reactant,ts,product}/``); a failed tsopt, IRC or
   freq of a segment goes into its summary entry as ``{"error": ...}``
-  and the run goes on, as in the JAX package;
+  and the run goes on, as in the JAX package; with ``do_dft`` the DFT
+  single points of R, TS and P (``workflows/dft.py``; ``dft_kw``, under
+  ``dft_<tag>/``), a missing engine kept as ``{"skipped": ...}``, any
+  other failure as ``{"error": ...}``;
 - ``summary.yaml`` (JSON, which YAML readers take), ``summary.log`` and
   the diagrams (PNGs only where matplotlib is installed).
 
-A single input runs the TSOPT-only mode with ``tsopt``. One calculator,
-built by the path search, serves stages 2 to 4. ``ForceCallMeter``
-phases time every stage with its force and energy calls
-(``results["force_call_phases"]``). Not ported, and refused before
-anything is written: the staged scans (``scan_stages``, ROADMAP.md queue
-1 item 7), the DFT single points (``do_dft``, item 12), DMF (item 11)
-and ``spatial > 1`` (item 9).
+A single input without scan stages runs the TSOPT-only mode with
+``tsopt``. One calculator, built by the path search, serves stages 2 to
+4 (the scan builds its own). ``ForceCallMeter`` phases time every stage
+with its force and energy calls (``results["force_call_phases"]``; the
+scan's calls are booked in its phase). Not ported, and refused before
+anything is written: DMF (ROADMAP.md queue 1 item 11) and
+``spatial > 1`` (item 9).
 """
 
 from __future__ import annotations
@@ -47,8 +55,9 @@ from ..bio.add_elem import assign_elements, pdb_needs_elem_fix
 from ..bio.align import rmsd
 from ..bio.bonds import compare_structures
 from ..bio.extract import extract_api
+from ..bio.merge import remap_indices
 from ..constants import BOHR2ANG
-from ..core import io_xyz
+from ..core import io_pdb, io_xyz
 from ..engines.gsm import GS_KW
 from ..engines.irc import eulerpc_irc
 from ..engines.thermo import thermochemistry
@@ -56,20 +65,18 @@ from ..engines.vib import frequencies_and_modes
 from ..runtime.profiling import ForceCallMeter
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
+from .dft import run_dft
 from .freq import run_freq, write_vib_outputs
 from .irc import run_irc
 from .opt import optimize_structure
 from .path_search import SEARCH_KW, run_path_search, segments_summary
+from .scan import run_scan
 from .summary import (build_energy_diagram, build_irc_overview,
                       build_levels_diagram, compressed_diagram,
                       write_summary_log, write_summary_yaml)
 from .trj2fig import plot_profile
 from .tsopt import run_tsopt
 
-SCAN_TODO = ("--scan-lists (the staged scans of all, scan, scan2d and "
-             "scan3d) are not ported yet: ROADMAP.md queue 1 item 7")
-DFT_TODO = ("--dft True (the DFT single points of all, and the dft "
-            "command) is not ported yet: ROADMAP.md queue 1 item 12")
 DMF_TODO = ("mep_mode='dmf' is not ported yet: ROADMAP.md queue 1 item 11")
 SPATIAL_TODO = ("all under atom-axis sharding (spatial > 1) is not ported "
                 "yet: ROADMAP.md queue 1 item 9")
@@ -139,26 +146,28 @@ def run_all(
     extract_kw: Optional[Dict[str, Any]] = None,
     search_kw: Optional[Dict[str, Any]] = None,
     gs_kw: Optional[Dict[str, Any]] = None,
+    scan_kw: Optional[Dict[str, Any]] = None,
     opt_post_kw: Optional[Dict[str, Any]] = None,
     tsopt_kw: Optional[Dict[str, Any]] = None,
     irc_kw: Optional[Dict[str, Any]] = None,
     freq_kw: Optional[Dict[str, Any]] = None,
+    dft_kw: Optional[Dict[str, Any]] = None,
+    scan_out_dir=None,
     tsopt_out_dir=None,
     freq_out_dir=None,
+    dft_out_dir=None,
     **calc_kw,
 ) -> Dict[str, Any]:
     """The pipeline over ``input_paths`` (two or more structures in
-    reaction order, or one with ``tsopt``); see the module docstring.
-    ``max_cycles`` caps each string's cycles; ``opt_post_kw`` (default
-    RFO to the baker threshold) drives the stage-4 TS mode and endpoint
+    reaction order, or one with ``scan_stages`` or ``tsopt``); see the
+    module docstring. ``max_cycles`` caps each string's cycles;
+    ``scan_kw`` goes to ``run_scan``; ``opt_post_kw`` (default RFO to
+    the baker threshold) drives the stage-4 TS mode and endpoint
     minimizations (its ``max_cycles`` caps the latter); ``tsopt_kw``'s
-    ``max_cycles_total`` caps tsopt; ``irc_kw`` goes to the IRC engine.
-    Search and string keys may also come flat in ``calc_kw``."""
+    ``max_cycles_total`` caps tsopt; ``irc_kw`` goes to the IRC engine,
+    ``dft_kw`` to ``run_dft``. Search and string keys may also come flat
+    in ``calc_kw``."""
     t0 = time.time()
-    if scan_stages:
-        raise NotImplementedError(SCAN_TODO)
-    if do_dft:
-        raise NotImplementedError(DFT_TODO)
     if normalize_choice(mep_mode, choices=("gsm", "dmf")) == "dmf":
         raise NotImplementedError(DMF_TODO)
     if int(calc_kw.get("spatial", 1)) > 1:
@@ -175,8 +184,11 @@ def run_all(
     tsopt_kw = dict(tsopt_kw or {})
     irc_kw = dict(irc_kw or {})
     freq_kw = dict(freq_kw or {})
+    dft_kw = dict(dft_kw or {})
+    scan_kw = dict(scan_kw or {})
     input_paths = [Path(p) for p in input_paths]
-    if len(input_paths) < 2 and not (len(input_paths) == 1 and tsopt):
+    if len(input_paths) < 2 and not (
+            len(input_paths) == 1 and (scan_stages or tsopt)):
         raise ValueError(
             "Provide at least two structures with -i/--input in reaction "
             "order, or use a single structure with --scan-lists, or a "
@@ -225,7 +237,8 @@ def run_all(
             "charge": charge, "spin": spin, "mep_mode": mep_mode,
             "refine_path": refine_path, "tsopt": tsopt, "irc": do_irc,
             "freq": do_freq, "dft": do_dft, "calc_mode": calc_mode,
-            "model": model, "device": str(device), "scan_stages": None,
+            "model": model, "device": str(device),
+            "scan_stages": scan_stages,
             "opt_mode": opt_mode, "thresh": thresh,
             "max_cycles": max_cycles, "preopt": preopt,
             "opt_mode_post": opt_post_kw["opt_mode"],
@@ -235,8 +248,35 @@ def run_all(
     stage_kw = dict(charge=charge, spin=spin, calc_mode=calc_mode,
                     model=model, device=device, verbose=verbose)
 
-    # ---- TSOPT-only mode: one input ---------------------------------------
-    if len(work_inputs) == 1:
+    # ---- stage 1b: the staged scan makes the second endpoint ---------------
+    scan_calls = (0, 0)
+    if scan_stages and len(work_inputs) == 1:
+        if full_templates is not None:
+            full_atoms = io_pdb.parse_pdb_atoms(full_templates[0])
+            pocket_atoms = io_pdb.parse_pdb_atoms(work_inputs[0])
+            scan_stages = [
+                [tuple(remap_indices([i, j], full_atoms, pocket_atoms))
+                 + (t,) for (i, j, t) in stage] for stage in scan_stages]
+        scan_dir = _resolve_override_dir(out / "stage1b_scan", scan_out_dir)
+        with meter.phase("scan"):
+            scan_res = run_scan(
+                work_inputs[0], scan_stages, charge=charge, spin=spin,
+                calc_mode=calc_mode, model=model, device=device,
+                freeze_atoms=freeze_atoms,
+                auto_freeze_links=auto_freeze_links, out_dir=scan_dir,
+                verbose=verbose, **{"preopt": True, "endopt": True,
+                                    **scan_kw, **calc_kw})
+        scan_calls = (scan_res["force_calls"], scan_res["energy_calls"])
+        meter.phases["scan"]["calls"] += scan_calls[0]
+        meter.phases["scan"]["energy_calls"] += scan_calls[1]
+        prod = scan_dir / "scan_product.xyz"
+        io_xyz.write_xyz(prod, scan_res["structure"].copy(
+            coords=scan_res["coords_bohr"] * BOHR2ANG))
+        work_inputs = [work_inputs[0], prod]
+        results["scan"] = {"stages": len(scan_stages)}
+
+    # ---- TSOPT-only mode: one input, no scan -------------------------------
+    if len(work_inputs) == 1 and not scan_stages:
         ts_out = _resolve_override_dir(out / "tsopt", tsopt_out_dir)
         with meter.phase("tsopt"):
             res_ts = run_tsopt(
@@ -447,6 +487,28 @@ def run_all(
                           f"{e}")
                     entry["thermo"] = {"error": str(e)}
 
+        if do_dft:
+            with meter.phase(f"dft_seg{si}"):
+                try:
+                    dft_base = _resolve_override_dir(seg_out / "dft",
+                                                     dft_out_dir)
+                    for tag, coords, _ in minima + [("ts", ts_x, ts_e)]:
+                        p = seg_out / f"{tag}_dft.xyz"
+                        io_xyz.write_xyz(p, pocket_struct.copy(
+                            coords=np.asarray(coords) * BOHR2ANG))
+                        entry.setdefault("dft", {})[tag] = run_dft(
+                            p, charge=charge, spin=spin, device=device,
+                            out_dir=dft_base.parent
+                            / f"{dft_base.name}_{tag}", verbose=verbose,
+                            **dft_kw)["energy_au"]
+                except ImportError as e:
+                    print(f"[all] WARNING: DFT skipped on segment {si}: "
+                          f"{e}")
+                    entry["dft"] = {"skipped": str(e)}
+                except Exception as e:
+                    print(f"[all] WARNING: DFT failed on segment {si}: {e}")
+                    entry["dft"] = {"error": str(e)}
+
         _png(f"energy_diagram.png of segment {si}", build_levels_diagram,
              seg_out / "energy_diagram.png", ["R", "TS", "P"],
              [minima[0][2], ts_e, minima[1][2]],
@@ -495,17 +557,35 @@ def run_all(
             levels.append(p)
         return names, levels
 
+    def refined(e):
+        return ((e["endpoints"]["reactant"], e["tsopt"]["energy_au"],
+                 e["endpoints"]["product"])
+                if "endpoints" in e and isinstance(e.get("tsopt"), dict)
+                and "energy_au" in e["tsopt"] else None)
+
+    def has(e, key):
+        return isinstance(e.get(key), dict) and "reactant" in e[key]
+
+    def dft_gibbs(e):
+        """DFT electronic energies plus the UMA thermal correction G - E
+        of each state."""
+        uma = refined(e)
+        if uma is None or not (has(e, "dft") and has(e, "thermo")):
+            return None
+        return tuple(e["dft"][t] + e["thermo"][t]["G_au"] - u
+                     for t, u in zip(("reactant", "ts", "product"), uma))
+
     diagram_sets = {
-        "energy_diagram_refined_all.png": ("UMA (refined)", lambda e: (
-            (e["endpoints"]["reactant"], e["tsopt"]["energy_au"],
-             e["endpoints"]["product"])
-            if "endpoints" in e and isinstance(e.get("tsopt"), dict)
-            and "energy_au" in e.get("tsopt", {}) else None)),
+        "energy_diagram_refined_all.png": ("UMA (refined)", refined),
         "energy_diagram_gibbs_all.png": ("Gibbs (UMA + QRRHO)", lambda e: (
-            (e["thermo"]["reactant"]["G_au"], e["thermo"]["ts"]["G_au"],
-             e["thermo"]["product"]["G_au"])
-            if isinstance(e.get("thermo"), dict)
-            and "reactant" in e.get("thermo", {}) else None)),
+            tuple(e["thermo"][t]["G_au"] for t in ("reactant", "ts",
+                                                   "product"))
+            if has(e, "thermo") else None)),
+        "energy_diagram_dft_all.png": ("DFT//UMA", lambda e: (
+            tuple(e["dft"][t] for t in ("reactant", "ts", "product"))
+            if has(e, "dft") else None)),
+        "energy_diagram_dft_gibbs_all.png": ("DFT//UMA + UMA thermal",
+                                             dft_gibbs),
     }
     if seg_results:
         for fname, (title, value_of) in diagram_sets.items():
@@ -522,8 +602,8 @@ def run_all(
               f"segment(s); elapsed {format_elapsed(t0)}")
     results["out_dir"] = out
     results["calculator"] = calc
-    results["force_calls"] = calc.force_calls
-    results["energy_calls"] = calc.energy_calls
+    results["force_calls"] = calc.force_calls + scan_calls[0]
+    results["energy_calls"] = calc.energy_calls + scan_calls[1]
     return results
 
 

@@ -2,7 +2,10 @@
 ("light") or RFO from an exact Hessian ("heavy"), in Cartesian
 coordinates, optionally under harmonic distance restraints (``bias_pairs``
 at given targets, ``dist_freeze`` at the input's distances;
-``engines/bias.py``).
+``engines/bias.py``). ``dump`` writes the start and end geometries as
+``opt.trj``; ``dump_restart=N`` dumps the L-BFGS carry every N cycles
+under ``restart/`` and a rerun resumes from it (Cartesian L-BFGS only,
+as in the JAX package).
 
 Delocalized internals (ROADMAP.md queue 1 item 11) are a later port item
 and raise here.
@@ -75,6 +78,8 @@ def run_opt(
     device="cuda",
     out_dir="./result_opt/",
     convert_files: bool = True,
+    dump: bool = False,
+    dump_restart: int = 0,
     verbose: bool = True,
     calc: Optional[Calculator] = None,
     **calc_kw,
@@ -135,12 +140,25 @@ def run_opt(
             print(f"[opt] cycle {cyc}: E = {e:.8f} Ha, "
                   f"max|F| = {np.abs(f).max():.2e}")
 
+    if dump_restart and opt_mode == "lbfgs" and coord_type == "cart":
+        if calc.spatial > 1:
+            raise NotImplementedError(
+                "dump_restart under atom-axis sharding is not ported yet: "
+                "ROADMAP.md queue 1 item 9")
+        from ..runtime.checkpoint import CheckpointStore
+        engine_kw["restart"] = {
+            "store": CheckpointStore(Path(out_dir) / "restart"),
+            "name": "opt", "every": int(dump_restart)}
     calls0 = calc.force_calls
     coords, e, conv, cycles = optimize_structure(
         struct, calc, opt_mode=opt_mode, coord_type=coord_type,
         thresh=thresh, max_cycles=max_cycles, callback=cb, **engine_kw)
     paths = (common.write_outputs(Path(out_dir), "final_geometry", struct,
                                   coords, energy=e) if writer else [])
+    if dump and writer:
+        paths += common.write_trajectory(
+            Path(out_dir), "opt", struct,
+            [struct.coords_bohr, np.asarray(coords)])
     if verbose:
         print(f"[opt] {'converged' if conv else 'NOT converged'} in "
               f"{cycles} cycles; E = {e:.8f} Ha; "

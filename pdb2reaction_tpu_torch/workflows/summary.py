@@ -8,8 +8,10 @@ R -> TS1 -> IM1_1 -> ... -> P diagram, level diagrams and the merged IRC
 plot.
 
 Neither PyYAML nor matplotlib is a dependency. ``summary.yaml`` is
-written as JSON with an indent of 2, which is valid YAML and reads back
-equal under ``yaml.safe_load``. matplotlib is imported inside the
+written as JSON with an indent of 2 (``yaml_json``: lists of scalars on
+one line, every exponent float with a '.' in its mantissa, as YAML 1.1
+reads floats), which is valid YAML and reads back equal under
+``yaml.safe_load``. matplotlib is imported inside the
 drawing functions only; where it is missing the callers skip the PNG
 with a warning (``path_search.run_path_search``,
 ``allflow.run_all``), and the diagram's labels, energies and chain still
@@ -19,6 +21,7 @@ go into ``summary.yaml``.
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -27,10 +30,41 @@ import numpy as np
 from ..constants import AU2KCALPERMOL
 
 
+_TOKEN = re.compile(r'"(?:[^"\\]|\\.)*"|(?<![0-9.])-?[0-9]+[eE][-+][0-9]+')
+
+
+def _scalar(v) -> bool:
+    return not isinstance(v, (dict, list, tuple))
+
+
+def _emit(obj, pad: str) -> str:
+    inner = pad + "  "
+    if isinstance(obj, dict) and obj:
+        body = ",\n".join(f"{inner}{json.dumps(str(k), ensure_ascii=False)}"
+                          f": {_emit(v, inner)}" for k, v in obj.items())
+        return "{\n" + body + "\n" + pad + "}"
+    if isinstance(obj, (list, tuple)) and obj \
+            and not all(_scalar(v) for v in obj):
+        body = ",\n".join(inner + _emit(v, inner) for v in obj)
+        return "[\n" + body + "\n" + pad + "]"
+    return json.dumps(obj, ensure_ascii=False)
+
+
+def yaml_json(doc) -> str:
+    """``doc`` as JSON that YAML 1.1 reads back equal (see the module
+    docstring): 1e-09 is written 1.0e-09, which both read as a float."""
+    def fix(m):
+        t = m.group(0)
+        if t[0] == '"':
+            return t
+        mant, exp = re.split("[eE]", t)
+        return f"{mant}.0e{exp}"
+    return _TOKEN.sub(fix, _emit(doc, "")) + "\n"
+
+
 def write_summary_yaml(path, summary: Dict[str, Any]) -> Path:
     path = Path(path)
-    path.write_text(json.dumps(summary, indent=2, ensure_ascii=False)
-                    + "\n")
+    path.write_text(yaml_json(summary))
     return path
 
 

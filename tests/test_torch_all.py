@@ -23,9 +23,15 @@ default subcommand) against the JAX package's:
   endpoints, equal to 1e-9 but not bit for bit, and are left out);
 - the twins of ``tests/test_all_pipeline.py:14, 41, 66, 87, 100, 134``
   and ``tests/test_cli.py:168, 228, 243, 283, 385, 400, 433``;
-- the refusals: ``all --scan-lists`` (item 7), ``all --dft True`` (item
-  12), the ``scan*`` and ``dft`` commands, before anything is written;
-  an .xyz without ``-q`` is refused by both CLIs with the same message;
+- stage 1b and the DFT single points: the twin of
+  ``tests/test_all_pipeline.py:235`` (one PDB with ``--scan-lists`` in
+  full-structure indices) through both CLIs, the scan product within
+  1e-6 Bohr of JAX's; ``--dft True --dft-engine mini`` on Morse H3+
+  through both, the DFT energies within 1e-8 Hartree and the same
+  diagrams; the scan and DFT options parsed as JAX's, through
+  ``--args-yaml`` too;
+- the refusals: an .xyz without ``-q`` is refused by both CLIs with the
+  same message;
 - ``chip_smoke.py``'s active-site generator against
   ``scripts/tpu_all_e2e.py``'s on the same seed, text equal.
 """
@@ -472,29 +478,159 @@ def test_cli_args_yaml_nested_section_routing(tmp_path, capsys):
     assert "max_nodes: 7" in out
 
 
-@pytest.mark.parametrize("argv,said", [
-    (["all", "--scan-lists", "1,2,1.5"], "item 7"),
-    (["all", "--dft", "True"], "item 12"),
-    (["scan", "--scan-list", "1,2,1.5"], "item 7"),
-    (["scan2d", "--scan", "1,2,0.9,0.15"], "item 7"),
-    (["scan3d", "--scan", "1,2,0.9,0.15"], "item 7"),
-    (["dft", "--func", "b3lyp"], "item 12"),
-])
-def test_unported_stages_refuse(tmp_path, argv, said):
+def test_all_single_pdb_scan_lists_remap(tmp_path, capsys):
+    """The twin of tests/test_all_pipeline.py:235 through both CLIs: one
+    PDB and --scan-lists in full-structure 1-based indices; the port
+    drives JAX's pocket pair, its scan product within 1e-6 Bohr of JAX's,
+    and runs the path stage between the input and the product."""
+    from test_extract import build_complex_pdb
+    r_pdb = tmp_path / "R.pdb"
+    build_complex_pdb(r_pdb)
+    flags = ["all", "-i", str(r_pdb), "--center", "LIG", "--ligand-charge",
+             "0", "--scan-lists", "21,22,1.9", "--calc-mode", "morse",
+             "--max-nodes", "7", "--refine-path", "False", "--tsopt",
+             "False", "--irc", "False", "--freq", "False"]
+    res = CliRunner().invoke(jcli, flags + ["--gsm-loop", "host",
+                                            "--out-dir",
+                                            str(tmp_path / "jax")])
+    assert res.exit_code == 0, res.output
+    capsys.readouterr()
+    assert _cli(flags + ["--device", "cpu", "--out-dir",
+                         str(tmp_path / "port")]) == 0
+    out = capsys.readouterr().out
+    patoms = io_pdb.parse_pdb_atoms(
+        tmp_path / "port" / "stage1_extract" / "pocket_R.pdb")
+    li = [k for k, a in enumerate(patoms)
+          if a["resname"] == "LIG" and a["name"] == "C1"][0]
+    lj = [k for k, a in enumerate(patoms)
+          if a["resname"] == "LIG" and a["name"] == "O1"][0]
+    assert (li, lj) != (20, 21)            # the remap changed the indices
+    for text in (out, res.output):
+        assert f"({li}, {lj})" in text and ":1.900" in text
+    prod = "stage1b_scan/scan_product.xyz"
+    xt = io_xyz.read_xyz(tmp_path / "port" / prod).coords_bohr
+    xj = io_xyz.read_xyz(tmp_path / "jax" / prod).coords_bohr
+    assert np.abs(xt - xj).max() <= 1e-6
+    assert (tmp_path / "port" / "stage2_path" / "mep.trj").exists()
+    assert _tree(tmp_path / "port") == _tree(tmp_path / "jax")
+
+
+def test_all_dft_mini_matches_jax(tmp_path):
+    """``all --tsopt True --thermo True --dft True --dft-engine mini`` on
+    the Morse H3 pair with -q 1 (H3+, closed shell) through both
+    packages: the dft entries of stage 4 within 1e-8 Hartree, the same
+    diagrams and files."""
+    a, b = tmp_path / "A.xyz", tmp_path / "B.xyz"
+    a.write_text(H3A)
+    b.write_text(H3B)
+    flags = ["all", "-i", str(a), "-i", str(b), "-q", "1", "--calc-mode",
+             "morse", "--freeze-atoms", "0,2", "--max-nodes", "7",
+             "--tsopt", "True", "--thermo", "True", "--dft", "True",
+             "--dft-engine", "mini", "--dft-func-basis", "hf/sto-3g"]
+    res = CliRunner().invoke(jcli, flags + ["--gsm-loop", "host",
+                                            "--out-dir",
+                                            str(tmp_path / "jax")])
+    assert res.exit_code == 0, res.output
+    assert _cli(flags + ["--device", "cpu", "--out-dir",
+                         str(tmp_path / "port")]) == 0
+    ps = yaml.safe_load((tmp_path / "port" / "summary.yaml").read_text())
+    js = yaml.safe_load((tmp_path / "jax" / "summary.yaml").read_text())
+    assert len(ps["stage4"]) == len(js["stage4"]) >= 1
+    for e, f in zip(ps["stage4"], js["stage4"]):
+        assert set(e["dft"]) == set(f["dft"]) == {"reactant", "product",
+                                                  "ts"}
+        for t in e["dft"]:
+            assert abs(e["dft"][t] - f["dft"][t]) <= 1e-8
+    figs = {p.name for p in (tmp_path / "port").glob("*.png")}
+    assert figs == {p.name for p in (tmp_path / "jax").glob("*.png")}
+    assert {"energy_diagram_dft_all.png",
+            "energy_diagram_dft_gibbs_all.png"} <= figs
+    assert _tree(tmp_path / "port") == _tree(tmp_path / "jax")
+    doc = yaml.safe_load((tmp_path / "port" / "stage4_seg_000" / "dft_ts" /
+                          "result.yaml").read_text())
+    assert doc["energy"]["engine"] == "mini-rhf(sto-3g)"
+
+
+def test_all_dft_without_pyscf_is_skipped(tmp_path):
+    """The default engine needs PySCF: where it is missing the segment's
+    dft entry says so and the run goes on (as JAX's)."""
+    try:
+        import pyscf  # noqa: F401
+        pytest.skip("pyscf is installed: the ImportError path is not reached")
+    except ImportError:
+        pass
+    a, b = tmp_path / "A.xyz", tmp_path / "B.xyz"
+    a.write_text(H3A)
+    b.write_text(H3B)
+    res = run_all([a, b], charge=1, calc_mode="morse", freeze_atoms=[0, 2],
+                  device="cpu", tsopt=True, do_dft=True, verbose=False,
+                  out_dir=tmp_path / "o", gs_kw={"max_nodes": 7})
+    assert res["segments"] and all(
+        "PySCF" in e["dft"]["skipped"] for e in res["segments"])
+
+
+def test_all_scan_and_dft_options_parse_like_jax(tmp_path, monkeypatch):
+    """The scan and DFT options of ``all``: JAX's defaults, the values
+    handed to run_all, and --args-yaml's ``all:`` section over them."""
+    ns = cli.build_parser().parse_args(["all", "-i", "x.pdb"])
+    d = {p.name: p.default for p in jcli.commands["all"].params}
+    for name in ("scan_bias_k", "scan_preopt", "scan_endopt",
+                 "scan_max_step_size", "scan_relax_max_cycles",
+                 "scan_one_based", "dft_func_basis", "scan_out_dir",
+                 "dft_out_dir"):
+        assert getattr(ns, name) is None and d[name] is None, name
+    for name in ("dft_max_cycle", "dft_conv_tol", "dft_grid_level"):
+        assert getattr(ns, name) == d[name], name
+    assert ns.dft_engine == d["dft_engine"] == "gpu"
+    assert ns.one_based is True and d["one_based"] == "True"
+    assert ns.scan_lists == []
+
+    captured = {}
+
+    def fake_run_all(paths, **kw):
+        captured.clear()
+        captured.update(kw)
+        return {"out_dir": tmp_path}
+
+    monkeypatch.setattr(allflow, "run_all", fake_run_all)
     a = tmp_path / "A.xyz"
     a.write_text(H3A)
-    out = tmp_path / "out"
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv[:1] + ["-i", str(a), "--out-dir", str(out)]
-                 + COMMON + argv[1:])
-    assert e.value.code != 0 and said in str(e.value.code)
-    assert not out.exists()
-    with pytest.raises(NotImplementedError, match=said):
-        kw = ({"scan_stages": [[(0, 1, 1.5)]]} if said == "item 7"
-              else {"do_dft": True})
-        run_all([a], charge=0, calc_mode="morse", device="cpu",
-                out_dir=out, **kw)
-    assert not out.exists()
+    base = ["all", "-i", str(a)] + COMMON
+    assert _cli(base + [
+        "--scan-lists", "1,2,1.5;2,3,2.0", "--scan-lists", "1,3,3.0",
+        "--scan-one-based", "False", "--scan-bias-k", "50",
+        "--scan-preopt", "False", "--scan-endopt", "False",
+        "--scan-max-step-size", "0.2", "--scan-relax-max-cycles", "30",
+        "--scan-out-dir", "sc", "--dft", "True", "--dft-func-basis",
+        "b3lyp/def2-tzvp", "--dft-max-cycle", "50", "--dft-conv-tol",
+        "1e-7", "--dft-grid-level", "4", "--dft-engine", "Mini",
+        "--dft-out-dir", "/abs/d"]) == 0
+    assert captured["scan_stages"] == [[(1, 2, 1.5), (2, 3, 2.0)],
+                                       [(1, 3, 3.0)]]
+    assert captured["scan_kw"] == {"bias_k": 50.0, "preopt": False,
+                                   "endopt": False, "step_ang": 0.2,
+                                   "relax_max_cycles": 30}
+    assert captured["do_dft"] is True
+    assert captured["dft_kw"] == {"max_cycle": 50, "conv_tol": 1e-7,
+                                  "grid_level": 4, "engine": "mini",
+                                  "func": "b3lyp", "basis": "def2-tzvp"}
+    assert str(captured["scan_out_dir"]) == "sc"
+    assert str(captured["dft_out_dir"]) == "/abs/d"
+    # 1-based by default; --scan-one-based falls back to --one-based
+    assert _cli(base + ["--scan-lists", "2,3,1.5"]) == 0
+    assert captured["scan_stages"] == [[(1, 2, 1.5)]]
+    assert captured["scan_kw"] == {} and captured["do_dft"] is False
+    assert _cli(base + ["--scan-lists", "2,3,1.5", "--one-based",
+                        "False"]) == 0
+    assert captured["scan_stages"] == [[(2, 3, 1.5)]]
+    y = tmp_path / "args.yaml"
+    y.write_text("all:\n  scan_kw:\n    bias_k: 20.0\n  dft_kw:\n"
+                 "    engine: mini\n  do_dft: true\n")
+    assert _cli(base + ["--scan-lists", "2,3,1.5", "--scan-preopt",
+                        "False", "--args-yaml", str(y)]) == 0
+    assert captured["scan_kw"] == {"preopt": False, "bias_k": 20.0}
+    assert captured["dft_kw"]["engine"] == "mini"
+    assert captured["do_dft"] is True
 
 
 @pytest.mark.parametrize("flags,said", [
@@ -610,15 +746,15 @@ def test_profile_trace_and_force_call_meter(tmp_path):
 
 
 def test_cli_help_lists_commands(capsys):
-    """Twin of tests/test_cli.py:131: every subcommand is listed, the
-    unported ones with their ROADMAP items."""
+    """Twin of tests/test_cli.py:131: every subcommand of the JAX CLI is
+    served and listed; none names the scans' or DFT's old items."""
     assert _cli(["-h"]) == 0
     out = capsys.readouterr().out
-    for cmd in ("all", "opt", "scan", "path-opt", "path-search", "tsopt",
-                "freq", "irc", "extract", "add-elem-info", "trj2fig",
-                "align-freeze-atoms", "dft"):
+    assert set(jcli.commands) == cli.build_parser().commands
+    assert len(jcli.commands) == 15
+    for cmd in jcli.commands:
         assert cmd in out, cmd
-    assert "item 7" in out and "item 12" in out
+    assert "item 7" not in out and "item 12" not in out
 
 
 def test_trj2fig_cli_matches_jax(tmp_path):

@@ -1211,3 +1211,78 @@ def test_extract_on_card_matches_cpu(tmp_path):
                                              device=dev).tolist()))
             for dev in ("cuda", "cpu")}
     assert hits["cuda"] == hits["cpu"] and hits["cpu"]
+
+
+def _moved(before):
+    return {n: v - before[n] for n, v in {**ek.launches,
+                                          **fk.launches}.items()
+            if v != before[n]}
+
+
+def test_scans_on_card_kernels_in_forces_none_in_hessian(tmp_path,
+                                                         monkeypatch):
+    """The scans on escn-md on the card: a two-step run_scan launches K1
+    and K2 4 + 4 times a force call and nothing else; a one-point
+    run_scan_nd in rfo mode launches them 4 forward an energy call and
+    none inside the biased Hessians that seed its RFO relaxations."""
+    _need_card()
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.workflows.scan import run_scan
+    from pdb2reaction_tpu_torch.workflows.scan_nd import run_scan_nd
+    rng = np.random.default_rng(5)
+    zs = rng.choice([1, 6, 8], size=24).astype(np.int32)
+    st = Structure(zs, rng.normal(scale=2.5, size=(24, 3)))
+    path = tmp_path / "m.xyz"
+    write_xyz(path, st)
+    d01 = float(np.linalg.norm(st.coords[0] - st.coords[1]))
+    kw = dict(charge=0, model="escn-md", seed=0, device="cuda",
+              freeze_atoms=list(range(4, 24)), verbose=False)
+    before = {**ek.launches, **fk.launches}
+    res = run_scan(path, [[(0, 1, d01 - 0.2)]], relax_max_cycles=4,
+                   out_dir=tmp_path / "s", **kw)
+    fc = res["force_calls"]
+    assert fc > 0 and res["energy_calls"] == 0
+    assert _moved(before) == {"fused_edge_mega_fwd": 4 * fc,
+                              "fused_edge_mega_bwd": 4 * fc,
+                              "fused_node_ffn_fwd": 4 * fc,
+                              "fused_node_ffn_bwd": 4 * fc}
+    inside = []
+    orig = Calculator._analytic_hessian
+
+    def hess(calc, x):
+        b = {**ek.launches, **fk.launches}
+        out = orig(calc, x)
+        inside.append(_moved(b))
+        return out
+
+    monkeypatch.setattr(Calculator, "_analytic_hessian", hess)
+    before = {**ek.launches, **fk.launches}
+    d23 = float(np.linalg.norm(st.coords[2] - st.coords[3]))
+    res = run_scan_nd(path, [{"pair": (0, 1), "values": [d01 - 0.1]},
+                             {"pair": (2, 3), "values": [d23 + 0.1]}],
+                      relax_mode="rfo", relax_max_cycles=3,
+                      out_dir=tmp_path / "g", **kw)
+    fc, ec = res["force_calls"], res["energy_calls"]
+    assert ec == 1 and len(inside) == 2 and not any(inside)
+    assert _moved(before) == {"fused_edge_mega_fwd": 4 * (fc + ec),
+                              "fused_edge_mega_bwd": 4 * fc,
+                              "fused_node_ffn_fwd": 4 * (fc + ec),
+                              "fused_node_ffn_bwd": 4 * fc}
+    assert np.all(np.isfinite(res["surface"]))
+
+
+def test_mini_engine_on_card_matches_cpu():
+    """The RHF/STO-3G engine on the card equals the CPU's in float64:
+    energies within 1e-10 Hartree, charges within 1e-8 e."""
+    _need_card()
+    from pdb2reaction_tpu_torch.workflows.minidft import rhf
+    for Z, X, q in (([1, 1], [[0, 0, 0], [0.74, 0, 0]], 0),
+                    ([2, 1], [[0, 0, 0], [0.772, 0, 0]], 1),
+                    ([1, 1, 1], [[0, 0, 0], [0.87, 0, 0],
+                                 [0.435, 0.75, 0]], 1)):
+        g, c = rhf(Z, X, charge=q, device="cuda"), rhf(Z, X, charge=q,
+                                                       device="cpu")
+        assert g["converged"] and c["converged"]
+        assert abs(g["e_tot"] - c["e_tot"]) <= 1e-10
+        for k in ("mulliken", "lowdin"):
+            assert np.abs(np.subtract(g[k], c[k])).max() <= 1e-8

@@ -193,7 +193,7 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
     (["--dump", "True"], "--dump"),
     (["--mep-mode", "dmf"], "item 11"),
     (["--spatial", "2"], "item 9"),
-    (["--gsm-loop", "device"], "item 2"),
+    (["--gsm-loop", "device"], "left out on purpose"),
 ])
 def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
     a = _write(tmp_path, "A.xyz", H3A)
