@@ -167,7 +167,27 @@ Phases (any failure exits non-zero):
    set to 0 just before and read just after: K1 and K2 forward launches
    4 x (force + energy calls), backward 4 x force calls, none inside a
    Hessian; wall, calls, ms a force call, Hessians and peak memory
-   printed on [scan] lines.
+   printed on [scan] lines;
+18. delocalized internals and Direct Max Flux on escn-md (phase 4's
+   weights, P = 320): (a) run_opt(coord_type="dlc") on the 300-atom
+   cluster, 20 cycles, unconstrained and on phase 15's active region
+   (the rest frozen, unmoved bit for bit): the primitives, n_dlc,
+   cycles, force calls, E before and after (it must drop) and the host
+   ms a cycle outside the force call; (b) run_tsopt(heavy,
+   coord_type="dlc") from phase 13's TS guess on that active region, 20
+   cycles, its two Hessians on the plain path; (c) run_mep_between
+   (mep_mode="dmf") on phase 12's flagship pair, 12 images, the heavy
+   ball (48 cycles) and the native C++ L-BFGS-B (24 cycles; the library
+   built and used): cycles, batched calls, images evaluated, the
+   constraint violation, the HEI; (d) at 64 atoms with phase 5's
+   weights, 5 DLC L-BFGS cycles and 6 DMF steps of 6 images on the card
+   against the CPU float64 plain path, run in a child process started
+   after phase 12 (coordinates within 1e-4 of the step taken); (e) the
+   path-opt --mep-mode dmf CLI as a subprocess, its DMF keys from
+   --args-yaml (P = 304). Every run of (a)-(c) has its counts set to 0
+   just before and read just after: K1 and K2 forward launches 4 x
+   (force + energy calls), backward 4 x force calls, none inside a
+   Hessian; [dlc-dmf] lines.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -2447,6 +2467,377 @@ def mini_dft_card(out):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: delocalized internals and Direct Max Flux on escn-md
+# ---------------------------------------------------------------------------
+
+DLC_CYCLES = 20         # phase 18a / 18b cycle caps
+DMF_IMAGES = 12         # phase 18c: the flagship string's 12 images
+DMF_DEVICE_CYCLES = 48  # heavy-ball steps (8 per multiplier update)
+DMF_NATIVE_CYCLES = 24  # L-BFGS-B iterations (at most 4 per update)
+P18_X_TOL = 1e-4        # max|x_card - x_cpu64| / max|step of x_cpu64|
+P18_CPU = {"dlc_cycles": 5, "dmf_images": 6, "dmf_cycles": 6}
+
+
+def p18_reference_inputs():
+    """Phase 18d's 64-atom inputs: phase 5's cluster and weights, and the
+    DMF pair (A, A + phase 12's 0.08 Angstrom seeded displacement)."""
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+                                                  init_escn_params)
+    zs, xyz = cluster(64, seed=1)
+    st = Structure(zs, xyz)
+    w = init_escn_params(ESCN_CONFIGS["escn-md"], seed=0, device="cpu")
+    return st, w, endpoint_b(xyz, np.ones(len(zs)))
+
+
+def p18_runs(calc, xyzB):
+    """5 DLC L-BFGS cycles (thresh "never") and 6 DMF heavy-ball steps of
+    6 images on ``calc``: a dict of numpy arrays."""
+    from pdb2reaction_tpu_torch.constants import ANG2BOHR
+    from pdb2reaction_tpu_torch.engines.dlc import dlc_lbfgs_minimize
+    from pdb2reaction_tpu_torch.engines.dmf import dmf_mep, fbenm_interpolate
+    st = calc.structure
+    x0 = calc.pad_bohr(st.coords_bohr)
+    r = dlc_lbfgs_minimize(calc.au_energy_force_fn(), x0, st.numbers,
+                           calc.n_atoms, thresh="never",
+                           max_cycles=P18_CPU["dlc_cycles"])
+    xB = calc.pad_bohr(xyzB * ANG2BOHR)
+    start = fbenm_interpolate(x0, xB, P18_CPU["dmf_images"],
+                              calc.system.numbers, calc.system.atom_mask)
+    d = dmf_mep(calc, x0, xB, n_images=P18_CPU["dmf_images"],
+                max_cycles=P18_CPU["dmf_cycles"])
+    return {"dlc_x0": x0.cpu().numpy(), "dlc_x": r.x.cpu().numpy(),
+            "dlc_e": r.e, "dlc_cycles": r.cycles,
+            "dmf_start": start.cpu().numpy(), "dmf_images": d.images,
+            "dmf_energies": d.energies, "dmf_cycles": d.cycles}
+
+
+def p18_cpu_reference(out_path):
+    """The CPU float64 plain path of phase 18d, run in its own process
+    (``--p18-cpu OUT``) while the card works through phases 13-17; saved
+    as an .npz."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    torch.set_num_threads(3)        # beside the card phases' host work
+    st, w, xyzB = p18_reference_inputs()
+    cpu = make_uma_calculator(st, model="escn-md", device="cpu",
+                              dtype=torch.float64, params=w)
+    t0 = time.perf_counter()
+    res = p18_runs(cpu, xyzB)
+    res["seconds"] = time.perf_counter() - t0
+    res["force_calls"] = cpu.force_calls
+    np.savez(out_path, **res)
+
+
+def start_p18_cpu():
+    """Start phase 18d's CPU reference in a child process; it is killed
+    at exit if still running."""
+    import atexit
+    out = os.path.join(HERE, "result_smoke", "p18_cpu.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--p18-cpu", out], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+class dlc_probe:
+    """While entered: each DlcSpace built (primitives, n_dlc, seconds)."""
+
+    def __enter__(self):
+        from pdb2reaction_tpu_torch.engines import dlc
+        self.spaces = []
+        self.init0 = dlc.DlcSpace.__init__
+        probe = self
+
+        def init(sp, *a, **kw):
+            t0 = time.perf_counter()
+            probe.init0(sp, *a, **kw)
+            probe.spaces.append((sum(map(len, sp.prims)), sp.n_dlc,
+                                 sp.n_free, time.perf_counter() - t0))
+        dlc.DlcSpace.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        from pdb2reaction_tpu_torch.engines import dlc
+        dlc.DlcSpace.__init__ = self.init0
+
+
+def p18_run(tag, run, calc, files=()):
+    """One phase-18 run with its counts set to 0 just before and read just
+    after: K1 and K2 forward 4 x (force + energy calls), backward 4 x
+    force calls, none inside a Hessian; its files written."""
+    import torch
+    n_f, n_e = calc.force_calls, calc.energy_calls
+    zero_all_counts()
+    before = all_counts()
+    with stage4_meter() as m, dlc_probe() as p:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fc, ec = calc.force_calls - n_f, calc.energy_calls - n_e
+    moved = moved_counts(before)
+    log(f"[dlc-dmf] {tag}: {wall:.2f} s wall; {fc} force calls, {ec} "
+        f"energy calls, {m.force_s:.2f} s inside them "
+        f"({m.force_s / max(fc, 1) * 1e3:.2f} ms a call); {m.hess} "
+        f"Hessians in {m.hess_s:.2f} s, {m.hvps} HVPs; launches {moved}")
+    want = {"fused_edge_mega_fwd": 4 * (fc + ec),
+            "fused_edge_mega_bwd": 4 * fc,
+            "fused_node_ffn_fwd": 4 * (fc + ec),
+            "fused_node_ffn_bwd": 4 * fc}
+    if moved != {k: v for k, v in want.items() if v} or fc == 0:
+        fail(f"{tag}: launches {moved}, expected {want} (K1 and K2 forward "
+             "4 x (force + energy calls), backward 4 x force calls)")
+    if m.inside:
+        fail(f"{tag}: kernels launched inside Hessians: {m.inside}")
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        fail(f"{tag} wrote no {missing}")
+    return res, m, p, wall
+
+
+def p18_dlc(calc, st, out, freeze, tag):
+    """18a: run_opt(coord_type="dlc") on the 300-atom cluster."""
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.opt import run_opt
+    c = calc if not freeze else make_uma_calculator(
+        st, model="escn-md", device="cuda", params=calc.params,
+        pad_multiple=64, freeze_atoms=freeze)
+    path = os.path.join(out, "cluster300.xyz")
+    d = os.path.join(out, f"opt_{tag}")
+    e0 = c.get_energy(st.coords_bohr)["energy"]
+    res, m, p, wall = p18_run(
+        f"(a) run_opt coord_type=dlc, {tag}, max_cycles {DLC_CYCLES}",
+        lambda: run_opt(path, charge=0, spin=1, coord_type="dlc",
+                        max_cycles=DLC_CYCLES, freeze_atoms=freeze,
+                        auto_freeze_links=False, out_dir=d, calc=c,
+                        verbose=False), c,
+        [os.path.join(d, "final_geometry.xyz")])
+    n_prims, n_dlc, n_free, t_init = p.spaces[0]
+    cyc = max(res["cycles"], 1)
+    host = (wall - m.force_s - t_init) / cyc
+    log(f"[dlc-dmf] (a) {tag}: {n_prims} primitives, n_dlc {n_dlc} over "
+        f"{n_free} free DOFs (U built in {t_init:.2f} s on the host's CPU); "
+        f"{res['cycles']} cycles, {res['force_calls']} force calls, "
+        f"converged {res['converged']}; E {e0:.8f} -> {res['energy']:.8f} "
+        f"Ha; {host * 1e3:.1f} ms a cycle outside the force call (B by "
+        f"jacrev, solves, back-transformation) against "
+        f"{m.force_s / max(res['force_calls'], 1) * 1e3:.1f} ms a force call")
+    if not (np.isfinite(res["energy"]) and res["energy"] < e0):
+        fail(f"DLC L-BFGS ({tag}) did not lower the energy")
+    x0 = read_xyz(path).coords_bohr          # the input as run_opt read it
+    if freeze and not np.array_equal(res["coords_bohr"][freeze],
+                                     x0[freeze]):
+        fail("DLC L-BFGS moved a frozen atom")
+    return host
+
+
+def p18_dmf(calc, st, xyzB, solver, cycles):
+    """18c: run_mep_between(mep_mode="dmf") on phase 12's flagship pair."""
+    from pdb2reaction_tpu_torch import native
+    from pdb2reaction_tpu_torch.workflows.path_opt import run_mep_between
+    stB = st.copy(coords=xyzB)
+    calls = [0]
+    solve0 = native.lbfgsb_minimize
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return solve0(*a, **kw)
+
+    native.lbfgsb_minimize = counted
+    try:
+        res, m, _, wall = p18_run(
+            f"(c) DMF {solver}, {DMF_IMAGES} images, max_cycles {cycles}",
+            lambda: run_mep_between(st, stB, calc, mep_mode="dmf",
+                                    dmf_kw={"n_images": DMF_IMAGES,
+                                            "max_cycles": cycles,
+                                            "solver": solver},
+                                    verbose=False), calc)
+    finally:
+        native.lbfgsb_minimize = solve0
+    batches = res.force_calls // DMF_IMAGES
+    log(f"[dlc-dmf] (c) DMF {solver}: {res.cycles} cycles, {batches} "
+        f"batched calls, {res.force_calls} images evaluated, constraint "
+        f"violation {res.constraint_violation:.3e} Bohr, HEI {res.hei_idx}, "
+        f"converged {res.converged}, {wall:.2f} s wall "
+        f"({(wall - m.force_s) / max(batches, 1) * 1e3:.1f} ms a batch "
+        f"outside the force calls)")
+    if res.force_calls != batches * DMF_IMAGES or not (
+            np.all(np.isfinite(res.energies))
+            and np.all(np.isfinite(res.images))):
+        fail(f"DMF {solver}: partial batches or non-finite results")
+    if solver == "native" and not (calls[0] == 6 and "nlp_solver" in
+                                   native._LIBS and os.path.exists(
+                                       native.target("nlp_solver"))):
+        fail(f"the native solver was not built and used ({calls[0]} "
+             "solves)")
+    return res
+
+
+def p18_card_vs_cpu(ref64, proc, npz, t_start):
+    """18d: the 64-atom runs on the card against the CPU float64 plain
+    path of the child process, same weights."""
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    st, w, _ = ref64
+    xyzB = endpoint_b(st.coords, np.ones(st.n_atoms))
+    gpu = make_uma_calculator(st, model="escn-md", device="cuda", params=w)
+    t0 = time.perf_counter()
+    got = p18_runs(gpu, xyzB)
+    t_card = time.perf_counter() - t0
+    try:
+        stdout, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("phase 18d's CPU reference did not finish within 600 s of the "
+             "card's part")
+    waited = time.perf_counter() - t0 - t_card
+    if proc.returncode != 0 or not os.path.exists(npz):
+        fail(f"phase 18d's CPU reference failed: {stdout[-3000:]}")
+    ref = np.load(npz)
+    dx = np.abs(got["dlc_x"] - ref["dlc_x"]).max()
+    step = np.abs(ref["dlc_x"] - ref["dlc_x0"]).max()
+    di = np.abs(got["dmf_images"] - ref["dmf_images"]).max()
+    dstep = np.abs(ref["dmf_images"] - ref["dmf_start"]).max()
+    log(f"[dlc-dmf] (d) 64 atoms, card f32 kernels against the CPU float64 "
+        f"plain path (same weights): DLC {got['dlc_cycles']} cycles, "
+        f"max|dx| {dx:.3e} Bohr over a step of {step:.3e} ({dx / step:.3e} "
+        f"relative), |dE| {abs(got['dlc_e'] - float(ref['dlc_e'])):.3e} Ha; "
+        f"DMF {got['dmf_cycles']} steps of {P18_CPU['dmf_images']} images, "
+        f"max|dx| {di:.3e} Bohr over a step of {dstep:.3e} "
+        f"({di / dstep:.3e} relative), max|dE| "
+        f"{np.abs(got['dmf_energies'] - ref['dmf_energies']).max():.3e} Ha "
+        f"(tol {P18_X_TOL} relative); card {t_card:.1f} s, CPU process "
+        f"{float(ref['seconds']):.1f} s for {int(ref['force_calls'])} force "
+        f"calls, started {t0 - t_start:.1f} s before the card's part, "
+        f"waited {waited:.1f} s for it")
+    if not (dx <= P18_X_TOL * step and di <= P18_X_TOL * dstep
+            and int(ref["dlc_cycles"]) == got["dlc_cycles"]):
+        fail("phase 18d: the card's DLC or DMF path left the CPU float64 "
+             "one")
+
+
+def dmf_cli(st, xyzB):
+    """18e: ``path-opt --mep-mode dmf`` as a subprocess, its DMF keys from
+    the dmf: section of --args-yaml (P = 304)."""
+    import shutil
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz_frames, write_xyz
+    out = os.path.join(HERE, "result_smoke", "dmf_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    a, b = os.path.join(out, "A.xyz"), os.path.join(out, "B.xyz")
+    write_xyz(a, st)
+    write_xyz(b, st.copy(coords=xyzB))
+    y = os.path.join(out, "args.yaml")
+    with open(y, "w") as fh:
+        fh.write("dmf:\n  n_images: 8\n  max_cycles: 12\n")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "path-opt",
+           "-i", a, "-i", b, "--model", "escn-md", "--mep-mode", "dmf",
+           "--args-yaml", y, "-q", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    res = os.path.join(out, "result_path_opt")
+    trj = os.path.join(res, "final_geometries.trj")
+    n = len(read_xyz_frames(trj)) if os.path.exists(trj) else 0
+    tail = [ln for ln in r.stdout.splitlines()
+            if ln.startswith(("[path-opt] HEI", "[dmf]"))]
+    log(f"[dlc-dmf] (e) path-opt --mep-mode dmf CLI (escn-md, 300 atoms, "
+        f"dmf: n_images 8, max_cycles 12) as a subprocess: rc "
+        f"{r.returncode}, {wall:.1f} s with start-up, {n} frames; {tail}")
+    if r.returncode not in (0, 3):
+        fail(f"path-opt --mep-mode dmf exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    if n != 8 or not os.path.exists(os.path.join(res, "hei.xyz")) or \
+            not any("12 cycles, 104 DMF force calls" in ln for ln in tail):
+        fail("path-opt --mep-mode dmf did not run 12 cycles of 8 images or "
+             "did not write final_geometries.trj and hei.xyz")
+
+
+def phase_dlc_dmf(calc, st, search, bond, ref64, cpu_ref, smi_line):
+    """Phase 18: DLC L-BFGS (unconstrained and on phase 15's active
+    region) and DLC RS-I-RFO from phase 13's TS guess through the opt and
+    tsopt workflows, DMF (heavy ball and the native L-BFGS-B) on phase
+    12's flagship pair through run_mep_between, the 64-atom card runs
+    against the CPU float64 child process, and the DMF path-opt CLI."""
+    import shutil
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz, write_xyz
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.tsopt import run_tsopt
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "result_smoke", "dlc_dmf")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    write_xyz(os.path.join(out, "cluster300.xyz"), st)
+    x = st.coords
+    d = np.linalg.norm(x[:, None, :] - x[list(bond)][None], axis=-1)
+    active = set(np.nonzero(d.min(axis=1) <= STAGE4_RADIUS)[0].tolist())
+    freeze = [i for i in range(st.n_atoms) if i not in active]
+    log(f"[dlc-dmf] {smi_line}; escn-md pallas-mega, {st.n_atoms} atoms "
+        f"(P = {calc.n_pad}), phase 4's weights; active region "
+        f"{len(active)} atoms, {len(freeze)} frozen")
+    torch.cuda.reset_peak_memory_stats()
+    # (a) DLC L-BFGS through run_opt, unconstrained and constrained
+    h_all = p18_dlc(calc, st, out, [], "unconstrained")
+    h_act = p18_dlc(calc, st, out, freeze, "active region")
+    # (b) DLC RS-I-RFO through run_tsopt from phase 13's TS guess
+    xg, seg, freeze_g = stage4_guess(search, bond)
+    guess = st.copy(coords=xg)
+    gpath = os.path.join(out, "ts_guess.xyz")
+    write_xyz(gpath, guess)
+    c4 = make_uma_calculator(guess, model="escn-md", device="cuda",
+                             params=calc.params, pad_multiple=64,
+                             freeze_atoms=freeze_g)
+    dt = os.path.join(out, "tsopt_dlc")
+    rb, mb, pb, _ = p18_run(
+        f"(b) run_tsopt heavy coord_type=dlc, max_cycles {DLC_CYCLES}",
+        lambda: run_tsopt(gpath, opt_mode="heavy", coord_type="dlc",
+                          max_cycles=DLC_CYCLES, out_dir=dt, charge=0,
+                          verbose=False, calculator=c4), c4,
+        [os.path.join(dt, f) for f in ("final_geometry.xyz",
+                                       "imag_mode.trj")])
+    log(f"[dlc-dmf] (b) {pb.spaces[0][0]} primitives, n_dlc "
+        f"{pb.spaces[0][1]}; {rb['cycles']} cycles, converged "
+        f"{rb['converged']}; {mb.hess} Hessians of "
+        f"{mb.hvps // max(mb.hess, 1)} HVPs on the plain path "
+        f"({mb.hess_s:.2f} s); E = "
+        f"{rb['energy']:.8f} Ha, {rb['n_imag']} imaginary modes, lowest "
+        f"{np.min(rb['freqs_cm']) if len(rb['freqs_cm']) else 'none'} cm-1")
+    if mb.hvps != mb.hess * 3 * (st.n_atoms - len(freeze_g)) or not (
+            np.isfinite(rb["energy"])
+            and np.all(np.isfinite(rb["coords_bohr"]))):
+        fail("DLC RS-I-RFO: Hessians of the wrong size or non-finite "
+             "results")
+    if not np.array_equal(rb["coords_bohr"][freeze_g],
+                          read_xyz(gpath).coords_bohr[freeze_g]):
+        fail("DLC RS-I-RFO moved a frozen atom")
+    # (c) DMF on the flagship pair, heavy ball and native L-BFGS-B
+    free = calc.system.free_mask[: calc.n_atoms].cpu().numpy()
+    xyzB = endpoint_b(st.coords, free)
+    p18_dmf(calc, st, xyzB, "device", DMF_DEVICE_CYCLES)
+    p18_dmf(calc, st, xyzB, "native", DMF_NATIVE_CYCLES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # (d) the 64-atom card runs against the CPU float64 child process
+    p18_card_vs_cpu(ref64, *cpu_ref)
+    # (e) the DMF path-opt CLI
+    dmf_cli(st, xyzB)
+    log(f"[dlc-dmf] DLC host work a cycle outside the force call: "
+        f"{h_all * 1e3:.1f} ms unconstrained, {h_act * 1e3:.1f} ms on the "
+        f"active region; peak memory over (a)-(c) {peak:.2f} GiB; phase 18 "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # PaiNN-class uma-s-1p1: K5 and the pallas-mode path
 # ---------------------------------------------------------------------------
 
@@ -3263,7 +3654,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel parity only")
+    ap.add_argument("--p18-cpu", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # phase 18d's CPU child
     args = ap.parse_args()
+    if args.p18_cpu:
+        sys.path.insert(0, HERE)
+        p18_cpu_reference(args.p18_cpu)
+        return
     try:
         import torch
     except ImportError:
@@ -3322,6 +3719,10 @@ def main():
         ref64 = phase_reference(seed=0)
         # ---- the GSM path on the escn-md calculator: its own counts
         phase_gsm(calc, ms_force, ref64)
+        # ---- phase 18d's CPU float64 reference, in a child process from
+        # here on: its ~50 CPU force calls overlap phases 13-17, not phase
+        # 12's CPU float64 Hessian columns
+        cpu_ref = start_p18_cpu()
         # ---- path-search (its own counts), its CLI, the md golden
         t0 = time.perf_counter()
         stB, search, bond = phase_search(st)
@@ -3334,6 +3735,8 @@ def main():
         phase_all(smi_line)
         # ---- the scans, stage 1b and the mini DFT engine: their own counts
         phase_scans(calc, st, bond, smi_line)
+        # ---- DLC and DMF: their own counts
+        phase_dlc_dmf(calc, st, search, bond, ref64, cpu_ref, smi_line)
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)

@@ -10,10 +10,14 @@ overrides any option from the file's sections (YAML wins; see
 ``workflows/config.py`` for the YAML subset the port reads),
 ``--ligand-charge`` derives the charge of a PDB input, ``--ref-pdb``
 lends a PDB template to .xyz/.gjf inputs and ``--profile DIR`` writes a
-torch.profiler Chrome trace. Not ported, and refused with their
-ROADMAP.md items: DMF (item 11), ``--spatial > 1`` outside ``opt``
-(item 9), ``--gsm-loop device``, ``--workers`` and ``--dump`` outside
-``opt`` and ``scan`` (the other JAX commands write nothing with it).
+torch.profiler Chrome trace. ``opt`` / ``tsopt --coord-type dlc`` run
+in delocalized internals and ``--mep-mode dmf`` (``path-opt``,
+``path-search``, ``all``) runs Direct Max Flux (``path-opt`` reads its
+keys from the ``dmf:`` section of ``--args-yaml``, as the JAX package
+does). Not ported, and refused with their ROADMAP.md items:
+``--spatial > 1`` outside ``opt`` (item 9), ``--gsm-loop device``,
+``--workers`` and ``--dump`` outside ``opt`` and ``scan`` (the other
+JAX commands write nothing with it).
 ``--args-yaml`` is refused by ``scan2d``, ``scan3d`` and ``dft``, whose
 JAX commands read no YAML.
 
@@ -310,8 +314,7 @@ def _dft_parser(sub):
 
 def _path_opt_parser(sub):
     p = sub.add_parser("path-opt",
-                       help="Two-endpoint MEP search (GSM; DMF is not "
-                            "ported yet).")
+                       help="Two-endpoint MEP search (GSM or DMF).")
     p.add_argument("-i", "--input", dest="input_paths", action="append",
                    required=True, type=Path,
                    help="An endpoint; give it twice.")
@@ -391,8 +394,8 @@ def _tsopt_parser(sub):
     p.add_argument("--opt-mode", default="light",
                    help="light|dimer or heavy|rsirfo.")
     p.add_argument("--coord-type", default="cart", choices=["cart", "dlc"],
-                   help="Coordinates of the rsirfo mode (dlc is not ported "
-                        "yet); the dimer runs Cartesian.")
+                   help="Coordinates of the rsirfo mode; the dimer runs "
+                        "Cartesian.")
     p.add_argument("--thresh", default="baker")
     p.add_argument("--max-cycles", type=int, default=10000)
     p.add_argument("--flatten-imag-mode", type=_bool, default=False,
@@ -664,9 +667,6 @@ def opt_cmd(a) -> int:
     from .workflows.opt import run_opt
     _reject_unported(a, supported=("--dump", "--dump-restart"))
     charge, spin = _charge_spin(a)
-    if a.coord_type != "cart":          # before any rank builds a model
-        from .workflows.opt import _DLC
-        raise SystemExit(_DLC)
     cfg = dict(opt_mode=normalize_choice(a.opt_mode),
                coord_type=a.coord_type, thresh=a.thresh,
                max_cycles=a.max_cycles, dump=a.dump, bias_k=a.bias_k,
@@ -790,7 +790,7 @@ def path_opt_cmd(a) -> int:
             list(a.input_paths), charge=charge, spin=spin,
             spatial=a.spatial, out_dir=a.out_dir or "./result_path_opt/",
             **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # DMF, --spatial > 1
+    except NotImplementedError as e:     # --spatial > 1
         raise SystemExit(str(e))
     return 0 if res["converged"] else 3
 
@@ -822,7 +822,7 @@ def path_search_cmd(a) -> int:
             list(a.input_paths), charge=charge, spin=spin,
             spatial=a.spatial, out_dir=a.out_dir or "./result_path_search/",
             **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # DMF, --spatial > 1
+    except NotImplementedError as e:     # --spatial > 1
         raise SystemExit(str(e))
     return 0
 
@@ -835,7 +835,7 @@ def _stage4(a, run, cfg, default_out, ok=lambda res: 0):
         res = run(a.input_path, charge=charge, spin=spin,
                   spatial=a.spatial, out_dir=a.out_dir or default_out,
                   **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # dlc RS-I-RFO, --spatial > 1
+    except NotImplementedError as e:     # --spatial > 1
         raise SystemExit(str(e))
     return ok(res)
 
@@ -932,7 +932,7 @@ def all_cmd(a) -> int:
         run_all(list(a.input_paths), charge=charge, spin=spin,
                 spatial=a.spatial, out_dir=a.out_dir or "./result_all/",
                 **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # DMF, --spatial > 1
+    except NotImplementedError as e:     # --spatial > 1
         raise SystemExit(str(e))
     return 0
 

@@ -15,8 +15,9 @@ layout under ``out_dir``:
   full-structure indices remapped onto it), whose result
   ``scan_product.xyz`` becomes the second endpoint of stage 2;
 - stage 2, ``stage2_path/``: the recursive path search
-  (``workflows/path_search.py``) over the pockets, with the inputs as
-  the full-system templates of the merge (or ``full_template``);
+  (``workflows/path_search.py``; GSM segments, or DMF ones with
+  ``mep_mode="dmf"``) over the pockets, with the inputs as the
+  full-system templates of the merge (or ``full_template``);
 - stage 3, ``stage3_merged/``: copies of the merged full-system PDBs;
 - stage 4, ``stage4_seg_NNN/`` for each reactive segment when ``tsopt``
   or ``do_freq`` is on: the TS refined from the HEI (``hei_guess.xyz``,
@@ -38,8 +39,7 @@ A single input without scan stages runs the TSOPT-only mode with
 4 (the scan builds its own). ``ForceCallMeter`` phases time every stage
 with its force and energy calls (``results["force_call_phases"]``; the
 scan's calls are booked in its phase). Not ported, and refused before
-anything is written: DMF (ROADMAP.md queue 1 item 11) and
-``spatial > 1`` (item 9).
+anything is written: ``spatial > 1`` (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -77,7 +77,6 @@ from .summary import (build_energy_diagram, build_irc_overview,
 from .trj2fig import plot_profile
 from .tsopt import run_tsopt
 
-DMF_TODO = ("mep_mode='dmf' is not ported yet: ROADMAP.md queue 1 item 11")
 SPATIAL_TODO = ("all under atom-axis sharding (spatial > 1) is not ported "
                 "yet: ROADMAP.md queue 1 item 9")
 
@@ -168,8 +167,7 @@ def run_all(
     ``dft_kw`` to ``run_dft``. Search and string keys may also come flat
     in ``calc_kw``."""
     t0 = time.time()
-    if normalize_choice(mep_mode, choices=("gsm", "dmf")) == "dmf":
-        raise NotImplementedError(DMF_TODO)
+    mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
     if int(calc_kw.get("spatial", 1)) > 1:
         raise NotImplementedError(SPATIAL_TODO)
     search_kw = dict(search_kw or {})

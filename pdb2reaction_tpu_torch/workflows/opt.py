@@ -1,14 +1,13 @@
 """Single-structure geometry optimization (``opt`` subcommand): L-BFGS
-("light") or RFO from an exact Hessian ("heavy"), in Cartesian
-coordinates, optionally under harmonic distance restraints (``bias_pairs``
-at given targets, ``dist_freeze`` at the input's distances;
-``engines/bias.py``). ``dump`` writes the start and end geometries as
-``opt.trj``; ``dump_restart=N`` dumps the L-BFGS carry every N cycles
-under ``restart/`` and a rerun resumes from it (Cartesian L-BFGS only,
-as in the JAX package).
-
-Delocalized internals (ROADMAP.md queue 1 item 11) are a later port item
-and raise here.
+("light") or RFO from an exact Hessian ("heavy") in Cartesian
+coordinates, or L-BFGS in delocalized internals (``coord_type="dlc"``,
+``engines/dlc.py``, whatever the mode, as in the JAX package; frozen
+atoms run constrained delocalization), optionally under harmonic
+distance restraints (``bias_pairs`` at given targets, ``dist_freeze`` at
+the input's distances; ``engines/bias.py``). ``dump`` writes the start
+and end geometries as ``opt.trj``; ``dump_restart=N`` dumps the L-BFGS
+carry every N cycles under ``restart/`` and a rerun resumes from it
+(Cartesian L-BFGS only, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..engines.bias import biased_calculator, dist_freeze_pairs
+from ..engines.dlc import dlc_lbfgs_minimize
 from ..engines.lbfgs import lbfgs_minimize
 from ..engines.rfo import RFO_KW, rfo_optimize
 from ..mlip.calculator import Calculator
@@ -28,8 +28,7 @@ from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 
 OPT_MODES = ("lbfgs", "rfo")
-_DLC = ("coord_type='dlc' (delocalized internal coordinates) is not ported "
-        "yet: ROADMAP.md queue 1 item 11")
+COORD_TYPES = ("cart", "dlc")
 
 
 def optimize_structure(struct, calc: Calculator, *, opt_mode: str = "lbfgs",
@@ -39,11 +38,17 @@ def optimize_structure(struct, calc: Calculator, *, opt_mode: str = "lbfgs",
                        **engine_kw):
     """Minimize with a prepared calculator; returns
     (coords_bohr [N,3], energy, converged, cycles). ``opt_mode="rfo"``
-    starts from the exact Hessian at the input geometry."""
-    if coord_type != "cart":
-        raise NotImplementedError(f"{_DLC} (coord_type={coord_type!r})")
+    starts from the exact Hessian at the input geometry;
+    ``coord_type="dlc"`` runs DLC L-BFGS whatever ``opt_mode`` is."""
+    coord_type = normalize_choice(coord_type, choices=COORD_TYPES)
     x0 = calc.pad_bohr(struct.coords_bohr)
-    if opt_mode == "rfo":
+    if coord_type == "dlc":
+        res = dlc_lbfgs_minimize(calc.au_energy_force_fn(), x0,
+                                 struct.numbers, calc.n_atoms,
+                                 freeze=struct.freeze, thresh=thresh,
+                                 max_cycles=max_cycles, callback=callback,
+                                 **engine_kw)
+    elif opt_mode == "rfo":
         H0 = calc.get_hessian(struct.coords_bohr.reshape(-1))["hessian"]
         res = rfo_optimize(calc.au_energy_force_fn(), x0,
                            calc.system.free_mask, calc.n_atoms, hessian0=H0,

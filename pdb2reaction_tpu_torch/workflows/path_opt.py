@@ -1,14 +1,15 @@
 """Two-endpoint MEP workflow (``path-opt`` subcommand).
 
 Counterpart of ``pdb2reaction_tpu/workflows/path_opt.py``: the GSM string
-between two endpoints, with optional per-endpoint preoptimization
-(L-BFGS or RFO), freeze-guided Kabsch alignment before the MEP, the highest
-energy image preferring internal maxima, and the trajectory and HEI
-written as ``final_geometries.trj`` and ``hei.xyz``.
+(``mep_mode="gsm"``) or Direct Max Flux (``"dmf"``, ``engines/dmf.py``;
+``dmf_kw`` or the keys of ``DMF_KW`` among the options) between two
+endpoints, with optional per-endpoint preoptimization (L-BFGS or RFO),
+freeze-guided Kabsch alignment before the MEP, the highest energy image
+preferring internal maxima, and the trajectory and HEI written as
+``final_geometries.trj`` and ``hei.xyz``.
 
-Not ported yet, and refused: DMF (``mep_mode="dmf"``, ROADMAP.md queue 1
-item 11) and atom-axis sharding (``spatial > 1``: the climbing image's
-HVPs under sharding are item 9).
+Not ported yet, and refused: atom-axis sharding (``spatial > 1``: the
+climbing image's HVPs under sharding are ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -22,14 +23,13 @@ import numpy as np
 
 from ..bio.align import align_sequence_inplace
 from ..constants import AU2KCALPERMOL, BOHR2ANG
+from ..engines.dmf import DMF_KW, dmf_mep
 from ..engines.gsm import GS_KW, STOPT_KW, gsm_mep
 from ..engines.thresholds import get_thresholds
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 from .opt import optimize_structure
 
-_DMF = ("mep_mode='dmf' (the DMF engine) is not ported yet: ROADMAP.md "
-        "queue 1 item 11")
 _SPATIAL = ("path-opt under atom-axis sharding (spatial > 1) is not ported "
             "yet: the climbing image's HVPs over ranks are ROADMAP.md queue "
             "1 item 9")
@@ -43,12 +43,15 @@ def run_mep_between(
     verbose: bool = True,
 ):
     """One MEP segment between two aligned structures on a shared
-    calculator; returns the ``GsmResult``. The calculator's batched
-    closure counts every image evaluation itself, so its
-    ``force_calls`` rises by exactly ``res.force_calls`` here (the JAX
-    package adds the engine's count afterwards instead)."""
+    calculator; returns the ``GsmResult`` (or the ``DmfResult`` with
+    ``mep_mode="dmf"``). The calculator's batched closure counts every
+    image evaluation itself, so its ``force_calls`` rises by exactly
+    ``res.force_calls`` here (the JAX package adds the engine's count
+    afterwards instead)."""
     if mep_mode == "dmf":
-        raise NotImplementedError(_DMF)
+        return dmf_mep(calc, calc.pad_bohr(structA.coords_bohr),
+                       calc.pad_bohr(structB.coords_bohr),
+                       verbose=verbose, **(dmf_kw or {}))
     kw = {**GS_KW, **(gs_kw or {})}
     skw = {**STOPT_KW, **(stopt_kw or {})}
     lanczos = bool(kw["climb"]) and bool(kw.get("climb_lanczos", True))
@@ -81,6 +84,22 @@ def run_mep_between(
     )
 
 
+def route_engine_keys(calc_kw, mep_mode, tables, dmf_kw) -> None:
+    """Move the engine keys among ``calc_kw`` (``--args-yaml`` sections
+    arrive flat) into their dicts: the first of ``tables`` (pairs of a
+    key table and its dict) that has a key takes it, and ``DMF_KW``
+    comes after them, as in the JAX package, except under
+    ``mep_mode="dmf"``, where it comes first: the ``dmf:`` section's
+    ``max_cycles`` then caps DMF, not the string that does not run."""
+    order = list(tables)
+    order.insert(0 if mep_mode == "dmf" else len(order), (DMF_KW, dmf_kw))
+    for k in list(calc_kw):
+        for table, dst in order:
+            if k in table:
+                dst[k] = calc_kw.pop(k)
+                break
+
+
 def run_path_opt(
     input_paths: Sequence,                # two endpoint files
     *,
@@ -105,7 +124,7 @@ def run_path_opt(
     dmf_kw: Optional[Dict[str, Any]] = None,
     **calc_kw,
 ) -> Dict[str, Any]:
-    """GSM between the two endpoint files; writes
+    """GSM or DMF between the two endpoint files; writes
     ``final_geometries.trj`` and ``hei.xyz`` under ``out_dir``.
     ``thresh`` (a preset name) sets the string's perpendicular-force
     criteria and the endpoint preoptimization's threshold.
@@ -116,17 +135,12 @@ def run_path_opt(
     if int(calc_kw.get("spatial", 1)) > 1:
         raise NotImplementedError(_SPATIAL)
     mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
-    if mep_mode == "dmf":
-        raise NotImplementedError(_DMF)
     preopt_mode = normalize_choice(preopt_mode, choices=("lbfgs", "rfo"))
-    # route engine keys out of calc_kw into the nested kw dicts
     gs_kw = dict(gs_kw or {})
     stopt_kw = dict(stopt_kw or {})
-    for k in list(calc_kw):
-        for table, dst in ((GS_KW, gs_kw), (STOPT_KW, stopt_kw)):
-            if k in table:
-                dst[k] = calc_kw.pop(k)
-                break
+    dmf_kw = dict(dmf_kw or {})
+    route_engine_keys(calc_kw, mep_mode, ((GS_KW, gs_kw),
+                                          (STOPT_KW, stopt_kw)), dmf_kw)
     if thresh is not None:
         # one preset drives the string's perpendicular-force criteria and
         # the endpoint preoptimizations
@@ -156,7 +170,7 @@ def run_path_opt(
             "mep_mode": mep_mode, "preopt": preopt, "align": align,
             "charge": q, "spin": s, "calc_mode": calc_mode,
             "model": model, "device": str(calc.device), "gs": gs_kw,
-            "sopt": stopt_kw}))
+            "sopt": stopt_kw, "dmf": dmf_kw}))
     if preopt:
         for st in structs:
             coords, e, conv, cyc = optimize_structure(
@@ -184,7 +198,8 @@ def run_path_opt(
         Erel = (res.energies - res.energies[0]) * AU2KCALPERMOL
         print(f"[path-opt] HEI = image {hei}; barrier = "
               f"{Erel[hei]:.2f} kcal/mol; converged = {res.converged}; "
-              f"{res.cycles} cycles, {res.force_calls} GSM force calls")
+              f"{res.cycles} cycles, {res.force_calls} "
+              f"{mep_mode.upper()} force calls")
         print(f"[path-opt] elapsed {format_elapsed(t0)}")
     return {"images_bohr": frames, "energies": np.asarray(res.energies),
             "hei_idx": hei, "converged": res.converged,

@@ -1,9 +1,10 @@
 """Recursive multi-step MEP search (``path-search`` subcommand).
 
 Counterpart of ``pdb2reaction_tpu/workflows/path_search.py``. For each
-adjacent pair of inputs: run a GSM segment, optimize the images beside
-its highest-energy image (HEI +- 1, or the nearest path minima with
-``refine_mode="minima"``) and classify the gap between them:
+adjacent pair of inputs: run a GSM (or, with ``mep_mode="dmf"``, a DMF)
+segment, optimize the images beside its highest-energy image (HEI +- 1,
+or the nearest path minima with ``refine_mode="minima"``) and classify
+the gap between them:
 
 - no covalent change between the optimized minima: a **kink**, up to
   ``kink_max_nodes`` interpolated nodes each optimized, no recursion,
@@ -31,8 +32,8 @@ run in the same ``out_dir`` restores its segments.
 Every force evaluation is the calculator's (``force_calls``); the kink
 endpoints' energies are ``energy_calls``. The optimizations run L-BFGS
 or, with ``opt_mode="rfo"``, RFO from an exact Hessian. Not ported yet,
-and refused before anything runs: DMF (``mep_mode="dmf"`` and the DMF
-keys, ROADMAP.md queue 1 item 11) and ``spatial > 1`` (item 9).
+and refused before anything runs: ``spatial > 1`` (ROADMAP.md queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ..runtime.checkpoint import CheckpointStore, content_key
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 from .opt import optimize_structure
-from .path_opt import _DMF, _SPATIAL, run_mep_between
+from .path_opt import _SPATIAL, route_engine_keys, run_mep_between
 from .summary import (build_energy_diagram, compressed_diagram,
                       write_summary_log, write_summary_yaml)
 
@@ -76,12 +77,6 @@ BOND_KW: Dict[str, Any] = {
     "margin_fraction": 0.05,
     "delta_fraction": 0.05,
 }
-
-# the JAX package's DMF keys (engines/dmf.py DMF_KW) that no other table
-# claims: routed there, they are refused here with DMF itself
-_DMF_KEYS = ("n_images", "beta_ev", "correlated", "fbenm_only_endpoints",
-             "bond_scale", "delta_scale", "k_fix", "eps_vel",
-             "spacing_weight", "fbenm_cycles", "tol")
 
 
 @dataclass
@@ -341,20 +336,15 @@ def run_path_search(
     stopt_kw = dict(stopt_kw or {})
     dmf_kw = dict(dmf_kw or {})
     bond_kw = dict(bond_kw or {})
+    mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
     # engine and search keys given flat go to their dicts, first table
-    # first (max_cycles is the string's)
-    for k in list(calc_kw):
-        for table, dst in ((SEARCH_KW, search_kw), (GS_KW, gs_kw),
-                           (STOPT_KW, stopt_kw), (_DMF_KEYS, dmf_kw),
-                           (BOND_KW, bond_kw)):
-            if k in table:
-                dst[k] = calc_kw.pop(k)
-                break
+    # first (max_cycles is the string's, DMF's under mep_mode="dmf")
+    route_engine_keys(calc_kw, mep_mode, ((SEARCH_KW, search_kw),
+                                          (GS_KW, gs_kw),
+                                          (STOPT_KW, stopt_kw)), dmf_kw)
+    for k in [k for k in calc_kw if k in BOND_KW]:
+        bond_kw[k] = calc_kw.pop(k)
     # everything not ported is refused before anything runs
-    if dmf_kw:
-        raise NotImplementedError(f"{_DMF} (DMF keys {sorted(dmf_kw)})")
-    if normalize_choice(mep_mode, choices=("gsm", "dmf")) == "dmf":
-        raise NotImplementedError(_DMF)
     if int(calc_kw.get("spatial", 1)) > 1:
         raise NotImplementedError(_SPATIAL)
     skw = {**SEARCH_KW, **search_kw}

@@ -5,12 +5,12 @@ Counterpart of ``pdb2reaction_tpu/workflows/tsopt.py``, two modes:
 orientation, then the flatten loop) and "heavy" (RS-I-RFO, uphill mode
 following from an exact Hessian, refreshed every ``hessian_recalc``
 cycles); the TS mode's animation is written as ``imag_mode.trj``.
+``coord_type="dlc"`` runs the heavy mode in constrained delocalized
+internals (``engines/dlc.py``); the light mode runs Cartesian whatever it
+is given, as in the JAX package.
 
-Not ported yet, and refused: RS-I-RFO in delocalized internals
-(``coord_type="dlc"`` with the heavy mode, ROADMAP.md queue 1 item 11;
-the light mode runs Cartesian whatever it is given, as in the JAX
-package) and atom-axis sharding (``spatial > 1``: the Hessian over ranks
-is item 9).
+Not ported yet, and refused: atom-axis sharding (``spatial > 1``: the
+Hessian over ranks is ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 from ..constants import BOHR2ANG
 from ..core import io_xyz
 from ..engines.dimer import HESSIAN_DIMER_KW, hessian_dimer
+from ..engines.dlc import dlc_rfo_optimize
 from ..engines.rfo import RSIRFO_KW, rfo_optimize
 from ..engines.vib import (count_imaginary, free_block_wavenumbers,
                            frequencies_and_modes, mode_animation_frames)
@@ -35,11 +36,9 @@ from .config import format_elapsed, pretty_block
 TS_MODES = ("dimer", "rsirfo")
 _TS_ALIASES = {"light": "dimer", "heavy": "rsirfo", "rs-i-rfo": "rsirfo",
                "hessian_dimer": "dimer"}
-_DLC = ("RS-I-RFO in delocalized internal coordinates (coord_type='dlc') "
-        "is not ported yet: ROADMAP.md queue 1 item 11")
 _SPATIAL = ("tsopt under atom-axis sharding (spatial > 1) is not ported "
             "yet: the Hessian over ranks is ROADMAP.md queue 1 item 9")
-# the engine knobs the heavy mode hands to rfo_optimize
+# the engine knobs the heavy mode hands to rfo_optimize / dlc_rfo_optimize
 _RSIRFO_ENGINE = ("roots", "thresh", "trust_radius", "trust_max",
                   "trust_min", "hessian_update", "hessian_recalc",
                   "small_eigval_thresh")
@@ -92,9 +91,7 @@ def run_tsopt(
     if mode not in TS_MODES:
         raise ValueError(f"Invalid opt_mode {opt_mode!r}; allowed: "
                          f"{sorted(TS_MODES + tuple(_TS_ALIASES))}")
-    if coord_type == "dlc":
-        if mode == "rsirfo":
-            raise NotImplementedError(_DLC)
+    if coord_type == "dlc" and mode == "dimer":
         print("[tsopt] coord_type=dlc applies to the rsirfo mode only; "
               "dimer runs Cartesian")
         coord_type = "cart"
@@ -142,11 +139,18 @@ def run_tsopt(
         def hess_fn(xp):
             return calc.get_hessian(calc.unpad(xp).reshape(-1))["hessian"]
 
-        r = rfo_optimize(calc.au_energy_force_fn(), x0,
-                         calc.system.free_mask, calc.n_atoms, hessian0=H0,
-                         mode="ts", max_cycles=max_cycles, hessian_fn=hess_fn,
-                         **{k: v for k, v in kw.items()
-                            if k in _RSIRFO_ENGINE})
+        eng_kw = {k: v for k, v in kw.items() if k in _RSIRFO_ENGINE}
+        if coord_type == "dlc":
+            r = dlc_rfo_optimize(calc.au_energy_force_fn(), x0,
+                                 struct.numbers, calc.n_atoms,
+                                 freeze=freeze, hessian0=H0, mode="ts",
+                                 max_cycles=max_cycles, hessian_fn=hess_fn,
+                                 **eng_kw)
+        else:
+            r = rfo_optimize(calc.au_energy_force_fn(), x0,
+                             calc.system.free_mask, calc.n_atoms,
+                             hessian0=H0, mode="ts", max_cycles=max_cycles,
+                             hessian_fn=hess_fn, **eng_kw)
         coords, e, conv, cycles = calc.unpad(r.x), r.e, r.converged, r.cycles
         H = calc.get_hessian(coords.reshape(-1))["hessian"]
         vib = frequencies_and_modes(H, struct.numbers, coords, freeze)

@@ -7,9 +7,12 @@
   preoptimization: the same HEI, convergence and force calls, energies
   to 1e-9 Hartree, and the calculator's count equal to the string's (the
   port's batched closure counts the images; the workflow adds nothing);
-- the refusals (DMF, ``spatial > 1``) and the ``path-opt`` CLI on the
-  CPU with ``--calc-mode morse``, writing ``final_geometries.trj`` and
-  ``hei.xyz``."""
+- DMF (``mep_mode="dmf"``) through ``run_mep_between`` and
+  ``run_path_opt`` against JAX's: images to 1e-8 Bohr, energies to 1e-10
+  Hartree, the same HEI; the calculator counting every image evaluated;
+- the refusal of ``spatial > 1`` and the ``path-opt`` CLI on the CPU with
+  ``--calc-mode morse``, GSM and DMF (``--args-yaml``'s ``dmf:``
+  section), writing ``final_geometries.trj`` and ``hei.xyz``."""
 
 import os
 import subprocess
@@ -117,11 +120,37 @@ def test_run_mep_between_counts_once_and_refusals(tmp_path):
     res = run_mep_between(A, B, calc, gs_kw={"max_nodes": 4, "climb": False},
                           stopt_kw={"max_cycles": 20}, verbose=False)
     assert calc.force_calls == res.force_calls == (res.cycles + 1) * 6
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_mep_between(A, B, calc, mep_mode="dmf")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_path_opt(paths, charge=0, mep_mode="dmf", calc_mode="morse",
-                     device="cpu")
+    # DMF: one batch of the 7 images a step and the final energies
+    from pdb2reaction_tpu.workflows.path_opt import \
+        run_mep_between as j_mep
+    from pdb2reaction_tpu.workflows import common as j_common
+    jA, jB = (j_common.load_structure(p) for p in paths)
+    for st in (jA, jB):
+        st.freeze = [0, 2]
+    j_align.align_sequence_inplace([jA, jB])
+    jcalc = j_common.make_calculator(jA, calc_mode="morse",
+                                     freeze_atoms=[0, 2])
+    dkw = {"n_images": 7, "max_cycles": 30}
+    n0 = calc.force_calls
+    rd = run_mep_between(A, B, calc, mep_mode="dmf", dmf_kw=dkw,
+                         verbose=False)
+    rj = j_mep(jA, jB, jcalc, mep_mode="dmf", dmf_kw=dkw)
+    assert calc.force_calls - n0 == rd.force_calls == 31 * 7
+    assert rd.hei_idx == rj.hei_idx and rd.cycles == rj.cycles == 30
+    assert np.abs(rd.images - np.asarray(rj.images)).max() <= 1e-8
+    assert np.abs(rd.energies - rj.energies).max() <= 1e-10
+    kw = dict(charge=0, mep_mode="dmf", calc_mode="morse",
+              freeze_atoms=[0, 2], preopt=False, n_images=7, verbose=False)
+    rt = run_path_opt(paths, device="cpu", out_dir=tmp_path / "t", **kw)
+    rj = j_run(paths, out_dir=tmp_path / "j", **kw)
+    assert rt["hei_idx"] == rj["hei_idx"]
+    assert len(rt["images_bohr"]) == len(rj["images_bohr"]) == 7
+    assert np.abs(rt["energies"] - rj["energies"]).max() <= 1e-10
+    assert max(np.abs(a - b).max() for a, b in zip(
+        rt["images_bohr"], rj["images_bohr"])) <= 1e-8
+    assert rt["force_calls"] == rt["mep_force_calls"] == 301 * 7
+    for f in ("final_geometries.trj", "hei.xyz"):
+        assert (tmp_path / "t" / f).exists() and (tmp_path / "j" / f).exists()
     # atom-axis sharding is refused before anything runs (the climbing
     # image's HVPs over ranks are item 9)
     for mode in ("morse", "uma"):
@@ -168,12 +197,27 @@ def test_path_opt_cli_writes_outputs(tmp_path):
     assert len(io_xyz.read_xyz_frames(out / "final_geometries.trj")) == 8
     assert (out / "hei.xyz").exists()
     assert "[path-opt] HEI" in r.stdout
-    bad = subprocess.run(
+    # DMF, its keys from the dmf: section of --args-yaml (max_cycles is
+    # then DMF's), against the JAX library on the same settings
+    y = tmp_path / "dmf.yaml"
+    y.write_text("dmf:\n  n_images: 8\n  max_cycles: 12\n")
+    dmf = subprocess.run(
         [sys.executable, "-m", "pdb2reaction_tpu_torch", "path-opt",
          "-i", str(paths[0]), "-i", str(paths[1]), "--mep-mode", "dmf",
-         "--calc-mode", "morse", "--device", "cpu"], cwd=tmp_path,
-        env=env, capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "item 11" in bad.stderr
+         "--calc-mode", "morse", "--device", "cpu", "-q", "0",
+         "--freeze-atoms", "0,2", "--args-yaml", str(y), "--out-dir",
+         "dmf"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert dmf.returncode in (0, 3), dmf.stderr
+    assert "12 cycles, 104 DMF force calls" in dmf.stdout
+    trj = io_xyz.read_xyz_frames(tmp_path / "dmf" / "final_geometries.trj")
+    assert len(trj) == 8 and (tmp_path / "dmf" / "hei.xyz").exists()
+    rj = j_run(paths, charge=0, mep_mode="dmf", calc_mode="morse",
+               freeze_atoms=[0, 2], preopt=False, verbose=False,
+               dmf_kw={"n_images": 8, "max_cycles": 12},
+               out_dir=tmp_path / "j")
+    E = [io_xyz.parse_energy_comment(f.comment) for f in trj]
+    np.testing.assert_allclose(E, rj["energies"], rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize("flags,said", [

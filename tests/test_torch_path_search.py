@@ -20,6 +20,8 @@ the CLI) against the JAX package's:
   carries the full atom count, and its frames are the JAX package's
   ``merge_pocket_into_full`` of the pocket frames over the blended
   templates;
+- DMF segments (``mep_mode="dmf"`` and the DMF keys) through the CLI
+  and ``run_path_search`` against JAX's;
 - the refusals of what is not ported, each naming its ROADMAP item,
   through the CLI and the library, before any output is written."""
 
@@ -132,18 +134,18 @@ def test_trj_energies_and_profile_match_jax(tmp_path):
             (tmp_path / f"jax_{ref}.csv").read_text()
 
 
-def _same(a, b, where=""):
-    """Equal YAML documents: floats within 1e-8, all else exactly."""
+def _same(a, b, where="", tol=1e-8):
+    """Equal YAML documents: floats within ``tol``, all else exactly."""
     if isinstance(a, dict):
         assert isinstance(b, dict) and set(a) == set(b), (where, a, b)
         for k in a:
-            _same(a[k], b[k], f"{where}.{k}")
+            _same(a[k], b[k], f"{where}.{k}", tol)
     elif isinstance(a, list):
         assert isinstance(b, list) and len(a) == len(b), where
         for i, (x, y) in enumerate(zip(a, b)):
-            _same(x, y, f"{where}[{i}]")
+            _same(x, y, f"{where}[{i}]", tol)
     elif isinstance(a, float) or isinstance(b, float):
-        assert abs(a - b) <= 1e-8, (where, a, b)
+        assert abs(a - b) <= tol, (where, a, b)
     else:
         assert a == b, (where, a, b)
 
@@ -191,7 +193,6 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
 
 @pytest.mark.parametrize("flags,said", [
     (["--dump", "True"], "--dump"),
-    (["--mep-mode", "dmf"], "item 11"),
     (["--spatial", "2"], "item 9"),
     (["--gsm-loop", "device"], "left out on purpose"),
 ])
@@ -206,11 +207,68 @@ def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
     assert not out.exists()
 
 
+def test_path_search_cli_dmf(tmp_path):
+    """``--mep-mode dmf`` through the CLI: the output tree, and the same
+    segment as the JAX package's run_path_search on the same settings."""
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    out = tmp_path / "ps"
+    assert _cli(["path-search", "-i", str(a), "-i", str(b), "--mep-mode",
+                 "dmf", "--max-depth", "0", "--preopt", "False",
+                 "--out-dir", str(out)] + COMMON) == 0
+    for f in ("mep.trj", "summary.yaml", "summary.log",
+              "seg_000_mep/final_geometries.trj", "seg_000_mep/hei.xyz"):
+        assert (out / f).exists(), f
+    rj = j_ps.run_path_search([a, b], charge=0, calc_mode="morse",
+                              freeze_atoms=[0, 2], mep_mode="dmf",
+                              search_kw={"max_depth": 0, "preopt": False},
+                              out_dir=tmp_path / "jax", verbose=False)
+    # 300 heavy-ball steps and the flanking L-BFGS runs: the two
+    # packages' roundings part by a few 1e-9 Hartree, and the summary's
+    # kcal/mol values are rounded to 1e-6
+    _same(yaml.safe_load((out / "summary.yaml").read_text()),
+          yaml.safe_load((tmp_path / "jax" / "summary.yaml").read_text()),
+          tol=1e-5)
+    frames = io_xyz.read_xyz_frames(out / "seg_000_mep" /
+                                    "final_geometries.trj")
+    assert len(frames) == len(rj["segments"][0].images_bohr) == 12
+
+
+@pytest.mark.parametrize("kw,n_img", [
+    ({"mep_mode": "DMF", "n_images": 7}, 7),
+    ({"mep_mode": "dmf", "n_images": 7}, 7),
+    ({"beta_ev": 5.0}, 9),
+    ({"mep_mode": "dmf", "dmf_kw": {"n_images": 8}}, 8),
+])
+def test_run_path_search_dmf_matches_jax(tmp_path, kw, n_img):
+    """DMF segments and the DMF keys, flat or in ``dmf_kw`` (with GSM they
+    route to DMF and go unused, as in the JAX package): the same segments
+    as JAX's. The port reads ``mep_mode`` in any case; the JAX package
+    runs GSM for "DMF" (its ``run_mep_between`` tests the raw string), so
+    that case is held to JAX's "dmf" run."""
+    a = _write(tmp_path, "A.xyz", H3A)
+    b = _write(tmp_path, "B.xyz", H3B)
+    base = dict(charge=0, calc_mode="morse", freeze_atoms=[0, 2],
+                search_kw={"max_depth": 0, "preopt": False},
+                gs_kw={"max_nodes": 7}, verbose=False)
+    kw = {**base, **kw}
+    rt = run_path_search([a, b], out_dir=tmp_path / "port", device="cpu",
+                         **kw)
+    if kw.get("mep_mode") == "DMF":
+        kw["mep_mode"] = "dmf"
+    rj = j_ps.run_path_search([a, b], out_dir=tmp_path / "jax", **kw)
+    sj, st = rj["segments"], rt["segments"]
+    assert len(st) == len(sj) == 1 and st[0].is_reactive
+    assert st[0].hei_idx == sj[0].hei_idx
+    assert len(st[0].images_bohr) == len(sj[0].images_bohr) == n_img
+    assert np.abs(np.subtract(st[0].energies, sj[0].energies)).max() <= 1e-9
+    assert max(np.abs(x - y).max() for x, y in
+               zip(st[0].images_bohr, sj[0].images_bohr)) <= 1e-7
+    _same(yaml.safe_load((tmp_path / "port" / "summary.yaml").read_text()),
+          yaml.safe_load((tmp_path / "jax" / "summary.yaml").read_text()))
+
+
 @pytest.mark.parametrize("kw,said", [
-    ({"mep_mode": "DMF"}, "item 11"),
-    ({"mep_mode": "dmf"}, "item 11"),
-    ({"beta_ev": 5.0}, "item 11"),
-    ({"dmf_kw": {"n_images": 8}}, "item 11"),
     ({"spatial": 2}, "item 9"),
 ])
 def test_run_path_search_refuses_unported(tmp_path, kw, said):

@@ -13,8 +13,9 @@
   and ``run_freq`` against JAX's, energies to 1e-9 Hartree, coordinates
   to 1e-7 Bohr, frequencies to 1e-6 relative;
 - the ``tsopt``, ``freq`` and ``irc`` subcommands with ``--calc-mode
-  morse --device cpu``: exit codes and outputs, and the refusals (DLC
-  RS-I-RFO, item 11; ``--spatial`` above 1, item 9) before any output."""
+  morse --device cpu``: exit codes and outputs, ``--coord-type dlc``
+  (``tsopt`` heavy and ``opt``) against the JAX workflows, and the
+  refusals (``--spatial`` above 1, item 9) before any output."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from pdb2reaction_tpu.workflows.freq import run_freq as j_run_freq
 from pdb2reaction_tpu.workflows.irc import run_irc as j_run_irc
 from pdb2reaction_tpu.workflows.tsopt import run_tsopt as j_run_tsopt
 from pdb2reaction_tpu_torch import cli
+from pdb2reaction_tpu_torch.constants import BOHR2ANG
 from pdb2reaction_tpu_torch.core import io_xyz
 from pdb2reaction_tpu_torch.core.structure import Structure
 from pdb2reaction_tpu_torch.mlip.from_jax import params_from_jax
@@ -242,12 +244,36 @@ def test_stage4_cli_morse(tmp_path):
         io_xyz.read_xyz(ts).coords[1, 0], abs=1e-9)
 
 
+@pytest.mark.parametrize("cmd,flags", [
+    ("tsopt", ["--opt-mode", "heavy", "--coord-type", "dlc"]),
+    ("opt", ["--coord-type", "dlc"]),
+])
+def test_stage4_cli_dlc_matches_jax(tmp_path, cmd, flags):
+    """``tsopt --opt-mode heavy --coord-type dlc`` (RS-I-RFO in
+    constrained DLC) and ``opt --coord-type dlc`` (DLC L-BFGS, whatever
+    the mode) on the H3 TS guess: exit 0 and JAX's final geometry."""
+    from pdb2reaction_tpu.workflows.opt import run_opt as j_run_opt
+    p = _write(tmp_path, "ts.xyz", H3_TS)
+    out = tmp_path / "out"
+    assert _cli([cmd, "-i", str(p), "--out-dir", str(out), "--freeze-atoms",
+                 "0,2"] + COMMON + flags) == 0
+    run = j_run_tsopt if cmd == "tsopt" else j_run_opt
+    rj = run(p, coord_type="dlc", out_dir=tmp_path / "j",
+             **({"opt_mode": "heavy"} if cmd == "tsopt" else {}), **MORSE)
+    xt = io_xyz.read_xyz(out / "final_geometry.xyz").coords
+    assert np.abs(xt - np.asarray(rj["coords_bohr"]) * BOHR2ANG).max() \
+        <= 1e-6
+    if cmd == "tsopt":
+        assert abs(xt[1, 0] - L / 2) < 1e-3
+        assert (out / "imag_mode.trj").exists()
+    else:                       # the H3 TS guess falls into a well
+        assert abs(xt[1, 0] - L / 2) > 0.3
+
+
 @pytest.mark.parametrize("cmd,flags,said", [
-    ("tsopt", ["--opt-mode", "heavy", "--coord-type", "dlc"], "item 11"),
     ("tsopt", ["--spatial", "2"], "item 9"),
     ("freq", ["--spatial", "2"], "item 9"),
     ("irc", ["--spatial", "2"], "item 9"),
-    ("opt", ["--coord-type", "dlc"], "item 11"),
     ("opt", ["--opt-mode", "heavy", "--spatial", "2"], "item 9"),
 ])
 def test_stage4_cli_refusals(tmp_path, cmd, flags, said):
