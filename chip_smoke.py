@@ -81,7 +81,23 @@ Phases (any failure exits non-zero):
    run_opt with the same force calls on every rank; then, in the same
    group, the factory default make_uma_calculator(st, spatial=4)
    (uma-s-1p1, switched to the sharded gather layout) on the 300-atom
-   cluster against the unsharded gather mode;
+   cluster against the unsharded gather mode; then eSCN sharded in the
+   same group: escn-md (the default pallas-mega, which takes K3's
+   layout under a shard, on the source rows gathered from the
+   all-gathered features) on the 300-atom cluster (80 rows a rank) and
+   the 4096-atom system (1024 rows a rank), and escn-md-gate at 300
+   atoms, each against the unsharded pallas-full call the parent makes
+   before the ranks start (SHARD_TOL in energy and forces; there the
+   parent also holds K3 to its plain version on rank 0's first-layer
+   inputs of both escn-md cases: this rank's P/4 x 32 edges, their
+   source rows gathered from all P rows by gather_src, whose backward
+   is the source scatter over P rows; values and cotangents within
+   KERNEL_TOL), forces bit
+   for bit equal on all ranks and across two calls, K3 4 + 4 and K2
+   4 + 4 launches per rank and call and no K1 (the gate: K2 only), ms
+   per call and peak memory per rank, the collectives of one 4096-atom
+   call alone, and a 5-cycle escn-md opt on every rank, rank 0 alone
+   writing;
 12. the GSM string on phase 4's escn-md calculator, after phase 5: the
    flagship MEP (gsm_mep through au_energy_force_batch_fn, max_nodes=10,
    host loop, climb off, perpendicular RMS < 2e-2 Ha/Bohr; a warm-up,
@@ -187,7 +203,20 @@ Phases (any failure exits non-zero):
    --args-yaml (P = 304). Every run of (a)-(c) has its counts set to 0
    just before and read just after: K1 and K2 forward launches 4 x
    (force + energy calls), backward 4 x force calls, none inside a
-   Hessian; [dlc-dmf] lines.
+   Hessian; [dlc-dmf] lines;
+19. the gate and full eSCN branches and remat_blocks, on the 300-atom
+   cluster (P = 320, seed-0 weights), each path with its counts set to 0
+   just before and read just after: (a) escn-md-gate and (b) escn-s
+   (lmax = mmax = 2, C = h = 64, 2 layers): ms per get_forces over 5
+   calls, peak memory, two calls bit for bit equal, launches per force
+   call (K2 4 + 4 and 2 + 2, no edge kernel: their edge paths are plain
+   in both packages), a 10-cycle L-BFGS opt, and the 64-atom forces
+   against the CPU float64 plain path (computed by phase 18d's child
+   process after its own runs) within FORCE_TOL; (c) escn-md with
+   remat_blocks=True in pallas-mega on phase 4's weights: K1 8 + 4 and
+   K2 8 + 4 launches per force call (every forward recomputed in the
+   backward), forces bit for bit equal to phase 4's, peak memory and
+   ms both ways; [branch] lines.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -556,7 +585,7 @@ def phase_kernels(calc, cfg, quick):
                 c, calc.system, calc.params,
                 dataclasses.replace(cfg, edge_kernel=edge_kernel))
 
-    edge_args, ffn_args = first_layer("pallas-mega")
+    edge_args, ffn_args, _ = first_layer("pallas-mega")
     rows = {}
     nl0, nls, U, G = ek._dims(cfg)
     H, C = cfg.hidden_channels, cfg.sphere_channels
@@ -589,7 +618,7 @@ def phase_kernels(calc, cfg, quick):
         f"{TF32_PEAK / 3 / 1e12:.0f})")
 
     # ---- K3: per-edge source and target rows of "pallas-full" -------------
-    args3, _ = first_layer("pallas-full")
+    args3, _, _ = first_layer("pallas-full")
     _, xs_t, xt_t, es, Dp, Dpe, _, _ = args3
     res = edge_parity("K3", ek.fused_edge_block, ek.fused_edge_block_plain,
                       args3, (1, 2, 3, 4, 5), ("xs", "xt", "es", "Dp", "Dpe"),
@@ -601,7 +630,7 @@ def phase_kernels(calc, cfg, quick):
     del res, g, y_p, gp, args3, xs_t, xt_t
 
     # ---- K4: rotated pair rows of "pallas" --------------------------------
-    args4, _ = first_layer("pallas")
+    args4, _, _ = first_layer("pallas")
     _, pr, es, _, _ = args4
     res = edge_parity("K4", ek.fused_edge_chain, ek.fused_edge_chain_plain,
                       args4, (1, 2), ("pr", "es"), reps, gen)
@@ -735,7 +764,7 @@ def phase_reference(seed):
     return st, w, cpu
 
 
-def phase_opt(calc, cycles):
+def phase_opt(calc, cycles, name="escn-md"):
     from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
     from pdb2reaction_tpu_torch.workflows.opt import run_opt
     layout = calc.cfg.edge_kernel
@@ -748,10 +777,10 @@ def phase_opt(calc, cycles):
     write_xyz(path, calc.structure)
     e0 = calc.get_energy(calc.structure.coords_bohr)["energy"]
     t0 = time.perf_counter()
-    res = run_opt(path, charge=0, spin=1, model="escn-md", device="cuda",
+    res = run_opt(path, charge=0, spin=1, model=name, device="cuda",
                   max_cycles=cycles, out_dir=out, calc=calc, verbose=False)
     wall = time.perf_counter() - t0
-    log(f"[opt] escn-md {layout} L-BFGS, 300 atoms: E {e0:.8f} -> "
+    log(f"[opt] {name} {layout} L-BFGS, 300 atoms: E {e0:.8f} -> "
         f"{res['energy']:.8f} Ha in {res['cycles']} cycles, "
         f"{res['force_calls']} force calls, {wall:.2f} s wall "
         f"({wall / max(res['force_calls'], 1) * 1e3:.1f} ms per force call)")
@@ -2527,16 +2556,20 @@ def p18_cpu_reference(out_path):
     res["seconds"] = time.perf_counter() - t0
     res["force_calls"] = cpu.force_calls
     np.savez(out_path, **res)
+    # phase 19's 64-atom references, after phase 18d's own
+    p19_cpu_reference(os.path.join(os.path.dirname(out_path),
+                                   "p19_cpu.npz"))
 
 
 def start_p18_cpu():
-    """Start phase 18d's CPU reference in a child process; it is killed
-    at exit if still running."""
+    """Start phase 18d's CPU reference (then phase 19's) in a child
+    process; it is killed at exit if still running."""
     import atexit
     out = os.path.join(HERE, "result_smoke", "p18_cpu.npz")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    if os.path.exists(out):
-        os.remove(out)
+    for f in (out, os.path.join(os.path.dirname(out), "p19_cpu.npz")):
+        if os.path.exists(f):
+            os.remove(f)
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
                              "--p18-cpu", out], cwd=HERE,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2835,6 +2868,186 @@ def phase_dlc_dmf(calc, st, search, bond, ref64, cpu_ref, smi_line):
         f"{h_all * 1e3:.1f} ms unconstrained, {h_act * 1e3:.1f} ms on the "
         f"active region; peak memory over (a)-(c) {peak:.2f} GiB; phase 18 "
         f"wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the gate and full branches and remat_blocks on the card
+# ---------------------------------------------------------------------------
+
+P19_MODELS = ("escn-md-gate", "escn-s")
+P19_CYCLES = 10          # 19a / 19b L-BFGS cycles
+# launches per force call on each path: (a) gate and (b) full run their
+# edge paths plain (no edge kernel in either package) and K2 each layer;
+# (c) remat launches every forward twice a layer
+P19_WANT = {
+    "escn-md-gate": {"fused_node_ffn_fwd": 4, "fused_node_ffn_bwd": 4},
+    "escn-s": {"fused_node_ffn_fwd": 2, "fused_node_ffn_bwd": 2},
+    "escn-md remat": {"fused_edge_mega_fwd": 8, "fused_edge_mega_bwd": 4,
+                      "fused_node_ffn_fwd": 8, "fused_node_ffn_bwd": 4},
+}
+
+
+def p19_weights(model, device="cpu"):
+    from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+                                                  init_escn_params)
+    return init_escn_params(ESCN_CONFIGS[model], seed=0, device=device)
+
+
+def p19_cpu_reference(out_path):
+    """19a / 19b's CPU float64 plain-path forces on phase 5's 64-atom
+    cluster with each model's seed-0 weights; run by phase 18d's child
+    process after its own runs."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    st = Structure(*cluster(64, seed=1))
+    res = {}
+    for model in P19_MODELS:
+        cpu = make_uma_calculator(st, model=model, device="cpu",
+                                  dtype=torch.float64,
+                                  params=p19_weights(model))
+        t0 = time.perf_counter()
+        r = cpu.get_forces(st.coords_bohr.reshape(-1))
+        res[f"{model}/forces"] = r["forces"]
+        res[f"{model}/energy"] = r["energy"]
+        res[f"{model}/seconds"] = time.perf_counter() - t0
+    np.savez(out_path, **res)
+
+
+def branch_force(tag, calc, reps):
+    """One phase-19 force path: counts set to 0 just before and read just
+    after; ms per get_forces over ``reps`` calls after a warm-up, peak
+    memory, a further call bit for bit equal, launches per force call.
+    Returns (forces, ms, peak GiB, launches per call, launches)."""
+    import torch
+    cb = calc.structure.coords_bohr.reshape(-1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    zero_escn_counts()
+    calc.force_calls = 0
+    res = calc.get_forces(cb)                # first call (warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = calc.get_forces(cb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    f = res["forces"]
+    same = np.array_equal(calc.get_forces(cb)["forces"], f)
+    launches = escn_counts()                 # read just after the path
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_call = {k: v / calc.force_calls for k, v in launches.items() if v}
+    log(f"[branch] {tag}, {calc.n_atoms} atoms (P = {calc.n_pad}): "
+        f"{ms:.2f} ms per get_forces over {reps} calls, peak memory "
+        f"{peak:.2f} GiB ({peak - base:.2f} above the {base:.2f} GiB held "
+        f"before), E = {res['energy']:.8f} Ha; next call bit for bit "
+        f"equal: {same}; launches per force call {per_call}")
+    if f.shape != (3 * calc.n_atoms,) or not np.all(np.isfinite(f)) \
+            or not np.isfinite(res["energy"]):
+        fail(f"{tag}: non-finite or mis-shaped forces")
+    if not same:
+        fail(f"{tag}: two force calls gave different forces")
+    return f, ms, peak, per_call, launches
+
+
+def launch_identity(launches, want, force_calls, energy_calls):
+    """The launches of a run of ``force_calls`` force and ``energy_calls``
+    energy calls on a path with ``want`` launches per force call: each
+    forward once more per energy call, nothing else launched."""
+    return all(launches[k] == v * (force_calls + (energy_calls if
+                                                  k.endswith("_fwd") else 0))
+               for k, v in want.items()) \
+        and not any(launches[k] for k in launches if k not in want)
+
+
+def phase_branches(calc, st, f_mega, ms_force, smi_line):
+    """Phase 19: (a) escn-md-gate and (b) escn-s on the 300-atom cluster
+    (P = 320, seed-0 weights), their force calls, a 10-cycle L-BFGS opt
+    each and their 64-atom forces against phase 18d's CPU float64 child;
+    (c) escn-md with remat_blocks=True in pallas-mega on phase 4's
+    weights, bit for bit phase 4's forces. Returns the launches of the
+    three paths."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.escn import escn_energy_fn
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    t_phase = time.perf_counter()
+    log(f"[branch] {smi_line}; phase 19 on the 300-atom cluster, seed-0 "
+        "weights")
+    npz = os.path.join(HERE, "result_smoke", "p19_cpu.npz")
+    if not os.path.exists(npz):
+        fail("phase 19's CPU float64 references are missing (phase 18d's "
+             "child process)")
+    ref = np.load(npz)
+    st64 = Structure(*cluster(64, seed=1))
+    total = {}
+    for tag, model in zip("ab", P19_MODELS):
+        c = make_uma_calculator(st, model=model, device="cuda",
+                                params=p19_weights(model), pad_multiple=64,
+                                weights_source="surrogate-seeded")
+        _, ms, _, per_call, launches = branch_force(f"({tag}) {model}", c,
+                                                    reps=5)
+        c.force_calls = c.energy_calls = 0
+        zero_escn_counts()                   # just before the opt
+        phase_opt(c, P19_CYCLES, name=model)
+        opt_launches = escn_counts()         # read just after the opt
+        want = P19_WANT[model]
+        if per_call != want:
+            fail(f"{model}: launches per force call {per_call}, want {want}")
+        if not launch_identity(opt_launches, want, c.force_calls,
+                               c.energy_calls):
+            fail(f"{model} opt: launches {opt_launches} for "
+                 f"{c.force_calls} force and {c.energy_calls} energy calls, "
+                 f"want {want} a force call, forwards also an energy call")
+        for k in set(launches) | set(opt_launches):
+            total[k] = total.get(k, 0) + launches[k] + opt_launches[k]
+        del c
+        gpu = make_uma_calculator(st64, model=model, device="cuda",
+                                  params=p19_weights(model))
+        rg = gpu.get_forces(st64.coords_bohr.reshape(-1))
+        fr = ref[f"{model}/forces"]
+        err = float(np.abs(rg["forces"] - fr).max() / np.abs(fr).max())
+        de = abs(rg["energy"] - float(ref[f"{model}/energy"]))
+        log(f"[branch] ({tag}) {model} 64 atoms, card f32 vs the CPU f64 "
+            f"plain path (child process, "
+            f"{float(ref[f'{model}/seconds']):.1f} s): max|dF|/max|F| = "
+            f"{err:.3e} (tol {FORCE_TOL}), |dE| = {de:.3e} Ha; its 300-atom "
+            f"force call {ms:.2f} ms, {ms / ms_force:.2f}x phase 4's "
+            f"{ms_force:.2f} ms")
+        if not err <= FORCE_TOL:
+            fail(f"{model} card forces disagree with the CPU float64 plain "
+                 "path")
+        del gpu
+        torch.cuda.empty_cache()
+    # (c) remat_blocks on phase 4's calculator and weights
+    cfg_r = dataclasses.replace(calc.cfg, remat_blocks=True)
+    calc_r = make_uma_calculator(st, model="escn-md", device="cuda",
+                                 params=calc.params, pad_multiple=64,
+                                 weights_source="surrogate-seeded")
+    calc_r.energy_fn, calc_r.cfg = escn_energy_fn(cfg_r), cfg_r
+    f0, ms0, peak0, _, _ = branch_force("(c) escn-md pallas-mega, remat off",
+                                        calc, reps=5)
+    f_r, ms_r, peak_r, per_call, launches = branch_force(
+        "(c) escn-md pallas-mega, remat_blocks=True", calc_r, reps=5)
+    same = np.array_equal(f_r, f_mega) and np.array_equal(f_r, f0)
+    log(f"[branch] (c) remat_blocks: forces bit for bit phase 4's: {same}; "
+        f"{ms_r:.2f} ms against {ms0:.2f} ms per get_forces "
+        f"({ms_r / ms0:.2f}x), peak memory {peak_r:.2f} GiB against "
+        f"{peak0:.2f} GiB; phase 19 wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not same:
+        fail("remat_blocks changed the forces")
+    if per_call != P19_WANT["escn-md remat"]:
+        fail(f"remat launches per force call {per_call}, want "
+             f"{P19_WANT['escn-md remat']}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del calc_r
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3508,7 +3721,12 @@ def spatial_rank(group, out_dir):
     err_g = float(np.abs(r1["forces"] - r0["forces"]).max()
                   / np.abs(r0["forces"]).max())
     err_ge = abs(r1["energy"] - r0["energy"]) / abs(r0["energy"])
-    return {"rank": group.rank, "device": str(group.device),
+    factory = [c1.cfg.mp_mode, c1.n_pad, err_g,
+               abs(r1["energy"] - r0["energy"]), err_ge]
+    del c0, c1
+    torch.cuda.empty_cache()
+    escn = spatial_escn(group, out_dir)
+    return {"escn": escn, "rank": group.rank, "device": str(group.device),
             "backend": group.backend, "energy": res["energy"], "ms": ms,
             "comm_ms": comm_ms,
             "peak_gib": peak, "per_call": per_call,
@@ -3518,8 +3736,207 @@ def spatial_rank(group, out_dir):
                                       ro["cycles"], opt_wall,
                                       [str(q) for q in ro["outputs"]]],
             "launches": launches, "e0": res["energy"],
-            "factory": [c1.cfg.mp_mode, c1.n_pad, err_g,
-                        abs(r1["energy"] - r0["energy"]), err_ge]}
+            "factory": factory}
+
+
+# the sharded eSCN cases of phase 11: (tag, model, atoms, padding multiple)
+SHARD_ESCN = (("escn-md 300", "escn-md", 300, 64),
+              ("escn-md 4096", "escn-md", 4096, 8),
+              ("escn-md-gate 300", "escn-md-gate", 300, 64))
+# launches per rank and force call on the sharded eSCN paths: K3 (the
+# default pallas-mega under a shard) and K2 four layers each; the gate's
+# edge path is plain
+SHARD_ESCN_WANT = {
+    "escn-md": {"fused_edge_block_fwd": 4, "fused_edge_block_bwd": 4,
+                "fused_node_ffn_fwd": 4, "fused_node_ffn_bwd": 4},
+    "escn-md-gate": {"fused_node_ffn_fwd": 4, "fused_node_ffn_bwd": 4},
+}
+
+
+class RankView:
+    """Rank ``rank`` of RANKS in one process, for a kernel check at the
+    sharded path's shapes: the coordinates come in replicated already,
+    and the all-gather of the first layer's normalised features returns
+    ``rows`` [P, M*C], the unsharded call's (this rank's own slab held
+    to them)."""
+    size = RANKS
+
+    def __init__(self, rank, rows):
+        self.rank, self.rows = rank, rows
+
+    @staticmethod
+    def replicate_in(x):
+        return x
+
+    def all_gather_rows(self, t):
+        n = t.shape[0]
+        mine = self.rows[self.rank * n:(self.rank + 1) * n]
+        if rel_err(t.reshape(n, -1), mine) > KERNEL_TOL:
+            fail("a rank's first-layer rows differ from the unsharded "
+                 "call's")
+        return self.rows.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def k3_gathered(cfg, rows, src, live, xt_t, es, Dp, Dpe, w, tabs):
+    """K3 as the sharded path calls it: source rows gathered from the
+    rows of all ranks by ``gather_src`` (its backward is the
+    deterministic source scatter over all P rows)."""
+    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
+    return ek.fused_edge_block(cfg, ek.gather_src(rows, src, live).T, xt_t,
+                               es, Dp, Dpe, w, tabs)
+
+
+def k3_gathered_plain(cfg, rows, src, live, xt_t, es, Dp, Dpe, w, tabs):
+    """Plain version of ``k3_gathered``: ``rows[src]`` and plain K3."""
+    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
+    return ek.fused_edge_block_plain(cfg, rows[src].T, xt_t, es, Dp, Dpe,
+                                     w, tabs)
+
+
+def shard_k3_parity(tag, calc):
+    """K3 against its plain version on rank 0's first-layer inputs of
+    the sharded path (P/RANKS x K edges, sources gathered from all P
+    rows), built from the unsharded calculator ``calc``: values and the
+    cotangents of the rows, targets, edge scalars and rotations. Returns
+    (abs err fwd, abs err bwd)."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.mlip.escn import first_layer_kernel_args
+    c = calc._to_pad_ang(calc.structure.coords_bohr)
+    cfg = dataclasses.replace(calc.cfg, edge_kernel="pallas-mega")
+    with torch.no_grad():
+        _, _, (rows, _, _) = first_layer_kernel_args(c, calc.system,
+                                                     calc.params, cfg)
+        args, _, (rows, src, live) = first_layer_kernel_args(
+            c, calc.system, calc.params, cfg, shard=RankView(0, rows))
+    _, xs_t, xt_t, es, Dp, Dpe, w, tabs = args
+    gen = torch.Generator(device=c.device).manual_seed(0)
+    res = edge_parity(f"K3-shard {tag}", k3_gathered, k3_gathered_plain,
+                      (cfg, rows, src, live, xt_t, es, Dp, Dpe, w, tabs),
+                      (1, 4, 5, 6, 7), ("rows", "xt", "es", "Dp", "Dpe"),
+                      3, gen)
+    log(f"[K3-shard] {tag} atoms, rank 0 of {RANKS}: {xs_t.shape[1]} edges "
+        f"over {rows.shape[0]} source rows; abs err fwd {res[0]:.3e}, bwd "
+        f"{res[1]:.3e}; gather + K3 {res[2]:.3f} ms (plain {res[3]:.3f} "
+        f"ms), backward {res[4]:.3f} ms (plain {res[5]:.3f} ms)")
+    return res[0], res[1]
+
+
+def shard_escn_refs(out):
+    """The unsharded "pallas-full" call of each sharded eSCN case, made
+    in the parent before the ranks start; its energy and forces go to
+    ``out``. For escn-md, K3 at rank 0's sharded shapes against its
+    plain version (``shard_k3_parity``) too; returns (the references,
+    K3's largest abs errors fwd and bwd there)."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    refs = {}
+    k3_err = [0.0, 0.0]
+    for tag, model, n, pad in SHARD_ESCN:
+        st = Structure(*cluster(n, seed=0))
+        calc = make_uma_calculator(st, model=model, device="cuda",
+                                   params=p19_weights(model),
+                                   pad_multiple=pad, edge_kernel="pallas-full",
+                                   weights_source="surrogate-seeded")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = calc.get_forces(st.coords_bohr.reshape(-1))
+        torch.cuda.synchronize()
+        refs[tag] = (r["energy"], r["forces"],
+                     (time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated() / 2 ** 30)
+        np.save(os.path.join(out, f"ref {tag}.npy"), r["forces"])
+        if model == "escn-md":
+            k3_err = [max(a, b) for a, b in zip(k3_err,
+                                                shard_k3_parity(tag, calc))]
+        del calc
+        torch.cuda.empty_cache()
+    return refs, k3_err
+
+
+def spatial_escn(group, out_dir):
+    """This rank's eSCN part of the sharded phase: each SHARD_ESCN case
+    sharded over the group (ms per call, peak memory, launches per call,
+    a repeat), the collectives of one escn-md call alone, and a 5-cycle
+    opt of escn-md at 300 atoms."""
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.opt import run_opt
+    out = {}
+    for tag, model, n, pad in SHARD_ESCN:
+        st = Structure(*cluster(n, seed=0))
+        calc = make_uma_calculator(st, model=model, spatial=RANKS,
+                                   params=p19_weights(model),
+                                   pad_multiple=pad,
+                                   weights_source="surrogate-seeded")
+        cb = st.coords_bohr.reshape(-1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_escn_counts()                   # just before the path
+        calc.force_calls = 0
+        res = calc.get_forces(cb)            # first call (warm-up)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            res = calc.get_forces(cb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        again = calc.get_forces(cb)["forces"]
+        launches = escn_counts()             # just after
+        np.save(os.path.join(out_dir, f"{tag} {group.rank}.npy"),
+                res["forces"])
+        out[tag] = {"energy": res["energy"], "ms": ms,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "repeat": bool(np.array_equal(again, res["forces"])),
+                    "per_call": {k: v / calc.force_calls
+                                 for k, v in launches.items() if v},
+                    "launches": launches, "n_pad": calc.n_pad}
+        if tag == "escn-md 4096":
+            # the collectives of one call alone, as the model calls them:
+            # 4 all-gathers of this rank's [P/4, M*C] rows, each also
+            # backward (the reduce-scatter built from an all-gather)
+            M = (calc.cfg.lmax + 1) ** 2
+            t = torch.randn(calc.n_pad // RANKS,
+                            M * calc.cfg.sphere_channels,
+                            device=group.device, requires_grad=True)
+            g = torch.randn(calc.n_pad, t.shape[1], device=group.device)
+            for _ in range(2):               # a warm-up round first
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    torch.autograd.grad(group.all_gather_rows(t), [t], g)
+                torch.cuda.synchronize()
+            out["comm_ms"] = (time.perf_counter() - t0) * 1e3
+        del calc
+        torch.cuda.empty_cache()
+    # a 5-cycle sharded opt of escn-md at 300 atoms: every rank the same
+    # loop, rank 0 alone writes
+    st = Structure(*cluster(300, seed=0))
+    calc = make_uma_calculator(st, model="escn-md", spatial=RANKS,
+                               params=p19_weights("escn-md"),
+                               pad_multiple=64,
+                               weights_source="surrogate-seeded")
+    path = os.path.join(out_dir, "cluster300.xyz")
+    if group.rank == 0:
+        write_xyz(path, st)
+    torch.distributed.barrier()
+    e0 = calc.get_energy(st.coords_bohr)["energy"]
+    calc.force_calls = calc.energy_calls = 0
+    zero_escn_counts()                       # just before the opt
+    t0 = time.perf_counter()
+    ro = run_opt(path, charge=0, spin=1, model="escn-md", calc=calc,
+                 max_cycles=5, out_dir=os.path.join(out_dir, "escn_opt"),
+                 verbose=False)
+    out["opt"] = [e0, ro["energy"], calc.force_calls, ro["cycles"],
+                  time.perf_counter() - t0,
+                  [str(q) for q in ro["outputs"]], escn_counts(),
+                  calc.energy_calls]
+    return out
 
 
 def spatial_worker(rank, port, out_dir):
@@ -3542,10 +3959,13 @@ def spatial_worker(rank, port, out_dir):
         raise
 
 
-def phase_spatial(ref, k6_ms):
+def phase_spatial(ref, k6_ms, rows):
     """Four ranks of the sharded path on the card; any rank that fails
     fails the run. ``k6_ms``: K6's ms per launch from phase 10, alone on
-    the card. Returns the K6 launches on the path, over all ranks."""
+    the card. K3's rows in ``rows`` take the larger error of phase 3's
+    check and the check at the sharded shapes. Returns the K6 launches
+    on the path and the K3 and K2 launches of its eSCN part, over all
+    ranks."""
     import shutil
     import socket
 
@@ -3558,6 +3978,10 @@ def phase_spatial(ref, k6_ms):
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
+    escn_refs, k3_err = shard_escn_refs(out)
+    for k, e in zip(("fused_edge_block_fwd", "fused_edge_block_bwd"),
+                    k3_err):
+        rows[k] = (max(rows[k][0], e),) + tuple(rows[k][1:])
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=spatial_worker, args=(r, port, out))
@@ -3647,7 +4071,75 @@ def phase_spatial(ref, k6_ms):
                                         for r in ranks)]
     if never:
         fail(f"K6 kernels never launched on the sharded path: {never}")
-    return {k: sum(r["launches"][k] for r in ranks) for k in K6_NAMES}
+    total = {k: sum(r["launches"][k] for r in ranks) for k in K6_NAMES}
+    for k, v in spatial_escn_checks(out, [r["escn"] for r in ranks],
+                                    escn_refs).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def spatial_escn_checks(out, ranks, refs):
+    """The sharded eSCN cases of every rank against the parent's
+    unsharded pallas-full calls; returns their launches over all
+    ranks."""
+    total = {}
+    for tag, model, n, _ in SHARD_ESCN:
+        e_ref, f_ref, ms_ref, peak_ref = refs[tag]
+        forces = [np.load(os.path.join(out, f"{tag} {r}.npy"))
+                  for r in range(RANKS)]
+        err = float(np.abs(forces[0] - f_ref).max() / np.abs(f_ref).max())
+        err_e = abs(ranks[0][tag]["energy"] - e_ref) / abs(e_ref)
+        same = all(np.array_equal(forces[0], f) for f in forces) \
+            and len({r[tag]["energy"] for r in ranks}) == 1
+        repeat = all(r[tag]["repeat"] for r in ranks)
+        log(f"[spatial-escn] {tag} atoms, {RANKS} ranks on one card "
+            f"(P = {ranks[0][tag]['n_pad']}, "
+            f"{ranks[0][tag]['n_pad'] // RANKS} rows a rank): against the "
+            f"unsharded pallas-full call ({ms_ref:.1f} ms with its first-call "
+            f"set-up, peak {peak_ref:.2f} GiB) max|dF|/max|F| = {err:.3e}, "
+            f"|dE|/|E| = {err_e:.3e} (tol {SHARD_TOL}); forces bit for bit "
+            f"equal on all ranks: {same}; two calls bit for bit equal on "
+            f"every rank: {repeat}")
+        for i, r in enumerate(ranks):
+            log(f"[spatial-escn] {tag} rank {i}: "
+                f"{r[tag]['ms']:.1f} ms per get_forces (four ranks "
+                f"time-sharing one card), peak memory "
+                f"{r[tag]['peak_gib']:.2f} GiB; launches per force call "
+                f"{r[tag]['per_call']}")
+        if not (err <= SHARD_TOL and err_e <= SHARD_TOL and same and repeat):
+            fail(f"sharded {tag}: energy or forces disagree with the "
+                 "unsharded call, between ranks or between calls")
+        want = SHARD_ESCN_WANT[model]
+        bad = [r[tag]["per_call"] for r in ranks if r[tag]["per_call"] != want]
+        if bad:
+            fail(f"sharded {tag}: launches per force call {bad[0]}, want "
+                 f"{want} (and no K1)")
+        for r in ranks:
+            for k, v in r[tag]["launches"].items():
+                total[k] = total.get(k, 0) + v
+    log(f"[spatial-escn] the collectives of one escn-md 4096-atom call "
+        f"alone (4 all-gathers of [1024, 3200] rows and their backwards): "
+        f"{[round(r['comm_ms'], 1) for r in ranks]} ms by rank")
+    opts = [r["opt"] for r in ranks]
+    o = opts[0]
+    log(f"[spatial-escn-opt] escn-md 300 atoms, 5-cycle L-BFGS on every "
+        f"rank: E {o[0]:.8f} -> {o[1]:.8f} Ha in {o[3]} cycles, force calls "
+        f"per rank {[q[2] for q in opts]}, {o[4]:.2f} s wall on rank 0; "
+        f"written by rank 0 alone: {[q[5] for q in opts]}; launches on "
+        f"rank 0 {o[6]}")
+    if len({(q[1], q[2], q[3]) for q in opts}) != 1 or not o[1] < o[0] \
+            or not o[5] or any(q[5] for q in opts[1:]):
+        fail("the sharded eSCN opt differs between ranks, did not lower the "
+             "energy, or was written by another rank than 0")
+    want = SHARD_ESCN_WANT["escn-md"]
+    for q in opts:
+        if not launch_identity(q[6], want, q[2], q[7]):
+            fail(f"the sharded eSCN opt's launches {q[6]} for {q[2]} force "
+                 f"and {q[7]} energy calls, want {want} a force call, "
+                 "forwards also an energy call, and no K1")
+        for k, v in q[6].items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def main():
@@ -3737,14 +4229,20 @@ def main():
         phase_scans(calc, st, bond, smi_line)
         # ---- DLC and DMF: their own counts
         phase_dlc_dmf(calc, st, search, bond, ref64, cpu_ref, smi_line)
+        # ---- the gate and full branches and remat: their own counts
+        for k, v in phase_branches(calc, st, f_mega, ms_force,
+                                   smi_line).items():
+            launches[k] += v
         # ---- the PaiNN kernel path (its own counts), default path, check
         k5_launches, ref4 = phase_pallas(st4, w4, reps=3, cycles=5)
         launches.update(k5_launches)
         phase_default(st, reps=3)
         phase_reference_painn(seed=0)
-        # ---- the sharded path: four ranks, their own counts
-        launches.update(phase_spatial(
-            ref4, {k: v[1] for k, v in k6_rows.items()}))
+        # ---- the sharded path: four ranks, their own counts (K6; K3 and
+        # K2 of its eSCN part)
+        for k, v in phase_spatial(
+                ref4, {k: v[1] for k, v in k6_rows.items()}, rows).items():
+            launches[k] += v
 
     kern = []
     for k, (err, t, tp, fl, nb) in rows.items():

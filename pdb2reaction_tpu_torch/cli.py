@@ -34,12 +34,14 @@ JAX commands read no YAML.
     python -m pdb2reaction_tpu_torch extract -i c.pdb -c LIG -o p.pdb
 
 ``opt --spatial N`` shards the atom axis over N ranks, one process each,
-launched by ``torchrun`` (WORLD_SIZE must equal N). Every rank runs the
-same L-BFGS loop on the same forces; rank 0 alone logs and writes
-``result_opt/``:
+launched by ``torchrun`` (WORLD_SIZE must equal N), for the PaiNN-class
+models and for eSCN (``--model escn-md``, ``escn-md-gate``, ``escn-s``,
+...; ``pallas-mega`` takes K3 on the gathered source rows under the
+shard). Every rank runs the same L-BFGS loop on the same forces; rank 0
+alone logs and writes ``result_opt/``:
 
     torchrun --nproc-per-node 4 -m pdb2reaction_tpu_torch opt -i x.xyz \
-        -q 0 --spatial 4 --device cpu
+        -q 0 --spatial 4 --model escn-md
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ map:
 A tensor the conversion does not consume raises, a missing one raises
 ``KeyError``: a partial conversion never passes for a whole one
 (``audit_checkpoint`` reports both without raising). Gate-activation
-weights raise, naming ROADMAP.md queue 1 item 10, as ``from_jax`` does.
+weights (``backbone.blocks.N.gate.{weight,bias}``, which also make
+``infer_config`` pick ``edge_act="gate"``) go into each block's ``gate``
+MoLE bank, as in the JAX package's converter.
 """
 
 from __future__ import annotations
@@ -33,9 +35,6 @@ import torch
 
 from .escn import ESCNConfig
 from .from_jax import params_from_jax
-
-_GATE = "gate-activation weights: see ROADMAP.md queue 1 item 10"
-
 
 def _np(v):
     if isinstance(v, torch.Tensor):
@@ -164,13 +163,10 @@ def convert_state_dict(sd: Mapping[str, Any], cfg=None, *,
     tree (CPU tensors in the checkpoint's own dtypes).
 
     ``cfg`` defaults to ``infer_config(sd)``. A missing tensor raises
-    ``KeyError``; tensors left unconsumed raise ``ValueError``;
-    gate-activation weights raise ``NotImplementedError``."""
+    ``KeyError``; tensors left unconsumed raise ``ValueError``."""
     sd = _strip(sd)
     if cfg is None:
         cfg = infer_config(sd)
-    if cfg.edge_act == "gate" or any(".gate." in k for k in sd):
-        raise NotImplementedError(_GATE)
     consumed = set() if consumed_out is None else consumed_out
 
     class Tracking(dict):
@@ -199,13 +195,16 @@ def convert_state_dict(sd: Mapping[str, Any], cfg=None, *,
     }
     for i in range(cfg.num_layers):
         b = f"backbone.blocks.{i}"
-        params["blocks"].append({
+        blk = {
             "norm_1": _np(tsd[f"{b}.norm_1.weight"]),
             "so2_conv_1": _so2(tsd, f"{b}.so2_conv_1", cfg),
             "so2_conv_2": _so2(tsd, f"{b}.so2_conv_2", cfg),
             "norm_2": _np(tsd[f"{b}.norm_2.weight"]),
             "ffn": [_mole(tsd, f"{b}.ffn.w1"), _mole(tsd, f"{b}.ffn.w2")],
-        })
+        }
+        if cfg.edge_act == "gate":
+            blk["gate"] = _mole(tsd, f"{b}.gate")
+        params["blocks"].append(blk)
     leftovers = [k for k in sd
                  if k not in consumed and hasattr(sd[k], "shape")]
     if leftovers:
@@ -250,7 +249,7 @@ def audit_checkpoint(path) -> Dict[str, Any]:
     consumed: set = set()
     try:
         convert_state_dict(sd, cfg, consumed_out=consumed)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         report["missing"] = str(e)
     except ValueError:
         pass  # the leftover refusal: reported through the sets below

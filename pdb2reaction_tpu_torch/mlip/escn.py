@@ -11,25 +11,32 @@ package's tree layout (linears ``{"w": [in, out], "b": [out]}``, MoLE
 banks ``w: [experts, in, out]``), so JAX weights carry across by name
 (``from_jax.py``).
 
-The port covers the reduced (mmax < lmax) branch with the separable S2
-edge activation, the configuration of every checkpoint-shaped model
-(escn-md, escn-uma-s, escn-test). ``ESCNConfig.edge_kernel`` picks the
-layout of each message layer, with the JAX package's names:
-"pallas-mega" (the default) is one call of K1 (``fused_edge_mega``);
-"pallas-full" gathers per-edge rows, calls K3 (``fused_edge_block``) and
-K-sums its per-edge output; "pallas" rotates the pair rows with einsums,
-calls K4 (``fused_edge_chain``) and rotates back, envelope and K-sum in
-one contraction. Each node FFN is one call of K2 (``fused_node_ffn``).
-Every kernel takes its CUDA version on CUDA tensors and its plain
-PyTorch version on CPU tensors. Forces are autograd gradients of the
-energy.
+Every branch of the JAX package's ``escn_energy`` runs: the reduced
+(mmax < lmax) and full (mmax == lmax) layouts, the separable S2 and gate
+edge activations, ``remat_blocks``, ``edge_grid_scale`` and atom-axis
+sharding (``shard``). ``ESCNConfig.edge_kernel`` picks the layout of
+each message layer of the reduced S2 configurations (escn-md,
+escn-uma-s, escn-test, every checkpoint-shaped model), with the JAX
+package's names: "pallas-mega" (the default) is one call of K1
+(``fused_edge_mega``); "pallas-full" gathers per-edge rows, calls K3
+(``fused_edge_block``) and K-sums its per-edge output; "pallas" rotates
+the pair rows with einsums, calls K4 (``fused_edge_chain``) and rotates
+back, envelope and K-sum in one contraction. Under a shard K1, which
+reads one row set for sources and targets, gives way to K3 on the source
+rows gathered from the all-gathered features, as in the JAX package.
+The full layout and the gate activation take the JAX package's plain
+edge paths on every layout: K1, K3 and K4 bake in the S2 activation, and
+the JAX package has no kernel for them (``edge_route``). Each node FFN
+is one call of K2 (``fused_node_ffn``) on every kernel layout, as the
+JAX package's ``use_pallas_ffn`` rule gives. Every kernel takes its CUDA
+version on CUDA tensors and its plain PyTorch version on CPU tensors.
+Forces are autograd gradients of the energy.
 
-"xla" is the all-plain variant, the JAX package's name for it: the
-"pallas-mega" layout through the plain K1 (``fused_edge_mega_plain``,
-which gathers with plain ``x[src]``) and the plain node FFN
-(``ffn_plain``) on any device. Nothing there launches a kernel, so the
-path is twice differentiable: the Hessian closures of ``mlip/uma.py``
-run it.
+"xla" is the all-plain variant, the JAX package's name for it: the JAX
+package's plain reduced edge path (gathering with plain ``x[src]``) and
+the plain node FFN (``ffn_plain``) on any device. Nothing there launches
+a kernel, so the path is twice differentiable: the Hessian closures of
+``mlip/uma.py`` run it.
 """
 
 from __future__ import annotations
@@ -40,20 +47,21 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
-from .escn_edge_kernel import (fused_edge_block, fused_edge_chain,
-                               fused_edge_mega, fused_edge_mega_plain,
-                               gather_src, pack_d, _rot_nz)
+from .escn_edge_kernel import (conv_plain, fused_edge_block,
+                               fused_edge_chain, fused_edge_mega,
+                               gather_src, pack_d, s2_act_plain, _rot_nz)
 from .escn_ffn_kernel import ffn_plain, fused_node_ffn
 from .so3 import (_const, edge_rot_mat, num_coeffs, s2_grid_tables,
-                  s2_grid_tables_midpoint, wigner_full)
+                  s2_grid_tables_midpoint, wigner_blocks, wigner_full)
 
-_TODO = "see ROADMAP.md queue 1 item 10 (eSCN full and gate branches)"
 EDGE_KERNELS = ("pallas-mega", "pallas-full", "pallas")
 # every edge layout the port runs: the kernel layouts and the all-plain one
 EDGE_LAYOUTS = EDGE_KERNELS + ("xla",)
+EDGE_ACTS = ("s2", "gate")
 
 
 @dataclass(frozen=True)
@@ -77,8 +85,14 @@ class ESCNConfig:
     avg_degree: float = 12.0        # aggregation normalization
     grid_ntheta: int = 0            # node-FFN S2 grid; 0 = 4(lmax+1)
     grid_nphi: int = 0              # 0 = 4 lmax + 7
+    # recompute each message block in the backward (torch.utils.checkpoint,
+    # as jax.checkpoint in the JAX package): the [P, K, U, 2C] edge tensors
+    # of a layer are not held through the backward; every kernel's forward
+    # launches twice a layer
     remat_blocks: bool = False
-    edge_act: str = "s2"            # "s2" (ported) or "gate" (not yet)
+    edge_act: str = "s2"            # one of EDGE_ACTS
+    # per-edge S2 grid oversampling, "xla" only (the kernels bake in
+    # fairchem's SO3_Grid(lmax, mmax) nodes; checkpoints need 1)
     edge_grid_scale: int = 1
     edge_kernel: str = "pallas-mega"    # one of EDGE_LAYOUTS
     dtype: Any = torch.float32
@@ -171,14 +185,18 @@ def init_escn_params(cfg: ESCNConfig, seed: int = 0,
     }
     h = cfg.hidden_channels
     for _ in range(cfg.num_layers):
-        params["blocks"].append({
+        blk = {
             "norm_1": torch.ones(cfg.lmax + 1, C, dtype=dt),
             "so2_conv_1": _so2_conv(gen, cfg, 2 * C, h, with_edge=True),
             "so2_conv_2": _so2_conv(gen, cfg, h, C, with_edge=False),
             "norm_2": torch.ones(cfg.lmax + 1, C, dtype=dt),
             "ffn": [_mole_linear(gen, E, C, cfg.ffn_hidden, dt),
                     _mole_linear(gen, E, cfg.ffn_hidden, C, dt)],
-        })
+        }
+        if cfg.edge_act == "gate":
+            # the gate's MoLE bank over the hidden scalars
+            blk["gate"] = _mole_linear(gen, E, h, h, dt)
+        params["blocks"].append(blk)
     return tree_to(params, device=device)
 
 
@@ -325,34 +343,120 @@ def _edge_grid_tables(lmax: int, mmax: int, scale: int = 1):
 
 
 def check_edge_kernel(cfg: ESCNConfig):
-    """Raise for an edge layout the port does not run."""
+    """Raise for a configuration the port does not run: an unknown edge
+    layout or edge activation, mmax > lmax, or
+    ``edge_grid_scale`` > 1 off the "xla" layout (the kernels bake in
+    the fairchem grid; the JAX package asserts the same). The gate
+    activation and the full layout run on every layout, through the JAX
+    package's plain edge paths (``edge_route``)."""
     if cfg.edge_kernel not in EDGE_LAYOUTS:
         raise ValueError(f"edge_kernel={cfg.edge_kernel!r}: one of "
                          f"{EDGE_LAYOUTS}")
+    if cfg.edge_act not in EDGE_ACTS:
+        raise ValueError(f"edge_act={cfg.edge_act!r}: one of {EDGE_ACTS}")
+    if cfg.mmax > cfg.lmax:
+        raise ValueError(f"mmax={cfg.mmax} > lmax={cfg.lmax}")
+    if cfg.edge_grid_scale != 1 and cfg.edge_kernel != "xla":
+        raise ValueError(
+            f"edge_grid_scale={cfg.edge_grid_scale} runs on the \"xla\" "
+            f"layout only, not {cfg.edge_kernel!r}: the kernels bake in "
+            "fairchem's grid")
 
 
-def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
+def edge_route(cfg: ESCNConfig, sharded: bool = False) -> str:
+    """The edge path of every message layer, as the JAX package's
+    ``escn_energy`` branches: "full" (the plain full-layout path,
+    mmax == lmax), "reduced" (the plain reduced path, which "xla" takes)
+    or an edge kernel layout. The full layout and the gate activation
+    take the plain paths whatever ``edge_kernel`` says: K1, K3 and K4
+    bake in the S2 activation and the reduced layout, and the JAX package
+    has no kernel for either. Under a shard "pallas-mega" takes the
+    "pallas-full" layout (K1 reads one row set for sources and
+    targets)."""
+    if cfg.mmax >= cfg.lmax:
+        return "full"
+    if cfg.edge_act == "gate" or cfg.edge_kernel == "xla":
+        return "reduced"
+    if sharded and cfg.edge_kernel == "pallas-mega":
+        return "pallas-full"
+    return cfg.edge_kernel
+
+
+@lru_cache(maxsize=None)
+def _place_map(rows, M):
+    """Source row of each of M flat rows: ``rows.index(m)``, or
+    ``len(rows)`` (a zero row) for the rows not listed."""
+    out = np.full(M, len(rows))
+    out[list(rows)] = np.arange(len(rows))
+    return out
+
+
+def _place_rows(y, rows, M):
+    """[..., R, c] -> [..., M, c]: y's row j at flat row ``rows[j]``,
+    zeros elsewhere (the JAX package's ``.at[..., rows, :].set`` on
+    zeros, as a gather)."""
+    rows = tuple(int(r) for r in rows)
+    idx = _const(("place", rows, M), lambda: _place_map(rows, M),
+                 torch.long, y.device)
+    if len(rows) < M:
+        y = torch.cat([y, y.new_zeros(y.shape[:-2] + (1, y.shape[-1]))], -2)
+    return y.index_select(-2, idx)
+
+
+def _block_diag_rotate(D, x, transpose=False):
+    """Rotate [..., M, C] coefficients by the edge-frame Wigner rotation:
+    ``D`` is the full block-diagonal [..., M, M] matrix or the per-l block
+    list (lmax < 3, as the JAX package picks)."""
+    if isinstance(D, (list, tuple)):
+        outs = []
+        for l, Dl in enumerate(D):  # noqa: E741
+            blk = x[..., l * l:(l + 1) ** 2, :]
+            Dm = Dl.transpose(-1, -2) if transpose else Dl
+            outs.append(torch.einsum("...mn,...nc->...mc", Dm, blk))
+        return torch.cat(outs, -2)
+    Df = D.transpose(-1, -2) if transpose else D
+    return torch.einsum("...mn,...nc->...mc", Df, x)
+
+
+def _gate_act(p, alpha, x):
+    """Equivariant gate on reduced-layout rows [..., U, h]: SiLU on the
+    l=0 scalars (row 0); every other row gated channel-wise by
+    sigmoid(MoLE(scalars))."""
+    s = x[..., 0, :]
+    gates = torch.sigmoid(_mole(p, alpha, s))
+    return torch.cat([torch.nn.functional.silu(s)[..., None, :],
+                      x[..., 1:, :] * gates[..., None, :]], -2)
+
+
+def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
+           shard=None):
     """Everything before the message-passing blocks: routing, radius
     graph, edge frames, edge scalars, initial node features and the
-    per-edge inputs every layer's edge-kernel call shares."""
+    per-edge inputs every layer's edge path shares. Under ``shard`` (a
+    ``parallel.SpatialGroup``) the coordinates come in replicated and
+    everything per atom or per edge is this rank's rows only; neighbour
+    indices are global."""
     check_edge_kernel(cfg)
-    if cfg.mmax >= cfg.lmax:
-        raise NotImplementedError(f"full eSCN branch (mmax == lmax); {_TODO}")
-    if cfg.edge_act != "s2":
-        raise NotImplementedError(f"edge_act={cfg.edge_act!r}; {_TODO}")
-    if cfg.remat_blocks or cfg.edge_grid_scale != 1:
-        raise NotImplementedError(
-            f"remat_blocks / edge_grid_scale; {_TODO}")
+    route = edge_route(cfg, shard is not None)
     dt = cfg.dtype
     dev = coords_ang.device
     P = coords_ang.shape[0]
+    i0, n = 0, P
+    if shard is not None:
+        if P % shard.size:
+            raise ValueError(f"padded atoms {P} not divisible by "
+                             f"{shard.size} shards")
+        coords_ang = shard.replicate_in(coords_ang)
+        n = P // shard.size
+        i0 = shard.rank * n
     C = cfg.sphere_channels
     M = num_coeffs(cfg.lmax)
     K = cfg.max_neighbors
-    E = P * K
+    E = n * K
     nl0 = cfg.lmax + 1
-    atom_mask = system.atom_mask.to(dt)
-    z = torch.clamp(system.numbers, 0, cfg.max_z)
+    atom_mask = system.atom_mask[i0:i0 + n].to(dt)
+    z_all = torch.clamp(system.numbers, 0, cfg.max_z)     # idx is global
+    z = z_all[i0:i0 + n]
 
     premerged = params["energy_head"][0]["w"].ndim == 2
     alpha = None if premerged else _route_alpha(params, cfg)
@@ -360,102 +464,194 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
     # ---- radius graph (nearest-K within cutoff; no gradient) --------------
     idx, nbr_mask = dense_neighbors_rows(coords_ang.detach(),
                                          system.atom_mask, cfg.cutoff, K,
-                                         0, P)
+                                         i0, n)
     nbr_mask = nbr_mask.to(dt)
-    vec, dist = neighbor_vectors(coords_ang, idx, nbr_mask)
+    vec, dist = neighbor_vectors(
+        coords_ang, idx, nbr_mask,
+        origin=None if shard is None else coords_ang[i0:i0 + n])
     vec = vec.to(dt)
     dist = dist.to(dt)
 
-    # edge frame; masked slots rotate a safe vector. Rotate directly into
-    # the reduced |m| <= mmax basis (rows _used_indices).
+    # edge frame; masked slots rotate a safe vector. The reduced routes
+    # rotate directly into the |m| <= mmax basis (rows _used_indices);
+    # the full layout keeps the block-diagonal matrix (per-l blocks below
+    # lmax 3, as the JAX package picks)
     rot = edge_rot_mat(vec + (1.0 - nbr_mask[..., None]))
-    used = _const(("used", cfg.lmax, cfg.mmax),
-                  lambda: _used_indices(cfg.lmax, cfg.mmax), torch.long, dev)
-    D_sel = wigner_full(rot, cfg.lmax)[..., used, :]         # [P,K,U,M]
+    used = _used_indices(cfg.lmax, cfg.mmax)
+    if route == "full":
+        D = (wigner_full(rot, cfg.lmax) if cfg.lmax >= 3
+             else wigner_blocks(rot, cfg.lmax))
+    else:
+        D = wigner_full(rot, cfg.lmax)[
+            ..., _const(("used", cfg.lmax, cfg.mmax), lambda: used,
+                        torch.long, dev), :]                 # [n,K,U,M]
 
     # ---- invariant edge scalars -------------------------------------------
     gauss = _gauss_basis(dist, cfg)
-    esrc = params["source_embedding"][z[idx]]                 # [P,K,Ce]
+    esrc = params["source_embedding"][z_all[idx]]             # [n,K,Ce]
     etgt = params["target_embedding"][z][:, None, :].expand_as(esrc)
     edge_scalar = _apply_linear_stack(params["edge_mlp"],
                                       torch.cat([esrc, etgt, gauss], -1))
-    env = (_envelope(dist, cfg) * nbr_mask)[..., None]        # [P,K,1]
+    env = (_envelope(dist, cfg) * nbr_mask)[..., None]        # [n,K,1]
 
     # ---- initial node features ---------------------------------------------
     x = torch.cat([params["sphere_embedding"][z][:, None, :],
-                   torch.zeros(P, M - 1, C, dtype=dt, device=dev)], 1)
+                   torch.zeros(n, M - 1, C, dtype=dt, device=dev)], 1)
     deg = _mole(params["edge_degree_proj"], alpha,
-                edge_scalar).reshape(P, K, nl0, C)
-    deg_back = torch.einsum("pkum,pkuc->pkmc", D_sel[..., :nl0, :], deg)
+                edge_scalar).reshape(n, K, nl0, C)
+    if route == "full":
+        deg_back = _block_diag_rotate(
+            D, _place_rows(deg, used[:nl0], M), transpose=True)
+    else:
+        deg_back = torch.einsum("pkum,pkuc->pkmc", D[..., :nl0, :], deg)
     x = x + (deg_back * env[..., None]).sum(1) / cfg.avg_degree
     x = x * atom_mask[:, None, None]
 
-    # ---- per-edge kernel inputs (shared by every layer) --------------------
-    nnz = len(_rot_nz(cfg.lmax, cfg.mmax)[0])
-    Dp_pk = pack_d(cfg, D_sel)                                # [P,K,nnz]
-    Dp_t = Dp_pk.permute(2, 0, 1).reshape(nnz, E)
-    Dpe_t = (Dp_pk * env).permute(2, 0, 1).reshape(nnz, E)
-    es_t = edge_scalar.reshape(E, cfg.edge_channels).T
     src = idx.reshape(E)
-    edge_tabs = tuple(
-        _const(("edge", cfg.lmax, cfg.mmax, i),
-               lambda i=i: _edge_grid_tables(cfg.lmax, cfg.mmax)[i], dt, dev)
+    s = dict(route=route, shard=shard, alpha=alpha, x=x, z=z,
+             atom_mask=atom_mask, src=src, live=env.reshape(E) > 0, D=D,
+             env=env[..., 0], edge_scalar=edge_scalar,
+             es_t=edge_scalar.reshape(E, cfg.edge_channels).T)
+    # grid tables: the per-edge activation's (oversampled by
+    # edge_grid_scale on "xla") and the node FFN's
+    s["edge_tabs"] = tuple(
+        _const(("edge", cfg.lmax, cfg.mmax, cfg.edge_grid_scale, i),
+               lambda i=i: _edge_grid_tables(cfg.lmax, cfg.mmax,
+                                             cfg.edge_grid_scale)[i],
+               dt, dev)
         for i in range(2))
-    node_tabs = tuple(
+    s["node_tabs"] = tuple(
         _const(("node", cfg.lmax, cfg.grid, i),
                lambda i=i: s2_grid_tables(cfg.lmax, *cfg.grid)[i], dt, dev)
         for i in range(2))
-    return dict(alpha=alpha, x=x, z=z, atom_mask=atom_mask, src=src,
-                live=env.reshape(E) > 0, D_sel=D_sel, env=env[..., 0],
-                es_t=es_t, Dp_t=Dp_t, Dpe_t=Dpe_t, edge_tabs=edge_tabs,
-                node_tabs=node_tabs)
+    if route in EDGE_KERNELS:
+        # the edge kernels' packed Wigner nonzeros, envelope folded into
+        # the back-rotation's copy
+        nnz = len(_rot_nz(cfg.lmax, cfg.mmax)[0])
+        Dp_pk = pack_d(cfg, D)                                # [n,K,nnz]
+        s["Dp_t"] = Dp_pk.permute(2, 0, 1).reshape(nnz, E)
+        s["Dpe_t"] = (Dp_pk * env).permute(2, 0, 1).reshape(nnz, E)
+    return s
+
+
+def _source_rows(s, cfg: ESCNConfig, xn):
+    """Every source row of this rank's edges [E, M*C], gathered from the
+    node rows of all ranks (the all-gathered features under a shard). The
+    kernel layouts gather with ``gather_src`` (a deterministic CSR
+    backward on the card), "xla" with plain indexing (twice
+    differentiable: the Hessian closures)."""
+    rows = xn if s["shard"] is None else s["shard"].all_gather_rows(xn)
+    rows = rows.reshape(rows.shape[0], -1)
+    if cfg.edge_kernel == "xla":
+        return rows[s["src"]]
+    return gather_src(rows, s["src"], s["live"])
 
 
 _EDGE_FN = {"pallas-mega": fused_edge_mega, "pallas-full": fused_edge_block,
-            "pallas": fused_edge_chain, "xla": fused_edge_mega_plain}
+            "pallas": fused_edge_chain}
 
 
-def _block_edge_args(s, blk, cfg: ESCNConfig, x):
-    """Arguments of one layer's edge-kernel call (``_EDGE_FN``)."""
-    P, M, C = x.shape
+def _edge_args(s, blk, cfg: ESCNConfig, xn):
+    """Arguments of one layer's edge-kernel call (``_EDGE_FN`` of the
+    route) from the normalised node features xn [n, M, C]."""
+    n, M, C = xn.shape
     K = cfg.max_neighbors
-    E = P * K
-    xn = _equi_rms_norm(x, blk["norm_1"], cfg)
+    E = n * K
+    route = s["route"]
     w = _pack_conv_weights(blk, s["alpha"], cfg)
-    if cfg.edge_kernel in ("pallas-mega", "xla"):
-        return (cfg, xn.permute(1, 2, 0).reshape(M * C, P), s["src"],
+    if route == "pallas-mega":
+        return (cfg, xn.permute(1, 2, 0).reshape(M * C, n), s["src"],
                 s["es_t"], s["Dp_t"], s["Dpe_t"], w, s["edge_tabs"])
-    rows = xn.reshape(P, M * C)
-    xs = gather_src(rows, s["src"], s["live"])                # [E, M*C]
-    if cfg.edge_kernel == "pallas-full":
+    xs = _source_rows(s, cfg, xn)                             # [E, M*C]
+    if route == "pallas-full":
         # target rows per edge; the expand's backward is the K-sum
-        xt = rows[:, None].expand(P, K, M * C).reshape(E, M * C)
+        xt = xn.reshape(n, 1, M * C).expand(n, K, M * C).reshape(E, M * C)
         return (cfg, xs.T, xt.T, s["es_t"], s["Dp_t"], s["Dpe_t"], w,
                 s["edge_tabs"])
     # "pallas": rotated pair rows [U*2C, E], u-major, source channels then
     # target channels (escn.py:743-748 of the JAX package), held
     # edge-major so the kernel reads them without a copy
-    D = s["D_sel"]
-    rot_s = torch.einsum("pkum,pkmc->pkuc", D, xs.reshape(P, K, M, C))
+    D = s["D"]
+    rot_s = torch.einsum("pkum,pkmc->pkuc", D, xs.reshape(n, K, M, C))
     rot_t = torch.einsum("pkum,pmc->pkuc", D, xn)
     pr = torch.cat([rot_s, rot_t], -1).reshape(E, -1)
     return (cfg, pr.T, s["es_t"], w, s["edge_tabs"])
 
 
-def _edge_message(s, cfg: ESCNConfig, args):
-    """The K-summed message [P, M, C] of one layer from its edge-kernel
+def _kernel_message(s, cfg: ESCNConfig, args):
+    """The K-summed message [n, M, C] of one layer from its edge-kernel
     call (not yet divided by avg_degree)."""
-    out = _EDGE_FN[cfg.edge_kernel](*args)
-    P, K = s["env"].shape
-    if cfg.edge_kernel in ("pallas-mega", "xla"):
-        return out.reshape(-1, cfg.sphere_channels, P).permute(2, 0, 1)
-    if cfg.edge_kernel == "pallas-full":
-        return out.reshape(-1, cfg.sphere_channels, P, K).sum(-1) \
+    route = s["route"]
+    out = _EDGE_FN[route](*args)
+    n, K = s["env"].shape
+    if route == "pallas-mega":
+        return out.reshape(-1, cfg.sphere_channels, n).permute(2, 0, 1)
+    if route == "pallas-full":
+        return out.reshape(-1, cfg.sphere_channels, n, K).sum(-1) \
             .permute(2, 0, 1)
     # rotate back x envelope x K-sum in one contraction
-    U = s["D_sel"].shape[2]
-    out4 = out.reshape(U, cfg.sphere_channels, P, K) * s["env"][None, None]
-    return torch.einsum("pkum,ucpk->pmc", s["D_sel"], out4)
+    U = s["D"].shape[2]
+    out4 = out.reshape(U, cfg.sphere_channels, n, K) * s["env"][None, None]
+    return torch.einsum("pkum,ucpk->pmc", s["D"], out4)
+
+
+def _plain_message(s, blk, cfg: ESCNConfig, xn):
+    """The K-summed message [n, M, C] of one layer on the JAX package's
+    plain edge paths (``escn.py:761-782``): rotate the (source, target)
+    pair into the edge frame, SO(2) conv -> edge activation -> SO(2)
+    conv, rotate back, envelope, sum over K. The convs and the
+    activation run on the reduced layout (``conv_plain`` and
+    ``s2_act_plain``, the kernels' plain chain); the full layout gathers
+    its ``_used_indices`` rows for them and places the result back, the
+    rows the JAX package's full-layout functions read and write."""
+    n, M, C = xn.shape
+    K = cfg.max_neighbors
+    E = n * K
+    D = s["D"]
+    x_s = _source_rows(s, cfg, xn).reshape(n, K, M, C)
+    # source and target rows rotate apart: the target's [n, M, C] rows
+    # broadcast over K instead of a [n, K, M, 2C] pair
+    if s["route"] == "full":
+        used = _used_indices(cfg.lmax, cfg.mmax)
+        ui = _const(("used", cfg.lmax, cfg.mmax), lambda: used, torch.long,
+                    xn.device)
+        rot_s = _block_diag_rotate(D, x_s).index_select(-2, ui)
+        rot_t = _block_diag_rotate(D, xn[:, None]).index_select(-2, ui)
+    else:
+        rot_s = torch.einsum("nkum,nkmc->nkuc", D, x_s)
+        rot_t = torch.einsum("nkum,nmc->nkuc", D, xn)
+    pair_u = torch.cat([rot_s, rot_t.expand_as(rot_s)], -1)
+    (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = \
+        _pack_conv_weights(blk, s["alpha"], cfg)
+    nl0 = cfg.lmax + 1
+    nls = [cfg.lmax + 1 - m for m in range(1, cfg.mmax + 1)]
+    msg = conv_plain(pair_u.reshape(E, -1, 2 * C),
+                     s["edge_scalar"].reshape(E, -1), W0, Wrs, Wis, b0, brs,
+                     bis, nl0, nls)
+    if cfg.edge_act == "gate":
+        msg = _gate_act(blk["gate"], s["alpha"], msg)
+    else:
+        msg = s2_act_plain(msg, *s["edge_tabs"])
+    msg = conv_plain(msg, None, V0, Vrs, Vis, c0, crs, cis, nl0,
+                     nls).reshape(n, K, -1, C)
+    if s["route"] == "full":
+        msg = _block_diag_rotate(D, _place_rows(msg, used, M),
+                                 transpose=True)
+        return (msg * s["env"][..., None, None]).sum(1)
+    # rotate back, envelope and K-sum in one contraction
+    return torch.einsum("nkum,nkuc->nmc", D * s["env"][..., None, None],
+                        msg)
+
+
+def _edge_message(s, blk, cfg: ESCNConfig, xn):
+    # the gate activation and the full layout take the JAX package's own
+    # plain branches on every layout, "pallas-mega" included: K1, K3 and
+    # K4 bake in the S2 activation on the reduced layout, and the JAX
+    # package has no kernel for either (its Pallas branches require
+    # both), so this is its path, not a fallback
+    if s["route"] in ("full", "reduced"):
+        return _plain_message(s, blk, cfg, xn)
+    return _kernel_message(s, cfg, _edge_args(s, blk, cfg, xn))
 
 
 def _block_ffn_args(s, blk, cfg: ESCNConfig, x):
@@ -468,32 +664,53 @@ def _block_ffn_args(s, blk, cfg: ESCNConfig, x):
 
 def _block(s, blk, cfg: ESCNConfig, x):
     mask = s["atom_mask"][:, None, None]
-    msg = _edge_message(s, cfg, _block_edge_args(s, blk, cfg, x))
-    x = (x + msg / cfg.avg_degree) * mask
+    xn = _equi_rms_norm(x, blk["norm_1"], cfg)
+    x = (x + _edge_message(s, blk, cfg, xn) / cfg.avg_degree) * mask
     cfg_, xn2, weights, tables = _block_ffn_args(s, blk, cfg, x)
     ffn = (ffn_plain(xn2, weights, tables) if cfg.edge_kernel == "xla"
            else fused_node_ffn(cfg_, xn2, weights, tables))
     return (x + ffn) * mask
 
 
-def first_layer_kernel_args(coords_ang, system, params, cfg: ESCNConfig):
-    """(edge-kernel args, K2 args) of the first message layer, exactly as
-    the force call builds them for ``cfg.edge_kernel`` — the inputs a
-    kernel check runs at."""
-    s = _setup(coords_ang, system, params, cfg)
+def first_layer_kernel_args(coords_ang, system, params, cfg: ESCNConfig,
+                            shard=None):
+    """(edge-kernel args, K2 args, source gather) of the first message
+    layer, exactly as the force call builds them for ``cfg.edge_kernel``
+    (an S2 reduced configuration) on this rank of ``shard`` — the inputs
+    a kernel check runs at. The source gather is (the node rows of all
+    ranks [P, M*C], each edge's source, each edge's live flag): the
+    inputs of ``gather_src`` on the layouts that gather."""
+    s = _setup(coords_ang, system, params, cfg, shard)
+    if s["route"] not in EDGE_KERNELS:
+        raise ValueError(f"the {s['route']} edge path calls no edge kernel")
     blk = params["blocks"][0]
-    edge_args = _block_edge_args(s, blk, cfg, s["x"])
-    msg = _edge_message(s, cfg, edge_args)
+    xn = _equi_rms_norm(s["x"], blk["norm_1"], cfg)
+    edge_args = _edge_args(s, blk, cfg, xn)
+    msg = _kernel_message(s, cfg, edge_args)
     x = (s["x"] + msg / cfg.avg_degree) * s["atom_mask"][:, None, None]
-    return edge_args, _block_ffn_args(s, blk, cfg, x)
+    rows = xn if shard is None else shard.all_gather_rows(xn)
+    return (edge_args, _block_ffn_args(s, blk, cfg, x),
+            (rows.reshape(rows.shape[0], -1), s["src"], s["live"]))
 
 
-def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
-    """Total potential energy in eV of one padded system; coords [P, 3]."""
-    s = _setup(coords_ang, system, params, cfg)
+def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
+                shard=None):
+    """Total potential energy in eV of one padded system; coords [P, 3].
+
+    With ``shard`` (a ``parallel.SpatialGroup``) this runs spatially
+    partitioned, as the JAX package's ``escn_energy`` inside a
+    ``shard_map``: each rank owns P/n atom rows (its neighbour slab, edge
+    frames, messages and node features), all-gathers the normalised node
+    features once a layer and returns the energy summed over ranks, the
+    same on every rank."""
+    s = _setup(coords_ang, system, params, cfg, shard)
     x = s["x"]
     for blk in params["blocks"]:
-        x = _block(s, blk, cfg, x)
+        if cfg.remat_blocks:
+            x = torch.utils.checkpoint.checkpoint(_block, s, blk, cfg, x,
+                                                  use_reentrant=False)
+        else:
+            x = _block(s, blk, cfg, x)
     alpha, z, atom_mask = s["alpha"], s["z"], s["atom_mask"]
     dt = cfg.dtype
 
@@ -503,7 +720,8 @@ def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig):
                                        xn[:, 0, :]))
     e_atom = _mole(params["energy_head"][1], alpha, e)[..., 0]
     e_ref = params["atom_ref"].to(dt)[z]
-    return ((e_atom + e_ref) * atom_mask).sum()
+    e = ((e_atom + e_ref) * atom_mask).sum()
+    return e if shard is None else shard.sum_out(e)
 
 
 # named configs (same entries as the JAX package's registry)

@@ -126,11 +126,11 @@ def conv_plain(x, es, W0, Ws_r, Ws_i, b0, bs_p, bs_n, nl0, nls):
 
 
 def s2_act_plain(msg, tg, fg):
-    """Separable S2 activation on [E, U, h]: SiLU on the grid, projected
+    """Separable S2 activation on [..., U, h]: SiLU on the grid, projected
     back; row 0 takes SiLU of the l=0 scalars."""
-    grid = torch.einsum("gu,euc->egc", tg, msg)
-    back = torch.einsum("ug,egc->euc", fg, _silu(grid))
-    return torch.cat([_silu(msg[:, :1]), back[:, 1:]], dim=1)
+    grid = torch.einsum("gu,...uc->...gc", tg, msg)
+    back = torch.einsum("ug,...gc->...uc", fg, _silu(grid))
+    return torch.cat([_silu(msg[..., :1, :]), back[..., 1:, :]], dim=-2)
 
 
 def _chain_plain(pr, es_e, weights, tables, nl0, nls):

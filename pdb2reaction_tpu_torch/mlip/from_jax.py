@@ -5,7 +5,8 @@ The JAX package's parameter tree, converted to numpy first (for example
 port's tree: the same nested dicts and lists, the same key names, and the
 same ``[in, out]`` orientation of every linear. Both raw trees (MoLE
 expert banks ``[experts, in, out]``) and premerged ones (2-D linears) are
-taken. The PaiNN-class tree (``mlip/model.py``: ``embed_z``, ``embed_q``,
+taken, and so are the gate configurations' per-block ``gate`` MoLE
+banks. The PaiNN-class tree (``mlip/model.py``: ``embed_z``, ``embed_q``,
 ``embed_s``, ``atom_ref``, ``readout``, ``layers``) is told apart by its
 keys. This module needs numpy only; it never imports JAX.
 """
@@ -73,9 +74,6 @@ def params_from_jax(np_params: dict, device="cpu",
         bad = [k for k in _BLOCK if k not in blk]
         if bad:
             raise KeyError(f"blocks[{i}] lacks {bad}")
-        if "gate" in blk:
-            raise NotImplementedError(
-                "gate-activation weights: see ROADMAP.md queue 1 item 10")
     out: Any = _convert({k: v for k, v in np_params.items()
                          if k not in ("charge", "spin", "task")},
                         device, dtype)

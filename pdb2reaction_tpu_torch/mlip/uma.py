@@ -23,8 +23,9 @@ as in the JAX factory, or "xla", the all-plain variant.
 Second derivatives (the analytic Hessian, HVPs) never reach a kernel:
 the kernels' autograd functions have no double backward. As in the JAX
 factory, the eSCN calculator gets the all-plain variant
-(``edge_kernel="xla"``) as its ``energy_fn_hessian``
-whenever its force path runs a kernel, and the PaiNN pallas mode gets
+(``edge_kernel="xla"``) as its ``energy_fn_hessian`` whenever its force
+path runs a kernel (the gate and full configurations too: their edge
+paths are plain, their node FFN is K2), and the PaiNN pallas mode gets
 itself on K5's plain version; dense and gather differentiate themselves.
 ``hessian_calc_mode`` "auto" resolves to "Analytical", as in the JAX
 factory (an FD Hessian through f32 kernel forces is noise-limited).
@@ -33,13 +34,16 @@ The device defaults to CUDA, where the force path runs the hand-written
 kernels. Asking for CUDA without a card raises; CPU runs only when the
 caller asks for it and takes the plain PyTorch versions.
 
-``spatial=n > 1`` shards the atom axis of a PaiNN-class model over the n
-ranks of the process group ``parallel.init_spatial`` joined (for example
-under ``torchrun --nproc-per-node n``), as the JAX factory shards it over
-its mesh: ``mp_mode="pallas"`` runs K6 on each rank's rows, the other
-modes switch to the sharded gather layout, the padding multiple becomes
-lcm(pad_multiple, n) and the device is the group's. Every rank builds the
-same calculator and gets the same forces. eSCN under sharding raises.
+``spatial=n > 1`` shards the atom axis over the n ranks of the process
+group ``parallel.init_spatial`` joined (for example under ``torchrun
+--nproc-per-node n``), as the JAX factory shards it over its mesh: the
+PaiNN-class ``mp_mode="pallas"`` runs K6 on each rank's rows, its other
+modes switch to the sharded gather layout; eSCN runs ``escn_energy`` on
+each rank's rows with the MoLE banks premerged, "pallas-mega" taking K3
+on the gathered source rows. The padding multiple becomes
+lcm(pad_multiple, n) and the device is the group's. Every rank builds
+the same calculator and gets the same forces. Hessians and HVPs under
+sharding raise (``Calculator``).
 """
 
 from __future__ import annotations
@@ -136,11 +140,6 @@ def make_uma_calculator(
     if pt_path and params is not None:
         raise ValueError("give params= or a checkpoint, not both")
     escn = bool(pt_path) or model.startswith("escn")
-    if escn and spatial > 1:
-        raise NotImplementedError(
-            f"spatial={spatial} with eSCN model {model!r}: eSCN under "
-            "atom-axis sharding is not ported yet (ROADMAP.md queue 1 "
-            "item 8)")
     if escn and mp_mode:
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
                          "take edge_kernel")
@@ -159,7 +158,7 @@ def make_uma_calculator(
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
     if mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=str(mp_mode))
-    if group and cfg.mp_mode != "pallas":
+    if group and not escn and cfg.mp_mode != "pallas":
         # the sharded layouts: K6 for pallas, the gather layout otherwise
         cfg = dataclasses.replace(cfg, mp_mode="gather")
     if max_neigh or radius:
@@ -186,8 +185,9 @@ def make_uma_calculator(
         params["task"] = torch.as_tensor(float(
             task if task is not None else params.get("task", 0)))
         params = premerge_escn_params(params, cfg)
-        fn = escn_energy_fn(cfg)
-        if cfg.edge_kernel != "xla":
+        fn = (make_spatial_energy_fn(cfg, group) if group
+              else escn_energy_fn(cfg))
+        if not group and cfg.edge_kernel != "xla":
             fn_h = escn_energy_fn(dataclasses.replace(cfg, edge_kernel="xla"))
     else:
         params["atom_ref"] = params["atom_ref"].float()

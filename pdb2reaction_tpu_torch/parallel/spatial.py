@@ -11,25 +11,31 @@ every rank runs the same force call and gets the same forces.
 - PaiNN-class ``mp_mode="pallas"``: each rank contracts its rows against
   all columns through K6 (``radial_contract_rect``), O(P/n) memory;
 - the other PaiNN-class modes: the sharded [P, K] gather layout;
-- eSCN: not ported yet (ROADMAP.md queue 1 item 8).
+- eSCN (``ESCNConfig``): ``escn_energy`` on this rank's rows, the
+  normalised node features all-gathered once a layer; "pallas-mega"
+  takes the "pallas-full" layout (K3 on the gathered source rows), as
+  in the JAX package.
 """
 
 from __future__ import annotations
 
+from ..mlip.escn import escn_energy
 from ..mlip.model import ModelConfig, energy_fn_gather, energy_fn_pallas
 from .distributed import SpatialGroup
 
 
 def make_spatial_energy_fn(cfg, group: SpatialGroup):
     """``fn(coords_ang, system, params) -> eV`` with the atom axis sharded
-    over ``group``. The padded atom count must be divisible by the group
-    size (``make_uma_calculator(spatial=n)`` pads to lcm(8, n))."""
+    over ``group``. ``cfg`` picks the backbone: a ``ModelConfig``
+    (PaiNN-class) or an ``ESCNConfig``. The padded atom count must be
+    divisible by the group size (``make_uma_calculator(spatial=n)`` pads
+    to lcm(8, n))."""
     if not isinstance(cfg, ModelConfig):
-        raise NotImplementedError(
-            "eSCN under atom-axis sharding (K3 with the row gather, "
-            "pdb2reaction_tpu/mlip/escn.py:554-820) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
-    body = energy_fn_pallas if cfg.mp_mode == "pallas" else energy_fn_gather
+        body = escn_energy
+    elif cfg.mp_mode == "pallas":
+        body = energy_fn_pallas
+    else:
+        body = energy_fn_gather
 
     def fn(coords, system, params):
         return body(coords, system, params, cfg, shard=group)

@@ -22,8 +22,14 @@ JAX package's converter and the independent goldens:
 - the ``checkpoint=`` and ``PDB2R_TPU_UMA_PT`` routes of
   ``make_uma_calculator`` on ``device="cpu"``: converted weights, the
   ``converted:<path>`` tag, no surrogate warning; a non-``.pt``
-  checkpoint and gate weights raise."""
+  checkpoint raises;
+- gate weights: the gate mirror's state dict converted tensor for
+  tensor as the JAX converter's tree, its energy and forces through the
+  ``.pt`` route against JAX's ``escn_energy`` (rtol 1e-10) and the
+  mirror's autograd (1e-6), and ``from_jax`` carrying a JAX gate
+  tree."""
 
+import dataclasses
 import re
 import sys
 from pathlib import Path
@@ -293,12 +299,84 @@ def test_unconsumed_and_missing_tensors_raise(mirror):
         convert.convert_state_dict(sd)
 
 
-def test_gate_weights_raise(mirror):
-    sd = dict(mirror.state_dict())
-    sd["backbone.blocks.0.gate.weight"] = torch.zeros(2, 8, 8)
-    sd["backbone.blocks.0.gate.bias"] = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        convert.convert_state_dict(sd)
+JCFG_GATE = dataclasses.replace(JCFG, edge_act="gate")
+
+
+@pytest.fixture(scope="module")
+def gate_mirror():
+    from torch_escn import ESCNTorch
+    return ESCNTorch(JCFG_GATE, seed=4)
+
+
+def test_gate_state_dict_converts_to_jax_tree(gate_mirror):
+    """Gate weights (``backbone.blocks.N.gate.{weight,bias}``) go into each
+    block's ``gate`` MoLE bank, tensor for tensor the JAX converter's,
+    in the plain and the fairchem spellings."""
+    sd = dict(gate_mirror.state_dict())
+    cfg = convert.infer_config(sd)
+    assert cfg.edge_act == "gate"
+    ref = params_from_jax(j_convert.convert_state_dict(sd, JCFG_GATE))
+    for k in ("charge", "spin", "task"):
+        ref.pop(k)
+    for variant in (lambda d: d, _v_everything):
+        got = convert.convert_state_dict(variant(sd))
+        _trees_equal(got, ref)
+        assert all(set(b["gate"]) == {"w", "b"} for b in got["blocks"])
+    assert convert.convert_state_dict(sd)["blocks"][1]["gate"]["w"].shape \
+        == (JCFG.num_experts, JCFG.hidden_channels, JCFG.hidden_channels)
+
+
+def test_gate_pt_energy_forces_match_jax_and_mirror(gate_mirror, tmp_path):
+    """A gate checkpoint through make_uma_calculator(checkpoint=...) in
+    float64: energy and forces against the JAX package's escn_energy on
+    its own converted tree within rtol 1e-10, and against the mirror's
+    autograd at 1e-6 (Hartree, Hartree/Bohr)."""
+    import jax
+    import jax.tree_util as jtu
+    from pdb2reaction_tpu.core.structure import Structure as JStructure
+    from pdb2reaction_tpu.core.structure import pad_to as jpad_to
+    from pdb2reaction_tpu.mlip.escn import escn_energy as j_energy
+    sd = dict(gate_mirror.state_dict())
+    pt = tmp_path / "gate.pt"
+    torch.save({"state_dict": sd}, pt)
+    zs = np.array([6, 6, 8, 1, 1, 7], np.int32)
+    xyz = np.random.default_rng(9).normal(scale=1.3, size=(6, 3))
+    st = Structure(zs, xyz)
+    calc = make_uma_calculator(st, charge=-1, spin=2, task=1,
+                               checkpoint=str(pt), device="cpu",
+                               dtype=torch.float64)
+    assert calc.cfg.edge_act == "gate"
+    e_t, f_t = _ev(calc, xyz)
+    jp = jtu.tree_map(jnp.asarray, j_convert.convert_state_dict(sd,
+                                                               JCFG_GATE))
+    jp.update(charge=jnp.asarray(-1.0), spin=jnp.asarray(2.0),
+              task=jnp.asarray(1.0))
+    sysp = jpad_to(JStructure(zs, xyz), multiple=8)
+    e_j, g_j = jax.jit(jax.value_and_grad(
+        lambda c: j_energy(c, sysp, jp, JCFG_GATE)))(jnp.asarray(sysp.coords))
+    f_j = -np.asarray(g_j)[:len(zs)]
+    assert abs(e_t - float(e_j)) <= 1e-10 * abs(float(e_j))
+    assert np.abs(f_t - f_j).max() <= 1e-10 * np.abs(f_j).max()
+    e_m, f_m = gate_mirror.energy_forces(
+        torch.as_tensor(zs, dtype=torch.long), torch.as_tensor(xyz),
+        charge=-1, spin=2, task=1)
+    assert abs(e_t - float(e_m)) * EV2AU < 1e-6
+    np.testing.assert_allclose(f_t * F_EVAA_2_AU, f_m.numpy() * F_EVAA_2_AU,
+                               atol=1e-6)
+
+
+def test_from_jax_carries_gate_tree(gate_mirror):
+    """params_from_jax takes a JAX gate tree's per-block gate banks (the
+    JAX converter's tree of the gate mirror; the JAX package's seeded
+    gate trees go through it in tests/test_torch_escn_branches.py)."""
+    tree = j_convert.convert_state_dict(dict(gate_mirror.state_dict()),
+                                        JCFG_GATE)
+    t = params_from_jax(tree)
+    assert len(t["blocks"]) == len(tree["blocks"]) == JCFG.num_layers
+    for b_t, b_j in zip(t["blocks"], tree["blocks"]):
+        for k in ("w", "b"):
+            assert torch.equal(b_t["gate"][k],
+                               torch.as_tensor(np.array(b_j["gate"][k])))
 
 
 def test_pt_checkpoint_routes_on_cpu(mirror, tmp_path, monkeypatch, capsys):

@@ -96,13 +96,3 @@ def test_escn_md_width_f64_matches_jax():
                                    n_pad, num_layers=2)
     assert abs(e_j - e_t) / len(zs) < 1e-6
     assert np.abs(f_j - f_t).max() < 1e-6
-
-
-def test_unported_branches_raise():
-    zs, xyz, n_pad = cluster(4, 8, 0)
-    sysp = pad_to(Structure(zs, xyz), n_pad=n_pad)
-    for name in ("escn-s", "escn-test-gate"):
-        from pdb2reaction_tpu_torch.mlip.escn import init_escn_params
-        cfg = TCFG[name]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            escn_energy(sysp.coords, sysp, init_escn_params(cfg), cfg)

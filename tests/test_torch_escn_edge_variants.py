@@ -164,19 +164,21 @@ def test_variants_agree_in_f64():
 @pytest.mark.parametrize("edge_kernel", ["xla", "pallas-mega-v2"])
 def test_unported_or_unknown_edge_kernel_raises(edge_kernel):
     """An unknown edge layout raises. "xla", the all-plain variant, is
-    ported: it runs and gives the default layout's plain-path energy."""
+    ported: it runs the plain reduced edge path and gives the default
+    layout's plain-path (plain K1) energy in float64."""
     zs, xyz, n_pad = cluster(4, 8, 0)
     sysp = pad_to(Structure(zs, xyz), n_pad=n_pad)
-    cfg = dataclasses.replace(TCFG["escn-test"], edge_kernel=edge_kernel)
+    cfg = dataclasses.replace(TCFG["escn-test"], edge_kernel=edge_kernel,
+                              dtype=torch.float64)
     params = init_escn_params(cfg)
     st = Structure(zs, xyz)
     if edge_kernel == "xla":
         params.update(charge=torch.tensor(0.0), spin=torch.tensor(1.0),
                       task=torch.tensor(0.0))
-        e = escn_energy(sysp.coords.float(), sysp, params, cfg)
-        e0 = escn_energy(sysp.coords.float(), sysp, params,
-                         TCFG["escn-test"])
-        assert float(e) == float(e0)
+        e = escn_energy(sysp.coords, sysp, params, cfg)
+        e0 = escn_energy(sysp.coords, sysp, params,
+                         dataclasses.replace(cfg, edge_kernel="pallas-mega"))
+        assert abs(float(e) - float(e0)) <= 1e-12 * abs(float(e0))
         make_uma_calculator(st, model="escn-test", device="cpu",
                             edge_kernel=edge_kernel)
         return

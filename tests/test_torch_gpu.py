@@ -1286,3 +1286,141 @@ def test_mini_engine_on_card_matches_cpu():
         assert abs(g["e_tot"] - c["e_tot"]) <= 1e-10
         for k in ("mulliken", "lowdin"):
             assert np.abs(np.subtract(g[k], c[k])).max() <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# the gate and full branches, remat_blocks, and K3 under the shard
+# ---------------------------------------------------------------------------
+
+NARROW_S = dict(sphere_channels=8, hidden_channels=8, edge_channels=8,
+                ffn_hidden=16, num_experts=2, route_dim=4, num_gauss=8,
+                max_neighbors=16)
+
+
+def _branch_counts():
+    return {**ek.launches, **fk.launches}
+
+
+@pytest.mark.parametrize("name,over", [("escn-test-gate", {}),
+                                       ("escn-s", NARROW_S)])
+def test_branch_calculator_on_card_matches_cpu_f64(name, over, monkeypatch):
+    """The gate and full configurations on the card against the CPU
+    float64 plain path: forces within TOL, K2 launched once a layer each
+    way, no edge kernel (their edge paths are plain), and a second call
+    bit for bit equal."""
+    _need_card()
+    from pdb2reaction_tpu_torch.mlip import escn as escn_mod
+    cfg = dataclasses.replace(ESCN_CONFIGS[name], **over)
+    monkeypatch.setitem(escn_mod.ESCN_CONFIGS, name, cfg)
+    st = _lattice(20, seed=4)
+    w = init_escn_params(cfg, seed=1)
+    gpu = make_uma_calculator(st, model=name, params=w)
+    cpu = make_uma_calculator(st, model=name, params=w, device="cpu",
+                              dtype=torch.float64)
+    cb = st.coords_bohr.reshape(-1)
+    before = _branch_counts()
+    rg = gpu.get_forces(cb)
+    moved = {k: v - before[k] for k, v in _branch_counts().items()
+             if v != before[k]}
+    L = cfg.num_layers
+    assert moved == {"fused_node_ffn_fwd": L, "fused_node_ffn_bwd": L}
+    rc = cpu.get_forces(cb)
+    assert np.abs(rg["forces"] - rc["forces"]).max() \
+        <= TOL * np.abs(rc["forces"]).max()
+    assert np.array_equal(gpu.get_forces(cb)["forces"], rg["forces"])
+
+
+def test_remat_blocks_on_card_repeat_forces_bit_for_bit():
+    """remat_blocks recomputes each block in the backward: K1 and K2
+    forwards launch twice a layer, and the forces equal the remat-off
+    forces bit for bit."""
+    _need_card()
+    from pdb2reaction_tpu_torch.mlip.escn import escn_energy_fn
+    st = _lattice(20, seed=5)
+    w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=2)
+    calc = make_uma_calculator(st, model="escn-test", params=w)
+    remat = make_uma_calculator(st, model="escn-test", params=w)
+    cfg_r = dataclasses.replace(remat.cfg, remat_blocks=True)
+    remat.energy_fn, remat.cfg = escn_energy_fn(cfg_r), cfg_r
+    cb = st.coords_bohr.reshape(-1)
+    f0 = calc.get_forces(cb)["forces"]
+    before = _branch_counts()
+    f1 = remat.get_forces(cb)["forces"]
+    moved = {k: v - before[k] for k, v in _branch_counts().items()
+             if v != before[k]}
+    L = cfg_r.num_layers
+    assert moved == {"fused_edge_mega_fwd": 2 * L, "fused_edge_mega_bwd": L,
+                     "fused_node_ffn_fwd": 2 * L, "fused_node_ffn_bwd": L}
+    assert np.array_equal(f0, f1)
+
+
+def test_edge_block_on_gathered_full_rows():
+    """K3 as the sharded path calls it: P_loc * K edges whose sources are
+    gathered (``gather_src``) from P_full = 4 P_loc node rows and whose
+    targets are this rank's rows. Values and the cotangents of both row
+    sets against the plain version (plain indexing), bit for bit on a
+    second run."""
+    _need_card()
+    cfg = dataclasses.replace(ESCN_CONFIGS["escn-md"], **NARROW_MD,
+                              max_neighbors=16)
+    P_loc, K = 13, 16
+    P_full, E = 4 * P_loc, P_loc * K
+    w, tabs, _, (_, _, _, _), _ = _edge_inputs(cfg, P_loc, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    M, C = (cfg.lmax + 1) ** 2, cfg.sphere_channels
+    nnz = len(ek._rot_nz(cfg.lmax, cfg.mmax)[0])
+    rows = torch.randn(P_full, M * C, generator=gen).to(**F32)
+    own = rows[2 * P_loc:3 * P_loc].clone()
+    src = torch.randint(0, P_full, (E,), generator=gen).cuda()
+    es = torch.randn(cfg.edge_channels, E, generator=gen).to(**F32)
+    dp = (torch.randn(nnz, E, generator=gen) * 0.5).to(**F32)
+    dpe = dp * (torch.rand(E, generator=gen) > 0.2).to(**F32)
+    live = dpe.abs().amax(0) > 0
+    g = torch.randn(M * C, E, generator=gen).to(**F32)
+    outs = []
+    for kernel in (True, True, False):
+        r = rows.clone().requires_grad_(True)
+        o = own.clone().requires_grad_(True)
+        xs = (ek.gather_src(r, src, live) if kernel else r[src]).T
+        xt = o.repeat_interleave(K, dim=0).T
+        fn = ek.fused_edge_block if kernel else ek.fused_edge_block_plain
+        y = fn(cfg, xs, xt, es, dp, dpe, w, tabs)
+        outs.append([y, *torch.autograd.grad(y, [r, o], g)])
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b) and _close(a, c)
+
+
+def test_escn_sharded_route_on_card_takes_k3():
+    """escn_energy under a one-rank shard (the collectives identities)
+    takes K3 for "pallas-mega" and matches the unsharded pallas-full
+    call."""
+    _need_card()
+    from pdb2reaction_tpu_torch.mlip.escn import escn_energy
+
+    class Solo:
+        rank, size = 0, 1
+
+        @staticmethod
+        def replicate_in(x):
+            return x
+
+        all_gather_rows = sum_out = replicate_in
+
+    st = _lattice(20, seed=6)
+    w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=3)
+    calc = make_uma_calculator(st, model="escn-test", params=w,
+                               edge_kernel="pallas-full")
+    cfg = dataclasses.replace(calc.cfg, edge_kernel="pallas-mega")
+    c = calc._to_pad_ang(st.coords_bohr.reshape(-1))
+    got = []
+    for shard in (Solo(), None):
+        x = c.clone().requires_grad_(True)
+        before = _branch_counts()
+        e = escn_energy(x, calc.system, calc.params,
+                        cfg if shard else calc.cfg, shard)
+        got.append((e, torch.autograd.grad(e, x)[0]))
+        moved = {k: v - before[k] for k, v in _branch_counts().items()
+                 if v != before[k]}
+        assert moved == {"fused_edge_block_fwd": 2, "fused_edge_block_bwd": 2,
+                         "fused_node_ffn_fwd": 2, "fused_node_ffn_bwd": 2}
+    assert _close(got[0][0], got[1][0]) and _close(got[0][1], got[1][1])

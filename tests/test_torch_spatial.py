@@ -16,6 +16,12 @@ Tolerances:
   order the sum differently);
 - the factory: 1e-8 Ha and forces rtol 1e-5 atol 1e-8, as
   test_uma_factory_spatial (f32 model math, sums reordered);
+- eSCN (escn-test in the "pallas-mega" layout, which takes K3's under a
+  shard, and in "pallas" and "xla"; escn-test-gate) in f64 against the
+  JAX package's unsharded ``escn_energy``: energy and forces rtol 1e-10;
+  the premerged eSCN factory path (twin of tests/test_spatial.py:74-96,
+  181-197) and a sharded escn-test opt against the unsharded ones in
+  f64, rtol 1e-10;
 - forces bitwise equal on the four ranks and across two calls."""
 
 import dataclasses
@@ -35,6 +41,7 @@ import torch
 
 from pdb2reaction_tpu.core.structure import Structure as JStructure
 from pdb2reaction_tpu.core.structure import pad_to as jpad_to
+from pdb2reaction_tpu.mlip.escn import escn_energy as j_escn_energy
 from pdb2reaction_tpu.mlip.model import ModelConfig as JModelConfig
 from pdb2reaction_tpu.mlip.model import make_model as j_make_model
 from pdb2reaction_tpu.parallel.mesh import make_mesh
@@ -43,10 +50,14 @@ from pdb2reaction_tpu_torch.core.io_xyz import write_xyz
 from pdb2reaction_tpu_torch.core.structure import Structure
 from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
 
+from test_torch_escn import jax_weights_np
+
 REPO = Path(__file__).resolve().parents[1]
 CFG = dict(hidden=16, n_layers=2, n_radial=6, cutoff=4.0, max_neighbors=12)
 F32_SUM = 8 * float(np.finfo(np.float32).eps)
 RANKS = 4
+ESCN = ("escn-test", "escn-test-gate")
+RTOL = 1e-10                # eSCN in f64 against unsharded
 
 
 def _structure(n, seed, spacing=1.5):
@@ -95,6 +106,12 @@ def run(tmp_path_factory):
             lambda c: fn(c, sys_, jtu.tree_map(jnp.asarray, p))))(
             jnp.asarray(sys_.coords))
         weights[mode], jax_eg[mode] = p, (float(e), np.asarray(g))
+    for name in ESCN:
+        p, cfg = jax_weights_np(name, jnp.float64, seed=2, charge=1, spin=2)
+        e, g = jax.jit(jax.value_and_grad(
+            lambda c: j_escn_energy(c, sys_, jtu.tree_map(jnp.asarray, p),
+                                    cfg)))(jnp.asarray(sys_.coords))
+        weights[name], jax_eg[name] = p, (float(e), np.asarray(g))
     fzs, fxyz = _structure(17, seed=11)
     xyz_path = d / "x.xyz"
     write_xyz(xyz_path, Structure(fzs, fxyz))
@@ -190,9 +207,51 @@ def test_sharded_opt_same_on_every_rank_and_rank0_writes(run):
     assert (d / "opt" / "final_geometry.xyz").exists()
 
 
-def test_escn_under_sharding_raises(run):
+@pytest.mark.parametrize("case", [
+    "escn-test/pallas-mega", "escn-test/pallas", "escn-test/xla",
+    "escn-test-gate/pallas-mega"])
+def test_sharded_escn_f64_matches_jax(run, case):
+    """Each rank's sharded eSCN energy and forces against the JAX
+    package's unsharded f64 ones, bitwise equal on every rank and in a
+    second call."""
+    ranks, jax_eg, _ = run
+    e_j, g_j = jax_eg[case.split("/")[0]]
+    e0, g0, _ = ranks[0][case]
+    for res in ranks:
+        e, g, again = res[case]
+        assert abs(e - e_j) <= RTOL * abs(e_j)
+        assert _rel(g, g_j) <= RTOL
+        assert e == e0 and np.array_equal(g, g0) and np.array_equal(g, again)
+
+
+@pytest.mark.parametrize("name", ESCN)
+def test_uma_factory_spatial_escn_premerged(run, name):
+    """make_uma_calculator(model=escn-*, spatial=4) premerges the MoLE
+    banks, pads to a multiple of 4 and matches the unsharded, unmerged
+    closure's calculator in f64; forces bitwise equal on every rank and
+    across calls."""
     ranks, _, _ = run
-    assert all(res["escn_refused"] == [True, True] for res in ranks)
+    first = ranks[0][f"factory/{name}"]
+    for res in ranks:
+        r0, r1, again, n_pad, premerged = res[f"factory/{name}"]
+        assert premerged and n_pad % RANKS == 0
+        assert abs(r1["energy"] - r0["energy"]) <= RTOL * abs(r0["energy"])
+        assert _rel(r1["forces"], r0["forces"]) <= RTOL
+        assert np.array_equal(r1["forces"], again)
+        assert np.array_equal(r1["forces"], first[1]["forces"])
+
+
+def test_sharded_escn_opt_matches_unsharded(run):
+    """A 3-cycle sharded escn-test L-BFGS opt (f64) on every rank against
+    the unsharded one: the same calls, energies within rtol 1e-10."""
+    ranks, _, _ = run
+    e0, calls0, x0 = ranks[0]["escn_opt"][0]
+    for res in ranks:
+        (e, calls, x), (e_u, calls_u, x_u) = res["escn_opt"]
+        assert (e, calls) == (e0, calls0) and np.array_equal(x, x0)
+        assert calls == calls_u and calls >= 2
+        assert abs(e - e_u) <= RTOL * abs(e_u)
+        np.testing.assert_allclose(x, x_u, rtol=0, atol=1e-8)
 
 
 def test_spatial_without_a_group_raises(tmp_path):
@@ -212,11 +271,12 @@ def test_spatial_without_a_group_raises(tmp_path):
     assert r.returncode != 0 and "torchrun" in r.stderr
 
 
-def test_opt_cli_under_torchrun(tmp_path):
+@pytest.mark.parametrize("model", ["small", "escn-test"])
+def test_opt_cli_under_torchrun(tmp_path, model):
     """``torchrun --nproc-per-node 2 -m pdb2reaction_tpu_torch opt ...
-    --spatial 2 --device cpu``: both ranks converge (exit 0; torchrun
-    reports a rank's exit 3, not converged, as a failure), rank 0
-    writes."""
+    --spatial 2 --device cpu --model M``, PaiNN-class and eSCN: both
+    ranks converge (exit 0; torchrun reports a rank's exit 3, not
+    converged, as a failure), rank 0 writes."""
     zs, xyz = _structure(10, seed=3)
     path = tmp_path / "x.xyz"
     write_xyz(path, Structure(zs, xyz))
@@ -225,7 +285,7 @@ def test_opt_cli_under_torchrun(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          "2", "--master-addr", "127.0.0.1", "--master-port",
          str(_free_port()), "-m", "pdb2reaction_tpu_torch", "opt", "-i",
-         str(path), "--device", "cpu", "--spatial", "2", "--model", "small",
+         str(path), "--device", "cpu", "--spatial", "2", "--model", model,
          "-q", "0",
          "--thresh", "gau_loose", "--max-cycles", "200"], cwd=tmp_path,
         env=env, capture_output=True, text=True, timeout=300)

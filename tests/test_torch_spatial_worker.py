@@ -54,17 +54,37 @@ def _cases(group, inp, out_dir):
     r0, r1 = c0.get_forces(cb), c1.get_forces(cb)
     res["factory"] = (r0, r1, c1.n_pad, c1.cfg.mp_mode)
     res["repeat"] = c1.get_forces(cb)["forces"]
-    # eSCN under sharding is refused
-    refused = []
-    for build in (lambda: make_uma_calculator(st, model="escn-test",
-                                              device="cpu", spatial=4),
-                  lambda: make_spatial_energy_fn(ESCN_CONFIGS["escn-test"],
-                                                 group)):
-        try:
-            build()
-        except NotImplementedError:
-            refused.append(True)
-    res["escn_refused"] = refused
+    # eSCN sharded in f64 on JAX weights: the default layout (K3's under
+    # a shard), "pallas" and "xla"; the gate configuration
+    f64 = torch.float64
+    for case in ("escn-test/pallas-mega", "escn-test/pallas",
+                 "escn-test/xla", "escn-test-gate/pallas-mega"):
+        name, layout = case.split("/")
+        cfg = dataclasses.replace(ESCN_CONFIGS[name], dtype=f64,
+                                  edge_kernel=layout)
+        fn = make_spatial_energy_fn(cfg, group)
+        params = params_from_jax(inp["weights"][name], dtype=f64)
+        res[case] = _eg(fn, system, params, coords) \
+            + (_eg(fn, system, params, coords)[1],)
+    # the eSCN factory: premerged, sharded against unsharded in f64
+    for name in ("escn-test", "escn-test-gate"):
+        kw = dict(model=name, charge=1, spin=2, device="cpu", dtype=f64)
+        c0 = make_uma_calculator(st, **kw)
+        c1 = make_uma_calculator(st, spatial=4, **kw)
+        r1 = c1.get_forces(cb)
+        res[f"factory/{name}"] = (
+            c0.get_forces(cb), r1, c1.get_forces(cb)["forces"], c1.n_pad,
+            c1.params["energy_head"][0]["w"].ndim == 2)
+    # a sharded escn-test opt against the unsharded one (f64)
+    eo = []
+    for spatial in (4, 1):
+        calc = make_uma_calculator(st, model="escn-test", device="cpu",
+                                   dtype=f64, spatial=spatial)
+        ro = run_opt(inp["xyz_path"], charge=0, model="escn-test",
+                     calc=calc, max_cycles=3, verbose=False,
+                     out_dir=os.path.join(out_dir, f"escn_opt{spatial}"))
+        eo.append((ro["energy"], ro["force_calls"], ro["coords_bohr"]))
+    res["escn_opt"] = eo
     # a sharded opt: every rank the same loop, rank 0 alone writes
     cfg = dataclasses.replace(tm.CONFIGS["small"], mp_mode="pallas")
     w = tm.init_params(cfg, seed=3)
