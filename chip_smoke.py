@@ -216,7 +216,30 @@ Phases (any failure exits non-zero):
    remat_blocks=True in pallas-mega on phase 4's weights: K1 8 + 4 and
    K2 8 + 4 launches per force call (every forward recomputed in the
    backward), forces bit for bit equal to phase 4's, peak memory and
-   ms both ways; [branch] lines.
+   ms both ways; [branch] lines;
+20. ranks on the card (four started with "spawn", gloo through host
+   memory; [ranks] lines, each beside the card's name and power limit):
+   (a) phase 12's flagship string with its images over a data axis of
+   four (`Calculator(mesh=make_mesh(data=4))`, phase 4's weights): the
+   same cycles and force calls as phase 12 on every rank, images and
+   energies bit for bit, K1 and K2 launches summed over the ranks equal
+   to phase 12's, the wall beside phase 12's; (b) phase 12's 64-atom
+   analytic Hessian with its 186 tangents over the four data ranks,
+   against phase 12's (bit for bit when the plain path repeats bit for
+   bit in one process, which the parent checks first; else within
+   SHARD_TOL), the wall beside phase 12's; (c) run_freq on phase 15's TS
+   guess (17 active atoms, 51 HVPs) with the calculator sharded over the
+   four as model ranks, its Hessian through the sharded plain closure
+   and the collectives' double backward: against the parent's unsharded
+   run_freq within SHARD_TOL of max|H| and P20_FREQ_TOL cm^-1, bit for
+   bit on the four ranks, ms per sharded HVP, peak memory per rank, no
+   launch inside the Hessian and K3 4 + 4, K2 4 + 4 outside it; (d) the
+   all CLI at phase 16's settings under `torch.distributed.run
+   --nproc-per-node 2` with `--workers 2`: summary.yaml equal to phase
+   16's (when (a) is bit for bit), the stages' force calls equal, rank
+   0's tree the only output, no rank scratch left; (e) where the host
+   has two or more cards, (a) again with one rank a card over NCCL,
+   else a line saying it did not run.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -868,7 +891,8 @@ def endpoint_b(xyz, free, seed=1, scale=0.08):
 def gsm_flagship(calc, xA, xB, ms_force):
     """The flagship MEP through the calculator's batched closure: one
     warm-up, then the measured run with its counts set to 0 just before
-    and read just after. Returns the measured run's GsmResult."""
+    and read just after. Returns the measured run's GsmResult, its wall
+    time and its launches."""
     import torch
     from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
     fm = calc.system.free_mask
@@ -914,7 +938,7 @@ def gsm_flagship(calc, xA, xB, ms_force):
     if not np.all(np.isfinite(res.energies)) \
             or not np.all(np.isfinite(res.images)):
         fail("the GSM string has non-finite energies or images")
-    return res
+    return res, wall, moved
 
 
 def gsm_climb(calc, xA, xB):
@@ -972,7 +996,7 @@ def hessians_64(ref64):
     """The analytic Hessian on the card (all-plain, one HVP a free DOF:
     186, one host copy) against CPU float64 and float32 HVP columns, and
     the FD Hessian through the kernels, at 64 atoms with atoms 0 and 1
-    frozen."""
+    frozen. Returns the analytic Hessian and its wall time."""
     import torch
     from pdb2reaction_tpu_torch.constants import H_EVAA_2_AU
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
@@ -1063,6 +1087,7 @@ def hessians_64(ref64):
     log(f"[hess] create_graph backward through K1/K2 on the card: {said}")
     if "double backward" not in said:
         fail("a create_graph backward through the kernels did not raise")
+    return H, t_an
 
 
 def path_opt_cli(st, xyzB):
@@ -1101,7 +1126,10 @@ def path_opt_cli(st, xyzB):
 
 def phase_gsm(calc, ms_force, ref64):
     """Phase 12: the GSM string on the escn-md calculator of phase 4, the
-    Hessians at 64 atoms with phase 5's weights, and path-opt."""
+    Hessians at 64 atoms with phase 5's weights, and path-opt. Returns
+    what phase 20 holds its ranks to: the endpoints, the flagship run
+    (result, wall, launches) and the 64-atom analytic Hessian (H,
+    wall)."""
     import torch
     from pdb2reaction_tpu_torch.constants import ANG2BOHR
     t0 = time.perf_counter()
@@ -1111,13 +1139,15 @@ def phase_gsm(calc, ms_force, ref64):
     xyzB = endpoint_b(st.coords, free)
     xA = calc.pad_bohr(st.coords_bohr)
     xB = calc.pad_bohr(xyzB * ANG2BOHR)
-    gsm_flagship(calc, xA, xB, ms_force)
+    flagship = gsm_flagship(calc, xA, xB, ms_force)
     gsm_climb(calc, xA, xB)
-    hessians_64(ref64)
+    hess = hessians_64(ref64)
     path_opt_cli(st, xyzB)
     log(f"[gsm] phase 12 wall {time.perf_counter() - t0:.1f} s; device "
         f"memory held {held:.2f} GiB before, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after")
+    return {"xA": xA.cpu().numpy(), "xB": xB.cpu().numpy(),
+            "gsm": flagship, "hess": hess}
 
 
 # ---------------------------------------------------------------------------
@@ -1675,6 +1705,7 @@ def phase_stage4(calc, st, search, bond, smi_line):
     stage4_cli(gpath, ts_path, freeze)
     morse_card_vs_cpu()
     log(f"[stage4] phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    return gpath, freeze
 
 
 def irc_cycle_alone(n_atoms, freeze, reps=3):
@@ -2124,16 +2155,17 @@ def phase_all(smi_line):
             f"{ {t: round(v['G_au'], 6) for t, v in e['thermo'].items()} }")
     del res, calc
     torch.cuda.empty_cache()
-    all_cli(r, p, freeze, n_full)
+    cli = all_cli(r, p, freeze, n_full)
     log(f"[all] phase 16 wall {time.perf_counter() - t_phase:.1f} s")
-    return dict(moved)
+    return dict(moved), cli
 
 
 def all_cli(r, p, freeze, n_full):
     """Phase 16b: ``python -m pdb2reaction_tpu_torch -i R.pdb -i P.pdb
     --center LIG --ligand-charge 0 --model escn-md ...`` with no
     subcommand (the default all), stage 4 off, as a subprocess on the
-    card: rc 0 and the tree through stage3_merged."""
+    card: rc 0 and the tree through stage3_merged. Returns its arguments
+    after the module name, its output tree and its standard output."""
     out = os.path.join(os.path.dirname(r), "cli")
     os.makedirs(out)
     y = os.path.join(out, "args.yaml")
@@ -2142,10 +2174,11 @@ def all_cli(r, p, freeze, n_full):
                  f"  max_consecutive_kinks: {ALL_KINKS}\n")
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "-i", r, "-i", p,
-           "--center", "LIG", "--ligand-charge", "0", "--model", "escn-md",
-           "--max-nodes", "6", "--max-cycles", "5", "--preopt", "False",
-           "--freeze-atoms", ",".join(map(str, freeze)), "--args-yaml", y,
+    args = ["-i", r, "-i", p, "--center", "LIG", "--ligand-charge", "0",
+            "--model", "escn-md", "--max-nodes", "6", "--max-cycles", "5",
+            "--preopt", "False", "--freeze-atoms",
+            ",".join(map(str, freeze)), "--args-yaml", y]
+    cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", *args,
            "--out-dir", os.path.join(out, "result_all")]
     t0 = time.perf_counter()
     rr = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
@@ -2170,6 +2203,7 @@ def all_cli(r, p, freeze, n_full):
     n = text.count("\nATOM  ") + text.count("\nHETATM")
     if n != text.count("MODEL ") * n_full:
         fail("the all CLI's merged MEP does not carry the full atom count")
+    return args, res, rr.stdout
 
 
 # ---------------------------------------------------------------------------
@@ -4142,6 +4176,416 @@ def spatial_escn_checks(out, ranks, refs):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the data axis and the Hessian over ranks
+# ---------------------------------------------------------------------------
+
+P20_RANKS = 4
+P20_FREQ_TOL = 0.1      # cm^-1: sharded against unsharded frequencies
+
+
+def _np(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def p20_gsm(mesh, inp):
+    """(a) / (e): phase 12's flagship string with its images over the data
+    axis, its counts set to 0 just before the measured run and read just
+    after."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    calc = make_uma_calculator(Structure(*inp["st300"]), model="escn-md",
+                               params=inp["params"], pad_multiple=64,
+                               mesh=mesh, weights_source="phase 4")
+    dev = calc.device
+    xA = torch.as_tensor(inp["xA"], device=dev)
+    xB = torch.as_tensor(inp["xB"], device=dev)
+    eb = calc.au_energy_force_batch_fn()
+    fm = calc.system.free_mask
+    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False)
+    gsm_mep(eb, xA, xB, fm, max_cycles=2, stop_in_when_full=2, **kw)
+    zero_escn_counts()
+    n0 = calc.force_calls
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gsm_mep(eb, xA, xB, fm, max_cycles=60, stop_in_when_full=60, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"images": np.stack([_np(x) for x in res.images]),
+            "energies": _np(res.energies), "cycles": res.cycles,
+            "force_calls": res.force_calls,
+            "calc_calls": calc.force_calls - n0, "wall": wall,
+            "launches": {k: v for k, v in escn_counts().items() if v},
+            "backend": mesh.data.backend, "device": str(dev)}
+
+
+def p20_hessian(mesh, inp):
+    """(b): the 64-atom analytic Hessian of phase 12 with its free-DOF
+    tangents over the data axis."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    st = Structure(*inp["st64"])
+    cb = st.coords_bohr.reshape(-1)
+    calc = make_uma_calculator(st, model="escn-md", params=inp["w64"],
+                               freeze_atoms=[0, 1], mesh=mesh)
+    calc.get_forces(cb)                       # warm-up of the force path
+    zero_escn_counts()
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = calc.get_hessian(cb)["hessian"]
+    torch.cuda.synchronize()
+    return {"H": H, "wall": time.perf_counter() - t0,
+            "launches": {k: v for k, v in escn_counts().items() if v}}
+
+
+def p20_freq(mesh, inp, out_dir):
+    """(c): run_freq on phase 15's TS guess with the calculator sharded
+    over the model axis: its Hessian through the sharded plain closure,
+    timed alone, and the launches outside it."""
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.freq import run_freq
+    calc = make_uma_calculator(read_xyz(inp["gpath"]), model="escn-md",
+                               params=inp["params"], pad_multiple=64,
+                               freeze_atoms=inp["freeze"],
+                               spatial=mesh.shape["model"],
+                               weights_source="phase 4")
+    analytic = calc._analytic_hessian
+    inside = {}
+
+    def timed(cb):
+        before = escn_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H = analytic(cb)
+        torch.cuda.synchronize()
+        inside["s"] = time.perf_counter() - t0
+        inside["moved"] = {k: v - before[k] for k, v in escn_counts().items()
+                           if v != before[k]}
+        return H
+
+    calc._analytic_hessian = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_escn_counts()
+    t0 = time.perf_counter()
+    r = run_freq(inp["gpath"], calculator=calc, charge=0, verbose=False,
+                 out_dir=os.path.join(out_dir, "freq"))
+    wall = time.perf_counter() - t0
+    return {"H": r["hessian"], "freqs": r["freqs_cm"], "wall": wall,
+            "hess_s": inside["s"], "inside": inside["moved"],
+            "n_hvp": int(calc.free_dof_mask.sum()), "n_pad": calc.n_pad,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: v for k, v in escn_counts().items() if v}}
+
+
+def p20_worker(rank, world, port, out_dir, cases):
+    """One rank of phase 20 (started with "spawn"): ``cases`` of (a) and
+    (b) on a data axis of ``world`` ranks, (c) on a model axis of
+    ``world`` ranks; an exception goes to rank<r>.err and a non-zero exit
+    code."""
+    import pickle
+    import traceback
+    try:
+        sys.path.insert(0, HERE)
+        import torch
+        from pdb2reaction_tpu_torch.parallel import (initialize_distributed,
+                                                     make_mesh, shutdown)
+        initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                               device="cuda", timeout_s=300)
+        inp = torch.load(os.path.join(out_dir, "in.pt"), weights_only=False,
+                         map_location=f"cuda:{torch.cuda.current_device()}")
+        out = {}
+        if "a" in cases:
+            out["a"] = p20_gsm(make_mesh(data=world), inp)
+        if "b" in cases:
+            out["b"] = p20_hessian(make_mesh(data=world), inp)
+        if "c" in cases:
+            out["c"] = p20_freq(make_mesh(model=world), inp, out_dir)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+        shutdown()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def p20_spawn(out, world, cases, limit):
+    """``world`` ranks of ``p20_worker`` on the cases; their results in
+    rank order and the wall time. Any rank that fails fails the run."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=p20_worker,
+                         args=(r, world, port, out, cases))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(t0 + limit - time.perf_counter(), 1))
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = [open(os.path.join(out, f)).read() for f in sorted(os.listdir(out))
+            if f.endswith(".err")]
+    if errs or any(p.exitcode != 0 for p in procs):
+        fail(f"phase 20 ({cases}): exit codes {[p.exitcode for p in procs]}; "
+             + "\n".join(errs))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as fh:
+            ranks.append(pickle.load(fh))
+    return ranks, wall
+
+
+def p20_gsm_checks(tag, ranks, p12, smi_line):
+    """(a) / (e) against phase 12's single-process run: the same cycles
+    and force calls, images and energies bit for bit, K1 and K2 launches
+    summed over the ranks equal to phase 12's. Returns the sums and
+    whether every rank matched phase 12 bit for bit."""
+    res12, wall12, moved12 = p12["gsm"]
+    img12 = np.stack([_np(x) for x in res12.images])
+    e12 = _np(res12.energies)
+    total = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    bits = all(np.array_equal(r["images"], img12)
+               and np.array_equal(r["energies"], e12) for r in ranks)
+    same = all((r["cycles"], r["force_calls"], r["calc_calls"])
+               == (res12.cycles, res12.force_calls, res12.force_calls)
+               for r in ranks)
+    dx = max(float(np.abs(r["images"] - img12).max()) for r in ranks)
+    de = max(float(np.abs(r["energies"] - e12).max()) for r in ranks)
+    walls = [r["wall"] for r in ranks]
+    log(f"[ranks] {tag}: {smi_line}; {len(ranks)} data ranks "
+        f"({ranks[0]['backend']}, {ranks[0]['device']} on rank 0): wall "
+        f"{max(walls):.2f} s (ranks {[round(w, 2) for w in walls]}) against "
+        f"phase 12's one process {wall12:.2f} s; {ranks[0]['cycles']} "
+        f"cycles, {ranks[0]['force_calls']} force calls on every rank "
+        f"(phase 12: {res12.cycles}, {res12.force_calls}); images and "
+        f"energies bit for bit phase 12's: {bits} (max|dx| {dx:.3e} Bohr, "
+        f"max|dE| {de:.3e} Ha); launches summed over the ranks {total} "
+        f"(phase 12: {moved12})")
+    if not same:
+        fail(f"{tag}: cycles or force calls differ from phase 12's")
+    if not bits:
+        fail(f"{tag}: the string over the data axis is not phase 12's bit "
+             "for bit")
+    if total != moved12:
+        fail(f"{tag}: K1/K2 launches summed over the ranks {total} != "
+             f"phase 12's {moved12}")
+    return total, bits
+
+
+def p20_cli(p16, a_bits, smi_line):
+    """(d): ``python -m torch.distributed.run --nproc-per-node 2 -m
+    pdb2reaction_tpu_torch ... --workers 2`` at phase 16's CLI settings,
+    against phase 16's single-process run: summary.yaml, the stages'
+    force calls, one output tree and no scratch directory left."""
+    import shutil
+    import socket
+    args, one_dir, one_out = p16
+    out = os.path.join(HERE, "result_smoke", "ranks", "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    tmp = os.path.join(out, "tmp")
+    os.makedirs(tmp)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, TMPDIR=tmp, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    two_dir = os.path.join(out, "result_all")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "2", "--master-addr", "127.0.0.1", "--master-port", str(port),
+           "-m", "pdb2reaction_tpu_torch", *args, "--workers", "2",
+           "--out-dir", two_dir]
+    t0 = time.perf_counter()
+    rr = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if rr.returncode != 0:
+        fail(f"the all CLI under torch.distributed.run exited "
+             f"{rr.returncode}: {rr.stderr[-3000:]}")
+
+    def tree(d):
+        return sorted(os.path.relpath(os.path.join(a, f), d)
+                      for a, _, fs in os.walk(d) for f in fs)
+
+    def report(text):
+        lines = text.splitlines()
+        at = [i for i, ln in enumerate(lines) if ln.startswith("phase ")]
+        rows = []
+        for ln in lines[at[0] + 1:] if at else []:
+            tok = ln.split()
+            if len(tok) < 5 or not tok[1].isdigit():
+                break
+            rows.append(tuple(tok[:3]))
+        return rows
+
+    with open(os.path.join(one_dir, "summary.yaml")) as fh:
+        s1 = json.load(fh)
+    with open(os.path.join(two_dir, "summary.yaml")) as fh:
+        s2 = json.load(fh)
+    calls1, calls2 = report(one_out), report(rr.stdout)
+    stray = [f for f in os.listdir(out) if f not in ("result_all", "tmp")]
+    # torch.distributed.run keeps its own torchelastic_* directory there
+    scratch = [f for f in os.listdir(tmp) if f.startswith("pdb2r_rank")]
+    log(f"[ranks] (d) {smi_line}; the all CLI (phase 16's settings) under "
+        f"torch.distributed.run --nproc-per-node 2 with --workers 2: rc "
+        f"{rr.returncode}, {wall:.1f} s with start-up; summary.yaml equal "
+        f"to phase 16's single-process run: {s1 == s2}; the stages' force "
+        f"calls {calls2} (phase 16: {calls1}); one output tree, phase 16's "
+        f"files: {tree(two_dir) == tree(one_dir)}; stray entries "
+        f"{stray}; rank scratch left in TMPDIR {scratch}; the stage "
+        f"log printed {rr.stdout.count('[all] pipeline complete')} time(s)")
+    if not calls1 or calls1 != calls2:
+        fail("the all CLI over two data ranks counted other force calls")
+    if a_bits and s1 != s2:
+        fail("the all CLI over two data ranks wrote another summary.yaml")
+    if tree(two_dir) != tree(one_dir) or stray or scratch \
+            or rr.stdout.count("[all] pipeline complete") != 1:
+        fail("the all CLI over two ranks left other files than rank 0's "
+             "tree, a scratch directory or a second log")
+
+
+def phase_ranks(calc, p12, ref64, p15, p16, smi_line):
+    """Phase 20: the data axis and the Hessian over ranks. Returns the
+    launches of its paths summed over the ranks."""
+    import shutil
+
+    import torch
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.workflows.freq import run_freq
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "result_smoke", "ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    st64, w64, _ = ref64
+    gpath, freeze = p15
+    st = calc.structure
+    torch.save({"params": calc.params, "st300": (st.numbers, st.coords),
+                "xA": p12["xA"], "xB": p12["xB"],
+                "st64": (st64.numbers, st64.coords), "w64": w64,
+                "gpath": gpath, "freeze": freeze},
+               os.path.join(out, "in.pt"))
+    # (b) first in one process: does the plain path repeat bit for bit?
+    H12, t12 = p12["hess"]
+    cb = st64.coords_bohr.reshape(-1)
+    one = make_uma_calculator(st64, model="escn-md", params=w64,
+                              freeze_atoms=[0, 1])
+    H_again = one.get_hessian(cb)["hessian"]
+    repeats = bool(np.array_equal(H_again, H12))
+    del one
+    # (c)'s reference: run_freq on the TS guess in one process
+    c1 = make_uma_calculator(read_xyz(gpath), model="escn-md",
+                             params=calc.params, pad_multiple=64,
+                             freeze_atoms=freeze)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rf = run_freq(gpath, calculator=c1, charge=0, verbose=False,
+                  out_dir=os.path.join(out, "freq_one"))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    del c1
+    torch.cuda.empty_cache()
+    # (a), (b) and (c) in one group of four ranks on the card
+    ranks, wall = p20_spawn(out, P20_RANKS, "abc", limit=400)
+    log(f"[ranks] {P20_RANKS} ranks started with spawn on the card, "
+        f"{wall:.1f} s for (a)-(c) with start-up")
+    total, a_bits = p20_gsm_checks("(a) data axis, the flagship string",
+                                   [r["a"] for r in ranks], p12, smi_line)
+    Hs = [r["b"]["H"] for r in ranks]
+    err_b = max(float(np.abs(H - H12).max() / np.abs(H12).max()) for H in Hs)
+    bits_b = all(np.array_equal(H, H12) for H in Hs)
+    same_b = all(np.array_equal(H, Hs[0]) for H in Hs)
+    log(f"[ranks] (b) {smi_line}; the 64-atom analytic Hessian with its "
+        f"{int(np.count_nonzero(np.abs(H12).sum(1)))} free-DOF tangents "
+        f"over {P20_RANKS} data ranks: "
+        f"{max(r['b']['wall'] for r in ranks):.2f} s against phase 12's "
+        f"one process {t12:.2f} s; max|dH|/max|H| against phase 12's "
+        f"{err_b:.3e}, bit for bit {bits_b}; the plain path repeats bit for "
+        f"bit in one process: {repeats}; the same bits on every rank: "
+        f"{same_b}; launches (its one force call) "
+        f"{[r['b']['launches'] for r in ranks]}")
+    if not same_b or err_b > SHARD_TOL or (repeats and not bits_b):
+        fail("(b) the Hessian over data ranks differs between ranks or "
+             "from the single-process one")
+    for r in ranks:
+        for k, v in r["b"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    c = [r["c"] for r in ranks]
+    H0, f0 = rf["hessian"], rf["freqs_cm"]
+    err_c = max(float(np.abs(x["H"] - H0).max() / np.abs(H0).max())
+                for x in c)
+    df = max(float(np.abs(x["freqs"] - f0).max()) for x in c)
+    same_c = all(np.array_equal(x["H"], c[0]["H"]) for x in c)
+    ms_hvp = c[0]["hess_s"] / c[0]["n_hvp"] * 1e3
+    want_c = {k: 4 for k in ("fused_edge_block_fwd", "fused_edge_block_bwd",
+                             "fused_node_ffn_fwd", "fused_node_ffn_bwd")}
+    log(f"[ranks] (c) {smi_line}; run_freq on phase 15's TS guess "
+        f"({st.n_atoms} atoms, P = {c[0]['n_pad']}, "
+        f"{len(st.coords) - len(freeze)} active) sharded over "
+        f"{P20_RANKS} model ranks: {c[0]['wall']:.2f} s, the Hessian "
+        f"{c[0]['hess_s']:.2f} s = {c[0]['n_hvp']} HVPs at {ms_hvp:.1f} ms "
+        f"each through the sharded plain closure (one process: run_freq "
+        f"{t_one:.2f} s); max|dH|/max|H| against one process {err_c:.3e} "
+        f"(tol {SHARD_TOL}), max|dfreq| {df:.4f} cm-1 (tol {P20_FREQ_TOL});"
+        f" the same bits on every rank: {same_c}; peak memory per rank "
+        f"{[round(x['peak_gib'], 2) for x in c]} GiB; launches inside the "
+        f"Hessian {[x['inside'] for x in c]}, outside it (its one force "
+        f"call) {[x['launches'] for x in c]}")
+    if err_c > SHARD_TOL or df > P20_FREQ_TOL or not same_c:
+        fail("(c) the sharded Hessian or frequencies disagree with the "
+             "unsharded run_freq, or between ranks")
+    if any(x["inside"] or x["launches"] != want_c for x in c):
+        fail(f"(c) launches: a kernel inside the Hessian, or other than "
+             f"{want_c} outside it")
+    for x in c:
+        for k, v in x["launches"].items():
+            total[k] = total.get(k, 0) + v
+    p20_cli(p16, a_bits, smi_line)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n = min(P20_RANKS, n_cards)
+        d_e = os.path.join(out, "cards")
+        os.makedirs(d_e)
+        shutil.copy(os.path.join(out, "in.pt"), d_e)
+        ranks_e, _ = p20_spawn(d_e, n, "a", limit=300)
+        e_total, _ = p20_gsm_checks(f"(e) {n} cards over NCCL, one rank a "
+                                    f"card", [r["a"] for r in ranks_e],
+                                    p12, smi_line)
+        log(f"[ranks] (e) wall {max(r['a']['wall'] for r in ranks_e):.2f} s"
+            f" on {n} cards against (a)'s "
+            f"{max(r['a']['wall'] for r in ranks):.2f} s on one")
+        for k, v in e_total.items():
+            total[k] = total.get(k, 0) + v
+    else:
+        log(f"[ranks] (e) the host has {n_cards} card: the NCCL data axis "
+            "over several cards did not run")
+    log(f"[ranks] phase 20 wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -4210,7 +4654,7 @@ def main():
                                      cycles=0))
         ref64 = phase_reference(seed=0)
         # ---- the GSM path on the escn-md calculator: its own counts
-        phase_gsm(calc, ms_force, ref64)
+        p12 = phase_gsm(calc, ms_force, ref64)
         # ---- phase 18d's CPU float64 reference, in a child process from
         # here on: its ~50 CPU force calls overlap phases 13-17, not phase
         # 12's CPU float64 Hessian columns
@@ -4222,9 +4666,9 @@ def main():
         phase_golden()
         log(f"[search] phases 13-14 wall {time.perf_counter() - t0:.1f} s")
         # ---- stage 4 from phase 13's TS guess: its own counts
-        phase_stage4(calc, st, search, bond, smi_line)
+        p15 = phase_stage4(calc, st, search, bond, smi_line)
         # ---- all on the enzyme-like PDB pair: its own counts
-        phase_all(smi_line)
+        _, p16 = phase_all(smi_line)
         # ---- the scans, stage 1b and the mini DFT engine: their own counts
         phase_scans(calc, st, bond, smi_line)
         # ---- DLC and DMF: their own counts
@@ -4242,6 +4686,10 @@ def main():
         # K2 of its eSCN part)
         for k, v in phase_spatial(
                 ref4, {k: v[1] for k, v in k6_rows.items()}, rows).items():
+            launches[k] += v
+        # ---- the data axis and the Hessian over ranks: their own counts
+        for k, v in phase_ranks(calc, p12, ref64, p15, p16,
+                                smi_line).items():
             launches[k] += v
 
     kern = []

@@ -14,10 +14,9 @@ torch.profiler Chrome trace. ``opt`` / ``tsopt --coord-type dlc`` run
 in delocalized internals and ``--mep-mode dmf`` (``path-opt``,
 ``path-search``, ``all``) runs Direct Max Flux (``path-opt`` reads its
 keys from the ``dmf:`` section of ``--args-yaml``, as the JAX package
-does). Not ported, and refused with their ROADMAP.md items:
-``--spatial > 1`` outside ``opt`` (item 9), ``--gsm-loop device``,
-``--workers`` and ``--dump`` outside ``opt`` and ``scan`` (the other
-JAX commands write nothing with it).
+does). Not ported, and refused: ``--gsm-loop device`` (left out on
+purpose) and ``--dump`` outside ``opt`` and ``scan`` (the other JAX
+commands write nothing with it).
 ``--args-yaml`` is refused by ``scan2d``, ``scan3d`` and ``dft``, whose
 JAX commands read no YAML.
 
@@ -33,20 +32,34 @@ JAX commands read no YAML.
     python -m pdb2reaction_tpu_torch dft -i h2.xyz -q 0 --engine mini
     python -m pdb2reaction_tpu_torch extract -i c.pdb -c LIG -o p.pdb
 
-``opt --spatial N`` shards the atom axis over N ranks, one process each,
-launched by ``torchrun`` (WORLD_SIZE must equal N), for the PaiNN-class
-models and for eSCN (``--model escn-md``, ``escn-md-gate``, ``escn-s``,
-...; ``pallas-mega`` takes K3 on the gathered source rows under the
-shard). Every rank runs the same L-BFGS loop on the same forces; rank 0
-alone logs and writes ``result_opt/``:
+Ranks: every workflow subcommand runs over ``--workers W`` x
+``--spatial S`` ranks, one process each, launched by ``torchrun``
+(WORLD_SIZE must equal W x S). ``--spatial S`` shards the atom axis of
+every evaluation over S ranks, Hessians and HVPs included, for the
+PaiNN-class models and for eSCN (``--model escn-md``, ``escn-md-gate``,
+``escn-s``, ...; ``pallas-mega`` takes K3 on the gathered source rows
+under the shard). ``--workers W`` splits image batches (GSM, DMF, the
+dimer), analytic-Hessian tangents and FD displacements over W ranks, the
+JAX package's data axis; beside ``--spatial > 1`` it has no effect, as
+in the JAX package. ``--workers-per-node`` is accepted and dropped.
+Every rank runs the same host loop; rank 0 alone logs and writes the
+output tree (``workflows/common.py``):
 
     torchrun --nproc-per-node 4 -m pdb2reaction_tpu_torch opt -i x.xyz \
         -q 0 --spatial 4 --model escn-md
+    torchrun --nproc-per-node 4 -m pdb2reaction_tpu_torch path-opt \
+        -i a.xyz -i b.xyz -q 0 --workers 4 --model escn-md
+
+Across hosts, ``PDB2R_TPU_DISTRIBUTED=1`` joins every process of the job
+(``PDB2R_TPU_COORDINATOR=host:port``, ``PDB2R_TPU_NUM_PROCS``,
+``PDB2R_TPU_PROC_ID``, else the ``torchrun`` variables) and puts the data
+axis across hosts, the model axis inside each.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from pathlib import Path
@@ -56,8 +69,6 @@ from .workflows.config import (apply_yaml_overrides, load_yaml_dict,
                                normalize_choice)
 
 _LATER = "is not ported yet (see ROADMAP.md)"
-_SPATIAL = ("under atom-axis sharding (--spatial > 1) is not ported yet: "
-            "ROADMAP.md queue 1 item 9")
 
 
 def _bool(v: str) -> bool:
@@ -177,11 +188,15 @@ def _common_options(p) -> None:
                         "eSCN escn-md, escn-test, ....")
     p.add_argument("--hessian-calc-mode", default="Analytical",
                    choices=["Analytical", "FiniteDifference"])
-    p.add_argument("--workers", type=int, default=1)
-    p.add_argument("--workers-per-node", type=int, default=1)
+    p.add_argument("--workers", type=int, default=1,
+                   help="Data-axis ranks: image batches, Hessian tangents "
+                        "and FD displacements over N ranks (launch under "
+                        "torchrun, one process per rank).")
+    p.add_argument("--workers-per-node", type=int, default=1,
+                   help="Accepted and dropped, as in the JAX package.")
     p.add_argument("--spatial", type=int, default=1,
-                   help="Shard the atom axis over N ranks (PaiNN-class "
-                        "models; launch under torchrun --nproc-per-node N).")
+                   help="Shard the atom axis over N ranks (launch under "
+                        "torchrun, one process per rank).")
     p.add_argument("--ligand-charge", default=None,
                    help="Total charge or per-resname mapping (e.g. "
                         "GPP:-3,SAM:1) deriving the charge of a PDB input "
@@ -621,8 +636,6 @@ def _reject_unported(a, supported=()) -> None:
         "--dump-restart": ("--dump-restart" not in supported
                            and getattr(a, "dump_restart", 0) != 0),
         "--dump": "--dump" not in supported and a.dump,
-        "--workers": a.workers != 1,
-        "--workers-per-node": a.workers_per_node != 1,
         "--gsm-loop device (the GSM device loop, left out on purpose: "
         "ROADMAP.md queue 1)": getattr(a, "gsm_loop", "auto") == "device",
     }
@@ -652,20 +665,66 @@ def _calc_opts(a) -> Dict[str, Any]:
                 calc_mode=a.calc_mode, model=a.model, device=a.device)
 
 
-def _init_spatial(a, cmd: str) -> None:
-    from .parallel import init_spatial
-    if a.spatial > 1:
-        ws = int(os.environ.get("WORLD_SIZE", "1"))
-        if ws != a.spatial:
-            raise SystemExit(
-                f"--spatial {a.spatial} runs one process per shard: launch "
-                f"with `torchrun --nproc-per-node {a.spatial} -m "
-                f"pdb2reaction_tpu_torch {cmd} ...` (WORLD_SIZE is {ws})")
-        init_spatial(device=a.device)
+def make_mesh_or_none(workers: int, spatial: int = 1, *, cmd: str = "opt",
+                      device="cuda", timeout_s: float = 600.0):
+    """--workers W --spatial S -> the ("data", "model") mesh of W x S
+    ranks this process joins, or None for one process: the JAX CLI's
+    ``make_mesh_or_none``. ``PDB2R_TPU_DISTRIBUTED=1`` joins every process
+    of a multi-host job (``PDB2R_TPU_COORDINATOR=host:port``,
+    ``PDB2R_TPU_NUM_PROCS`` and ``PDB2R_TPU_PROC_ID``, else the torchrun
+    variables) and builds the mesh over all of them, data across hosts. Otherwise the torchrun world (WORLD_SIZE) must be W x S ranks,
+    else this exits naming the torchrun line. The collectives time out
+    after ``timeout_s``, so a rank that diverges fails the run."""
+    from .parallel import initialize_distributed, make_mesh
+    workers, spatial = max(int(workers or 1), 1), max(int(spatial or 1), 1)
+    env = os.environ
+    if workers > 1 and spatial > 1:
+        print(f"[ranks] NOTE: --workers {workers} has no effect beside "
+              f"--spatial {spatial} (a sharded calculator runs its batches "
+              "image by image)", file=sys.stderr)
+    if env.get("PDB2R_TPU_DISTRIBUTED") == "1":
+        coord = env.get("PDB2R_TPU_COORDINATOR")
+        if coord:
+            initialize_distributed(coord, int(env["PDB2R_TPU_NUM_PROCS"]),
+                                   int(env["PDB2R_TPU_PROC_ID"]),
+                                   device=device, timeout_s=timeout_s)
+        else:
+            initialize_distributed(device=device, timeout_s=timeout_s)
+        return make_mesh(model=spatial)
+    n = workers * spatial
+    ws = int(env.get("WORLD_SIZE", "1"))
+    if ws != n:
+        raise SystemExit(
+            f"--workers {workers} --spatial {spatial} runs one process per "
+            f"rank: launch with `torchrun --nproc-per-node {n} -m "
+            f"pdb2reaction_tpu_torch {cmd} ...` (WORLD_SIZE is {ws})")
+    if n == 1:
+        return None
+    initialize_distributed(device=device, timeout_s=timeout_s)
+    return make_mesh(data=workers, model=spatial)
+
+
+@contextlib.contextmanager
+def _ranks(a, cmd: str):
+    """The command's mesh (None for one process) while it runs: ranks
+    above 0 print nothing, and at the end the process group is left and
+    the rank's scratch tree removed."""
+    from .parallel import is_main_rank, shutdown
+    from .workflows.common import drop_scratch
+    mesh = make_mesh_or_none(a.workers, a.spatial, cmd=cmd, device=a.device)
+    try:
+        if is_main_rank():
+            yield mesh
+        else:
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                yield mesh
+    finally:
+        shutdown()
+        drop_scratch()
 
 
 def opt_cmd(a) -> int:
-    from .parallel import shutdown
     from .workflows.opt import run_opt
     _reject_unported(a, supported=("--dump", "--dump-restart"))
     charge, spin = _charge_spin(a)
@@ -674,30 +733,20 @@ def opt_cmd(a) -> int:
                max_cycles=a.max_cycles, dump=a.dump, bias_k=a.bias_k,
                dump_restart=a.dump_restart)
     _yaml(a, cfg, [("opt",), ("lbfgs",), ("rfo",)])
-    if a.spatial > 1 and normalize_choice(cfg["opt_mode"]) == "rfo":
-        raise SystemExit("opt --opt-mode heavy under atom-axis sharding "
-                         "(--spatial > 1): the Hessian over ranks is not "
-                         "ported yet, ROADMAP.md queue 1 item 9")
-    if a.spatial > 1 and cfg["dump_restart"]:
-        raise SystemExit(f"opt --dump-restart {_SPATIAL}")
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    _init_spatial(a, "opt")
-    try:
+    with _ranks(a, "opt") as mesh:
         res = run_opt(
             a.input_path, charge=charge, spin=spin,
             dist_freeze=_parse_pairs(a.dist_freeze, a.one_based) or None,
-            spatial=a.spatial, out_dir=a.out_dir or "./result_opt/",
+            spatial=a.spatial, mesh=mesh,
+            out_dir=a.out_dir or "./result_opt/",
             convert_files=a.convert_files, **_calc_opts(a), **cfg)
-    finally:
-        shutdown()
     return 0 if res["converged"] else 3
 
 
 def scan_cmd(a) -> int:
     from .workflows.scan import run_scan
     _reject_unported(a, supported=("--dump",))
-    if a.spatial > 1:
-        raise SystemExit(f"scan {_SPATIAL}")
     charge, spin = _charge_spin(a)
     stages = _parse_scan_stages(a.scan_lists, a.one_based)
     cfg: Dict[str, Any] = dict(step_ang=a.step_ang, bias_k=a.bias_k,
@@ -706,8 +755,11 @@ def scan_cmd(a) -> int:
                                dump=a.dump)
     _yaml(a, cfg, [("scan",), ("bias",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    run_scan(a.input_path, stages, charge=charge, spin=spin,
-             out_dir=a.out_dir or "./result_scan/", **_calc_opts(a), **cfg)
+    with _ranks(a, "scan") as mesh:
+        run_scan(a.input_path, stages, charge=charge, spin=spin,
+                 spatial=a.spatial, mesh=mesh,
+                 out_dir=a.out_dir or "./result_scan/", **_calc_opts(a),
+                 **cfg)
     return 0
 
 
@@ -722,8 +774,6 @@ def scan_nd_cmd(a) -> int:
     ndim, cmd = a.ndim, f"scan{a.ndim}d"
     _reject_unported(a)
     _no_yaml(a, cmd)
-    if a.spatial > 1:
-        raise SystemExit(f"{cmd} {_SPATIAL}")
     plot_only = a.plot_only or getattr(a, "csv_path", None)
     if a.scan_list_raw:
         axes = _parse_scan_list(a.scan_list_raw, a.one_based,
@@ -737,13 +787,15 @@ def scan_nd_cmd(a) -> int:
     if not plot_only and len(axes) != ndim:
         raise SystemExit(f"{cmd} needs exactly {ndim} axes, got {len(axes)}")
     charge, spin = _charge_spin(a)
-    run_scan_nd(a.input_path, axes, charge=charge, spin=spin,
-                out_dir=a.out_dir, plot_only=plot_only, bias_k=a.bias_k,
-                relax_max_cycles=a.relax_max_cycles,
-                relax_mode=normalize_choice(a.opt_mode),
-                relax_thresh=a.thresh, preopt=a.preopt,
-                baseline=a.baseline, zmin=a.zmin, zmax=a.zmax,
-                hessian_calc_mode=a.hessian_calc_mode, **_calc_opts(a))
+    with _ranks(a, cmd) as mesh:
+        run_scan_nd(a.input_path, axes, charge=charge, spin=spin,
+                    out_dir=a.out_dir, plot_only=plot_only, bias_k=a.bias_k,
+                    relax_max_cycles=a.relax_max_cycles,
+                    relax_mode=normalize_choice(a.opt_mode),
+                    relax_thresh=a.thresh, preopt=a.preopt,
+                    baseline=a.baseline, zmin=a.zmin, zmax=a.zmax,
+                    hessian_calc_mode=a.hessian_calc_mode,
+                    spatial=a.spatial, mesh=mesh, **_calc_opts(a))
     return 0
 
 
@@ -759,10 +811,11 @@ def dft_cmd(a) -> int:
               "the CPU (the reference's own fallback)")
     charge, spin = _charge_spin(a)
     try:
-        run_dft(a.input_path, charge=charge, spin=spin, func=func,
-                basis=basis, max_cycle=a.max_cycle, conv_tol=a.conv_tol,
-                grid_level=a.grid_level, engine=a.engine, device=a.device,
-                out_dir=a.out_dir or "./result_dft/")
+        with _ranks(a, "dft"):
+            run_dft(a.input_path, charge=charge, spin=spin, func=func,
+                    basis=basis, max_cycle=a.max_cycle, conv_tol=a.conv_tol,
+                    grid_level=a.grid_level, engine=a.engine,
+                    device=a.device, out_dir=a.out_dir or "./result_dft/")
     except ScfNotConverged as e:
         print(f"[dft] ERROR: {e}", file=sys.stderr)
         return 3
@@ -787,13 +840,12 @@ def path_opt_cmd(a) -> int:
                "fix_ends": a.fix_ends})
     _yaml(a, cfg, [("gs",), ("sopt",), ("dmf",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    try:
+    with _ranks(a, "path-opt") as mesh:
         res = run_path_opt(
             list(a.input_paths), charge=charge, spin=spin,
-            spatial=a.spatial, out_dir=a.out_dir or "./result_path_opt/",
+            spatial=a.spatial, mesh=mesh,
+            out_dir=a.out_dir or "./result_path_opt/",
             **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # --spatial > 1
-        raise SystemExit(str(e))
     return 0 if res["converged"] else 3
 
 
@@ -819,26 +871,23 @@ def path_search_cmd(a) -> int:
         search_kw=skw)
     _yaml(a, cfg, [("search",), ("gs",), ("bond",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    try:
+    with _ranks(a, "path-search") as mesh:
         run_path_search(
             list(a.input_paths), charge=charge, spin=spin,
-            spatial=a.spatial, out_dir=a.out_dir or "./result_path_search/",
+            spatial=a.spatial, mesh=mesh,
+            out_dir=a.out_dir or "./result_path_search/",
             **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # --spatial > 1
-        raise SystemExit(str(e))
     return 0
 
 
 def _stage4(a, run, cfg, default_out, ok=lambda res: 0):
-    """tsopt, freq and irc: the shared options, --args-yaml, refusals."""
+    """tsopt, freq and irc: the shared options, --args-yaml, the ranks."""
     charge, spin = _charge_spin(a)
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    try:
+    with _ranks(a, a.cmd) as mesh:
         res = run(a.input_path, charge=charge, spin=spin,
-                  spatial=a.spatial, out_dir=a.out_dir or default_out,
-                  **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # --spatial > 1
-        raise SystemExit(str(e))
+                  spatial=a.spatial, mesh=mesh,
+                  out_dir=a.out_dir or default_out, **_calc_opts(a), **cfg)
     return ok(res)
 
 
@@ -930,12 +979,11 @@ def all_cmd(a) -> int:
         dft_out_dir=a.dft_out_dir)
     _yaml(a, cfg, [("all",), ("search",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
-    try:
+    with _ranks(a, "all") as mesh:
         run_all(list(a.input_paths), charge=charge, spin=spin,
-                spatial=a.spatial, out_dir=a.out_dir or "./result_all/",
-                **_calc_opts(a), **cfg)
-    except NotImplementedError as e:     # --spatial > 1
-        raise SystemExit(str(e))
+                spatial=a.spatial, mesh=mesh,
+                out_dir=a.out_dir or "./result_all/", **_calc_opts(a),
+                **cfg)
     return 0
 
 

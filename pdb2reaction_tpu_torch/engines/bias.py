@@ -83,7 +83,8 @@ def biased_calculator(base: Calculator, pairs_ij, targets_ang,
         pad_multiple=base.n_pad, device=base.device, dtype=base.dtype,
         weights_source=base.weights_source,
         energy_fn_hessian=(make_biased_energy_fn(fn_h, pairs_ij)
-                           if fn_h is not None else None))
+                           if fn_h is not None else None),
+        mesh=base.mesh)
     calc.spatial = base.spatial
     if hasattr(base, "cfg"):
         calc.cfg = base.cfg

@@ -25,6 +25,20 @@ are ``cuda_build.first_order``: one taken with ``create_graph`` raises),
 and a calculator whose force path runs them is given an all-plain
 variant here (``mlip/uma.py``), as the JAX factory gives its Hessian
 closure the XLA variant.
+
+``mesh`` (``parallel.make_mesh``) with a data axis of n > 1 ranks and no
+model axis splits the batched work over the ranks, as the JAX
+calculator's ``shard_map`` over "data" does: image batches
+(``get_forces_batch``, ``au_energy_force_batch_fn``), the analytic
+Hessian's free-DOF tangents and the FD Hessian's displacements. Each
+rank evaluates one contiguous block of the batch, padded to a multiple of
+n by repeating its last row, one item after another, and the blocks are
+all-gathered in rank order, so every rank holds the same bits; every
+rank counts all B force calls, as the JAX calculator does. Everything
+else (single force calls, ``au_hvp_fn``) runs whole on every rank. Under
+atom-axis sharding (``spatial > 1``) every rank of the model group takes
+part in every evaluation, Hessians and HVPs included, through the
+sharded closures, and the data axis is off.
 """
 
 from __future__ import annotations
@@ -37,10 +51,9 @@ import torch
 
 from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU, H_EVAA_2_AU
 from ..core.structure import Structure, pad_to
+from ..parallel.mesh import replicate, shard_batch
 
 _SENTINEL = object()
-_SPATIAL_TODO = ("under atom-axis sharding is not ported yet (ROADMAP.md "
-                 "queue 1 item 9: Hessian tangents over ranks)")
 
 
 def resolve_device(device) -> torch.device:
@@ -77,6 +90,7 @@ class Calculator:
         dtype: torch.dtype = torch.float64,
         weights_source: str = "analytic",
         energy_fn_hessian: Callable = None,
+        mesh=None,
     ):
         if freeze_atoms is not None:
             structure = structure.copy()
@@ -98,6 +112,7 @@ class Calculator:
         self.fd_step = float(fd_step)
         # atom-axis shards of the potential (set by make_uma_calculator)
         self.spatial = 1
+        self.mesh = mesh
         # dtype of the coordinates handed to the potential (the model may
         # compute in its own dtype); Hartree/Bohr results are float64
         self.dtype = dtype
@@ -124,9 +139,19 @@ class Calculator:
         return (self.system,
                 self.params if params is _SENTINEL else params)
 
-    def _no_spatial(self, what: str) -> None:
-        if self.spatial > 1:
-            raise NotImplementedError(f"{what} {_SPATIAL_TODO}")
+    def _over_data(self, items: torch.Tensor, each) -> torch.Tensor:
+        """``each(item)`` for every item of ``items`` [B, ...], stacked:
+        over the data axis this rank's block, then every rank's blocks
+        gathered in rank order (the same bits on every rank)."""
+        block = shard_batch(items, self.mesh)
+        out = torch.stack([each(x) for x in block])
+        return replicate(out, self.mesh, items.shape[0])
+
+    def shard_params_model(self):
+        """Tensor-parallel parameters over the mesh's "model" axis: not
+        ported (``parallel.shard_params_model``)."""
+        from ..parallel.mesh import shard_params_model
+        return shard_params_model(self.params, self.mesh)
 
     def _eforce_ang(self, coords_ang: torch.Tensor):
         """(E eV, F eV/Angstrom [P, 3] with frozen and padding rows zero)."""
@@ -163,7 +188,6 @@ class Calculator:
         return {"energy": e.cpu().numpy(), "forces": f.cpu().numpy()}
 
     def get_hessian(self, coords_bohr) -> Dict[str, Any]:
-        self._no_spatial("The Hessian")
         mode = self.hessian_calc_mode
         if not mode or mode not in ("Analytical", "FiniteDifference"):
             mode = "FiniteDifference"
@@ -218,44 +242,53 @@ class Calculator:
         rows gathered on the device and copied to the host once. The free
         block, symmetrised as 0.5 (H + H^T), needs no other row: frozen
         rows and columns are zero. A 25-atom active region of 300 atoms
-        takes 75 tangents instead of 900."""
-        c, g = self._grad_graph(self._to_pad_ang(coords_bohr), self.system,
-                                self.params)
+        takes 75 tangents instead of 900. Over a data axis each rank
+        builds the graph once and computes its block of the tangents."""
         n3 = self.n_atoms * 3
         dof_ids = np.nonzero(self.free_dof_mask)[0]
-        rows = []
+        H = np.zeros((n3, n3), dtype=np.float64)
+        if not dof_ids.size:
+            return H
+        c, g = self._grad_graph(self._to_pad_ang(coords_bohr), self.system,
+                                self.params)
         v = torch.zeros_like(c)
         flat = v.view(-1)
-        for k in dof_ids:
+
+        def row(k):
             flat.zero_()
             flat[int(k)] = 1.0
-            rows.append(self._vjp(c, g, v).reshape(-1)[:n3])
-        H = np.zeros((n3, n3), dtype=np.float64)
-        if rows:
-            R = torch.stack(rows).double().cpu().numpy()[:, dof_ids]
-            H[np.ix_(dof_ids, dof_ids)] = 0.5 * (R + R.T)
+            return self._vjp(c, g, v).reshape(-1)[:n3]
+
+        R = self._over_data(torch.as_tensor(dof_ids), row)
+        R = R.double().cpu().numpy()[:, dof_ids]
+        H[np.ix_(dof_ids, dof_ids)] = 0.5 * (R + R.T)
         return H * H_EVAA_2_AU
 
     def _fd_hessian(self, coords_bohr) -> np.ndarray:
         """Central differences over the free DOFs (eps = ``fd_step``
-        Angstrom) through the force path, 2 n_free force calls, the
-        forces gathered on the device and copied to the host once."""
+        Angstrom) through the force path, 2 n_free force calls (split over
+        a data axis), the forces gathered on the device and copied to the
+        host once."""
         c0 = self._to_pad_ang(coords_bohr)
         eps = self.fd_step
         free = self.free_dof_mask
         n3 = self.n_atoms * 3
         dof_ids = np.nonzero(free)[0]
         B = dof_ids.size
-        out = []
-        for j in range(2 * B):
+
+        def force(j):
+            j = int(j)
             c = c0.clone()
             c.view(-1)[int(dof_ids[j % B])] += eps if j < B else -eps
             c.requires_grad_(True)
             e = self.energy_fn(c, self.system, self.params)
             (gr,) = torch.autograd.grad(e, c)
-            out.append(-gr.reshape(-1)[:n3])
+            return -gr.reshape(-1)[:n3]
+
+        f = (self._over_data(torch.arange(2 * B), force) if B
+             else torch.zeros(0, n3))
         self.force_calls += 2 * B
-        f = torch.stack(out).double().cpu().numpy()
+        f = f.double().cpu().numpy()
         fp, fm = f[:B], f[B:]
         H = np.zeros((n3, n3), dtype=np.float64)
         # column k = -(F(x + e_k) - F(x - e_k)) / (2 eps)   [eV/Ang^2]
@@ -284,20 +317,22 @@ class Calculator:
         """[B, P, 3] Bohr tensor -> (E [B] Hartree, F [B, P, 3] Hartree/Bohr),
         float64 tensors on the device, frozen and padding rows zero. The
         images run one after another (the JAX calculator's lax.map with
-        one image a step) with no host sync between them; each counts as a
-        force call. One closure per (calculator, params)."""
+        one image a step) with no host sync between them, over a data
+        axis each rank its block; each image counts as a force call on
+        every rank. One closure per (calculator, params)."""
         cached = getattr(self, "_batch_closure", None)
         if cached is not None and cached[0] is self.params:
             return cached[1]
 
+        def each(c):
+            e, f = self._au_eforce(c)
+            return torch.cat([f.reshape(-1), e.reshape(1)])
+
         def fn(coords_batch):
-            es, fs = [], []
-            for c in coords_batch:
-                e, f = self._au_eforce(c)
-                es.append(e)
-                fs.append(f)
-            self.force_calls += len(es)
-            return torch.stack(es), torch.stack(fs)
+            out = self._over_data(coords_batch, each)
+            self.force_calls += coords_batch.shape[0]
+            return (out[:, -1].contiguous(),
+                    out[:, :-1].reshape(coords_batch.shape))
 
         self._batch_closure = (self.params, fn)
         return fn
@@ -311,7 +346,6 @@ class Calculator:
         repeated products at one coordinate tensor (a Lanczos run) share
         one forward and first backward. The graph is dropped with that
         tensor. Counts no force call."""
-        self._no_spatial("HVPs")
         state = {}
 
         def fn(coords_bohr_pad, v_pad, packed):
@@ -335,7 +369,6 @@ class Calculator:
     def au_hvp_fn(self):
         """Bound HVP closure (coords_pad, v_pad) -> H v, one per
         (calculator, params)."""
-        self._no_spatial("HVPs")
         cached = getattr(self, "_hvp_closure", None)
         if cached is not None and cached[0] is self.params:
             return cached[1]

@@ -40,7 +40,8 @@ from ..core.structure import PaddedSystem
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
 from .radial_contract import (radial_contract, radial_contract_plain,
-                              radial_contract_rect, rect_tile_plan,
+                              radial_contract_rect,
+                              radial_contract_rect_plain, rect_tile_plan,
                               tile_plan)
 
 
@@ -311,9 +312,10 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     this rank's rows contract against the all-gathered streams of every
     atom through K6 (``radial_contract_rect``), whose three kernels run on
     one rect tile plan a call: O(P/n) memory a rank. ``plain`` runs K5's
-    plain version (``radial_contract_plain``) on any device instead:
-    twice differentiable, the Hessian closure's route (it stores the
-    [P, P, R+1] adjacency)."""
+    plain version (``radial_contract_plain``) on any device instead, or
+    under ``shard`` K6's (``radial_contract_rect_plain``): twice
+    differentiable, the Hessian closure's route (it stores the
+    [P, P, R+1] adjacency, [P/n, P, R+1] a rank under a shard)."""
     dt = torch.float32
     P = coords_ang.shape[0]
     C = cfg.hidden
@@ -328,16 +330,17 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     # one rect plan of this rank's rows every K6 call (never cached across
     # calls: the optimizer moves the atoms)
     plan = None
-    if plain and shard is not None:
-        raise NotImplementedError(
-            "the plain pallas mode under atom-axis sharding: Hessians "
-            "under sharding are ROADMAP.md queue 1 item 9")
     if x_full.is_cuda and not plain:
         plan = (tile_plan(x_full, mask_full, cfg.cutoff) if shard is None
                 else rect_tile_plan(x, atom_mask, i0, x_full, mask_full,
                                     cfg.cutoff))
 
     def contract(feats, div_d=False):
+        if plain and shard is not None:
+            return radial_contract_rect_plain(x, atom_mask, i0, x_full,
+                                              mask_full, allg(feats),
+                                              cfg.cutoff, cfg.n_radial,
+                                              div_d)
         if plain:
             return radial_contract_plain(x_full, mask_full, feats,
                                          cfg.cutoff, cfg.n_radial, div_d)

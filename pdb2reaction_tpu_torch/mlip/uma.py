@@ -42,8 +42,14 @@ modes switch to the sharded gather layout; eSCN runs ``escn_energy`` on
 each rank's rows with the MoLE banks premerged, "pallas-mega" taking K3
 on the gathered source rows. The padding multiple becomes
 lcm(pad_multiple, n) and the device is the group's. Every rank builds
-the same calculator and gets the same forces. Hessians and HVPs under
-sharding raise (``Calculator``).
+the same calculator and gets the same forces. Its Hessian closure is the
+sharded plain route (``parallel.spatial.make_spatial_hessian_energy_fn``),
+so Hessians and HVPs run over the ranks too.
+
+``mesh`` (``parallel.make_mesh``) goes to the ``Calculator``: with a data
+axis of n > 1 and no model axis, image batches, Hessian tangents and FD
+displacements are split over the n ranks. Beside ``spatial > 1`` the
+data axis is off, as in the JAX factory.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ import torch
 
 from ..core.structure import Structure
 from ..parallel.distributed import current_group
-from ..parallel.spatial import make_spatial_energy_fn
+from ..parallel.spatial import (make_spatial_energy_fn,
+                                make_spatial_hessian_energy_fn)
 from .calculator import Calculator, resolve_device
 from .convert import convert_checkpoint
 from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
@@ -76,7 +83,7 @@ def _spatial_group(spatial: int, device):
         raise RuntimeError(
             f"spatial={spatial} needs a process group of {spatial} ranks "
             f"(have {have}): launch with `torchrun --nproc-per-node "
-            f"{spatial} -m pdb2reaction_tpu_torch opt ... --spatial "
+            f"{spatial} -m pdb2reaction_tpu_torch <command> ... --spatial "
             f"{spatial}`, or call pdb2reaction_tpu_torch.parallel."
             "init_spatial(...) in every rank first")
     if torch.device(device).type != group.device.type:
@@ -121,6 +128,7 @@ def make_uma_calculator(
     return_partial_hessian: bool = False,
     hessian_double: bool = True,
     fd_step: float = 1.0e-3,
+    mesh=None,
 ) -> Calculator:
     """Calculator for a named configuration. ``dtype`` is the model's
     compute type (None: the configuration's own; the CUDA kernels take
@@ -143,8 +151,16 @@ def make_uma_calculator(
     if escn and mp_mode:
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
                          "take edge_kernel")
+    if mesh is not None and mesh.shape["model"] != spatial:
+        raise ValueError(f"spatial={spatial}, but the mesh's model axis is "
+                         f"{mesh.shape['model']}: give the same atom-axis "
+                         "size to both")
     group = _spatial_group(spatial, device) if spatial > 1 else None
-    dev = resolve_device(group.device if group else device)
+    if mesh is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device!r}, but the mesh runs on "
+                         f"{mesh.device}")
+    dev = resolve_device(group.device if group else
+                         mesh.device if mesh is not None else device)
     if pt_path:
         params, cfg = convert_checkpoint(pt_path)
         weights_source = f"converted:{pt_path}"
@@ -185,16 +201,24 @@ def make_uma_calculator(
         params["task"] = torch.as_tensor(float(
             task if task is not None else params.get("task", 0)))
         params = premerge_escn_params(params, cfg)
-        fn = (make_spatial_energy_fn(cfg, group) if group
-              else escn_energy_fn(cfg))
-        if not group and cfg.edge_kernel != "xla":
-            fn_h = escn_energy_fn(dataclasses.replace(cfg, edge_kernel="xla"))
+        if group:
+            fn = make_spatial_energy_fn(cfg, group)
+            fn_h = make_spatial_hessian_energy_fn(cfg, group)
+        else:
+            fn = escn_energy_fn(cfg)
+            if cfg.edge_kernel != "xla":
+                fn_h = escn_energy_fn(dataclasses.replace(
+                    cfg, edge_kernel="xla"))
     else:
         params["atom_ref"] = params["atom_ref"].float()
-        fn = (make_spatial_energy_fn(cfg, group) if group
-              else make_energy_fn(cfg))
-        if not group and cfg.mp_mode == "pallas":
-            fn_h = make_hessian_energy_fn(cfg)
+        if group:
+            fn = make_spatial_energy_fn(cfg, group)
+            if cfg.mp_mode == "pallas":
+                fn_h = make_spatial_hessian_energy_fn(cfg, group)
+        else:
+            fn = make_energy_fn(cfg)
+            if cfg.mp_mode == "pallas":
+                fn_h = make_hessian_energy_fn(cfg)
     if group:
         pad_multiple = math.lcm(int(pad_multiple), spatial)
     if hessian_calc_mode == "auto":
@@ -205,7 +229,8 @@ def make_uma_calculator(
                       return_partial_hessian=return_partial_hessian,
                       hessian_double=hessian_double, fd_step=fd_step,
                       pad_multiple=pad_multiple, device=dev,
-                      weights_source=source, energy_fn_hessian=fn_h)
+                      weights_source=source, energy_fn_hessian=fn_h,
+                      mesh=mesh)
     calc.cfg = cfg
     calc.spatial = spatial
     return calc

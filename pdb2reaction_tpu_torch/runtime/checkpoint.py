@@ -7,7 +7,11 @@ Counterpart of ``pdb2reaction_tpu/runtime/checkpoint.py``, in numpy:
 - stages are keyed by a content hash of their inputs (``content_key``,
   the JAX package's key byte for byte on the same arrays), so a resumed
   run continues only the same computation;
-- path-search keeps its per-segment MEP memo here.
+- path-search keeps its per-segment MEP memo here;
+- in a run over several ranks, what a store reads (``load``, ``has``) is
+  rank 0's and is broadcast to the other ranks (``parallel.agree``),
+  whose stores live in their private scratch trees: every rank resumes
+  alike.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.distributed import agree
 
 
 def _numpy(a) -> np.ndarray:
@@ -87,7 +93,10 @@ class CheckpointStore:
         jp.write_text(json.dumps(meta, default=float))
 
     def load(self, name: str):
-        """(meta, arrays) or None."""
+        """(meta, arrays) or None, as rank 0 reads them."""
+        return agree(self._load(name))
+
+    def _load(self, name: str):
         jp, ap = self._paths(name)
         if not jp.exists():
             return None
@@ -99,7 +108,7 @@ class CheckpointStore:
         return meta, arrays
 
     def has(self, name: str) -> bool:
-        return self._paths(name)[0].exists()
+        return agree(self._paths(name)[0].exists())
 
     def delete(self, name: str) -> None:
         for p in self._paths(name):

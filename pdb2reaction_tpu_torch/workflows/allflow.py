@@ -38,8 +38,12 @@ A single input without scan stages runs the TSOPT-only mode with
 ``tsopt``. One calculator, built by the path search, serves stages 2 to
 4 (the scan builds its own). ``ForceCallMeter`` phases time every stage
 with its force and energy calls (``results["force_call_phases"]``; the
-scan's calls are booked in its phase). Not ported, and refused before
-anything is written: ``spatial > 1`` (ROADMAP.md queue 1 item 9).
+scan's calls are booked in its phase). ``mesh`` splits the image
+batches, Hessian tangents and FD displacements of every stage over its
+data axis, ``spatial=n`` shards every evaluation over n ranks; over
+several ranks rank 0 writes ``out_dir`` and every other rank the same
+tree in its scratch directory, so the stages' hand-offs read back alike
+(``common.rank_dir``).
 """
 
 from __future__ import annotations
@@ -77,18 +81,15 @@ from .summary import (build_energy_diagram, build_irc_overview,
 from .trj2fig import plot_profile
 from .tsopt import run_tsopt
 
-SPATIAL_TODO = ("all under atom-axis sharding (spatial > 1) is not ported "
-                "yet: ROADMAP.md queue 1 item 9")
-
-
 def _resolve_override_dir(default: Path, override) -> Path:
     """A per-stage output override: absolute overrides are taken as they
-    are, relative ones resolve against the default's parent."""
+    are (through ``common.rank_dir``, so each rank's hand-offs stay its
+    own), relative ones resolve against the default's parent."""
     if override is None:
         return default
     override = Path(override)
     if override.is_absolute():
-        return override
+        return common.rank_dir(override)
     return default.parent / override
 
 
@@ -139,6 +140,7 @@ def run_all(
     model: str = "uma-s-1p1",
     mep_mode: str = "gsm",
     device="cuda",
+    mesh=None,
     out_dir="./result_all/",
     verbose: bool = True,
     full_template=None,
@@ -168,8 +170,6 @@ def run_all(
     in ``calc_kw``."""
     t0 = time.time()
     mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
-    if int(calc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(SPATIAL_TODO)
     search_kw = dict(search_kw or {})
     gs_kw = dict(gs_kw or {})
     for k in list(calc_kw):
@@ -191,7 +191,7 @@ def run_all(
             "Provide at least two structures with -i/--input in reaction "
             "order, or use a single structure with --scan-lists, or a "
             "single structure with --tsopt True.")
-    out = Path(out_dir)
+    out = common.rank_dir(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     is_pdb = all(p.suffix.lower() == ".pdb" for p in input_paths)
     meter = ForceCallMeter()
@@ -244,7 +244,7 @@ def run_all(
     results: Dict[str, Any] = {"charge": charge, "spin": spin,
                                "charge_summary": charge_summary}
     stage_kw = dict(charge=charge, spin=spin, calc_mode=calc_mode,
-                    model=model, device=device, verbose=verbose)
+                    model=model, device=device, mesh=mesh, verbose=verbose)
 
     # ---- stage 1b: the staged scan makes the second endpoint ---------------
     scan_calls = (0, 0)
@@ -259,7 +259,7 @@ def run_all(
         with meter.phase("scan"):
             scan_res = run_scan(
                 work_inputs[0], scan_stages, charge=charge, spin=spin,
-                calc_mode=calc_mode, model=model, device=device,
+                calc_mode=calc_mode, model=model, device=device, mesh=mesh,
                 freeze_atoms=freeze_atoms,
                 auto_freeze_links=auto_freeze_links, out_dir=scan_dir,
                 verbose=verbose, **{"preopt": True, "endopt": True,
@@ -328,7 +328,8 @@ def run_all(
         ps = run_path_search(
             work_inputs, stopt_kw={"max_cycles": int(max_cycles)},
             charge=charge, spin=spin, calc_mode=calc_mode, model=model,
-            mep_mode=mep_mode, device=device, out_dir=out / "stage2_path",
+            mep_mode=mep_mode, device=device, mesh=mesh,
+            out_dir=out / "stage2_path",
             full_template=full_template, freeze_atoms=freeze_atoms,
             auto_freeze_links=auto_freeze_links, verbose=verbose,
             gs_kw=gs_kw, search_kw=skw2, **calc_kw)

@@ -15,15 +15,26 @@ Counterpart of ``pdb2reaction_tpu/workflows/common.py``:
 - ``write_outputs`` / ``write_trajectory``: .xyz / .trj, with a .pdb
   companion for PDB inputs and a .gjf companion for .gjf inputs while
   conversion is on (``set_convert_enabled``); a failed companion prints a
-  warning and the run goes on.
+  warning and the run goes on;
+- ``rank_dir`` / ``drop_scratch``: the rule of a run over several
+  ranks. Every workflow maps its ``out_dir`` (and every per-stage
+  override) through it, so rank 0 writes the user's tree and every other
+  rank the same tree in its private scratch directory: each rank reads
+  back its own hand-offs between stages and takes the same branches, and
+  only rank 0's files reach the user. What reads a previous run's files
+  (``CheckpointStore``) is rank 0's, broadcast (``parallel.agree``).
 """
 
 from __future__ import annotations
 
+import atexit
+import shutil
+import tempfile
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch.distributed as dist
 
 from ..bio.residues import LINK_H_NAME, LINK_H_RESNAME
 from ..constants import BOHR2ANG
@@ -32,14 +43,50 @@ from ..core.structure import Structure
 from ..mlip import potentials
 from ..mlip.calculator import Calculator
 from ..mlip.uma import make_uma_calculator
+from ..parallel.distributed import is_main_rank
 
 # calculator options the analytic potentials take
 _POTENTIAL_KW = ("hessian_calc_mode", "fd_step", "return_partial_hessian",
                  "hessian_double", "pad_multiple")
 
 _CONVERT_ENABLED = True
+_SCRATCH: Optional[Path] = None          # this rank's private tree
 _DEFAULT_REF_PDB = None
 _DEFAULT_LIGAND_CHARGE = None
+
+
+def drop_scratch() -> None:
+    """Remove this rank's scratch directory (at exit, and when the CLI
+    leaves the process group)."""
+    global _SCRATCH
+    if _SCRATCH is not None:
+        shutil.rmtree(_SCRATCH, ignore_errors=True)
+    _SCRATCH = None
+
+
+atexit.register(drop_scratch)
+
+
+def rank_dir(path) -> Path:
+    """``path`` on rank 0 and outside a process group; on the other ranks
+    the same path inside this process's private scratch directory (made
+    on first use, removed by ``drop_scratch``). Every output directory of
+    a workflow, the user's per-stage overrides included, goes through
+    here: every rank writes the same tree and reads back its own
+    hand-offs between stages, and only rank 0's tree reaches the user.
+    Idempotent: a path already in the scratch directory is returned as it
+    is."""
+    global _SCRATCH
+    path = Path(path)
+    if is_main_rank():
+        return path
+    if _SCRATCH is None:
+        _SCRATCH = Path(tempfile.mkdtemp(
+            prefix=f"pdb2r_rank{dist.get_rank()}_"))
+    full = path.resolve()
+    if full.is_relative_to(_SCRATCH):
+        return full
+    return _SCRATCH / full.relative_to(full.anchor)
 
 
 def set_convert_enabled(flag: bool) -> None:
@@ -202,15 +249,18 @@ def resolve_charge_spin(struct: Structure, charge: Optional[int],
 def make_calculator(struct: Structure, *, calc_mode: str = "uma",
                     charge: int = 0, spin: int = 1,
                     freeze_atoms: Sequence[int] = (),
-                    model: str = "uma-s-1p1", device="cuda",
+                    model: str = "uma-s-1p1", device="cuda", mesh=None,
                     **calc_kw) -> Calculator:
     """The UMA-class calculator (``calc_mode="uma"``) or an analytic test
-    potential ("morse", "lj"), which runs every workflow without weights."""
+    potential ("morse", "lj"), which runs every workflow without weights.
+    ``mesh`` (``parallel.make_mesh``) splits batches, Hessian tangents and
+    FD displacements over its data axis, for the analytic potentials
+    too; atom-axis sharding (``spatial``) is the UMA factory's."""
     mode = (calc_mode or "uma").lower()
     if mode == "uma":
         return make_uma_calculator(struct, model=model, charge=charge,
                                    spin=spin, freeze_atoms=freeze_atoms,
-                                   device=device, **calc_kw)
+                                   device=device, mesh=mesh, **calc_kw)
     fns = {"morse": potentials.make_morse, "lj": potentials.make_lj}
     if mode not in fns:
         raise ValueError(f"Unknown calc mode {calc_mode!r}")
@@ -219,7 +269,8 @@ def make_calculator(struct: Structure, *, calc_mode: str = "uma",
                          "unsharded; atom-axis sharding (spatial > 1) is "
                          "for the UMA-class models")
     return Calculator(struct, fns[mode](), freeze_atoms=freeze_atoms,
-                      device=device,
+                      device=mesh.device if mesh is not None else device,
+                      mesh=mesh,
                       **{k: v for k, v in calc_kw.items()
                          if k in _POTENTIAL_KW})
 

@@ -229,7 +229,7 @@ def run_dft(
     }
     if scf.population_error:
         doc["population_error"] = scf.population_error
-    out = Path(out_dir)
+    out = common.rank_dir(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     write_summary_yaml(out / "result.yaml", doc)
     if verbose:

@@ -5,8 +5,10 @@ Counterpart of ``pdb2reaction_tpu/workflows/freq.py``: the Hessian
 freeze list, ``frequencies_cm-1.txt``, mode animations as ``.trj`` and a
 QRRHO thermochemistry block in ``thermoanalysis.yaml``. That file is
 written as JSON, which every YAML reader takes, so the port needs no
-YAML library. Refused: atom-axis sharding (``spatial > 1``, ROADMAP.md
-queue 1 item 9).
+YAML library. ``mesh`` splits the Hessian's tangents (or FD
+displacements) over its data axis, ``spatial=n`` shards the Hessian over
+n ranks; over several ranks rank 0 writes ``out_dir``
+(``common.rank_dir``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ from ..mlip.calculator import Calculator
 from . import common
 from .config import format_elapsed, pretty_block
 
-_SPATIAL = ("freq under atom-axis sharding (spatial > 1) is not ported yet: "
-            "the Hessian over ranks is ROADMAP.md queue 1 item 9")
 
 
 def write_vib_outputs(out_dir, struct, vib, th, *, max_write_modes=10,
@@ -72,6 +72,7 @@ def run_freq(
     n_frames: int = 20,
     sort_modes: str = "value",   # "value" | "abs"
     device="cuda",
+    mesh=None,
     out_dir="./result_freq/",
     verbose: bool = True,
     calculator: Optional[Calculator] = None,
@@ -82,8 +83,6 @@ def run_freq(
     freeze list wins). ``auto_freeze_links`` freezes the parents of a
     PDB input's link hydrogens."""
     t0 = time.time()
-    if int(calc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(_SPATIAL)
     struct = common.load_structure(input_path)
     q, s = common.resolve_charge_spin(struct, charge, spin)
     if calculator is not None:
@@ -96,7 +95,7 @@ def run_freq(
     calc = calculator or common.make_calculator(
         struct, calc_mode=calc_mode, charge=q, spin=s, freeze_atoms=freeze,
         model=model, device=device, hessian_calc_mode=hessian_calc_mode,
-        **calc_kw)
+        mesh=mesh, **calc_kw)
     if verbose:
         print(pretty_block("freq", {
             "temperature": temperature, "pressure": pressure,
@@ -112,7 +111,7 @@ def run_freq(
     th = thermochemistry(vib.freqs_cm, struct.numbers, struct.coords,
                          electronic_energy=e0, T=temperature,
                          pressure=pressure, multiplicity=s)
-    outputs = write_vib_outputs(out_dir, struct, vib, th,
+    outputs = write_vib_outputs(common.rank_dir(out_dir), struct, vib, th,
                                 max_write_modes=max_write_modes,
                                 amplitude_ang=amplitude_ang,
                                 n_frames=n_frames, sort_modes=sort_modes)

@@ -6,16 +6,15 @@ with a note, as in the JAX package), the freeze list forwarded to the
 calculator, and ``finished_irc.trj`` (backward reversed, the TS,
 forward), ``forward_irc.trj``, ``backward_irc.trj`` and ``irc_data.npz``
 (each branch's coordinates, energies, gradients and convergence, and the
-TS) written under ``out_dir``.
-
-Refused: atom-axis sharding (``spatial > 1``: the Hessian over ranks is
-ROADMAP.md queue 1 item 9).
+TS) written under ``out_dir``. ``mesh`` splits the TS Hessian's
+tangents over its data axis, ``spatial=n`` shards every evaluation over
+n ranks; over several ranks rank 0 writes ``out_dir``
+(``common.rank_dir``).
 """
 
 from __future__ import annotations
 
 import time
-from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -26,11 +25,9 @@ from ..runtime.checkpoint import CheckpointStore
 from . import common
 from .config import format_elapsed, pretty_block
 
-_SPATIAL = ("irc under atom-axis sharding (spatial > 1) is not ported yet: "
-            "the Hessian over ranks is ROADMAP.md queue 1 item 9")
 # calculator options run_irc forwards to the calculator factory
 _CALC_KEYS = ("hessian_calc_mode", "fd_step", "max_neigh", "radius", "seed",
-              "checkpoint")
+              "checkpoint", "spatial")
 
 
 def run_irc(
@@ -44,6 +41,7 @@ def run_irc(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_irc/",
     verbose: bool = True,
     dump_restart: int = 0,
@@ -56,8 +54,7 @@ def run_irc(
     structure (its freeze list wins). ``dump_restart=N`` dumps each
     branch's carry every N cycles under ``out_dir/restart``."""
     t0 = time.time()
-    if int(irc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(_SPATIAL)
+    out = common.rank_dir(out_dir)
     if coord_type != "cart":
         print(f"[irc] coord_type={coord_type!r} ignored: EulerPC runs "
               "Cartesian")
@@ -73,7 +70,7 @@ def run_irc(
     kw = {**IRC_KW, **{k: v for k, v in irc_kw.items() if k in IRC_KW}}
     calc = calculator or common.make_calculator(
         struct, calc_mode=calc_mode, charge=q, spin=s, freeze_atoms=freeze,
-        model=model, device=device,
+        model=model, device=device, mesh=mesh,
         **{k: v for k, v in irc_kw.items() if k in _CALC_KEYS})
     if verbose:
         print(pretty_block("irc", {**kw, "charge": q, "spin": s,
@@ -81,11 +78,10 @@ def run_irc(
                                    "device": str(calc.device)}))
     if dump_restart:
         kw["restart"] = {
-            "store": CheckpointStore(Path(out_dir) / "restart"),
+            "store": CheckpointStore(out / "restart"),
             "name": "irc", "every": int(dump_restart)}
     res = eulerpc_irc(calc, calc.pad_bohr(struct.coords_bohr), **kw)
 
-    out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     # finished = backward reversed + TS + forward
     frames, energies = [], []

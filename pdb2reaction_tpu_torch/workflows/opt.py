@@ -81,6 +81,7 @@ def run_opt(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_opt/",
     convert_files: bool = True,
     dump: bool = False,
@@ -96,9 +97,11 @@ def run_opt(
     ``bias_pairs`` (i, j, target Angstrom) and ``dist_freeze`` (i, j, held
     at the input's distance) add harmonic restraints of ``bias_k``
     eV/Angstrom^2; atoms may be indices or 'RES SEQ NAME' selectors.
-    Under atom-axis sharding (``spatial=n`` in ``calc_kw``, or a sharded
-    ``calc``) every rank runs the same loop on the same forces, and rank
-    0 alone logs and writes."""
+    Over several ranks (``spatial=n`` in ``calc_kw``, a sharded ``calc``,
+    or a ``mesh``, whose data axis splits the RFO Hessian's tangents)
+    every rank runs the same loop on the same forces, and rank 0 alone
+    logs and writes ``out_dir``; the restart dumps of the other ranks go
+    to their scratch trees (``common.rank_dir``)."""
     t0 = time.time()
     writer = is_main_rank()
     verbose = verbose and writer
@@ -129,7 +132,8 @@ def run_opt(
     if calc is None:
         calc = common.make_calculator(struct, calc_mode=calc_mode, charge=q,
                                       spin=s, freeze_atoms=freeze,
-                                      model=model, device=device, **calc_kw)
+                                      model=model, device=device, mesh=mesh,
+                                      **calc_kw)
     if pairs:
         calc = biased_calculator(calc, pairs, targets, bias_k)
     if verbose:
@@ -146,13 +150,9 @@ def run_opt(
                   f"max|F| = {np.abs(f).max():.2e}")
 
     if dump_restart and opt_mode == "lbfgs" and coord_type == "cart":
-        if calc.spatial > 1:
-            raise NotImplementedError(
-                "dump_restart under atom-axis sharding is not ported yet: "
-                "ROADMAP.md queue 1 item 9")
         from ..runtime.checkpoint import CheckpointStore
         engine_kw["restart"] = {
-            "store": CheckpointStore(Path(out_dir) / "restart"),
+            "store": CheckpointStore(common.rank_dir(out_dir) / "restart"),
             "name": "opt", "every": int(dump_restart)}
     calls0 = calc.force_calls
     coords, e, conv, cycles = optimize_structure(

@@ -8,15 +8,15 @@ freeze-guided Kabsch alignment before the MEP, the highest energy image
 preferring internal maxima, and the trajectory and HEI written as
 ``final_geometries.trj`` and ``hei.xyz``.
 
-Not ported yet, and refused: atom-axis sharding (``spatial > 1``: the
-climbing image's HVPs under sharding are ROADMAP.md queue 1 item 9).
+``mesh`` splits the string's image batches over its data axis;
+``spatial=n`` shards every evaluation, the climbing image's HVPs
+included, over n ranks (``mlip/uma.py``).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -29,10 +29,6 @@ from ..engines.thresholds import get_thresholds
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 from .opt import optimize_structure
-
-_SPATIAL = ("path-opt under atom-axis sharding (spatial > 1) is not ported "
-            "yet: the climbing image's HVPs over ranks are ROADMAP.md queue "
-            "1 item 9")
 
 
 def run_mep_between(
@@ -117,6 +113,7 @@ def run_path_opt(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_path_opt/",
     verbose: bool = True,
     gs_kw: Optional[Dict[str, Any]] = None,
@@ -129,11 +126,10 @@ def run_path_opt(
     ``thresh`` (a preset name) sets the string's perpendicular-force
     criteria and the endpoint preoptimization's threshold.
     ``auto_freeze_links`` freezes the parents of a PDB input's link
-    hydrogens. ``spatial > 1`` raises (module docstring)."""
+    hydrogens. Over several ranks rank 0 writes ``out_dir``
+    (``common.rank_dir``)."""
     t0 = time.time()
     assert len(input_paths) == 2, "path-opt needs exactly two endpoints"
-    if int(calc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(_SPATIAL)
     mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
     preopt_mode = normalize_choice(preopt_mode, choices=("lbfgs", "rfo"))
     gs_kw = dict(gs_kw or {})
@@ -164,7 +160,7 @@ def run_path_opt(
 
     calc = common.make_calculator(A, calc_mode=calc_mode, charge=q, spin=s,
                                   freeze_atoms=A.freeze, model=model,
-                                  device=device, **calc_kw)
+                                  device=device, mesh=mesh, **calc_kw)
     if verbose:
         print(pretty_block("path-opt", {
             "mep_mode": mep_mode, "preopt": preopt, "align": align,
@@ -186,7 +182,7 @@ def run_path_opt(
     res = run_mep_between(A, B, calc, mep_mode=mep_mode, gs_kw=gs_kw,
                           stopt_kw=stopt_kw, dmf_kw=dmf_kw, verbose=verbose)
 
-    out = Path(out_dir)
+    out = common.rank_dir(out_dir)
     n = calc.n_atoms
     frames = [img[:n] for img in res.images]
     hei = res.hei_idx

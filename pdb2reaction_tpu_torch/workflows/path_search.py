@@ -31,9 +31,10 @@ run in the same ``out_dir`` restores its segments.
 
 Every force evaluation is the calculator's (``force_calls``); the kink
 endpoints' energies are ``energy_calls``. The optimizations run L-BFGS
-or, with ``opt_mode="rfo"``, RFO from an exact Hessian. Not ported yet,
-and refused before anything runs: ``spatial > 1`` (ROADMAP.md queue 1
-item 9).
+or, with ``opt_mode="rfo"``, RFO from an exact Hessian. ``mesh``
+splits the strings' image batches over its data axis, ``spatial=n``
+shards every evaluation over n ranks; over several ranks rank 0 writes
+``out_dir`` and the memo it read is every rank's (``common.rank_dir``).
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from ..runtime.checkpoint import CheckpointStore, content_key
 from . import common
 from .config import format_elapsed, normalize_choice, pretty_block
 from .opt import optimize_structure
-from .path_opt import _SPATIAL, route_engine_keys, run_mep_between
+from .path_opt import route_engine_keys, run_mep_between
 from .summary import (build_energy_diagram, compressed_diagram,
                       write_summary_log, write_summary_yaml)
 
@@ -312,6 +313,7 @@ def run_path_search(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_path_search/",
     full_template=None,
     verbose: bool = True,
@@ -344,9 +346,6 @@ def run_path_search(
                                           (STOPT_KW, stopt_kw)), dmf_kw)
     for k in [k for k in calc_kw if k in BOND_KW]:
         bond_kw[k] = calc_kw.pop(k)
-    # everything not ported is refused before anything runs
-    if int(calc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(_SPATIAL)
     skw = {**SEARCH_KW, **search_kw}
     skw["opt_mode"] = normalize_choice(skw["opt_mode"],
                                        choices=("lbfgs", "rfo"))
@@ -364,7 +363,8 @@ def run_path_search(
                                if full_template is not None else (None, None))
     calc = common.make_calculator(structs[0], calc_mode=calc_mode, charge=q,
                                   spin=s, freeze_atoms=structs[0].freeze,
-                                  model=model, device=device, **calc_kw)
+                                  model=model, device=device, mesh=mesh,
+                                  **calc_kw)
     if verbose:
         print(pretty_block("path-search", {
             "mep_mode": mep_mode, "charge": q, "spin": s,
@@ -381,7 +381,8 @@ def run_path_search(
     if align:
         align_sequence_inplace(structs)
 
-    store = CheckpointStore(Path(out_dir) / "checkpoint")
+    out = common.rank_dir(out_dir)
+    store = CheckpointStore(out / "checkpoint")
     searcher = PathSearch(calc, structs[0].numbers, mep_mode=mep_mode,
                           gs_kw=gs_kw, stopt_kw=stopt_kw, dmf_kw=dmf_kw,
                           search_kw=skw, bond_kw=bond_kw,
@@ -399,7 +400,6 @@ def run_path_search(
             sg.pair_index = pi
         all_segments.extend(segs)
 
-    out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     paths: List[Path] = []
     mep_frames: List[np.ndarray] = []

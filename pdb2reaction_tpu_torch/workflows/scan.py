@@ -21,14 +21,15 @@ Counterpart of ``pdb2reaction_tpu/workflows/scan.py``:
 The relaxations run on the calculator's device (the card unless
 ``device="cpu"``), through the hand-written kernels on the escn path.
 Every evaluation is counted (``force_calls``); the stage energies are the
-biased ones, as in the JAX package.
+biased ones, as in the JAX package. ``mesh`` and ``spatial`` go to the
+calculator; over several ranks rank 0 writes ``out_dir`` and the
+checkpoint it reads is every rank's (``common.rank_dir``).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,6 +75,7 @@ def run_scan(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_scan/",
     dump: bool = False,
     verbose: bool = True,
@@ -105,7 +107,7 @@ def run_scan(
 
     base = common.make_calculator(struct, calc_mode=calc_mode, charge=q,
                                   spin=s, freeze_atoms=freeze, model=model,
-                                  device=device, **calc_kw)
+                                  device=device, mesh=mesh, **calc_kw)
     cur_d = {p: float(np.linalg.norm(struct.coords[p[0]]
                                      - struct.coords[p[1]]))
              for p in all_pairs}
@@ -133,7 +135,7 @@ def run_scan(
         if verbose:
             print(f"[scan] preopt: E = {e:.6f} Ha")
 
-    out = Path(out_dir)
+    out = common.rank_dir(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     store = CheckpointStore(out / "checkpoint")
     if verbose:

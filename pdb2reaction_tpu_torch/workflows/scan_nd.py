@@ -71,6 +71,7 @@ def run_scan_nd(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir=None,
     verbose: bool = True,
     plot_only: Optional[str] = None,
@@ -82,12 +83,13 @@ def run_scan_nd(
     """The grid scan over 2 or 3 ``axes`` (``[{"pair": (i, j), ...}]``;
     see the module docstring). ``baseline`` ("min" or "first") sets the
     zero of the plotted surface, ``zmin`` / ``zmax`` its colour range in
-    kcal/mol."""
+    kcal/mol. ``mesh`` and ``spatial`` go to the calculator; over several
+    ranks rank 0 writes ``out_dir`` (``common.rank_dir``)."""
     t0 = time.time()
     ndim = len(axes)
     if ndim not in (2, 3):
         raise ValueError(f"run_scan_nd takes 2 or 3 axes, got {ndim}")
-    out = Path(out_dir or f"./result_scan{ndim}d/")
+    out = common.rank_dir(out_dir or f"./result_scan{ndim}d/")
     out.mkdir(parents=True, exist_ok=True)
     if plot_only:
         table = np.loadtxt(plot_only, delimiter=",", skiprows=1)
@@ -104,7 +106,7 @@ def run_scan_nd(
               common.resolve_atom_spec(ax["pair"][1], struct)) for ax in axes]
     base = common.make_calculator(struct, calc_mode=calc_mode, charge=q,
                                   spin=s, freeze_atoms=freeze, model=model,
-                                  device=device, **calc_kw)
+                                  device=device, mesh=mesh, **calc_kw)
 
     def distances():
         return [float(np.linalg.norm(struct.coords[i] - struct.coords[j]))

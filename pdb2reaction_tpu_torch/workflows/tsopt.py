@@ -9,14 +9,15 @@ cycles); the TS mode's animation is written as ``imag_mode.trj``.
 internals (``engines/dlc.py``); the light mode runs Cartesian whatever it
 is given, as in the JAX package.
 
-Not ported yet, and refused: atom-axis sharding (``spatial > 1``: the
-Hessian over ranks is ROADMAP.md queue 1 item 9).
+``mesh`` splits the Hessians' tangents and the dimer's batches over its
+data axis, ``spatial=n`` shards every evaluation, Hessians included,
+over n ranks; over several ranks rank 0 writes ``out_dir``
+(``common.rank_dir``).
 """
 
 from __future__ import annotations
 
 import time
-from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -36,8 +37,6 @@ from .config import format_elapsed, pretty_block
 TS_MODES = ("dimer", "rsirfo")
 _TS_ALIASES = {"light": "dimer", "heavy": "rsirfo", "rs-i-rfo": "rsirfo",
                "hessian_dimer": "dimer"}
-_SPATIAL = ("tsopt under atom-axis sharding (spatial > 1) is not ported "
-            "yet: the Hessian over ranks is ROADMAP.md queue 1 item 9")
 # the engine knobs the heavy mode hands to rfo_optimize / dlc_rfo_optimize
 _RSIRFO_ENGINE = ("roots", "thresh", "trust_radius", "trust_max",
                   "trust_min", "hessian_update", "hessian_recalc",
@@ -58,6 +57,7 @@ def run_tsopt(
     calc_mode: str = "uma",
     model: str = "uma-s-1p1",
     device="cuda",
+    mesh=None,
     out_dir="./result_tsopt/",
     verbose: bool = True,
     hessian_dimer_kw: Optional[Dict[str, Any]] = None,
@@ -75,8 +75,7 @@ def run_tsopt(
     restartable from ``out_dir/restart`` (carries dumped every N
     cycles)."""
     t0 = time.time()
-    if int(calc_kw.get("spatial", 1)) > 1:
-        raise NotImplementedError(_SPATIAL)
+    out = common.rank_dir(out_dir)
     struct = common.load_structure(input_path)
     q, s = common.resolve_charge_spin(struct, charge, spin)
     if calculator is not None:
@@ -104,7 +103,7 @@ def run_tsopt(
             rsirfo_kw.setdefault(k, calc_kw.pop(k))
     calc = calculator or common.make_calculator(
         struct, calc_mode=calc_mode, charge=q, spin=s, freeze_atoms=freeze,
-        model=model, device=device, **calc_kw)
+        model=model, device=device, mesh=mesh, **calc_kw)
     if struct.n_atoms != calc.n_atoms:
         raise ValueError(f"calculator atom count {calc.n_atoms} != input "
                          f"{struct.n_atoms} ({input_path})")
@@ -125,7 +124,7 @@ def run_tsopt(
             kw["max_cycles_total"] = max_cycles
         if dump_restart:
             kw["restart"] = {
-                "store": CheckpointStore(Path(out_dir) / "restart"),
+                "store": CheckpointStore(out / "restart"),
                 "name": "tsopt", "every": int(dump_restart)}
         res = hessian_dimer(calc, x0, **kw)
         coords, e, conv, cycles = (calc.unpad(res.x), res.e, res.converged,
@@ -163,7 +162,6 @@ def run_tsopt(
             freqs, imode = free_block_wavenumbers(H, struct.numbers, freeze)
         n_imag = count_imaginary(freqs)
 
-    out = Path(out_dir)
     paths = common.write_outputs(out, "final_geometry", struct, coords,
                                  energy=e)
     if write_imag_mode and imode is not None:

@@ -620,6 +620,11 @@ def test_all_scan_and_dft_options_parse_like_jax(tmp_path, monkeypatch):
     assert _cli(base + ["--scan-lists", "2,3,1.5"]) == 0
     assert captured["scan_stages"] == [[(1, 2, 1.5)]]
     assert captured["scan_kw"] == {} and captured["do_dft"] is False
+    assert captured["mesh"] is None and captured["spatial"] == 1
+    # --workers-per-node is accepted and dropped, as in the JAX CLI
+    assert _cli(base + ["--scan-lists", "2,3,1.5", "--workers-per-node",
+                        "4"]) == 0
+    assert captured["mesh"] is None and "workers_per_node" not in captured
     assert _cli(base + ["--scan-lists", "2,3,1.5", "--one-based",
                         "False"]) == 0
     assert captured["scan_stages"] == [[(2, 3, 1.5)]]
@@ -634,12 +639,14 @@ def test_all_scan_and_dft_options_parse_like_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,said", [
-    (["--workers", "2"], "--workers"),
-    (["--workers-per-node", "2"], "--workers-per-node"),
-    (["--dump", "True"], "--dump"),
+    (["--workers", "2"], "torchrun --nproc-per-node 2"),
+    (["--workers-per-node", "2", "--workers", "2", "--spatial", "2"],
+     "torchrun --nproc-per-node 4"),
+    (["--dump", "True"], "--dump is not ported"),
 ])
 def test_all_refuses_unported_options(tmp_path, flags, said):
-    """Options the port does not serve exit naming themselves before
+    """Options the port does not serve exit naming themselves, and ranks
+    asked for in one process exit naming the torchrun line, before
     anything is written; they are not parsed and dropped."""
     a, b = tmp_path / "A.xyz", tmp_path / "B.xyz"
     a.write_text(H3A)
@@ -648,7 +655,7 @@ def test_all_refuses_unported_options(tmp_path, flags, said):
     with pytest.raises(SystemExit) as e:
         cli.main(["all", "-i", str(a), "-i", str(b), "--out-dir", str(out)]
                  + COMMON + flags)
-    assert said in str(e.value.code) and "not ported" in str(e.value.code)
+    assert said in str(e.value.code)
     assert not out.exists()
 
 

@@ -37,6 +37,9 @@ from pdb2reaction_tpu_torch.mlip.cuda_build import first_order
 from pdb2reaction_tpu_torch.mlip.calculator import Calculator
 from pdb2reaction_tpu_torch.mlip.from_jax import params_from_jax
 from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+from pdb2reaction_tpu_torch.parallel import SpatialGroup
+from pdb2reaction_tpu_torch.parallel.spatial import (
+    make_spatial_energy_fn, make_spatial_hessian_energy_fn)
 
 from test_torch_calculator import _pair
 from test_torch_painn import jax_painn, molecule
@@ -194,11 +197,30 @@ def test_partial_hessian_frozen():
 
 
 def test_sharded_hessian_raises_and_kernel_guard():
-    _, tc, cb = _morse_pair()
-    tc.spatial = 2
-    for call in (lambda: tc.get_hessian(cb), tc.au_hvp_fn, tc.au_hvp_fn_p):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    # the Hessian and an HVP through the sharded closures of a one-rank
+    # group (no process group needed) equal the unsharded calculator's,
+    # eSCN on its "xla" Hessian closure and the PaiNN pallas mode on K6's
+    # plain version
+    rng = np.random.default_rng(5)
+    st = Structure(np.array([8, 1, 1, 6, 1, 7], np.int32),
+                   rng.normal(scale=1.1, size=(6, 3)))
+    group = SpatialGroup(0, 1, torch.device("cpu"), "gloo")
+    cb = st.coords_bohr.reshape(-1)
+    for model, kw, rtol in (("escn-test", {"dtype": torch.float64}, 1e-10),
+                            ("small", {"mp_mode": "pallas"}, 1e-5)):
+        ref = make_uma_calculator(st, model=model, device="cpu", **kw)
+        sh = Calculator(
+            st, make_spatial_energy_fn(ref.cfg, group), params=ref.params,
+            device="cpu",
+            energy_fn_hessian=make_spatial_hessian_energy_fn(ref.cfg, group))
+        H0 = ref.get_hessian(cb)["hessian"]
+        np.testing.assert_allclose(sh.get_hessian(cb)["hessian"], H0,
+                                   rtol=rtol, atol=rtol * np.abs(H0).max())
+        x = ref.pad_bohr(cb)
+        v = torch.as_tensor(rng.normal(size=tuple(x.shape)))
+        hv0 = ref.au_hvp_fn()(x, v).numpy()
+        np.testing.assert_allclose(sh.au_hvp_fn()(x, v).numpy(), hv0,
+                                   rtol=rtol, atol=rtol * np.abs(hv0).max())
     # a second derivative through a kernel's autograd function raises
     # instead of dropping the kernel's missing double-backward terms,
     # for the Hessian and for an HVP alike

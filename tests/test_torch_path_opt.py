@@ -151,10 +151,11 @@ def test_run_mep_between_counts_once_and_refusals(tmp_path):
     assert rt["force_calls"] == rt["mep_force_calls"] == 301 * 7
     for f in ("final_geometries.trj", "hei.xyz"):
         assert (tmp_path / "t" / f).exists() and (tmp_path / "j" / f).exists()
-    # atom-axis sharding is refused before anything runs (the climbing
-    # image's HVPs over ranks are item 9)
-    for mode in ("morse", "uma"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    # atom-axis sharding needs its ranks, and the analytic potentials
+    # run unsharded: both refuse before anything is written
+    for mode, err, said in (("morse", ValueError, "unsharded"),
+                            ("uma", RuntimeError, "torchrun")):
+        with pytest.raises(err, match=said):
             run_path_opt(paths, charge=0, calc_mode=mode, device="cpu",
                          spatial=2, out_dir=tmp_path / "never")
     assert not (tmp_path / "never").exists()
@@ -221,12 +222,13 @@ def test_path_opt_cli_writes_outputs(tmp_path):
 
 
 @pytest.mark.parametrize("flags,said", [
-    (["--spatial", "2"], "item 9"),
+    (["--spatial", "2"], "torchrun --nproc-per-node 2"),
     (["--gsm-loop", "device"], "--gsm-loop device"),
 ])
 def test_path_opt_cli_refuses_unported(tmp_path, flags, said):
-    """``--spatial`` above 1 and the device GSM loop are refused up front,
-    with no process group and no output."""
+    """``--spatial`` above 1 in one process (the ranks are torchrun's) and
+    the device GSM loop are refused up front, with no process group and
+    no output."""
     paths = _h3_endpoints(tmp_path)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run(

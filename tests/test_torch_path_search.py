@@ -193,7 +193,7 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
 
 @pytest.mark.parametrize("flags,said", [
     (["--dump", "True"], "--dump"),
-    (["--spatial", "2"], "item 9"),
+    (["--spatial", "2"], "torchrun --nproc-per-node 2"),
     (["--gsm-loop", "device"], "left out on purpose"),
 ])
 def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
@@ -269,12 +269,14 @@ def test_run_path_search_dmf_matches_jax(tmp_path, kw, n_img):
 
 
 @pytest.mark.parametrize("kw,said", [
-    ({"spatial": 2}, "item 9"),
+    ({"spatial": 2}, "run unsharded"),
 ])
 def test_run_path_search_refuses_unported(tmp_path, kw, said):
+    """Atom-axis sharding of an analytic potential (the UMA factory's
+    alone) is refused before anything is written."""
     a = _write(tmp_path, "A.xyz", H3A)
     b = _write(tmp_path, "B.xyz", H3B)
-    with pytest.raises(NotImplementedError, match=said):
+    with pytest.raises(ValueError, match=said):
         run_path_search([a, b], charge=0, calc_mode="morse", device="cpu",
                         out_dir=tmp_path / "ps", verbose=False, **kw)
     assert not (tmp_path / "ps").exists()

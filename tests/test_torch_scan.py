@@ -214,8 +214,8 @@ def test_cli_zero_based_and_dump_then_trj2fig(tmp_path):
 
 
 @pytest.mark.parametrize("flags,said", [
-    (["--spatial", "2"], "item 9"),
-    (["--workers", "2"], "--workers"),
+    (["--spatial", "2"], "torchrun --nproc-per-node 2"),
+    (["--workers", "2"], "torchrun --nproc-per-node 2"),
 ])
 def test_scan_refusals(tmp_path, flags, said):
     a = tmp_path / "A.xyz"

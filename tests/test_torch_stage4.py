@@ -15,7 +15,8 @@
 - the ``tsopt``, ``freq`` and ``irc`` subcommands with ``--calc-mode
   morse --device cpu``: exit codes and outputs, ``--coord-type dlc``
   (``tsopt`` heavy and ``opt``) against the JAX workflows, and the
-  refusals (``--spatial`` above 1, item 9) before any output."""
+  refusals of ranks asked for in one process (``--spatial`` or
+  ``--workers`` above 1 outside torchrun) before any output."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -271,10 +272,11 @@ def test_stage4_cli_dlc_matches_jax(tmp_path, cmd, flags):
 
 
 @pytest.mark.parametrize("cmd,flags,said", [
-    ("tsopt", ["--spatial", "2"], "item 9"),
-    ("freq", ["--spatial", "2"], "item 9"),
-    ("irc", ["--spatial", "2"], "item 9"),
-    ("opt", ["--opt-mode", "heavy", "--spatial", "2"], "item 9"),
+    ("tsopt", ["--spatial", "2"], "torchrun --nproc-per-node 2"),
+    ("freq", ["--spatial", "2"], "torchrun --nproc-per-node 2"),
+    ("irc", ["--workers", "2"], "torchrun --nproc-per-node 2"),
+    ("opt", ["--opt-mode", "heavy", "--spatial", "2"],
+     "torchrun --nproc-per-node 2"),
 ])
 def test_stage4_cli_refusals(tmp_path, cmd, flags, said):
     p = _write(tmp_path, "ts.xyz", H3_TS)
