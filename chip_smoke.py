@@ -142,7 +142,8 @@ Phases (any failure exits non-zero):
    Hessians and their seconds, the frequencies and the thermochemistry,
    the IRC's host time a cycle outside the force call, peak memory;
    every output file and finite results checked. Then the tsopt (heavy,
-   3 cycles), freq and irc (3 cycles) CLIs as subprocesses, and the
+   3 cycles), freq and irc (3 cycles) CLIs as three subprocesses at
+   once, and the
    Morse H3 engines (RS-I-RFO, the dimer, the IRC) on the card against
    the CPU: equal cycles and force calls, 1e-8 Bohr, 1e-10 Hartree;
 16. all (run_all) on an enzyme-like reactant / product PDB pair: the
@@ -239,7 +240,31 @@ Phases (any failure exits non-zero):
    16's (when (a) is bit for bit), the stages' force calls equal, rank
    0's tree the only output, no rank scratch left; (e) where the host
    has two or more cards, (a) again with one rank a card over NCCL,
-   else a line saying it did not run.
+   else a line saying it did not run;
+21. training (mlip/train.py; [train] and [wgrad] lines, each beside the
+   card's name and power limit): (a) escn-md at full width, its 8-expert
+   banks unmerged, on the plain "xla" route (make_escn_train_step) and
+   (b) uma-s-1p1 dense (make_train_step), each on structures of 64 atoms
+   (chip_smoke.cluster, jittered; numpy-seeded targets): one step on 2
+   structures against the same step on the CPU in float64 (a child
+   process started after phase 18: loss rel 1e-4, each gradient leaf, its
+   first moment / (1 - b1), within 1e-4 of its max|g|), then 20 Adam
+   steps at 3e-3 on 4 / 8 structures that must bring the loss below 0.9
+   x its first value, ms per step and peak memory; (c) pallas-mega and
+   mp_mode="pallas" steps refused on the card with no launch before the
+   raise; (d) dE/dW through K1, K3 and K4 (each with K2) at 300 atoms on
+   phase 4's weights, unmerged, against the plain route on the card
+   within KERNEL_TOL of each leaf's max, their launches counted, a force
+   call with and without weight gradients timed, and phase 4's force
+   call again bit for bit; (e) four gloo ranks on the card: one dp 2 x
+   tp 2 step of (b) and one dp 2 x ep 2 step of (a) at 1e-3, each in
+   float64 and in float32, against the same step in one process (loss
+   rel 1e-4; gradients within 1e-6 of each leaf's max in float64, 1e-4
+   in float32; parameters within 1e-5 in float64),
+   and the tensor-parallel uma-s-1p1 dense calculator at 300 atoms
+   (make_mesh(data=2, model=2), shard_params_model) against the
+   replicated one (energy rel 1e-6, forces within SHARD_TOL of max|F|,
+   the batched call too).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -250,6 +275,7 @@ result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -1749,8 +1775,10 @@ def irc_cycle_alone(n_atoms, freeze, reps=3):
 def stage4_cli(gpath, ts_path, freeze):
     """Phase 15e: ``tsopt --opt-mode heavy --max-cycles 3``, ``freq`` and
     ``irc --max-cycles 3`` as subprocesses on the card (escn-md, seed 0,
-    the same freeze list): exit codes and outputs. tsopt exits 3 when its
-    three cycles end unconverged, and that is reported, not required."""
+    the same freeze list), the three at once: exit codes and outputs.
+    tsopt exits 3 when its three cycles end unconverged, and that is
+    reported, not required."""
+    import torch
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     base = ["--model", "escn-md", "-q", "0", "--freeze-atoms",
@@ -1762,19 +1790,39 @@ def stage4_cli(gpath, ts_path, freeze):
              ("frequencies_cm-1.txt", "thermoanalysis.yaml")),
             ("irc", ts_path, ["--max-cycles", "3"], (0,),
              ("finished_irc.trj", "irc_data.npz")))
-    for cmd, src, extra, ok, files in runs:
+    torch.cuda.empty_cache()        # room for the three processes' own
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for cmd, src, extra, _, _ in runs:
+            d = os.path.join(out, f"cli_{cmd}")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "stdout.txt"), "w") as fo, \
+                    open(os.path.join(d, "stderr.txt"), "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "pdb2reaction_tpu_torch", cmd,
+                     "-i", src, "--out-dir", d] + base + extra, cwd=out,
+                    env=env, stdout=fo, stderr=fe, text=True))
+        walls = []
+        for p in procs:
+            p.wait(timeout=max(t0 + 600 - time.perf_counter(), 1))
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (cmd, _, _, ok, files), p, wall in zip(runs, procs, walls):
         d = os.path.join(out, f"cli_{cmd}")
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "pdb2reaction_tpu_torch",
-                            cmd, "-i", src, "--out-dir", d] + base + extra,
-                           cwd=out, env=env, capture_output=True, text=True,
-                           timeout=600)
-        tail = [ln for ln in r.stdout.splitlines()
-                if ln.startswith(f"[{cmd}")][-2:]
-        log(f"[stage4] {cmd} CLI as a subprocess: rc {r.returncode}, "
-            f"{time.perf_counter() - t0:.1f} s with start-up; {tail}")
-        if r.returncode not in ok:
-            fail(f"the {cmd} CLI exited {r.returncode}: {r.stderr[-3000:]}")
+        with open(os.path.join(d, "stdout.txt")) as fh:
+            tail = [ln for ln in fh.read().splitlines()
+                    if ln.startswith(f"[{cmd}")][-2:]
+        log(f"[stage4] {cmd} CLI as a subprocess (the three at once): rc "
+            f"{p.returncode}, done {wall:.1f} s after their start; {tail}")
+        if p.returncode not in ok:
+            with open(os.path.join(d, "stderr.txt")) as fh:
+                fail(f"the {cmd} CLI exited {p.returncode}: "
+                     f"{fh.read()[-3000:]}")
         missing = [f for f in files if not os.path.exists(
             os.path.join(d, f))]
         if missing:
@@ -4586,16 +4634,561 @@ def phase_ranks(calc, p12, ref64, p15, p16, smi_line):
     return total
 
 
+# ---- phase 21: training ----------------------------------------------------
+P21_ATOMS = 64          # atoms a training structure
+P21_STEPS = 20          # Adam steps of (a) and (b)
+P21_LR = 3e-3           # JAX tests/test_train.py's rate
+P21_CMP = 2             # structures of the card-against-CPU step
+P21_SEED = 21           # the weights' seed
+P21_TP_TOL = 1e-6       # tensor-parallel energy, relative (forces SHARD_TOL)
+P21_LOSS_TOL = 1e-4     # a sharded step's loss against one process, rel
+P21_PARAM_TOL = 1e-5    # its parameters after the step, absolute
+P21_MODELS = {"escn": (21, 4), "painn": (121, 8)}   # batch seed, size
+# (e)'s steps run at JAX tests/test_train.py's sharded rate, in float64
+# and in float32. The parameters after a step are held in float64 only:
+# in float32 Adam's first update, lr g / (|g| + 1e-8), turns the rounding
+# of a gradient element that cancels to ~1e-8 (terms of ~1e-2 summed in
+# another order over ranks) into parameter differences above 1e-5
+# (2.6e-5 on the CPU for uma-s-1p1's data split alone). The gradients
+# (first moments) are held in both.
+P21_SHARD_LR = 1e-3
+P21_SHARD_DTYPES = ("float64", "float32")
+P21_GRAD_TOL = {"float64": 1e-6,   # (e)'s gradients, of each leaf's max
+                "float32": 1e-4}   # (3.5e-5 measured, uma-s-1p1 dense)
+
+
+def p21_batch(kind, n=None, device="cpu", dtype=None):
+    """``n`` structures of P21_ATOMS atoms (``cluster`` with seeds from
+    the kind's batch seed, jittered by 0.05 Angstrom) and numpy-seeded
+    targets: each energy the sum of its atoms' reference energies (one
+    normal draw of 0.5 eV an element: what a fine-tune's per-element
+    offsets absorb), forces 0.02 x normal (eV/Angstrom, the seeded
+    escn-md's own scale)."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.train import TrainBatch
+    seed, size = P21_MODELS[kind]
+    n = size if n is None else n
+    rng = np.random.default_rng(seed)
+    zs, xs = zip(*(cluster(P21_ATOMS, seed=seed + i) for i in range(n)))
+    xs = [x + rng.normal(scale=0.05, size=x.shape) for x in xs]
+    eps = 0.5 * rng.normal(size=101)
+    e = np.array([eps[z].sum() for z in zs])
+    f = 0.02 * rng.normal(size=(n, P21_ATOMS, 3))
+    dt = dtype or torch.float32
+    batch = TrainBatch(torch.as_tensor(np.stack(zs), dtype=torch.long),
+                       torch.as_tensor(np.stack(xs), dtype=dt),
+                       torch.ones(n, P21_ATOMS, dtype=dt),
+                       torch.as_tensor(e, dtype=dt),
+                       torch.as_tensor(f, dtype=dt))
+    return TrainBatch(*(t.to(device) for t in batch))
+
+
+def p21_model(kind, device="cpu", dtype=None):
+    """(cfg, params, step maker) of (a) / (b): escn-md at full width with
+    its banks unmerged on the plain "xla" route, or uma-s-1p1 dense; the
+    seeded float32 weights, cast to ``dtype``."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+                                                  init_escn_params, tree_to)
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
+    if kind == "escn":
+        cfg = dataclasses.replace(ESCN_CONFIGS["escn-md"], edge_kernel="xla")
+        p = init_escn_params(cfg, seed=P21_SEED)
+        p.update(charge=torch.tensor(0.0), spin=torch.tensor(1.0),
+                 task=torch.tensor(0.0))
+        make, sharded = T.make_escn_train_step, T.make_escn_sharded_train_step
+    else:
+        cfg = CONFIGS["uma-s-1p1"]
+        _, p, _ = make_model(cfg, seed=P21_SEED)
+        make, sharded = T.make_train_step, T.make_sharded_train_step
+    cfg, p = p21_cast(kind, cfg, tree_to(p, device=device),
+                      dtype or torch.float32)
+    return cfg, p, make, sharded
+
+
+def p21_cast(kind, cfg, p, dt):
+    """(cfg, params) of ``kind`` computing in ``dt`` (PaiNN keeps its
+    atom reference energies float32, as its readout sums them)."""
+    import dataclasses
+
+    from pdb2reaction_tpu_torch.mlip.escn import tree_to
+    p = tree_to(p, dtype=dt)
+    if kind == "painn":
+        p["atom_ref"] = p["atom_ref"].float()
+    return dataclasses.replace(cfg, dtype=dt), p
+
+
+def p21_first_step(kind, device, dtype, n):
+    """One Adam step of ``kind`` on the first ``n`` structures: (loss, the
+    step's gradients as its first moments / (1 - b1), seconds)."""
+    from pdb2reaction_tpu_torch.mlip import train as T
+    cfg, p, make, _ = p21_model(kind, device, dtype)
+    opt = T.adam(P21_LR)
+    batch = p21_batch(kind, n, device, dtype)
+    t0 = time.perf_counter()
+    _, state, loss = make(cfg, opt)(p, opt.init(p), batch)
+    sec = time.perf_counter() - t0
+    return float(loss), [m / (1 - opt.b1) for m in state.mu], sec
+
+
+def p21_cpu_reference(out_path):
+    """(a) / (b)'s one step in float64 on the CPU on P21_CMP structures,
+    in its own process (``--p21-cpu OUT``, started after phase 18) while
+    the card works through phases 19 and 20."""
+    import torch
+    torch.set_num_threads(3)        # beside the card phases' host work
+    res = {}
+    for kind in P21_MODELS:
+        loss, grads, sec = p21_first_step(kind, "cpu", torch.float64,
+                                          P21_CMP)
+        res[f"{kind}/loss"] = loss
+        res[f"{kind}/seconds"] = sec
+        for i, g in enumerate(grads):
+            res[f"{kind}/g{i}"] = g.numpy()
+    np.savez(out_path, **res)
+
+
+def start_p21_cpu():
+    """Start (a) / (b)'s CPU float64 steps in a child process; it is
+    killed at exit if still running."""
+    import atexit
+    out = os.path.join(HERE, "result_smoke", "p21_cpu.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--p21-cpu", out], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def p21_wait_cpu(cpu_ref, limit=400):
+    """The child's results, once it has ended (at most ``limit`` s)."""
+    proc, npz = cpu_ref
+    t0 = time.perf_counter()
+    try:
+        stdout, _ = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"phase 21's CPU reference did not finish within {limit} s")
+    if proc.returncode != 0 or not os.path.exists(npz):
+        fail(f"phase 21's CPU reference failed: {stdout[-3000:]}")
+    return np.load(npz), time.perf_counter() - t0
+
+
+def p21_train(kind, ref, smi_line):
+    """(a) or (b): the card's step on P21_CMP structures against the CPU
+    float64 one, then P21_STEPS steps on the whole batch."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    tag = {"escn": "(a) escn-md, xla", "painn": "(b) uma-s-1p1, dense"}[kind]
+    loss, grads, _ = p21_first_step(kind, "cuda", torch.float32, P21_CMP)
+    l64 = float(ref[f"{kind}/loss"])
+    err_l = abs(loss - l64) / abs(l64)
+    errs = []
+    for i, g in enumerate(grads):
+        g64 = ref[f"{kind}/g{i}"]
+        s = np.abs(g64).max()
+        if s > 0:
+            errs.append(float(np.abs(g.double().cpu().numpy() - g64).max()
+                              / s))
+    log(f"[train] {tag} {smi_line}: one step on {P21_CMP} structures of "
+        f"{P21_ATOMS} atoms, card f32 (TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}) against CPU f64: loss "
+        f"{loss:.6f} / {l64:.6f}, rel {err_l:.3e} (tol 1e-4); max over "
+        f"{len(errs)} gradient leaves of max|dg|/max|g| {max(errs):.3e} "
+        f"(tol 1e-4; CPU step {float(ref[f'{kind}/seconds']):.1f} s)")
+    if not err_l <= 1e-4 or not max(errs) <= 1e-4:
+        fail(f"{tag}: the card's train step disagrees with the CPU float64 "
+             "step")
+    cfg, p, make, _ = p21_model(kind, "cuda")
+    opt = T.adam(P21_LR)
+    step = make(cfg, opt)
+    batch = p21_batch(kind, device="cuda")
+    state = opt.init(p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for k in range(P21_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_par = sum(x.numel() for x in T.tree_leaves(p))
+    log(f"[train] {tag} {smi_line}: {P21_STEPS} Adam steps at {P21_LR} on "
+        f"{len(batch.energy)} structures of {P21_ATOMS} atoms, {n_par} "
+        f"parameters: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"({losses[-1] / losses[0]:.3f} x; must be < 0.9); ms per step "
+        f"{np.median(ms[1:]):.1f} (median of {P21_STEPS - 1}; first "
+        f"{ms[0]:.1f}); peak memory {peak:.2f} GiB ({peak - base:.2f} above "
+        f"the {base:.2f} GiB held before)")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
+        fail(f"{tag}: {P21_STEPS} steps did not bring the loss below 0.9 x "
+             "its first value")
+
+
+def p21_refusals(smi_line):
+    """(c): a kernel configuration's step raises on the card before any
+    launch."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    for kind, over in (("escn", dict(edge_kernel="pallas-mega")),
+                       ("painn", dict(mp_mode="pallas"))):
+        cfg, p, make, _ = p21_model(kind, "cuda")
+        cfg = dataclasses.replace(cfg, **over)
+        opt = T.adam(P21_LR)
+        zero_all_counts()
+        try:
+            make(cfg, opt)(p, opt.init(p), p21_batch(kind, 1, "cuda"))
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail(f"(c) {over}: the train step ran on the card")
+        moved = {k: v for k, v in all_counts().items() if v}
+        log(f"[train] (c) {over} {smi_line}: refused, launches before the "
+            f"raise {moved}: {msg[:120]}...")
+        if moved or "edge_kernel=" not in msg and "mp_mode=" not in msg:
+            fail(f"(c) {over}: a launch before the refusal, or a message "
+                 "that names no plain configuration")
+        del p
+    torch.cuda.empty_cache()
+
+
+P21_LAYOUTS = ("pallas-mega", "pallas-full", "pallas")
+
+
+def p21_wgrad(calc, f_mega, smi_line):
+    """(d): dE/dW through K1, K3 and K4 (each with K2) against the plain
+    route on the card, phase 4's weights unmerged; the force call with
+    and without weight gradients. Returns the launches."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    from pdb2reaction_tpu_torch.mlip.escn import (escn_energy,
+                                                  init_escn_params)
+    cfg0 = calc.cfg
+    p = init_escn_params(cfg0, seed=0, device="cuda")
+    p.update(charge=torch.tensor(0.0), spin=torch.tensor(1.0),
+             task=torch.tensor(0.0))
+    system = calc.system
+    c0 = system.coords.float()
+
+    def wgrad(layout, coords=False):
+        cfg = dataclasses.replace(cfg0, edge_kernel=layout)
+        leaves = [x.detach().requires_grad_(True) for x in
+                  T.tree_leaves(p)]
+        c = c0.clone().requires_grad_(coords)
+        e = escn_energy(c, system, T._with_leaves(p, leaves), cfg)
+        want = leaves + ([c] if coords else [])
+        return torch.autograd.grad(e, want, allow_unused=True)
+
+    ref = wgrad("xla")
+    total = {}
+    for layout in P21_LAYOUTS:
+        zero_all_counts()
+        got = wgrad(layout)
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in all_counts().items() if v}
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, ref)
+                  if b is not None and b.abs().max() > 0)
+        log(f"[wgrad] (d) {layout} {smi_line}: dE/dW of {len(ref)} leaves "
+            f"at {calc.n_atoms} atoms (P = {calc.n_pad}) against the plain "
+            f"route on the card: max over leaves of max|dg|/max|g| "
+            f"{err:.3e} (tol {KERNEL_TOL}); launches {moved}")
+        if not err <= KERNEL_TOL:
+            fail(f"(d) {layout}: weight cotangents disagree with the plain "
+                 "route")
+        for k, v in moved.items():
+            total[k] = total.get(k, 0) + v
+    # the force call with and without weight gradients (pallas-mega)
+    for with_w in (True, False):
+        def call():
+            if with_w:
+                return wgrad("pallas-mega", coords=True)[-1]
+            c = c0.clone().requires_grad_(True)
+            cfg = dataclasses.replace(cfg0, edge_kernel="pallas-mega")
+            return torch.autograd.grad(escn_energy(c, system, p, cfg), c)[0]
+        zero_all_counts()
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        moved = {k: v for k, v in all_counts().items() if v}
+        for k, v in moved.items():
+            total[k] = total.get(k, 0) + v
+        how = "with" if with_w else "without"
+        log(f"[wgrad] (d) pallas-mega force call {how} weight gradients "
+            f"{smi_line}: {ms:.2f} ms (4 calls, launches {moved})")
+    zero_all_counts()
+    same = np.array_equal(calc.get_forces(
+        calc.structure.coords_bohr.reshape(-1))["forces"], f_mega)
+    for k, v in all_counts().items():
+        if v:
+            total[k] = total.get(k, 0) + v
+    log(f"[wgrad] (d) phase 4's force call again, no weight requiring grad: "
+        f"bit for bit phase 4's forces: {same}")
+    if not same:
+        fail("(d) the force call no longer repeats phase 4's forces")
+    del p
+    torch.cuda.empty_cache()
+    return total
+
+
+def p21_diff(leaves, ref, rel=False):
+    """max|a - b| over the leaves; ``rel``: each over its max|b|."""
+    out = 0.0
+    for a, b in zip(leaves, ref):
+        d = float((a.detach().cpu() - b).abs().max())
+        if rel:
+            d = d / float(b.abs().max()) if b.abs().max() > 0 else d
+        out = max(out, d)
+    return out
+
+
+P21_SHARD_N = {"painn": 8, "escn": 4}    # (e)'s batches: 4 / 2 a data rank
+
+
+def p21_shard_ref(kind, model, dtype):
+    """(e)'s single-process step on the card in ``dtype`` (a name) of
+    ``model`` (p21_model's): its loss, the parameters after it and its
+    first moments, on the host."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    dt = getattr(torch, dtype)
+    cfg, p, make, _ = model
+    cfg, p = p21_cast(kind, cfg, p, dt)
+    opt = T.adam(P21_SHARD_LR)
+    p1, st, loss = make(cfg, opt)(p, opt.init(p), p21_batch(
+        kind, P21_SHARD_N[kind], "cuda", dt))
+    return {"loss": float(loss), "params": [x.cpu() for x in
+                                            T.tree_leaves(p1)],
+            "mu": [m.cpu() for m in st.mu]}
+
+
+def p21_rank_step(kind, model, dt, mesh, device, ref):
+    """One sharded step of (e) on this rank: ``model`` (p21_model's, its
+    float32 weights) in ``dt`` against one process's ``ref``."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import train as T
+    from pdb2reaction_tpu_torch.parallel import unshard
+    cuda = device == "cuda"
+    cfg, p, _, sharded = model
+    cfg, p = p21_cast(kind, cfg, p, dt)
+    opt = T.adam(P21_SHARD_LR)
+    step, laid, state = sharded(cfg, opt, mesh, p, opt.init(p))
+    del p
+    batch = p21_batch(kind, P21_SHARD_N[kind], device, dt)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, state, loss = step(laid, state, batch)
+    if cuda:
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return {"loss": float(loss), "seconds": sec,
+            "dparam": p21_diff(T.tree_leaves(unshard(new)), ref["params"]),
+            "dgrad": p21_diff(T.tree_leaves(unshard(
+                T._with_leaves(new, state.mu))), ref["mu"], rel=True),
+            "laid": sum(1 for x in T._leaves(new)
+                        if type(x).__name__ == "Shard"),
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else 0.0}
+
+
+def p21_worker(rank, world, port, out_dir, device="cuda"):
+    """One rank of (e): the dp x tp PaiNN step (data 2 x model 2), the
+    dp x ep eSCN step (data 2 x expert 2) and the tensor-parallel
+    calculator, each against the parent's single-process results
+    (``device`` "cpu" rehearses it without a card)."""
+    import pickle
+    import traceback
+    try:
+        sys.path.insert(0, HERE)
+        import torch
+        from pdb2reaction_tpu_torch.core.structure import Structure
+        from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+        from pdb2reaction_tpu_torch.parallel import (initialize_distributed,
+                                                     make_mesh, shutdown)
+        initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                               device=device, timeout_s=300)
+        cuda = device == "cuda"
+        inp = torch.load(os.path.join(out_dir, "in.pt"), weights_only=False)
+        out = {}
+        for kind, mesh in (("painn", make_mesh(data=2, model=2)),
+                           ("escn", make_mesh(data=2, expert=2))):
+            model = p21_model(kind, device)
+            for dtype in P21_SHARD_DTYPES:
+                out[kind, dtype] = p21_rank_step(
+                    kind, model, getattr(torch, dtype), mesh, device,
+                    inp[kind][dtype])
+            del model
+        mesh = make_mesh(data=2, model=2)
+        st = Structure(*inp["st"])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        calc = make_uma_calculator(st, mesh=mesh, device=device)
+        calc.shard_params_model()
+        cb = st.coords_bohr.reshape(-1)
+        r = calc.get_forces(cb)
+        rb = calc.get_forces_batch(np.stack([cb, cb + 0.01]))
+        out["tp"] = {"energy": r["energy"], "forces": r["forces"],
+                     "batch": rb["energy"], "batch_f": rb["forces"][0],
+                     "peak": torch.cuda.max_memory_allocated() / 2 ** 30
+                     if cuda else 0.0}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+        shutdown()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def p21_ranks(smi_line):
+    """(e): four gloo ranks on the card against one process."""
+    import pickle
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    out = os.path.join(HERE, "result_smoke", "training")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    st = Structure(*cluster(300, seed=0))
+    first = {}
+    for kind in P21_MODELS:
+        model = p21_model(kind, "cuda")
+        first[kind] = {dtype: p21_shard_ref(kind, model, dtype)
+                       for dtype in P21_SHARD_DTYPES}
+        del model
+    torch.cuda.empty_cache()
+    torch.save({**first, "st": (st.numbers, st.coords)},
+               os.path.join(out, "in.pt"))
+    ref = make_uma_calculator(st)
+    cb = st.coords_bohr.reshape(-1)
+    r0 = ref.get_forces(cb)
+    del ref
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=p21_worker, args=(r, RANKS, port, out))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(t0 + 300 - time.perf_counter(), 1))
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = [open(os.path.join(out, f)).read() for f in sorted(os.listdir(out))
+            if f.endswith(".err")]
+    if errs or any(p.exitcode != 0 for p in procs):
+        fail(f"phase 21 (e): exit codes {[p.exitcode for p in procs]}; "
+             + "\n".join(errs))
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as fh:
+            ranks.append(pickle.load(fh))
+    for (kind, tag), dtype in itertools.product(
+            (("painn", "dp 2 x tp 2, uma-s-1p1 dense"),
+             ("escn", "dp 2 x ep 2, escn-md xla")), P21_SHARD_DTYPES):
+        rs = [x[kind, dtype] for x in ranks]
+        l1 = first[kind][dtype]["loss"]
+        err_l = max(abs(x["loss"] - l1) / abs(l1) for x in rs)
+        dp = max(x["dparam"] for x in rs)
+        dg = max(x["dgrad"] for x in rs)
+        held = dtype == "float64"       # the parameters: float64 only
+        log(f"[train] (e) {tag} {smi_line}: one {dtype} step at "
+            f"{P21_SHARD_LR} on {P21_SHARD_N[kind]} structures over {RANKS} "
+            f"gloo ranks of one card against one process: loss rel "
+            f"{err_l:.3e} (tol {P21_LOSS_TOL}), max|dparam| {dp:.3e} "
+            f"({f'tol {P21_PARAM_TOL}' if held else 'not held: eps'}), "
+            f"gradients (first moments) max|dg|/max|g| {dg:.3e} (tol "
+            f"{P21_GRAD_TOL[dtype]}); laid-out leaves a rank "
+            f"{[x['laid'] for x in rs]}; step "
+            f"{max(x['seconds'] for x in rs):.2f} s, peak memory a rank "
+            f"{[round(x['peak'], 2) for x in rs]} GiB")
+        if not err_l <= P21_LOSS_TOL or (held and not dp <= P21_PARAM_TOL) \
+                or not dg <= P21_GRAD_TOL[dtype] \
+                or not all(x["laid"] for x in rs):
+            fail(f"(e) {tag}, {dtype}: the sharded step disagrees with one "
+                 "process's")
+    tp = [x["tp"] for x in ranks]
+    f0 = r0["forces"]
+    err_e = max(abs(x["energy"] - r0["energy"]) / abs(r0["energy"])
+                for x in tp)
+    err_f = max(float(np.abs(x["forces"] - f0).max() / np.abs(f0).max())
+                for x in tp)
+    err_b = max(max(abs(x["batch"][0] - r0["energy"]) / abs(r0["energy"]),
+                    float(np.abs(x["batch_f"] - f0).max()
+                          / np.abs(f0).max())) for x in tp)
+    log(f"[train] (e) tensor-parallel uma-s-1p1 dense calculator, "
+        f"{st.n_atoms} atoms, mesh data 2 x model 2, shard_params_model "
+        f"{smi_line}: energy rel {err_e:.3e} (tol {P21_TP_TOL}), max|dF|/"
+        f"max|F| {err_f:.3e} (tol {SHARD_TOL}), batched call {err_b:.3e}; "
+        f"peak memory a rank {[round(x['peak'], 2) for x in tp]} GiB; "
+        f"ranks' wall {wall:.1f} s with start-up")
+    if not err_e <= P21_TP_TOL or not err_f <= SHARD_TOL \
+            or not err_b <= SHARD_TOL:
+        fail("(e) the tensor-parallel calculator disagrees with the "
+             "replicated one")
+
+
+def phase_training(calc, f_mega, cpu_ref, smi_line):
+    """Phase 21: training. Returns the launches of (d)."""
+    import torch
+    t_phase = time.perf_counter()
+    ref, waited = p21_wait_cpu(cpu_ref)
+    log(f"[train] phase 21 waited {waited:.1f} s for the CPU float64 child")
+    for kind in P21_MODELS:
+        p21_train(kind, ref, smi_line)
+    torch.cuda.empty_cache()
+    p21_refusals(smi_line)
+    launches = p21_wgrad(calc, f_mega, smi_line)
+    p21_ranks(smi_line)
+    log(f"[train] phase 21 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel parity only")
     ap.add_argument("--p18-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase 18d's CPU child
+    ap.add_argument("--p21-cpu", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # phase 21's CPU child
     args = ap.parse_args()
     if args.p18_cpu:
         sys.path.insert(0, HERE)
         p18_cpu_reference(args.p18_cpu)
+        return
+    if args.p21_cpu:
+        sys.path.insert(0, HERE)
+        p21_cpu_reference(args.p21_cpu)
         return
     try:
         import torch
@@ -4673,6 +5266,9 @@ def main():
         phase_scans(calc, st, bond, smi_line)
         # ---- DLC and DMF: their own counts
         phase_dlc_dmf(calc, st, search, bond, ref64, cpu_ref, smi_line)
+        # ---- phase 21's CPU float64 train steps, in a child process
+        # from here on, beside phases 19 and 20
+        p21_cpu = start_p21_cpu()
         # ---- the gate and full branches and remat: their own counts
         for k, v in phase_branches(calc, st, f_mega, ms_force,
                                    smi_line).items():
@@ -4690,6 +5286,10 @@ def main():
         # ---- the data axis and the Hessian over ranks: their own counts
         for k, v in phase_ranks(calc, p12, ref64, p15, p16,
                                 smi_line).items():
+            launches[k] += v
+        # ---- training: its own counts (the kernels' weight cotangents)
+        for k, v in phase_training(calc, f_mega, p21_cpu,
+                                   smi_line).items():
             launches[k] += v
 
     kern = []

@@ -38,7 +38,10 @@ rank counts all B force calls, as the JAX calculator does. Everything
 else (single force calls, ``au_hvp_fn``) runs whole on every rank. Under
 atom-axis sharding (``spatial > 1``) every rank of the model group takes
 part in every evaluation, Hessians and HVPs included, through the
-sharded closures, and the data axis is off.
+sharded closures, and the data axis is off. So it is under tensor
+parallelism (``shard_params_model``: a model axis with ``spatial`` 1,
+the parameters' feature columns laid over it): every rank of the model
+group takes part in every evaluation through the laid-out parameters.
 """
 
 from __future__ import annotations
@@ -148,10 +151,26 @@ class Calculator:
         return replicate(out, self.mesh, items.shape[0])
 
     def shard_params_model(self):
-        """Tensor-parallel parameters over the mesh's "model" axis: not
-        ported (``parallel.shard_params_model``)."""
+        """Reshard ``self.params`` for tensor-parallel inference over the
+        mesh's "model" axis (``parallel.shard_params_model``: feature
+        columns laid over the ranks, the same results) and drop the
+        cached closures, so the batched and Hessian closures run on the
+        laid-out parameters too. No-op without a mesh. Refused under
+        atom-axis sharding (``spatial > 1``), whose model axis already
+        carries atom rows."""
+        if self.mesh is None:
+            return self
+        if self.spatial > 1:
+            raise ValueError(
+                f"shard_params_model: this calculator shards the atom axis "
+                f"over the mesh's model axis (spatial={self.spatial}); the "
+                "tensor-parallel layout lays feature columns over that "
+                "axis, so it needs spatial=1")
         from ..parallel.mesh import shard_params_model
-        return shard_params_model(self.params, self.mesh)
+        self.params = shard_params_model(self.params, self.mesh)
+        self._batch_closure = None
+        self._hvp_closure = None
+        return self
 
     def _eforce_ang(self, coords_ang: torch.Tensor):
         """(E eV, F eV/Angstrom [P, 3] with frozen and padding rows zero)."""

@@ -32,6 +32,15 @@ JAX package's ``use_pallas_ffn`` rule gives. Every kernel takes its CUDA
 version on CUDA tensors and its plain PyTorch version on CPU tensors.
 Forces are autograd gradients of the energy.
 
+Parameters laid over a mesh axis (``parallel.Shard``) run too: a tree
+of ``parallel.shard_params_model`` (feature columns over "model") is
+gathered whole for the call, as GSPMD gathers the operands of the JAX
+package's kernels; the MoLE banks of the expert-parallel train step
+(``train.escn_param_shardings``: experts over "expert") merge their own
+experts and sum the merge over the axis (``_merged_wb``). Every kernel
+gives its weights' cotangents (a replay of its plain version), so
+dE/dW runs on every layout.
+
 "xla" is the all-plain variant, the JAX package's name for it: the JAX
 package's plain reduced edge path (gathering with plain ``x[src]``) and
 the plain node FFN (``ffn_plain``) on any device. Nothing there launches
@@ -51,6 +60,8 @@ import torch.utils.checkpoint
 
 from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
+from ..parallel.distributed import Shard
+from ..parallel.mesh import map_tree
 from .escn_edge_kernel import (conv_plain, fused_edge_block,
                                fused_edge_chain, fused_edge_mega,
                                gather_src, pack_d, s2_act_plain, _rot_nz)
@@ -201,7 +212,10 @@ def init_escn_params(cfg: ESCNConfig, seed: int = 0,
 
 
 def tree_to(tree, **kw):
-    """Apply ``Tensor.to(**kw)`` to every tensor of a parameter tree."""
+    """Apply ``Tensor.to(**kw)`` to every tensor of a parameter tree (to
+    a ``Shard``'s block)."""
+    if isinstance(tree, Shard):
+        return tree.with_local(tree.local.to(**kw))
     if isinstance(tree, dict):
         return {k: tree_to(v, **kw) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -224,11 +238,30 @@ def _apply_linear_stack(layers, x):
 
 
 def _merged_wb(p, alpha):
-    """Merged (W, b) of one MoLE linear (a premerged tree has 2-D w)."""
-    if p["w"].ndim == 2:
-        return p["w"], p["b"]
-    return (torch.einsum("e,eio->io", alpha, p["w"]),
-            torch.einsum("e,eo->o", alpha, p["b"]))
+    """Merged (W, b) of one MoLE linear (a premerged tree has 2-D w). A
+    bank laid over the "expert" axis (``Shard``) merges its own experts
+    and sums the merge over the axis (``sum_out``: the psum XLA inserts
+    for the JAX package's einsum over a sharded axis); ``alpha`` has
+    then come in through the axis's ``replicate_in`` (``_setup``)."""
+    w, b = p["w"], p["b"]
+    if isinstance(w, Shard):
+        g, n = w.group, w.local.shape[0]
+        a = alpha[g.rank * n:(g.rank + 1) * n]
+        return (g.sum_out(torch.einsum("e,eio->io", a, w.local)),
+                g.sum_out(torch.einsum("e,eo->o", a, b.local)))
+    if w.ndim == 2:
+        return w, b
+    return (torch.einsum("e,eio->io", alpha, w),
+            torch.einsum("e,eo->o", alpha, b))
+
+
+def _whole_model(tree):
+    """``tree`` with every weight laid over the "model" axis
+    (``parallel.shard_params_model``) gathered whole: the eSCN backbone
+    multiplies by whole weights, as GSPMD gathers the operands of its
+    kernels; the expert banks stay laid out."""
+    return map_tree(tree, lambda _, x: x.full() if isinstance(x, Shard)
+                    and x.axis == "model" else x)
 
 
 def _mole(p, alpha, x):
@@ -458,8 +491,12 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
     z_all = torch.clamp(system.numbers, 0, cfg.max_z)     # idx is global
     z = z_all[i0:i0 + n]
 
-    premerged = params["energy_head"][0]["w"].ndim == 2
-    alpha = None if premerged else _route_alpha(params, cfg)
+    head = params["energy_head"][0]["w"]
+    alpha = None if head.ndim == 2 else _route_alpha(params, cfg)
+    if isinstance(head, Shard):
+        # every rank of the "expert" axis reads its own experts' share
+        # of alpha: the cotangents of alpha sum over the axis
+        alpha = head.group.replicate_in(alpha)
 
     # ---- radius graph (nearest-K within cutoff; no gradient) --------------
     idx, nbr_mask = dense_neighbors_rows(coords_ang.detach(),
@@ -703,6 +740,7 @@ def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
     frames, messages and node features), all-gathers the normalised node
     features once a layer and returns the energy summed over ranks, the
     same on every rank."""
+    params = _whole_model(params)
     s = _setup(coords_ang, system, params, cfg, shard)
     x = s["x"]
     for blk in params["blocks"]:

@@ -24,9 +24,11 @@ The device picks the implementation: CPU tensors take the plain PyTorch
 versions (``*_plain``, differentiable by autograd), CUDA tensors the
 hand-written kernels (``csrc/escn_edge.cu``) behind
 ``torch.autograd.Function`` with a kernel backward too. The kernels run
-f32 and raise on anything else, and they compute input cotangents only:
-they raise if a weight requires grad (weight gradients belong to the
-training port), and their backwards are first order only
+f32 and raise on anything else. Their backwards compute the input
+cotangents; where a weight requires grad, its cotangent comes from a
+replay of the plain version under autograd inside the backward (the JAX
+package's ``custom_vjp`` rules replay the chain in XLA for it), and
+nothing is replayed when none does. The backwards are first order only
 (``cuda_build.first_order``). ``gather_src`` is the callers' source
 gather on the K3/K4 paths, with a deterministic backward on CUDA.
 """
@@ -292,9 +294,56 @@ def gather_src(x, src, live):
     return _GatherFn.apply(x, src, live)
 
 
+def _flat_weights(weights):
+    (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
+    return [W0, *Wrs, *Wis, b0, *brs, *bis, V0, *Vrs, *Vis, c0, *crs, *cis]
+
+
+def _unflat_weights(flat):
+    """The 12-tuple of ``_flat_weights``' list."""
+    nm = (len(flat) - 4) // 8                 # mmax
+    it = iter(flat)
+
+    def take(k):
+        return tuple(next(it) for _ in range(k))
+
+    out = []
+    for _ in range(2):                        # conv 1, conv 2
+        W0, Wrs, Wis = next(it), take(nm), take(nm)
+        b0, brs, bis = next(it), take(nm), take(nm)
+        out += [W0, Wrs, Wis, b0, brs, bis]
+    return tuple(out)
+
+
+def _save(ctx, kernel_saved, replay):
+    """Save the kernel backward's tensors and, when a weight (the last
+    ``ctx.n_w`` arguments) requires grad, the inputs and weights of the
+    plain replay too."""
+    ctx.n_kernel = len(kernel_saved)
+    ctx.need_w = any(ctx.needs_input_grad[-ctx.n_w:])
+    ctx.save_for_backward(*kernel_saved, *(replay if ctx.need_w else ()))
+
+
+def _weight_cotangents(ctx, plain, g):
+    """The cotangents of the flat weights (None where none is needed):
+    the plain version replayed on the saved inputs under autograd, and
+    differentiated with respect to the weights alone."""
+    needs = ctx.needs_input_grad[-ctx.n_w:]
+    if not ctx.need_w:
+        return (None,) * ctx.n_w
+    replay = [t.detach() for t in ctx.saved_tensors[ctx.n_kernel:]]
+    args, tables = replay[:-ctx.n_w - 2], replay[-ctx.n_w - 2:-ctx.n_w]
+    ws = [w.requires_grad_(n) for w, n in zip(replay[-ctx.n_w:], needs)]
+    with torch.enable_grad():
+        y = plain(ctx.cfg, *args, _unflat_weights(ws), tables)
+        gw = iter(torch.autograd.grad(y, [w for w in ws if w.requires_grad],
+                                      g))
+    return tuple(next(gw) if n else None for n in needs)
+
+
 class _MegaFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, x_t, src, es, Dp, Dpe, packed, tg, fg):
+    def forward(ctx, cfg, x_t, src, es, Dp, Dpe, tg, fg, *flat):
         from .cuda_build import call, load, ptr, stream_ptr
         nl0, nls, U, G = _dims(cfg)
         M = (cfg.lmax + 1) ** 2
@@ -305,7 +354,7 @@ class _MegaFn(torch.autograd.Function):
         E = P * K
         nnz = Dp.shape[0]
         assert src.shape[0] == E, (src.shape, P, K)
-        w1, b1, w2, b2, w1t, w2t = packed
+        w1, b1, w2, b2, w1t, w2t = _pack_weights(_unflat_weights(flat))
         x_node = x_t.T.contiguous()
         src = src.contiguous()
         es_e = es.T.contiguous()
@@ -326,9 +375,9 @@ class _MegaFn(torch.autograd.Function):
              ptr(fg), ptr(tabs), ptr(abuf), ptr(msg), ptr(act), ptr(outsv),
              ptr(y), stream_ptr())
         launches["fused_edge_mega_fwd"] += 1
-        ctx.cfg = cfg
-        ctx.save_for_backward(x_node, src, dp_e, dpe_e, msg, outsv, w1, w2,
-                              tg, fg)
+        ctx.cfg, ctx.n_w = cfg, len(flat)
+        _save(ctx, (x_node, src, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg),
+              (x_t, src, es, Dp, Dpe, tg, fg, *flat))
         return y.T
 
     @staticmethod
@@ -337,7 +386,7 @@ class _MegaFn(torch.autograd.Function):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
         x_node, src, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg = \
-            ctx.saved_tensors
+            ctx.saved_tensors[:ctx.n_kernel]
         nl0, nls, U, G = _dims(cfg)
         M = (cfg.lmax + 1) ** 2
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
@@ -366,19 +415,20 @@ class _MegaFn(torch.autograd.Function):
              stream_ptr())
         launches["fused_edge_mega_bwd"] += 1
         ges = gpr[:, nl0 * 2 * C:nl0 * 2 * C + Ce].T
-        return None, gx.T, None, ges, gdp.T, gdpe.T, None, None, None
+        return (None, gx.T, None, ges, gdp.T, gdpe.T, None, None,
+                *_weight_cotangents(ctx, fused_edge_mega_plain, g))
 
 
 class _BlockFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, xs_t, xt_t, es, Dp, Dpe, packed, tg, fg):
+    def forward(ctx, cfg, xs_t, xt_t, es, Dp, Dpe, tg, fg, *flat):
         from .cuda_build import call, load, ptr, stream_ptr
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
                     cfg.edge_channels)
         MC, E = xs_t.shape
         nnz = Dp.shape[0]
-        w1, b1, w2, b2, w1t, w2t = packed
+        w1, b1, w2, b2, w1t, w2t = _pack_weights(_unflat_weights(flat))
         # edge-major rows; no copy when the caller built [E, M*C] rows
         xs, xt = xs_t.T.contiguous(), xt_t.T.contiguous()
         es_e, dp_e, dpe_e = (t.T.contiguous() for t in (es, Dp, Dpe))
@@ -395,9 +445,9 @@ class _BlockFn(torch.autograd.Function):
              ptr(_tables_dev(cfg, xs.device)), ptr(abuf), ptr(msg), ptr(act),
              ptr(outsv), ptr(y), stream_ptr())
         launches["fused_edge_block_fwd"] += 1
-        ctx.cfg = cfg
-        ctx.save_for_backward(xs, xt, dp_e, dpe_e, msg, outsv, w1, w2, tg,
-                              fg)
+        ctx.cfg, ctx.n_w = cfg, len(flat)
+        _save(ctx, (xs, xt, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg),
+              (xs_t, xt_t, es, Dp, Dpe, tg, fg, *flat))
         return y.T
 
     @staticmethod
@@ -406,7 +456,7 @@ class _BlockFn(torch.autograd.Function):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
         xs, xt, dp_e, dpe_e, msg, outsv, w1, w2, tg, fg = \
-            ctx.saved_tensors
+            ctx.saved_tensors[:ctx.n_kernel]
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
                     cfg.edge_channels)
@@ -428,18 +478,19 @@ class _BlockFn(torch.autograd.Function):
              ptr(gpr), ptr(gxs), ptr(gxt), ptr(gdp), ptr(gdpe), stream_ptr())
         launches["fused_edge_block_bwd"] += 1
         ges = gpr[:, nl0 * 2 * C:nl0 * 2 * C + Ce].T
-        return (None, gxs.T, gxt.T, ges, gdp.T, gdpe.T, None, None, None)
+        return (None, gxs.T, gxt.T, ges, gdp.T, gdpe.T, None, None,
+                *_weight_cotangents(ctx, fused_edge_block_plain, g))
 
 
 class _ChainFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, pr, es, packed, tg, fg):
+    def forward(ctx, cfg, pr, es, tg, fg, *flat):
         from .cuda_build import call, load, ptr, stream_ptr
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
                     cfg.edge_channels)
         E = pr.shape[1]
-        w1, b1, w2, b2, w1t, w2t = packed
+        w1, b1, w2, b2, w1t, w2t = _pack_weights(_unflat_weights(flat))
         pr_e, es_e = pr.T.contiguous(), es.T.contiguous()
         tg, fg = tg.contiguous(), fg.contiguous()
         dev = dict(device=pr.device, dtype=torch.float32)
@@ -452,8 +503,8 @@ class _ChainFn(torch.autograd.Function):
              ptr(tg), ptr(fg), ptr(x0), ptr(msg), ptr(act), ptr(out),
              stream_ptr())
         launches["fused_edge_chain_fwd"] += 1
-        ctx.cfg = cfg
-        ctx.save_for_backward(msg, w1, w2, tg, fg)
+        ctx.cfg, ctx.n_w = cfg, len(flat)
+        _save(ctx, (msg, w1, w2, tg, fg), (pr, es, tg, fg, *flat))
         return out.T
 
     @staticmethod
@@ -461,7 +512,7 @@ class _ChainFn(torch.autograd.Function):
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
         cfg = ctx.cfg
-        msg, w1, w2, tg, fg = ctx.saved_tensors
+        msg, w1, w2, tg, fg = ctx.saved_tensors[:ctx.n_kernel]
         nl0, nls, U, G = _dims(cfg)
         C, H, Ce = (cfg.sphere_channels, cfg.hidden_channels,
                     cfg.edge_channels)
@@ -476,25 +527,18 @@ class _ChainFn(torch.autograd.Function):
              ptr(msg), ptr(gout), ptr(w1), ptr(w2), ptr(tg), ptr(fg),
              ptr(gact), ptr(g0), ptr(gpr), ptr(ges), stream_ptr())
         launches["fused_edge_chain_bwd"] += 1
-        return None, gpr.T, ges.T, None, None, None
-
-
-def _flat_weights(weights):
-    (W0, Wrs, Wis, b0, brs, bis, V0, Vrs, Vis, c0, crs, cis) = weights
-    return [W0, *Wrs, *Wis, b0, *brs, *bis, V0, *Vrs, *Vis, c0, *crs, *cis]
+        return (None, gpr.T, ges.T, None, None,
+                *_weight_cotangents(ctx, fused_edge_chain_plain, g))
 
 
 def _kernel_guard(name, cfg, weights, tables, *ts):
     """The CUDA kernels' limits: float32 on one card, U <= 32 reduced rows,
     mmax <= 4, C, H and Ce multiples of 4 (the conv products copy 16-byte
-    chunks at column offsets of those widths), and no weight that
-    requires grad."""
-    flat = _flat_weights(weights)
-    if any(w.requires_grad for w in flat):
-        raise NotImplementedError(
-            f"{name}'s CUDA kernel computes input cotangents only; weight "
-            "gradients (training) are a later port item")
-    _check_cuda(name, *ts, *tables, *flat)
+    chunks at column offsets of those widths), and constant grid
+    tables."""
+    if any(t.requires_grad for t in tables):
+        raise ValueError(f"{name}: the S2 grid tables are constants")
+    _check_cuda(name, *ts, *tables, *_flat_weights(weights))
     nl0, nls, U, G = _dims(cfg)
     if U > 32 or cfg.mmax > 4:
         raise ValueError(f"{name}'s CUDA kernel takes U <= 32 reduced rows "
@@ -526,8 +570,8 @@ def fused_edge_mega(cfg, x_t, src, es, Dp, Dpe, weights, tables):
                   Dpe)
     if src.dtype != torch.int64:
         raise TypeError("fused_edge_mega: src must be int64 atom indices")
-    return _MegaFn.apply(cfg, x_t, src, es, Dp, Dpe, _pack_weights(weights),
-                         *tables)
+    return _MegaFn.apply(cfg, x_t, src, es, Dp, Dpe, *tables,
+                         *_flat_weights(weights))
 
 
 def fused_edge_block(cfg, xs_t, xt_t, es, Dp, Dpe, weights, tables):
@@ -545,8 +589,8 @@ def fused_edge_block(cfg, xs_t, xt_t, es, Dp, Dpe, weights, tables):
     _check_shapes("fused_edge_block", xs_t=(xs_t, (MC, E)),
                   xt_t=(xt_t, (MC, E)), es=(es, (cfg.edge_channels, E)),
                   Dp=(Dp, (nnz, E)), Dpe=(Dpe, (nnz, E)))
-    return _BlockFn.apply(cfg, xs_t, xt_t, es, Dp, Dpe,
-                          _pack_weights(weights), *tables)
+    return _BlockFn.apply(cfg, xs_t, xt_t, es, Dp, Dpe, *tables,
+                          *_flat_weights(weights))
 
 
 def fused_edge_chain(cfg, pr, es, weights, tables):
@@ -560,4 +604,4 @@ def fused_edge_chain(cfg, pr, es, weights, tables):
     _check_shapes("fused_edge_chain",
                   pr=(pr, (U * 2 * cfg.sphere_channels, E)),
                   es=(es, (cfg.edge_channels, E)))
-    return _ChainFn.apply(cfg, pr, es, _pack_weights(weights), *tables)
+    return _ChainFn.apply(cfg, pr, es, *tables, *_flat_weights(weights))

@@ -15,9 +15,11 @@ the (node, grid point) rows in (g, p) order, and a deterministic sum over
 the grid back to the nodes (``grid_sum``); ``ffn_route_plain`` and
 ``ffn_route_vjp_plain`` are the same launches in plain PyTorch, on the
 operands ``route_operands`` builds for the kernels (the tests hold them to
-``ffn_plain``). The kernels run f32, compute the input cotangent only, and
-raise if a weight requires grad, or if C or H is not a multiple of 4 or
-M passes 32.
+``ffn_plain``). The kernels run f32 and raise if C or H is not a
+multiple of 4 or M passes 32. The backward kernel computes the input
+cotangent; where W1, b1, W2 or b2 requires grad, its cotangent comes
+from a replay of ``ffn_plain`` under autograd inside the backward (the
+JAX package's VJP replays the FFN in XLA for it).
 """
 
 from __future__ import annotations
@@ -126,6 +128,22 @@ def ffn_route_vjp_plain(x, g, o: RouteOps):
     return grid_sum_plain(o.tgp, dgrid.reshape(G, P * C), P, C, M)
 
 
+def _weight_cotangents(ctx, g):
+    """The cotangents of W1, b1, W2 and b2 (None where none is needed):
+    ``ffn_plain`` replayed on the saved x under autograd."""
+    needs = ctx.needs_input_grad[1:5]
+    if not ctx.need_w:
+        return (None,) * 4
+    x, *ws, tg, fg = (t.detach() for t in
+                      ctx.saved_tensors[1 + len(RouteOps._fields):])
+    ws = [w.requires_grad_(n) for w, n in zip(ws, needs)]
+    with torch.enable_grad():
+        y = ffn_plain(x, ws, (tg, fg))
+        gw = iter(torch.autograd.grad(y, [w for w in ws if w.requires_grad],
+                                      g))
+    return tuple(next(gw) if n else None for n in needs)
+
+
 class _FfnFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, W1, b1, W2, b2, tg, fg):
@@ -143,7 +161,9 @@ class _FfnFn(torch.autograd.Function):
              ptr(o.tgp), ptr(o.fgtp), ptr(o.w1t), ptr(o.b1), ptr(o.w2t),
              ptr(o.b2), ptr(grid), ptr(hid), ptr(out), stream_ptr())
         launches["fused_node_ffn_fwd"] += 1
-        ctx.save_for_backward(xc, *o)
+        ctx.need_w = any(ctx.needs_input_grad[1:5])
+        ctx.save_for_backward(xc, *o, *((x, W1, b1, W2, b2, tg, fg)
+                                        if ctx.need_w else ()))
         ctx.dims = (P, M, C, H, G)
         return out
 
@@ -151,7 +171,7 @@ class _FfnFn(torch.autograd.Function):
     @first_order
     def backward(ctx, g):
         from .cuda_build import call, load, ptr, stream_ptr
-        xc, *ops = ctx.saved_tensors
+        xc, *ops = ctx.saved_tensors[:1 + len(RouteOps._fields)]
         o = RouteOps(*ops)
         P, M, C, H, G = ctx.dims
         Mp = o.tgp.shape[1]
@@ -163,7 +183,7 @@ class _FfnFn(torch.autograd.Function):
              ptr(gc), ptr(o.tgp), ptr(o.fgtp), ptr(o.w1t), ptr(o.b1),
              ptr(o.w1), ptr(o.w2), ptr(grid), ptr(s), ptr(dx), stream_ptr())
         launches["fused_node_ffn_bwd"] += 1
-        return dx, None, None, None, None, None, None
+        return (dx, *_weight_cotangents(ctx, g), None, None)
 
 
 def fused_node_ffn(cfg, x, weights, tables):
@@ -171,10 +191,8 @@ def fused_node_ffn(cfg, x, weights, tables):
     if not x.is_cuda:
         return ffn_plain(x, weights, tables)
     ts = (x, *weights, *tables)
-    if any(w.requires_grad for w in (*weights, *tables)):
-        raise NotImplementedError(
-            "fused_node_ffn's CUDA kernel computes the input cotangent "
-            "only; weight gradients (training) are a later port item")
+    if any(t.requires_grad for t in tables):
+        raise ValueError("fused_node_ffn: the S2 grid tables are constants")
     for t in ts:
         if t.device != x.device or t.dtype != torch.float32:
             raise TypeError("fused_node_ffn's CUDA kernel takes float32 "

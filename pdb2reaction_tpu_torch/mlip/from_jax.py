@@ -8,7 +8,9 @@ expert banks ``[experts, in, out]``) and premerged ones (2-D linears) are
 taken, and so are the gate configurations' per-block ``gate`` MoLE
 banks. The PaiNN-class tree (``mlip/model.py``: ``embed_z``, ``embed_q``,
 ``embed_s``, ``atom_ref``, ``readout``, ``layers``) is told apart by its
-keys. This module needs numpy only; it never imports JAX.
+keys. ``adam_state_from_jax`` carries an ``optax.adam`` state across
+too, so a fine-tune started in the JAX package continues in the port
+(``mlip/train.py``). This module needs numpy only; it never imports JAX.
 """
 
 from __future__ import annotations
@@ -80,3 +82,57 @@ def params_from_jax(np_params: dict, device="cpu",
     for k, default in (("charge", 0.0), ("spin", 1.0), ("task", 0.0)):
         out[k] = torch.as_tensor(float(np.asarray(np_params.get(k, default))))
     return out
+
+
+def _find_adam(state):
+    """The ``ScaleByAdamState`` (anything with ``count``, ``mu`` and
+    ``nu``) inside an optax state: optax.adam's is the tuple
+    ``(ScaleByAdamState, EmptyState)``."""
+    if all(hasattr(state, k) for k in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def _moments(tree, np_tree):
+    """One moment tensor per trainable leaf of the port's ``tree`` in the
+    optimizer's order, each from the same path of ``np_tree`` (zeros
+    where the JAX tree has no such leaf: a routing scalar the port adds,
+    which never gets a gradient)."""
+    from ..parallel.mesh import at_path, map_tree
+    from .train import _trainable, tree_leaves
+
+    def moment(path, x):
+        if not _trainable(x):
+            return x
+        arr = at_path(np_tree, path)
+        if arr is None:
+            return torch.zeros_like(x)
+        arr = np.asarray(arr)
+        if arr.shape != tuple(x.shape):
+            raise ValueError(f"a moment of shape {arr.shape} for a "
+                             f"parameter of shape {tuple(x.shape)}")
+        return torch.as_tensor(np.array(arr)).to(x)
+    return tree_leaves(map_tree(tree, moment))
+
+
+def adam_state_from_jax(np_state, params):
+    """The port's ``train.AdamState`` from a numpy copy of an
+    ``optax.adam`` state (for example ``jax.tree_util.tree_map(
+    np.asarray, opt_state)``): its step ``count`` and its moments ``mu``
+    and ``nu``, matched to the port's ``params`` (whole, as
+    ``params_from_jax`` gives them) path by path, on each parameter's
+    device and dtype. A sharded step cuts the moments to its blocks
+    (``train.make_sharded_train_step``)."""
+    from .train import AdamState
+    st = _find_adam(np_state)
+    if st is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    return AdamState(torch.as_tensor(int(np.asarray(st.count)),
+                                     dtype=torch.int32),
+                     _moments(params, st.mu), _moments(params, st.nu))

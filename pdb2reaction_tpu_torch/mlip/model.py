@@ -24,6 +24,16 @@ closure): each rank owns P/n rows, the coordinates come in through
 ``replicate_in``, the node features are all-gathered per stream and
 layer, the pallas mode contracts its rows against all columns through K6
 (``radial_contract_rect``), and the energy goes out through ``sum_out``.
+
+Every layout takes tensor-parallel parameters (``parallel.
+shard_params_model``, ``train.param_shardings``): a weight laid over the
+"model" axis is a ``parallel.Shard`` of its columns. The matmul sites
+(``_mm``: the MLPs, the vector updates) multiply by this rank's columns
+and all-gather the result's, the input's cotangent summed over the ranks
+(the column-parallel linear); the embedding rows gather likewise
+(``_rows``); the radial filter, which the contractions need whole,
+gathers the weight itself (``_whole``), as GSPMD gathers the operands
+of a ``pallas_call``.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from torch.nn.functional import silu
 
 from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
 from ..core.structure import PaddedSystem
+from ..parallel.distributed import Shard
 from .escn import tree_to
 from .radial import bessel_basis, cosine_envelope
 from .radial_contract import (radial_contract, radial_contract_plain,
@@ -122,9 +133,30 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     return params
 
 
+def _mm(x, w):
+    """``x @ w``; for a column ``Shard`` this rank's columns, every rank's
+    gathered. ``x`` enters through ``replicate_in``: each rank's product
+    gives ``x`` the cotangent of its own columns only, summed over the
+    ranks in the backward."""
+    if isinstance(w, Shard):
+        return w.gather(w.group.replicate_in(x) @ w.local)
+    return x @ w
+
+
+def _rows(table, idx):
+    """``table[idx]`` of an embedding table, whole or column-sharded."""
+    if isinstance(table, Shard):
+        return table.gather(table.local[idx])
+    return table[idx]
+
+
+def _whole(w):
+    return w.full() if isinstance(w, Shard) else w
+
+
 def _apply_mlp(layers, x):
     for i, p in enumerate(layers):
-        x = x @ p["w"] + p["b"]
+        x = _mm(x, p["w"]) + p["b"]
         if i < len(layers) - 1:
             x = silu(x)
     return x
@@ -136,12 +168,13 @@ def _apply_mlp(layers, x):
 
 def _embed_z(z, params, cfg, atom_mask):
     """Initial scalar features for (already clipped) element rows ``z``."""
-    s = params["embed_z"][z]
+    s = _rows(params["embed_z"], z)
     q_idx = int(torch.clamp(params["charge"].to(torch.int64)
                             + cfg.charge_range, 0, 2 * cfg.charge_range))
     m_idx = int(torch.clamp(params["spin"].to(torch.int64), 0,
                             cfg.spin_range))
-    s = s + params["embed_q"][q_idx] + params["embed_s"][m_idx]
+    s = s + _rows(params["embed_q"], q_idx) + _rows(params["embed_s"],
+                                                    m_idx)
     return s * atom_mask[:, None]
 
 
@@ -151,8 +184,8 @@ def _embed_nodes(system, params, cfg, atom_mask):
 
 
 def _update_block(lp, s, v, atom_mask):
-    vu = v @ lp["upd_vu"]                                 # [P,3,C]
-    vv = v @ lp["upd_vv"]
+    vu = _mm(v, lp["upd_vu"])                             # [P,3,C]
+    vv = _mm(v, lp["upd_vv"])
     vv_norm = torch.sqrt((vv * vv).sum(1) + 1e-8)         # [P,C] invariant
     a = _apply_mlp(lp["upd_mlp"], torch.cat([s, vv_norm], -1))
     a_ss, a_sv, a_vv = a.chunk(3, -1)
@@ -186,8 +219,8 @@ def _shard_rows(P, shard):
 
 def _radial_weights(lp, dt):
     """[R+1, 3C] radial filter (bias as the env-only channel's row)."""
-    return torch.cat([lp["w_radial"]["w"], lp["w_radial"]["b"][None, :]],
-                     0).to(dt)
+    return torch.cat([_whole(lp["w_radial"]["w"]),
+                      lp["w_radial"]["b"][None, :]], 0).to(dt)
 
 
 # ---------------------------------------------------------------------------

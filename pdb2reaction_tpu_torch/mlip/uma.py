@@ -49,7 +49,12 @@ so Hessians and HVPs run over the ranks too.
 ``mesh`` (``parallel.make_mesh``) goes to the ``Calculator``: with a data
 axis of n > 1 and no model axis, image batches, Hessian tangents and FD
 displacements are split over the n ranks. Beside ``spatial > 1`` the
-data axis is off, as in the JAX factory.
+data axis is off, as in the JAX factory, and the mesh's model axis must
+be ``spatial``. With ``spatial`` 1 a model axis builds a replicated
+calculator, as the JAX factory does; ``Calculator.shard_params_model()``
+then lays its parameters' feature columns over the axis (tensor
+parallelism, the same results), and every rank of a model group takes
+part in every evaluation.
 """
 
 from __future__ import annotations
@@ -151,7 +156,7 @@ def make_uma_calculator(
     if escn and mp_mode:
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
                          "take edge_kernel")
-    if mesh is not None and mesh.shape["model"] != spatial:
+    if mesh is not None and spatial > 1 and mesh.shape["model"] != spatial:
         raise ValueError(f"spatial={spatial}, but the mesh's model axis is "
                          f"{mesh.shape['model']}: give the same atom-axis "
                          "size to both")

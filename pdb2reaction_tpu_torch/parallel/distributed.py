@@ -26,6 +26,17 @@ collectives' second-order terms:
   backward is the all-gather;
 - ``sum_out(e)``: the sum over ranks; its backward is ``replicate_in``.
 
+A parameter laid over an axis (``Shard``: tensor-parallel columns over
+"model", expert banks over "expert") feeds compute that is the same on
+every rank of the axis, so its collectives pair differently:
+
+- ``gather(t)`` of a ``Shard``: every rank's block of ``t`` along the
+  shard's dimension, concatenated; its backward is this rank's block of
+  the cotangent (every rank already holds the whole cotangent: a
+  reduce-scatter would multiply it by the group size), whose backward
+  is the gather again;
+- ``rank_sum(ts)``: the data axis's gradient sum, outside autograd.
+
 Every sum over ranks gathers all parts and adds them in rank order, so
 every rank gets the same bits and two calls repeat. With gloo, CUDA
 tensors are staged through host memory explicitly.
@@ -71,6 +82,61 @@ class SpatialGroup:
 
     def sum_out(self, e: torch.Tensor) -> torch.Tensor:
         return _SumOut.apply(e, self)
+
+    def gather_blocks(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _GatherBlocks.apply(t, self, dim)
+
+    def rank_sum(self, ts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor of ``ts`` summed over the ranks in rank order (the
+        same bits on every rank), in one gather; no autograd."""
+        if self.size == 1:
+            return list(ts)
+        flat = torch.cat([t.detach().reshape(-1).to(self.device)
+                          for t in ts])
+        total = _rank_sum(_gather(flat, self)).to(self.device)
+        out, i = [], 0
+        for t in ts:
+            out.append(total[i:i + t.numel()].view_as(t).to(t))
+            i += t.numel()
+        return out
+
+
+@dataclass(frozen=True, eq=False)
+class Shard:
+    """This rank's block ``local`` of a parameter laid over one mesh axis
+    (``axis`` "model" or "expert", ``group`` its ``SpatialGroup``),
+    split evenly along dimension ``dim`` of the whole parameter. A leaf
+    of a parameter tree: ``parallel.shard_params_model`` and the train
+    steps' layouts make them, the model code takes them at the sites
+    that read a weight, ``parallel.unshard`` gathers them back."""
+
+    local: torch.Tensor
+    dim: int
+    axis: str
+    group: SpatialGroup
+
+    @property
+    def ndim(self) -> int:
+        return self.local.ndim
+
+    @property
+    def shape(self):
+        s = list(self.local.shape)
+        s[self.dim] *= self.group.size
+        return torch.Size(s)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of ``t`` along the shard's dimension
+        (counted from the end for a column shard, so ``x @ local`` and
+        ``local[rows]`` gather as the weight itself), concatenated."""
+        dim = self.dim if self.dim < 0 else self.dim - self.ndim + t.ndim
+        return self.group.gather_blocks(t, dim)
+
+    def full(self) -> torch.Tensor:
+        return self.gather(self.local)
+
+    def with_local(self, local: torch.Tensor) -> "Shard":
+        return Shard(local, self.dim, self.axis, self.group)
 
 
 @dataclass(frozen=True)
@@ -263,6 +329,34 @@ class _AllGatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _ReduceScatterRows.apply(g, ctx.group), None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Every rank's block along ``dim``, concatenated in rank order, for
+    compute that is the same on every rank of the group."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(_gather(t, group), dim).to(t.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _OwnBlock.apply(g, ctx.group, ctx.dim), None, None
+
+
+class _OwnBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every rank holds."""
+
+    @staticmethod
+    def forward(ctx, g, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = g.shape[dim] // group.size
+        return g.narrow(dim, group.rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, h):
+        return _GatherBlocks.apply(h, ctx.group, ctx.dim), None, None
 
 
 class _ReduceScatterRows(torch.autograd.Function):

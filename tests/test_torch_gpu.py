@@ -24,7 +24,7 @@ from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
 from pdb2reaction_tpu_torch.mlip.calculator import Calculator
 from pdb2reaction_tpu_torch.mlip.escn import ESCN_CONFIGS, _edge_grid_tables
 from pdb2reaction_tpu_torch.mlip.escn import init_escn_params, tree_to
-from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
+from pdb2reaction_tpu_torch.mlip.model import CONFIGS, ModelConfig, make_model
 from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
 
 pytestmark = pytest.mark.gpu
@@ -40,6 +40,34 @@ def _need_card():
 def _close(a, b):
     a, b = a.detach(), b.detach()
     return float((a - b).abs().max()) <= TOL * float(b.abs().max())
+
+
+def _weight_cotangents_match(kern, plain, cfg, ins, w, tabs, key):
+    """Every weight's cotangent through the kernel (its backward replays
+    the plain version for them) against autograd through the plain
+    version, inputs' cotangents with them; one backward launch; a
+    ``create_graph`` backward through the kernel still raises."""
+    flat = ek._flat_weights(w)
+    g = None
+    outs = []
+    for fn in (kern, plain):
+        lv = [t.clone().requires_grad_(True) for t in ins]
+        wv = [t.clone().requires_grad_(True) for t in flat]
+        y = fn(cfg, *lv, ek._unflat_weights(wv), tabs)
+        if g is None:
+            g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                11)).to(**F32)
+        n0 = ek.launches[key]
+        outs.append(torch.autograd.grad(y, lv + wv, g))
+        if fn is kern:
+            assert ek.launches[key] == n0 + 1
+    assert len(outs[0]) == len(ins) + len(flat)
+    for a, b in zip(*outs):
+        assert _close(a, b)
+    lv = [t.clone().requires_grad_(True) for t in ins]
+    y = kern(cfg, *lv, w, tabs)
+    with pytest.raises(RuntimeError, match="double backward"):
+        torch.autograd.grad(y, lv, g, create_graph=True)
 
 
 def _edge_inputs(cfg, P, seed):
@@ -86,10 +114,12 @@ def test_edge_mega_kernel_matches_plain(name, over, P):
     for a, b in zip(*outs):
         assert _close(a, b)
     assert ek.launches["fused_edge_mega_bwd"] == n0 + 1
-    w_g = (w[0].clone().requires_grad_(True),) + w[1:]
-    with pytest.raises(NotImplementedError):
-        ek.fused_edge_mega(cfg, ins[0], src, ins[1], ins[2], ins[3], w_g,
-                           tabs)
+    _weight_cotangents_match(
+        lambda c, x, es, dp, dpe, ww, tt: ek.fused_edge_mega(
+            c, x, src, es, dp, dpe, ww, tt),
+        lambda c, x, es, dp, dpe, ww, tt: ek.fused_edge_mega_plain(
+            c, x, src, es, dp, dpe, ww, tt),
+        cfg, ins, w, tabs, "fused_edge_mega_bwd")
     with pytest.raises(TypeError):
         ek.fused_edge_mega(cfg, ins[0].double(), src, ins[1], ins[2],
                            ins[3], w, tabs)
@@ -142,9 +172,8 @@ def test_edge_block_kernel_matches_plain(name, over, P):
     y = ek.fused_edge_block(cfg, *lv, w, tabs)
     again = [y, *torch.autograd.grad(y, lv, g)]
     assert all(torch.equal(a, b) for a, b in zip(again, first))
-    w_g = (w[0].clone().requires_grad_(True),) + w[1:]
-    with pytest.raises(NotImplementedError):
-        ek.fused_edge_block(cfg, *ins, w_g, tabs)
+    _weight_cotangents_match(ek.fused_edge_block, ek.fused_edge_block_plain,
+                             cfg, ins, w, tabs, "fused_edge_block_bwd")
     with pytest.raises(TypeError):
         ek.fused_edge_block(cfg, xs.double(), *ins[1:], w, tabs)
     with pytest.raises(ValueError):
@@ -164,9 +193,8 @@ def test_edge_chain_kernel_matches_plain(name, over, P):
                      generator=gen).to(**F32)
     _kernel_vs_plain(ek.fused_edge_chain, ek.fused_edge_chain_plain, cfg,
                      (pr, es), w, tabs, "fused_edge_chain_bwd")
-    w_g = (w[0].clone().requires_grad_(True),) + w[1:]
-    with pytest.raises(NotImplementedError):
-        ek.fused_edge_chain(cfg, pr, es, w_g, tabs)
+    _weight_cotangents_match(ek.fused_edge_chain, ek.fused_edge_chain_plain,
+                             cfg, (pr, es), w, tabs, "fused_edge_chain_bwd")
     with pytest.raises(ValueError):
         ek.fused_edge_chain(cfg, pr[:-1], es, w, tabs)
 
@@ -279,6 +307,26 @@ def test_node_ffn_kernel_matches_plain():
         xv = x.clone().requires_grad_(True)
         y = fn(None, xv, w, tabs)
         outs.append((y, torch.autograd.grad(y, [xv], g)[0]))
+    for a, b in zip(*outs):
+        assert _close(a, b)
+
+
+def test_node_ffn_kernel_weight_cotangents_match_plain():
+    """K2's cotangents of W1, b1, W2 and b2 (a replay of ``ffn_plain``
+    inside the kernel's backward) and of x against autograd through
+    ``ffn_plain``; one backward launch."""
+    _need_card()
+    x, w, tabs, g = _ffn_inputs(13, 25, 32, 64, 460, seed=8)
+    outs = []
+    for fn in (fk.fused_node_ffn, lambda c, v, ww, tt: fk.ffn_plain(v, ww,
+                                                                    tt)):
+        xv = x.clone().requires_grad_(True)
+        wv = [t.clone().requires_grad_(True) for t in w]
+        n0 = fk.launches["fused_node_ffn_bwd"]
+        y = fn(None, xv, wv, tabs)
+        outs.append(torch.autograd.grad(y, [xv, *wv], g))
+        if fn is fk.fused_node_ffn:
+            assert fk.launches["fused_node_ffn_bwd"] == n0 + 1
     for a, b in zip(*outs):
         assert _close(a, b)
 
@@ -1529,3 +1577,50 @@ def test_sharded_hvp_on_card_matches_unsharded(tmp_path):
     for hv in got:
         assert np.abs(hv - ref).max() <= 1e-5 * np.abs(ref).max()
     assert np.array_equal(got[0], got[1])
+
+
+def test_train_steps_on_card_match_cpu_f64():
+    """One Adam step of escn-test on the plain "xla" route and of the
+    PaiNN-class model dense on the card (float32) against the same step
+    on the CPU in float64: loss rel 1e-4, each gradient leaf (its first
+    moment / (1 - b1)) within 1e-4 of its max|g|; a kernel configuration
+    is refused on the card before any launch."""
+    _need_card()
+    from pdb2reaction_tpu_torch.mlip import train as T
+    gen = torch.Generator().manual_seed(5)
+    batch = T.random_batch(gen, None, batch=4, n_atoms=6, n_pad=8)
+    small = dict(hidden=32, n_layers=2, n_radial=6, cutoff=4.0,
+                 max_neighbors=8)
+    cases = [(dataclasses.replace(ESCN_CONFIGS["escn-test"],
+                                  edge_kernel="xla"),
+              init_escn_params(ESCN_CONFIGS["escn-test"], seed=1),
+              T.make_escn_train_step),
+             (ModelConfig(**small), make_model(ModelConfig(**small),
+                                               seed=1)[1],
+              T.make_train_step)]
+    for cfg, p, make in cases:
+        p = dict(p, charge=torch.tensor(0.0), spin=torch.tensor(1.0))
+        res = []
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            c = dataclasses.replace(cfg, dtype=dt)
+            pp = tree_to(tree_to(p, device=dev), dtype=dt)
+            bb = T.TrainBatch(*(t.to(dev) if not t.is_floating_point()
+                                else t.to(dev, dt) for t in batch))
+            opt = T.adam(1e-3)
+            _, st, loss = make(c, opt)(pp, opt.init(pp), bb)
+            res.append((float(loss), [m.double().cpu() / 0.1
+                                      for m in st.mu]))
+        (l32, g32), (l64, g64) = res
+        assert abs(l32 - l64) <= 1e-4 * abs(l64)
+        for a, b in zip(g32, g64):
+            if b.abs().max() > 0:
+                assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    cfg = ESCN_CONFIGS["escn-test"]                    # pallas-mega
+    p = tree_to(dict(init_escn_params(cfg, seed=1), charge=torch.tensor(0.),
+                     spin=torch.tensor(1.)), device="cuda")
+    n0 = dict(ek.launches)
+    with pytest.raises(RuntimeError, match='edge_kernel="xla"'):
+        opt = T.adam(1e-3)
+        T.make_escn_train_step(cfg, opt)(p, opt.init(p), T.TrainBatch(
+            *(t.cuda() for t in batch)))
+    assert ek.launches == n0

@@ -402,24 +402,48 @@ def test_all_workers_absolute_override_under_torchrun(tmp_path):
 
 
 def test_mesh_and_spatial_must_agree():
-    """The factory takes the atom axis from ``spatial`` and the mesh's
-    "model" axis; when they differ it refuses, rather than building an
-    unsharded calculator that every rank runs whole."""
+    """Under atom-axis sharding (``spatial > 1``) the mesh's "model" axis
+    must be the atom axis; when they differ the factory refuses. With
+    ``spatial`` 1 a model axis builds a replicated calculator, as the JAX
+    factory does (``shard_params_model`` then lays its parameters over
+    the axis)."""
     g = SpatialGroup(0, 2, torch.device("cpu"), "gloo")
     mesh = Mesh({"data": 2, "model": 2}, g, g)
     st = Structure.from_symbols(["H", "H"], _h2())
-    for spatial in (None, 1, 4):
+    for spatial in (4, 3):
         with pytest.raises(ValueError, match="model axis is 2"):
             make_uma_calculator(st, model="small", device="cpu", mesh=mesh,
                                 spatial=spatial)
+    for spatial in (None, 1):
+        calc = make_uma_calculator(st, model="small", device="cpu",
+                                   mesh=mesh, spatial=spatial)
+        assert calc.spatial == 1 and calc.mesh is mesh
+    # an atom-axis sharded calculator (the factory sets ``spatial`` as
+    # here) refuses the tensor-parallel layout: its model axis carries
+    # atom rows, and feature columns laid over it would mix the two
+    params = calc.params
+    calc.spatial = 2
+    with pytest.raises(ValueError, match="spatial=2"):
+        calc.shard_params_model()
+    assert calc.params is params
 
 
 def test_shard_params_model_names_its_item():
-    """The tensor-parallel parameter layout stays with the training
-    slice: the mesh's and the calculator's entry points name it."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        shard_params_model({}, None)
+    """The tensor-parallel layout's entry points: without a model axis
+    the mesh's returns the tree as it is and the calculator's is a no-op
+    without a mesh; a matrix whose columns divide the axis is laid out,
+    the rest replicated."""
+    params = {"w": torch.arange(12.0).reshape(3, 4), "b": torch.ones(4),
+              "v": torch.ones(3, 3)}
+    g1 = SpatialGroup(0, 1, torch.device("cpu"), "gloo")
+    assert shard_params_model(params, Mesh({"data": 1, "model": 1}, g1,
+                                           g1)) is params
+    g = SpatialGroup(1, 2, torch.device("cpu"), "gloo")
+    laid = shard_params_model(params, Mesh({"data": 1, "model": 2}, g1, g))
+    assert laid["w"].local.shape == (3, 2) and laid["w"].shape == (3, 4)
+    assert laid["w"].axis == "model" and laid["w"].group is g
+    assert torch.equal(laid["w"].local, params["w"][:, 2:])
+    assert laid["b"] is params["b"] and laid["v"] is params["v"]
     calc = Calculator(Structure.from_symbols(["H", "H"], _h2()),
                       potentials.make_morse(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        calc.shard_params_model()
+    assert calc.shard_params_model() is calc
