@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
                                      # (phases 1-3, 6 and 10)
+    python3 chip_smoke.py --chunks   # device, build and phase 22 alone
 
 Phases (any failure exits non-zero):
 1. device: name, count, power limit (nvidia-smi);
@@ -107,9 +108,10 @@ Phases (any failure exits non-zero):
    unchanged, energies finite); the climbing image on Lanczos tangents
    (every HVP counted and timed, none may launch a kernel); the analytic
    Hessian at 64 atoms with phase 5's weights (atoms 0 and 1 frozen) on
-   the card, six columns against the CPU in float64 and float32, and the
-   FD Hessian through the kernels; then the path-opt CLI as a subprocess
-   on the card;
+   the card at HVP chunk 1, three columns against the CPU in float64 and
+   float32 (computed by a child process, `chip_smoke.py --p12-cpu OUT`,
+   started after the build), and the FD Hessian through the kernels in
+   stacked passes; then the path-opt CLI as a subprocess on the card;
 13. path-search (run_path_search, escn-md with phase 4's seed-0 weights,
    the 300-atom cluster padded to 320) from A to B, B being A with one H
    moved to 1.05 Angstrom from its nearest C, N or O (the lowest-index H
@@ -194,7 +196,7 @@ Phases (any failure exits non-zero):
    coord_type="dlc") from phase 13's TS guess on that active region, 20
    cycles, its two Hessians on the plain path; (c) run_mep_between
    (mep_mode="dmf") on phase 12's flagship pair, 12 images, the heavy
-   ball (48 cycles) and the native C++ L-BFGS-B (24 cycles; the library
+   ball (24 cycles) and the native C++ L-BFGS-B (12 cycles; the library
    built and used): cycles, batched calls, images evaluated, the
    constraint violation, the HEI; (d) at 64 atoms with phase 5's
    weights, 5 DLC L-BFGS cycles and 6 DMF steps of 6 images on the card
@@ -265,6 +267,23 @@ Phases (any failure exits non-zero):
    (make_mesh(data=2, model=2), shard_params_model) against the
    replicated one (energy rel 1e-6, forces within SHARD_TOL of max|F|,
    the batched call too).
+22. chunked batching and Orbax checkpoints ([chunk] and [ckpt] lines):
+   (d) whether `tensorstore` imports; without it `checkpoint=<a tree>`
+   must raise the ImportError naming it before any launch, with it
+   phase 4's weights are written and read back bit for bit; (a) 8 of
+   phase 12's string images (its interior) through get_forces_batch at
+   batch_chunk 1 and 8 on phase 4's weights: ms a batch, peak memory,
+   K1 / K2 launches a batch (32 + 32 against 4 + 4: one stacked pass),
+   energies within P22_E_TOL relative and forces within P22_F_TOL of
+   max|F|; K1 and K2 at the stacked pass's first-layer shapes against
+   their plain versions, their ms a launch and bounds beside phase 3's;
+   (b) phase 5's 64-atom Hessians (atoms 0 and 1 frozen): analytic at
+   HVP chunk 1 / 8 / 64 and FD through K1 and K2 at FD chunk 1 / 8 / 64,
+   wall, peak memory, stacked passes and launches, the chunks against
+   chunk 1 (analytic within P22_HESS_TOL of max|H|, FD within twice the
+   FD Hessian's own error against the analytic one); (c) HVP batches of
+   phase 4's calculator at 300 atoms at C = 1, 8 and the default, ms a
+   tangent and peak memory, against single HVPs.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -275,6 +294,7 @@ result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -372,6 +392,21 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """The environment variables ``kw`` set while the block runs."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def rel_err(a, b) -> float:
@@ -1018,16 +1053,72 @@ def gsm_climb(calc, xA, xB):
         fail("climbing GSM force-call accounting is off")
 
 
-def hessians_64(ref64):
-    """The analytic Hessian on the card (all-plain, one HVP a free DOF:
-    186, one host copy) against CPU float64 and float32 HVP columns, and
-    the FD Hessian through the kernels, at 64 atoms with atoms 0 and 1
-    frozen. Returns the analytic Hessian and its wall time."""
+P12_FROZEN = [0, 1]
+P12_COLS = list(range(6, 9))            # atom 2
+
+
+def hess_columns(st, w, dtype):
+    """Phase 12's HVP columns ``P12_COLS`` of the 64-atom Hessian on the
+    CPU's plain path in ``dtype``, Hartree/Bohr^2."""
     import torch
     from pdb2reaction_tpu_torch.constants import H_EVAA_2_AU
     from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    cb = st.coords_bohr.reshape(-1)
+    c = make_uma_calculator(st, model="escn-md", device="cpu", dtype=dtype,
+                            params=w, freeze_atoms=P12_FROZEN)
+    hvp, x = c.au_hvp_fn(), c.pad_bohr(cb)
+    out = []
+    for k in P12_COLS:
+        v = torch.zeros_like(x)
+        v.view(-1)[k] = 1.0
+        out.append(hvp(x, v).reshape(-1)[:cb.size].double().numpy())
+    return np.stack(out) * H_EVAA_2_AU
+
+
+def p12_cpu_reference(out_path):
+    """Phase 12's CPU float64 and float32 columns in their own process
+    (``--p12-cpu OUT``, started after the build) while the card works
+    through phases 3-5, on phase 5's 64-atom cluster and weights."""
+    import torch
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+                                                  init_escn_params)
+    torch.set_num_threads(6)        # beside the card phases' host work
+    st = Structure(*cluster(64, seed=1))
+    w = init_escn_params(ESCN_CONFIGS["escn-md"], seed=0, device="cpu")
+    t0 = time.perf_counter()
+    h64 = hess_columns(st, w, torch.float64)
+    t64 = time.perf_counter() - t0
+    np.savez(out_path, H64=h64, H32=hess_columns(st, w, torch.float32),
+             t64=t64)
+
+
+def start_cpu_child(flag, name):
+    """``chip_smoke.py --<flag> result_smoke/<name>`` in a child process,
+    killed at exit if still running: (process, output path)."""
+    import atexit
+    out = os.path.join(HERE, "result_smoke", name)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             f"--{flag}", out], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def hessians_64(ref64, p12_cpu):
+    """The analytic Hessian on the card (all-plain, one HVP a free DOF:
+    186, one host copy) against CPU float64 and float32 HVP columns (from
+    the child process ``p12_cpu``), and the FD Hessian through the
+    kernels, at 64 atoms with atoms 0 and 1 frozen. Returns the analytic
+    Hessian and its wall time."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
     st, w, _ = ref64
-    frozen = [0, 1]
+    frozen = P12_FROZEN
     cb = st.coords_bohr.reshape(-1)
     n3 = cb.size
     gpu = make_uma_calculator(st, model="escn-md", device="cuda", params=w,
@@ -1037,7 +1128,10 @@ def hessians_64(ref64):
     n0 = gpu.force_calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    H = gpu.get_hessian(cb)["hessian"]
+    # one tangent a backward, as phase 20 (b)'s ranks take them (the
+    # default chunk split over four ranks); phase 22 (b) runs the chunks
+    with env_set(PDB2R_TPU_HVP_CHUNK=1):
+        H = gpu.get_hessian(cb)["hessian"]
     torch.cuda.synchronize()
     t_an = time.perf_counter() - t0
     moved = moved_counts(before)
@@ -1051,39 +1145,35 @@ def hessians_64(ref64):
             or not np.all(np.isfinite(H)):
         fail("the card Hessian is not symmetric, finite and zero on the "
              "frozen atoms")
-    cols = list(range(6, 12))                 # atoms 2 and 3
-
-    def columns(dtype):
-        c = make_uma_calculator(st, model="escn-md", device="cpu",
-                                dtype=dtype, params=w, freeze_atoms=frozen)
-        hvp, x = c.au_hvp_fn(), c.pad_bohr(cb)
-        out = []
-        for k in cols:
-            v = torch.zeros_like(x)
-            v.view(-1)[k] = 1.0
-            out.append(hvp(x, v).reshape(-1)[:n3].double().numpy())
-        return np.stack(out) * H_EVAA_2_AU
-
-    t0 = time.perf_counter()
-    H64 = columns(torch.float64)
-    t_cpu = time.perf_counter() - t0
-    H32 = columns(torch.float32)
+    cols = P12_COLS
+    ref, waited = p21_wait_cpu(p12_cpu, what="phase 12's")
+    H64, H32, t_cpu = ref["H64"], ref["H32"], float(ref["t64"])
     scale = np.abs(H64).max()
     err = float(np.abs(H[:, cols].T - H64).max() / scale)
     err32 = float(np.abs(H32 - H64).max() / scale)
     limit = min(HESS_TOL, max(2 * err32, HESS_FLOOR))
     log(f"[hess] escn-md 64 atoms (atoms 0, 1 frozen), analytic Hessian on "
         f"the card (all-plain f32, {int(gpu.free_dof_mask.sum())} HVPs): "
-        f"{t_an:.2f} s; 6 "
-        f"columns (atoms 2, 3) against CPU float64: max|dH|/max|H| = "
+        f"{t_an:.2f} s; {len(cols)} "
+        f"columns (atom 2) against CPU float64: max|dH|/max|H| = "
         f"{err:.3e} (CPU float32's own: {err32:.3e}; pass at <= "
         f"{limit:.3e} = max(2x float32's, {HESS_FLOOR}), outer limit "
-        f"{HESS_TOL}); CPU float64 columns {t_cpu:.1f} s; launches "
+        f"{HESS_TOL}); CPU float64 columns {t_cpu:.1f} s in a child "
+        f"process (waited {waited:.1f} s here); launches "
         f"during get_hessian: {moved} (its one force call)")
     if not err <= limit:
         fail("the card's analytic Hessian disagrees with CPU float64")
     gpu.hessian_calc_mode = "FiniteDifference"
     n_free = int(gpu.free_dof_mask.sum())
+    # the displacements go in chunks (PDB2R_TPU_FD_CHUNK), each one
+    # stacked pass through the kernels
+    images_fn, passes = gpu.energy_fn_images, []
+
+    def counted(*a):
+        passes.append(a[0].shape[0])
+        return images_fn(*a)
+    counted.max_images = images_fn.max_images
+    gpu.energy_fn_images = counted
     before = all_counts()
     n0 = gpu.force_calls
     torch.cuda.synchronize()
@@ -1096,9 +1186,11 @@ def hessians_64(ref64):
     err_fd = float(np.abs(Hfd - H).max() / np.abs(H).max())
     log(f"[hess] FD Hessian on the card through the kernels (eps 1e-3 A, "
         f"f32 forces): {t_fd:.2f} s, {calls} force calls (2 x {n_free} "
-        f"displaced + 1 at the point), max|H_fd - H|/max|H| = {err_fd:.3e} "
+        f"displaced + 1 at the point) in {len(passes)} stacked passes of "
+        f"{passes[:1]} images, max|H_fd - H|/max|H| = {err_fd:.3e} "
         f"(no bound); launches {moved}")
-    want = {k: 4 * (2 * n_free + 1) for k in MAIN_PATH}
+    # stacked passes, else (at FD chunk 1) one launch sequence a call
+    want = {k: 4 * (len(passes) or 2 * n_free) + 4 for k in MAIN_PATH}
     if calls != 2 * n_free + 1 or moved != want:
         fail(f"FD Hessian accounting: {calls} calls, launches {moved}, "
              f"expected {want}")
@@ -1150,7 +1242,7 @@ def path_opt_cli(st, xyzB):
              "hei.xyz")
 
 
-def phase_gsm(calc, ms_force, ref64):
+def phase_gsm(calc, ms_force, ref64, p12_cpu):
     """Phase 12: the GSM string on the escn-md calculator of phase 4, the
     Hessians at 64 atoms with phase 5's weights, and path-opt. Returns
     what phase 20 holds its ranks to: the endpoints, the flagship run
@@ -1167,7 +1259,7 @@ def phase_gsm(calc, ms_force, ref64):
     xB = calc.pad_bohr(xyzB * ANG2BOHR)
     flagship = gsm_flagship(calc, xA, xB, ms_force)
     gsm_climb(calc, xA, xB)
-    hess = hessians_64(ref64)
+    hess = hessians_64(ref64, p12_cpu)
     path_opt_cli(st, xyzB)
     log(f"[gsm] phase 12 wall {time.perf_counter() - t0:.1f} s; device "
         f"memory held {held:.2f} GiB before, "
@@ -1501,9 +1593,10 @@ class stage4_meter:
                 m.inside[k] = m.inside.get(k, 0) + d
             return out
 
-        def vjp(c, g, v):
-            m.hvps += 1
-            return vjp0.__func__(c, g, v)
+        def vjp(c, g, v, batched=False):
+            # a chunk of tangents is one batched call
+            m.hvps += v.shape[0] if batched else 1
+            return vjp0.__func__(c, g, v, batched)
 
         def add_force(dt):
             m.force_s += dt
@@ -2583,8 +2676,9 @@ def mini_dft_card(out):
 
 DLC_CYCLES = 20         # phase 18a / 18b cycle caps
 DMF_IMAGES = 12         # phase 18c: the flagship string's 12 images
-DMF_DEVICE_CYCLES = 48  # heavy-ball steps (8 per multiplier update)
-DMF_NATIVE_CYCLES = 24  # L-BFGS-B iterations (at most 4 per update)
+# the DMF runs' depth, cut to keep the whole script inside its limit
+DMF_DEVICE_CYCLES = 24  # heavy-ball steps (8 per multiplier update)
+DMF_NATIVE_CYCLES = 12  # L-BFGS-B iterations (at most 4 per update)
 P18_X_TOL = 1e-4        # max|x_card - x_cpu64| / max|step of x_cpu64|
 P18_CPU = {"dlc_cycles": 5, "dmf_images": 6, "dmf_cycles": 6}
 
@@ -4541,7 +4635,8 @@ def phase_ranks(calc, p12, ref64, p15, p16, smi_line):
     cb = st64.coords_bohr.reshape(-1)
     one = make_uma_calculator(st64, model="escn-md", params=w64,
                               freeze_atoms=[0, 1])
-    H_again = one.get_hessian(cb)["hessian"]
+    with env_set(PDB2R_TPU_HVP_CHUNK=1):      # as phase 12 and the ranks
+        H_again = one.get_hessian(cb)["hessian"]
     repeats = bool(np.array_equal(H_again, H12))
     del one
     # (c)'s reference: run_freq on the TS guess in one process
@@ -4752,32 +4847,22 @@ def p21_cpu_reference(out_path):
 
 
 def start_p21_cpu():
-    """Start (a) / (b)'s CPU float64 steps in a child process; it is
-    killed at exit if still running."""
-    import atexit
-    out = os.path.join(HERE, "result_smoke", "p21_cpu.npz")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    if os.path.exists(out):
-        os.remove(out)
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--p21-cpu", out], cwd=HERE,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, out
+    """Start (a) / (b)'s CPU float64 steps in a child process."""
+    return start_cpu_child("p21-cpu", "p21_cpu.npz")
 
 
-def p21_wait_cpu(cpu_ref, limit=400):
-    """The child's results, once it has ended (at most ``limit`` s)."""
+def p21_wait_cpu(cpu_ref, limit=400, what="phase 21's"):
+    """The child's results, once it has ended (at most ``limit`` s), and
+    the seconds waited for them."""
     proc, npz = cpu_ref
     t0 = time.perf_counter()
     try:
         stdout, _ = proc.communicate(timeout=limit)
     except subprocess.TimeoutExpired:
         proc.kill()
-        fail(f"phase 21's CPU reference did not finish within {limit} s")
+        fail(f"{what} CPU reference did not finish within {limit} s")
     if proc.returncode != 0 or not os.path.exists(npz):
-        fail(f"phase 21's CPU reference failed: {stdout[-3000:]}")
+        fail(f"{what} CPU reference failed: {stdout[-3000:]}")
     return np.load(npz), time.perf_counter() - t0
 
 
@@ -5173,6 +5258,368 @@ def phase_training(calc, f_mega, cpu_ref, smi_line):
     return launches
 
 
+# ---- phase 22: chunked batching and Orbax checkpoints -----------------------
+# [chunk] and [ckpt] lines. Images, HVP tangents and FD displacements in
+# chunks (mlip/calculator.py): a chunk of escn-md images is one stacked
+# pass (the images along the atom axis, K1 and K2 launched once a layer
+# for the chunk), a chunk of tangents one batched backward of the plain
+# path. Energies of stacked images against one at a time: relative
+# P22_E_TOL; forces: P22_F_TOL of max|F| (f32, the same kernels on wider
+# launches); a batched HVP against single ones: P22_HVP_TOL of max|Hv|.
+P22_IMAGES = 8
+P22_E_TOL = 1e-6
+P22_F_TOL = 1e-5
+P22_HVP_TOL = 1e-5
+# analytic Hessian chunks against chunk 1, relative to max|H|: a float32
+# bar (a batched backward runs other GEMM shapes than a single one; 3.2e-7
+# measured at chunk 8 on the card), not the 1e-8 the CPU's float64 holds
+# (1e-12 there, tests/test_torch_batch_chunk.py)
+P22_HESS_TOL = 1e-6
+
+
+def p22_string_images(calc, p12):
+    """Eight images [8, 3N] Bohr: phase 12's final string's images 2-9
+    (its interior), or, where phase 12 did not run, eight images
+    interpolated between its endpoints."""
+    from pdb2reaction_tpu_torch.constants import ANG2BOHR
+    n = calc.n_atoms
+    if p12 is not None:
+        imgs = np.asarray(p12["gsm"][0].images)[2:2 + P22_IMAGES]
+        return imgs[:, :n].reshape(P22_IMAGES, -1)
+    st = calc.structure
+    free = calc.system.free_mask[:n].cpu().numpy()
+    a = st.coords * ANG2BOHR
+    b = endpoint_b(st.coords, free) * ANG2BOHR
+    t = np.linspace(0.1, 0.9, P22_IMAGES)[:, None, None]
+    return ((1 - t) * a + t * b).reshape(P22_IMAGES, -1)
+
+
+def p22_images(calc, X, smi_line, reps=3):
+    """(a) the images through ``get_forces_batch`` at batch_chunk 1 and 8
+    on phase 4's weights: ms a batch, peak memory, launches a batch, and
+    the chunks held to each other. Returns the launches of the measured
+    batches."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    out, launched = {}, {}
+    for chunk in (1, P22_IMAGES):
+        c = make_uma_calculator(calc.structure, model="escn-md",
+                                device="cuda", params=calc.params,
+                                pad_multiple=64, batch_chunk=chunk)
+        c.get_forces_batch(X)                       # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        before = all_counts()
+        n0 = c.force_calls
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r = c.get_forces_batch(X)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moved = moved_counts(before)
+        for k, v in moved.items():
+            launched[k] = launched.get(k, 0) + v
+        per = {k: v // reps for k, v in moved.items()}
+        passes = -(-P22_IMAGES // chunk)
+        want = {k: 4 * passes for k in MAIN_PATH}
+        log(f"[chunk] (a) escn-md pallas-mega, {P22_IMAGES} string images "
+            f"of {calc.n_atoms} atoms (P = {calc.n_pad}) at batch_chunk "
+            f"{chunk}: {ms:.2f} ms a batch ({ms / P22_IMAGES:.2f} ms an "
+            f"image), peak {peak:.2f} GiB ({base:.2f} held before); "
+            f"launches a batch {per}; {smi_line}")
+        if per != want or c.force_calls - n0 != reps * P22_IMAGES:
+            fail(f"batch_chunk {chunk}: launches {per} (want {want}), "
+                 f"{c.force_calls - n0} force calls")
+        out[chunk] = (r, ms)
+        del c
+        torch.cuda.empty_cache()
+    r1, r8 = out[1][0], out[P22_IMAGES][0]
+    de = float(np.abs(r8["energy"] - r1["energy"]).max()
+               / np.abs(r1["energy"]).max())
+    df = float(np.abs(r8["forces"] - r1["forces"]).max()
+               / np.abs(r1["forces"]).max())
+    log(f"[chunk] (a) stacked against one at a time: energies rel "
+        f"{de:.3e} (tol {P22_E_TOL}), forces {df:.3e} of max|F| (tol "
+        f"{P22_F_TOL}); {out[1][1] / out[P22_IMAGES][1]:.2f}x the "
+        f"one-image rate")
+    if not (de <= P22_E_TOL and df <= P22_F_TOL):
+        fail("stacked images disagree with one image at a time")
+    return launched
+
+
+def p22_stacked_kernels(calc, X, rows, reps=5):
+    """K1 and K2 at batch_chunk 8's shapes (the first layer of the stacked
+    pass: P = 8 x 320 rows, E = 8 x 10240 edges) against their plain
+    versions, their ms a launch and bounds beside phase 3's one-image
+    launch."""
+    import torch
+    from pdb2reaction_tpu_torch.constants import BOHR2ANG
+    from pdb2reaction_tpu_torch.mlip import escn_edge_kernel as ek
+    from pdb2reaction_tpu_torch.mlip import escn_ffn_kernel as fk
+    from pdb2reaction_tpu_torch.mlip.escn import first_layer_kernel_args
+    cfg = calc.cfg
+    xs = torch.zeros((P22_IMAGES, calc.n_pad, 3), dtype=torch.float32,
+                     device="cuda")
+    xs[:, :calc.n_atoms] = torch.as_tensor(
+        X.reshape(P22_IMAGES, -1, 3) * BOHR2ANG, device="cuda")
+    with torch.no_grad():
+        edge_args, ffn_args, _ = first_layer_kernel_args(
+            xs, calc.system, calc.params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    _, x_t, src, es, Dp, Dpe, weights, tables = edge_args
+    nl0, nls, U, G = ek._dims(cfg)
+    H, C = cfg.hidden_channels, cfg.sphere_channels
+    E = src.numel()
+    wts = [*ek._flat_weights(weights), *tables]
+    saved = E * U * (H + C) * 4
+    res = edge_parity("chunk K1", ek.fused_edge_mega,
+                      ek.fused_edge_mega_plain, edge_args, (1, 3, 4, 5),
+                      ("x", "es", "Dp", "Dpe"), reps, gen)
+    g, y_p, gp = res[6:]
+    fl = edge_flops(cfg, E)
+    k1 = {"fused_edge_mega_fwd": (res[2], fl[0], nbytes(
+              x_t, src, es, Dp, Dpe, *wts, y_p) + saved),
+          "fused_edge_mega_bwd": (res[4], fl[1], nbytes(
+              x_t, g, src, Dp, Dpe, *wts, *gp) + saved)}
+    del res, g, y_p, gp
+    cfg_, xn2, fw, ftab = ffn_args
+    (xk,) = _leaves([xn2])
+    (xp,) = _leaves([xn2])
+    o_k = fk.fused_node_ffn(cfg_, xk, fw, ftab)
+    o_p = fk.ffn_plain(xp, fw, ftab)
+    g2 = torch.randn(o_p.shape, generator=gen, device="cuda")
+    (dk,) = torch.autograd.grad(o_k, [xk], g2, retain_graph=True)
+    (dp,) = torch.autograd.grad(o_p, [xp], g2, retain_graph=True)
+    e2f, e2b = rel_err(o_k, o_p), rel_err(dk, dp)
+    log(f"[chunk K2] fwd rel err {e2f:.3e}, bwd rel err {e2b:.3e} "
+        f"(tol {KERNEL_TOL})")
+    if not (e2f <= KERNEL_TOL and e2b <= KERNEL_TOL):
+        fail("K2 at the stacked shapes disagrees with its plain version")
+    with torch.no_grad():
+        t2f = cuda_ms(lambda: fk.fused_node_ffn(cfg_, xn2, fw, ftab), reps)
+    t2b = cuda_ms(lambda: torch.autograd.grad(o_k, [xk], g2,
+                                              retain_graph=True), reps)
+    Pn, M, _ = xn2.shape
+    f2f, f2b = k2_flops(M, C, fw[0].shape[1], ftab[0].shape[0], Pn)
+    k1["fused_node_ffn_fwd"] = (t2f, f2f, nbytes(xn2, *fw, *ftab, o_p))
+    k1["fused_node_ffn_bwd"] = (t2b, f2b, nbytes(xn2, g2, *fw, *ftab, dp))
+    for k, (t, fl_, nb) in k1.items():
+        b32, _, by = bound_ms(fl_, nb, k)
+        one = ""
+        if k in rows:
+            b1, _, _ = bound_ms(rows[k][3], rows[k][4], k)
+            one = f" (one image: {rows[k][1]:.3f} ms, bound {b1:.3f})"
+        log(f"[chunk] stacked launch {k} (P = {Pn}, E = {E}): {t:.3f} ms "
+            f"a launch, {t / P22_IMAGES:.3f} ms an image{one}; bound "
+            f"{b32:.3f} ms ({by}); {fl_ / t / 1e9:.2f} TFLOP/s")
+    del o_k, o_p, dk, dp, xk, xp, g2, edge_args, ffn_args
+    torch.cuda.empty_cache()
+
+
+def p22_hessians(st64, w64, smi_line):
+    """(b) phase 5's 64-atom cluster and weights (atoms 0 and 1 frozen):
+    the analytic Hessian at HVP chunk 1 / 8 / 64 and the FD Hessian
+    through K1 and K2 at FD chunk 1 / 8 / 64, wall and peak memory, the
+    chunks against chunk 1. Returns the FD Hessians' launches."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    cb = st64.coords_bohr.reshape(-1)
+    gpu = make_uma_calculator(st64, model="escn-md", device="cuda",
+                              params=w64, freeze_atoms=[0, 1])
+    gpu.get_forces(cb)
+    n_free = int(gpu.free_dof_mask.sum())
+    images_fn = gpu.energy_fn_images
+    passes = []
+
+    def counted(*a):
+        passes.append(a[0].shape[0])
+        return images_fn(*a)
+    counted.max_images = images_fn.max_images
+    gpu.energy_fn_images = counted
+    launched, H = {}, {}
+    for mode, env in (("Analytical", "PDB2R_TPU_HVP_CHUNK"),
+                      ("FiniteDifference", "PDB2R_TPU_FD_CHUNK")):
+        gpu.hessian_calc_mode = mode
+        for chunk in (1, 8, 64):
+            passes.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = all_counts()
+            n0 = gpu.force_calls
+            t0 = time.perf_counter()
+            with env_set(**{env: chunk}):
+                H[mode, chunk] = gpu.get_hessian(cb)["hessian"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            moved = moved_counts(before)
+            calls = gpu.force_calls - n0
+            if mode == "Analytical":
+                want = {k: 4 for k in MAIN_PATH}     # get_hessian's forces
+                ok = calls == 1 and not passes
+            else:
+                for k, v in moved.items():
+                    launched[k] = launched.get(k, 0) + v
+                # stacked passes, at chunk 1 a launch sequence a call
+                want = {k: 4 * (len(passes) or 2 * n_free) + 4
+                        for k in MAIN_PATH}
+                ok = (calls == 2 * n_free + 1 and len(passes) == (
+                    0 if chunk == 1 else -(-2 * n_free // chunk)))
+            log(f"[chunk] (b) 64 atoms, {mode} Hessian at chunk {chunk}: "
+                f"{wall:.2f} s, peak {peak:.2f} GiB, {calls} force calls, "
+                f"{len(passes)} stacked passes, launches {moved}; "
+                f"{smi_line}")
+            if not ok or moved != want:
+                fail(f"{mode} Hessian at chunk {chunk}: {calls} calls, "
+                     f"{len(passes)} passes, launches {moved} (want {want})")
+    h1 = H["Analytical", 1]
+    scale = np.abs(h1).max()
+    # two FD Hessians, each within the FD's own float32 error of the
+    # analytic one, part by at most twice it
+    fd_err = float(np.abs(H["FiniteDifference", 1] - h1).max() / scale)
+    for mode, tol in (("Analytical", P22_HESS_TOL),
+                      ("FiniteDifference", 2 * fd_err)):
+        for chunk in (8, 64):
+            d = float(np.abs(H[mode, chunk] - H[mode, 1]).max() / scale)
+            log(f"[chunk] (b) {mode} chunk {chunk} against chunk 1: "
+                f"max|dH|/max|H| = {d:.3e} (tol {tol:.3e}"
+                + (", twice the FD Hessian's own error against the analytic "
+                   "one)" if mode != "Analytical" else ")"))
+            if not d <= tol:
+                fail(f"the {mode} Hessian at chunk {chunk} disagrees with "
+                     "chunk 1")
+    return launched
+
+
+def p22_hvp300(calc, smi_line):
+    """(c) HVP batches on phase 4's calculator at 300 atoms (P = 320): C
+    tangents in one batched backward of the plain path at C = 1, 8 and
+    the default, ms a tangent and peak memory over the graph; the batch
+    against single HVPs."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip.calculator import HVP_CHUNK_DEFAULT
+    cb = calc.structure.coords_bohr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c, g = calc._grad_graph(calc._to_pad_ang(cb), calc.system, calc.params)
+    torch.cuda.synchronize()
+    graph = torch.cuda.max_memory_allocated() / 2 ** 30
+    sizes = sorted({1, 8, HVP_CHUNK_DEFAULT})
+    V_all = torch.zeros((max(sizes), c.numel()), dtype=c.dtype,
+                        device=c.device)
+    V_all[torch.arange(max(sizes)), torch.arange(max(sizes)) * 7] = 1.0
+    V_all = V_all.view(-1, *c.shape)
+    singles = torch.stack([calc._vjp(c, g, v) for v in V_all[:8]])
+    for C in sizes:
+        V = V_all[:C]
+
+        def run():
+            if C == 1:
+                return calc._vjp(c, g, V[0])[None]
+            return calc._vjp(c, g, V, batched=True)
+        hv = run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=2, warm=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        k = min(C, 8)
+        err = rel_err(hv[:k], singles[:k])
+        log(f"[chunk] (c) escn-md HVPs at {calc.n_atoms} atoms (P = "
+            f"{calc.n_pad}), plain path, {C} tangents a batched backward: "
+            f"{ms / C:.2f} ms a tangent ({ms:.1f} ms the batch), peak "
+            f"{peak:.2f} GiB ({graph:.2f} GiB with the graph alone); first "
+            f"{k} rows against single HVPs {err:.3e} (tol {P22_HVP_TOL}); "
+            f"{smi_line}")
+        if not err <= P22_HVP_TOL:
+            fail(f"a batch of {C} HVPs disagrees with single ones")
+        del hv, V
+        torch.cuda.empty_cache()
+    del c, g, V_all, singles
+    torch.cuda.empty_cache()
+
+
+def p22_ckpt(calc):
+    """(d) Orbax trees: with tensorstore, phase 4's weights written and
+    read back bit for bit; without it, ``checkpoint=`` raising the
+    ImportError that names tensorstore before any launch."""
+    import shutil
+
+    import torch
+    from pdb2reaction_tpu_torch.mlip.uma import (load_checkpoint,
+                                                 make_uma_calculator,
+                                                 save_checkpoint)
+    try:
+        import tensorstore  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    tree = os.path.join(HERE, "result_smoke", "ckpt_escn_md")
+    log(f"[ckpt] tensorstore imports: {have}")
+    if not have:
+        before = all_counts()
+        try:
+            make_uma_calculator(calc.structure, model="escn-md",
+                                device="cuda", checkpoint=tree)
+            said = None
+        except ImportError as e:
+            said = str(e)
+        moved = moved_counts(before)
+        log(f"[ckpt] checkpoint={tree}: ImportError {said!r}; launches "
+            f"before it {moved}")
+        if said is None or "tensorstore" not in said or moved:
+            fail("an Orbax checkpoint without tensorstore did not raise the "
+                 "ImportError naming it before any launch")
+        return
+    shutil.rmtree(tree, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(tree, calc.params)
+    back = load_checkpoint(tree, required=True)
+    wall = time.perf_counter() - t0
+    leaves, bad = 0, []
+
+    def walk(a, b, path):
+        nonlocal leaves
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], path + (k,))
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, path + (i,))
+        else:
+            leaves += 1
+            x = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+            y = np.asarray(b)
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not np.array_equal(x, y):
+                bad.append(path)
+    walk(calc.params, back, ())
+    log(f"[ckpt] phase 4's weights written and read back ({leaves} leaves, "
+        f"{wall:.2f} s): {len(bad)} differ")
+    if bad:
+        fail(f"Orbax round trip changed leaves {bad[:5]}")
+    shutil.rmtree(tree, ignore_errors=True)
+
+
+def phase_chunks(calc, p12, st64, w64, rows, smi_line):
+    """Phase 22: chunked batching and Orbax checkpoints. Returns the
+    launches counted in (a) and (b)'s FD Hessians."""
+    import torch
+    t0 = time.perf_counter()
+    p22_ckpt(calc)
+    X = p22_string_images(calc, p12)
+    launched = p22_images(calc, X, smi_line)
+    p22_stacked_kernels(calc, X, rows)
+    for k, v in p22_hessians(st64, w64, smi_line).items():
+        launched[k] = launched.get(k, 0) + v
+    p22_hvp300(calc, smi_line)
+    torch.cuda.empty_cache()
+    log(f"[chunk] phase 22 wall {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -5181,6 +5628,11 @@ def main():
                     help=argparse.SUPPRESS)   # phase 18d's CPU child
     ap.add_argument("--p21-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase 21's CPU child
+    ap.add_argument("--p12-cpu", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # phase 12's CPU child
+    ap.add_argument("--chunks", action="store_true",
+                    help="device, build and phase 22 alone (images "
+                         "interpolated between phase 12's endpoints)")
     args = ap.parse_args()
     if args.p18_cpu:
         sys.path.insert(0, HERE)
@@ -5189,6 +5641,10 @@ def main():
     if args.p21_cpu:
         sys.path.insert(0, HERE)
         p21_cpu_reference(args.p21_cpu)
+        return
+    if args.p12_cpu:
+        sys.path.insert(0, HERE)
+        p12_cpu_reference(args.p12_cpu)
         return
     try:
         import torch
@@ -5211,6 +5667,19 @@ def main():
                                pad_multiple=64)
     log(f"[setup] TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn TF32 {torch.backends.cudnn.allow_tf32}")
+    if args.chunks:
+        from pdb2reaction_tpu_torch.mlip.escn import (ESCN_CONFIGS,
+                                                      init_escn_params)
+        zero_all_counts()
+        phase_chunks(calc, None, Structure(*cluster(64, seed=1)),
+                     init_escn_params(ESCN_CONFIGS["escn-md"], seed=0),
+                     {}, smi_line)
+        print(smi_line, flush=True)
+        return
+    # phase 12's CPU Hessian columns, in a child process from here on:
+    # they overlap phases 3-5 on the card
+    p12_cpu = None if args.quick else start_cpu_child("p12-cpu",
+                                                      "p12_cpu.npz")
     rows = phase_kernels(calc, calc.cfg, args.quick)
 
     import dataclasses
@@ -5247,7 +5716,7 @@ def main():
                                      cycles=0))
         ref64 = phase_reference(seed=0)
         # ---- the GSM path on the escn-md calculator: its own counts
-        p12 = phase_gsm(calc, ms_force, ref64)
+        p12 = phase_gsm(calc, ms_force, ref64, p12_cpu)
         # ---- phase 18d's CPU float64 reference, in a child process from
         # here on: its ~50 CPU force calls overlap phases 13-17, not phase
         # 12's CPU float64 Hessian columns
@@ -5290,6 +5759,11 @@ def main():
         # ---- training: its own counts (the kernels' weight cotangents)
         for k, v in phase_training(calc, f_mega, p21_cpu,
                                    smi_line).items():
+            launches[k] += v
+        # ---- chunked batching (stacked images, batched Hessians) and
+        # Orbax checkpoints: their own counts
+        for k, v in phase_chunks(calc, p12, ref64[0], ref64[1], rows,
+                                 smi_line).items():
             launches[k] += v
 
     kern = []

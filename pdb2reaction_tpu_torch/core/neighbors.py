@@ -54,6 +54,34 @@ def dense_neighbors_rows(coords, atom_mask, cutoff, max_neighbors: int,
     return idx, mask
 
 
+def dense_neighbors_images(coords, atom_mask, cutoff, max_neighbors: int):
+    """``dense_neighbors_rows`` of every image of ``coords`` [B, P, 3] (one
+    system's ``atom_mask`` [P]) at once, for the B images stacked along
+    the atom axis: idx [B*P, K] into the stacked rows (image b's
+    neighbours offset by b*P; masked slots point at the image's row 0)
+    and mask [B*P, K]. Each image's lists are the ones
+    ``dense_neighbors_rows`` gives it alone."""
+    B, P, _ = coords.shape
+    dev = coords.device
+    diff = coords[:, :, None, :] - coords[:, None, :, :]
+    d = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-24))
+    live = atom_mask > 0
+    eye = torch.eye(P, dtype=torch.bool, device=dev)
+    within = (live[None, :] & live[:, None] & ~eye)[None] & (d <= cutoff)
+    d_masked = torch.where(within, d, torch.full_like(d, float("inf")))
+    k = min(max_neighbors, P)
+    vals, order = torch.sort(d_masked, dim=-1, stable=True)
+    vals, idx = vals[..., :k], order[..., :k]
+    mask = torch.isfinite(vals).to(torch.float32)
+    base = (torch.arange(B, device=dev) * P)[:, None, None]
+    idx = torch.where(mask > 0, idx, torch.zeros_like(idx)) + base
+    if k < max_neighbors:
+        pad = max_neighbors - k
+        idx = torch.cat([idx, base.expand(B, P, pad)], -1)
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    return idx.reshape(B * P, -1), mask.reshape(B * P, -1)
+
+
 def neighbor_vectors(coords, idx, mask, origin=None):
     """Edge vectors r_j - r_i [P, K, 3] and distances [P, K]; masked slots
     get a safe distance of 1.0 so nothing downstream divides by zero."""

@@ -26,15 +26,33 @@ and a calculator whose force path runs them is given an all-plain
 variant here (``mlip/uma.py``), as the JAX factory gives its Hessian
 closure the XLA variant.
 
+Batched work runs in chunks, as the JAX calculator's ``_stream_chunks``
+and ``lax.map(batch_size=...)`` do: image batches (``get_forces_batch``,
+``au_energy_force_batch_fn``) in chunks of ``batch_chunk`` images (else
+``PDB2R_TPU_BATCH_CHUNK``, else 1), the analytic Hessian's free-DOF
+tangents in chunks of ``PDB2R_TPU_HVP_CHUNK`` (default
+``HVP_CHUNK_DEFAULT``) and the FD Hessian's displacements in chunks of
+``PDB2R_TPU_FD_CHUNK`` (default ``FD_CHUNK_DEFAULT``). A chunk of
+tangents is one batched backward on the point's graph
+(``torch.autograd.grad(..., is_grads_batched=True)``: vmap over the
+double backward of the Hessian closure). A chunk of images or
+displacements is one call of ``energy_fn_images`` where the calculator
+has one (the eSCN factory's: the images stacked along the atom axis,
+each kernel launched once a layer for the chunk, split where a launch
+would pass 32-bit offsets), else the images one after another. A chunk
+that fails raises; nothing drops to smaller chunks.
+
 ``mesh`` (``parallel.make_mesh``) with a data axis of n > 1 ranks and no
 model axis splits the batched work over the ranks, as the JAX
-calculator's ``shard_map`` over "data" does: image batches
-(``get_forces_batch``, ``au_energy_force_batch_fn``), the analytic
-Hessian's free-DOF tangents and the FD Hessian's displacements. Each
-rank evaluates one contiguous block of the batch, padded to a multiple of
-n by repeating its last row, one item after another, and the blocks are
+calculator's ``shard_map`` over "data" does: image batches, the analytic
+Hessian's free-DOF tangents and the FD Hessian's displacements. The
+chunk is rounded up to a multiple of n; each rank evaluates one
+contiguous block of the batch, padded to a multiple of n by repeating
+its last row, in chunks of (chunk / n) items, and the blocks are
 all-gathered in rank order, so every rank holds the same bits; every
-rank counts all B force calls, as the JAX calculator does. Everything
+rank counts all B force calls, as the JAX calculator does. A batch's
+last chunk is shorter where the batch ends (the JAX package pads it to
+its compiled shape; eager PyTorch has none to fill). Everything
 else (single force calls, ``au_hvp_fn``) runs whole on every rank. Under
 atom-axis sharding (``spatial > 1``) every rank of the model group takes
 part in every evaluation, Hessians and HVPs included, through the
@@ -42,10 +60,13 @@ sharded closures, and the data axis is off. So it is under tensor
 parallelism (``shard_params_model``: a model axis with ``spatial`` 1,
 the parameters' feature columns laid over it): every rank of the model
 group takes part in every evaluation through the laid-out parameters.
+Their collectives have no batching rule, so there a chunk's tangents
+and images run one after another, each with the whole model group.
 """
 
 from __future__ import annotations
 
+import os
 import weakref
 from typing import Any, Callable, Dict
 
@@ -54,9 +75,28 @@ import torch
 
 from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU, H_EVAA_2_AU
 from ..core.structure import Structure, pad_to
-from ..parallel.mesh import replicate, shard_batch
+from ..parallel.mesh import data_size, replicate, shard_batch
 
 _SENTINEL = object()
+
+# chunk defaults: images and FD displacements as in the JAX package (1
+# and 64); HVP tangents 2, not JAX's 64: the largest power of two whose
+# batched backward fits the card with 20% to spare wherever the card's
+# smoke run takes it, three stage-4 CLI processes on one card included
+# (escn-md at P = 320 peaks at 19.8 GiB with 2 tangents, 27.2 with 4,
+# 41.9 with 8; ROADMAP.md, "Behaviours of the reference")
+BATCH_CHUNK_DEFAULT = 1
+HVP_CHUNK_DEFAULT = 2
+FD_CHUNK_DEFAULT = 64
+
+
+def chunk_setting(given, env: str, default: int) -> int:
+    """``given``, else the environment variable ``env``, else
+    ``default``; a positive integer."""
+    c = int(given) if given else int(os.environ.get(env, str(default)))
+    if c < 1:
+        raise ValueError(f"{env}={c}: a chunk holds at least one item")
+    return c
 
 
 def resolve_device(device) -> torch.device:
@@ -94,6 +134,8 @@ class Calculator:
         weights_source: str = "analytic",
         energy_fn_hessian: Callable = None,
         mesh=None,
+        batch_chunk: int = None,
+        energy_fn_images: Callable = None,
     ):
         if freeze_atoms is not None:
             structure = structure.copy()
@@ -106,6 +148,10 @@ class Calculator:
         self.n_pad = self.system.n_pad
         self.energy_fn = energy_fn
         self.energy_fn_hessian = energy_fn_hessian
+        # (coords [B, P, 3], system, params) -> eV [B] in one pass, with
+        # ``max_images(P)``; None: a chunk's images one after another
+        self.energy_fn_images = energy_fn_images
+        self.batch_chunk = batch_chunk
         self.params = params
         if hessian_calc_mode == "auto":
             hessian_calc_mode = "Analytical"
@@ -142,13 +188,32 @@ class Calculator:
         return (self.system,
                 self.params if params is _SENTINEL else params)
 
-    def _over_data(self, items: torch.Tensor, each) -> torch.Tensor:
-        """``each(item)`` for every item of ``items`` [B, ...], stacked:
-        over the data axis this rank's block, then every rank's blocks
-        gathered in rank order (the same bits on every rank)."""
+    def _over_data(self, items: torch.Tensor, run, chunk: int) \
+            -> torch.Tensor:
+        """``run(rows)`` [c, ...] over ``items`` [B, ...] in chunks of
+        ``chunk`` rows, stacked. Over a data axis of n ranks the chunk is
+        rounded up to a multiple of n, each rank takes its contiguous
+        block of the batch (padded to a multiple of n by repeating its
+        last row) in chunks of chunk / n rows, and every rank's blocks
+        are gathered in rank order (the same bits on every rank). The
+        last chunk is shorter where the batch ends: unlike the JAX
+        package, which pads it to one compiled program's shape, no row
+        is evaluated twice beyond the data axis's padding."""
+        n = data_size(self.mesh)
+        c = -(-chunk // n)
         block = shard_batch(items, self.mesh)
-        out = torch.stack([each(x) for x in block])
+        out = torch.cat([run(block[i:i + c])
+                         for i in range(0, block.shape[0], c)])
         return replicate(out, self.mesh, items.shape[0])
+
+    def _one_by_one(self) -> bool:
+        """True where a chunk's tangents and images run one after another:
+        atom-axis sharded closures (marked ``collective``) and
+        tensor-parallel parameters, whose collectives have no batching
+        rule and take the whole model group for each item."""
+        return getattr(self, "_tensor_parallel", False) or any(
+            getattr(f, "collective", False)
+            for f in (self.energy_fn, self.energy_fn_hessian))
 
     def shard_params_model(self):
         """Reshard ``self.params`` for tensor-parallel inference over the
@@ -168,6 +233,7 @@ class Calculator:
                 "axis, so it needs spatial=1")
         from ..parallel.mesh import shard_params_model
         self.params = shard_params_model(self.params, self.mesh)
+        self._tensor_parallel = self.mesh.shape.get("model", 1) > 1
         self._batch_closure = None
         self._hvp_closure = None
         return self
@@ -179,6 +245,29 @@ class Calculator:
         (g,) = torch.autograd.grad(e, c)
         f = -g * self.system.free_mask[:, None].to(g.dtype)
         return e.detach(), f
+
+    def _images_fn(self):
+        """``energy_fn_images`` where a chunk may be stacked, else None."""
+        return None if self._one_by_one() else self.energy_fn_images
+
+    def _eforce_images(self, coords_ang: torch.Tensor):
+        """(E eV [B], F eV/Angstrom [B, P, 3], frozen and padding rows
+        zero) of a chunk of images [B, P, 3]: through
+        ``energy_fn_images`` in passes of at most its ``max_images(P)``
+        images, else (and for one image) one image after another."""
+        fn = self._images_fn()
+        if fn is None or coords_ang.shape[0] == 1:
+            es, fs = zip(*(self._eforce_ang(x) for x in coords_ang))
+            return torch.stack(es), torch.stack(fs)
+        lim = fn.max_images(self.n_pad)
+        es, fs = [], []
+        for lo in range(0, coords_ang.shape[0], lim):
+            c = coords_ang[lo:lo + lim].detach().requires_grad_(True)
+            e = fn(c, self.system, self.params)
+            (g,) = torch.autograd.grad(e.sum(), c)
+            es.append(e.detach())
+            fs.append(-g * self.system.free_mask[:, None].to(g.dtype))
+        return torch.cat(es), torch.cat(fs)
 
     # -- public API (Bohr/Hartree) -------------------------------------------
     def get_energy(self, coords_bohr) -> Dict[str, Any]:
@@ -247,22 +336,29 @@ class Calculator:
         return c, g
 
     @staticmethod
-    def _vjp(c, g, v):
+    def _vjp(c, g, v, batched=False):
         """H v [P, 3] (eV/Angstrom^2 per unit tangent) on a graph of
-        ``_grad_graph``; zero when g does not depend on c."""
+        ``_grad_graph``; zero when g does not depend on c. ``batched``:
+        v [C, P, 3] holds C tangents, taken in one backward (vmap over
+        the double backward) -> [C, P, 3]."""
         if not g.requires_grad:
-            return torch.zeros_like(c)
+            return torch.zeros_like(v if batched else c)
         (hv,) = torch.autograd.grad(g, c, grad_outputs=v.to(g.dtype),
-                                    retain_graph=True, allow_unused=True)
-        return torch.zeros_like(c) if hv is None else hv
+                                    retain_graph=True, allow_unused=True,
+                                    is_grads_batched=batched)
+        if hv is None:
+            return torch.zeros_like(v if batched else c)
+        return hv
 
     def _analytic_hessian(self, coords_bohr) -> np.ndarray:
         """H e_k for the unit tangent of every free DOF on one graph, the
         rows gathered on the device and copied to the host once. The free
         block, symmetrised as 0.5 (H + H^T), needs no other row: frozen
         rows and columns are zero. A 25-atom active region of 300 atoms
-        takes 75 tangents instead of 900. Over a data axis each rank
-        builds the graph once and computes its block of the tangents."""
+        takes 75 tangents instead of 900. The tangents go in chunks of
+        ``PDB2R_TPU_HVP_CHUNK``, each one batched backward. Over a data
+        axis each rank builds the graph once and computes its block of
+        the tangents."""
         n3 = self.n_atoms * 3
         dof_ids = np.nonzero(self.free_dof_mask)[0]
         H = np.zeros((n3, n3), dtype=np.float64)
@@ -270,41 +366,50 @@ class Calculator:
             return H
         c, g = self._grad_graph(self._to_pad_ang(coords_bohr), self.system,
                                 self.params)
-        v = torch.zeros_like(c)
-        flat = v.view(-1)
+        one = self._one_by_one()
 
-        def row(k):
-            flat.zero_()
-            flat[int(k)] = 1.0
-            return self._vjp(c, g, v).reshape(-1)[:n3]
+        def rows(ks):
+            V = torch.zeros((ks.shape[0], c.numel()), dtype=c.dtype,
+                            device=c.device)
+            V[torch.arange(ks.shape[0]), ks.to(c.device)] = 1.0
+            V = V.view(-1, *c.shape)
+            if one or ks.shape[0] == 1:
+                hv = torch.stack([self._vjp(c, g, v) for v in V])
+            else:
+                hv = self._vjp(c, g, V, batched=True)
+            return hv.reshape(ks.shape[0], -1)[:, :n3]
 
-        R = self._over_data(torch.as_tensor(dof_ids), row)
+        R = self._over_data(torch.as_tensor(dof_ids), rows, chunk_setting(
+            None, "PDB2R_TPU_HVP_CHUNK", HVP_CHUNK_DEFAULT))
         R = R.double().cpu().numpy()[:, dof_ids]
         H[np.ix_(dof_ids, dof_ids)] = 0.5 * (R + R.T)
         return H * H_EVAA_2_AU
 
     def _fd_hessian(self, coords_bohr) -> np.ndarray:
         """Central differences over the free DOFs (eps = ``fd_step``
-        Angstrom) through the force path, 2 n_free force calls (split over
-        a data axis), the forces gathered on the device and copied to the
-        host once."""
+        Angstrom) through the force path, 2 n_free force calls in chunks
+        of ``PDB2R_TPU_FD_CHUNK`` displacements (split over a data axis),
+        each chunk one batched force call (``_eforce_images``), the forces
+        gathered on the device and copied to the host once."""
         c0 = self._to_pad_ang(coords_bohr)
         eps = self.fd_step
         free = self.free_dof_mask
         n3 = self.n_atoms * 3
         dof_ids = np.nonzero(free)[0]
         B = dof_ids.size
+        dofs = torch.as_tensor(dof_ids, device=c0.device)
 
-        def force(j):
-            j = int(j)
-            c = c0.clone()
-            c.view(-1)[int(dof_ids[j % B])] += eps if j < B else -eps
-            c.requires_grad_(True)
-            e = self.energy_fn(c, self.system, self.params)
-            (gr,) = torch.autograd.grad(e, c)
-            return -gr.reshape(-1)[:n3]
+        def forces(js):
+            js = js.to(c0.device)
+            c = c0.reshape(1, -1).repeat(js.shape[0], 1)
+            step = torch.full(js.shape, eps, dtype=c.dtype, device=c.device)
+            c[torch.arange(js.shape[0]), dofs[js % B]] += torch.where(
+                js < B, step, -step)
+            _, f = self._eforce_images(c.view(-1, *c0.shape))
+            return f.reshape(js.shape[0], -1)[:, :n3]
 
-        f = (self._over_data(torch.arange(2 * B), force) if B
+        f = (self._over_data(torch.arange(2 * B), forces, chunk_setting(
+            None, "PDB2R_TPU_FD_CHUNK", FD_CHUNK_DEFAULT)) if B
              else torch.zeros(0, n3))
         self.force_calls += 2 * B
         f = f.double().cpu().numpy()
@@ -335,20 +440,29 @@ class Calculator:
     def au_energy_force_batch_fn(self):
         """[B, P, 3] Bohr tensor -> (E [B] Hartree, F [B, P, 3] Hartree/Bohr),
         float64 tensors on the device, frozen and padding rows zero. The
-        images run one after another (the JAX calculator's lax.map with
-        one image a step) with no host sync between them, over a data
-        axis each rank its block; each image counts as a force call on
-        every rank. One closure per (calculator, params)."""
+        images run in chunks of ``batch_chunk`` (``_eforce_images``: one
+        stacked pass a chunk where the calculator has
+        ``energy_fn_images``), with no host sync between them, over a
+        data axis each rank its block; each image counts as a force call
+        on every rank. One closure per (calculator, params)."""
         cached = getattr(self, "_batch_closure", None)
         if cached is not None and cached[0] is self.params:
             return cached[1]
+        chunk = chunk_setting(self.batch_chunk, "PDB2R_TPU_BATCH_CHUNK",
+                              BATCH_CHUNK_DEFAULT)
 
-        def each(c):
-            e, f = self._au_eforce(c)
-            return torch.cat([f.reshape(-1), e.reshape(1)])
+        def run(coords):
+            if coords.shape[0] == 1 or self._images_fn() is None:
+                e, f = zip(*(self._au_eforce(x) for x in coords))
+                e, f = torch.stack(e), torch.stack(f)
+            else:
+                e, f = self._eforce_images(coords.to(self.dtype) * BOHR2ANG)
+                e, f = e.double() * EV2AU, f.double() * F_EVAA_2_AU
+            return torch.cat([f.reshape(coords.shape[0], -1),
+                              e.reshape(-1, 1)], 1)
 
         def fn(coords_batch):
-            out = self._over_data(coords_batch, each)
+            out = self._over_data(coords_batch, run, chunk)
             self.force_calls += coords_batch.shape[0]
             return (out[:, -1].contiguous(),
                     out[:, :-1].reshape(coords_batch.shape))

@@ -30,7 +30,10 @@ the JAX package has no kernel for them (``edge_route``). Each node FFN
 is one call of K2 (``fused_node_ffn``) on every kernel layout, as the
 JAX package's ``use_pallas_ffn`` rule gives. Every kernel takes its CUDA
 version on CUDA tensors and its plain PyTorch version on CPU tensors.
-Forces are autograd gradients of the energy.
+Forces are autograd gradients of the energy. ``escn_energy_images``
+takes B images of one system in one pass, stacked along the atom axis,
+so each kernel launches once a layer for all of them (the Calculator's
+chunks of images and FD displacements).
 
 Parameters laid over a mesh axis (``parallel.Shard``) run too: a tree
 of ``parallel.shard_params_model`` (feature columns over "model") is
@@ -58,7 +61,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from ..core.neighbors import dense_neighbors_rows, neighbor_vectors
+from ..core.neighbors import (dense_neighbors_images, dense_neighbors_rows,
+                              neighbor_vectors)
 from ..core.structure import PaddedSystem
 from ..parallel.distributed import Shard
 from ..parallel.mesh import map_tree
@@ -468,11 +472,24 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
     per-edge inputs every layer's edge path shares. Under ``shard`` (a
     ``parallel.SpatialGroup``) the coordinates come in replicated and
     everything per atom or per edge is this rank's rows only; neighbour
-    indices are global."""
+    indices are global. Coordinates [B, P, 3] stack B images of the
+    system along the atom axis: B*P rows, each image's radius graph its
+    own, its neighbour indices offset by b*P."""
     check_edge_kernel(cfg)
     route = edge_route(cfg, shard is not None)
     dt = cfg.dtype
     dev = coords_ang.device
+    K = cfg.max_neighbors
+    mask_all, numbers = system.atom_mask, system.numbers
+    stacked = coords_ang.dim() == 3
+    if stacked:
+        if shard is not None:
+            raise ValueError("stacked images run unsharded")
+        B, Pi = coords_ang.shape[:2]
+        idx, nbr_mask = dense_neighbors_images(coords_ang.detach(),
+                                               mask_all, cfg.cutoff, K)
+        coords_ang = coords_ang.reshape(B * Pi, 3)
+        mask_all, numbers = mask_all.repeat(B), numbers.repeat(B)
     P = coords_ang.shape[0]
     i0, n = 0, P
     if shard is not None:
@@ -482,13 +499,16 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
         coords_ang = shard.replicate_in(coords_ang)
         n = P // shard.size
         i0 = shard.rank * n
+    if not stacked:
+        # ---- radius graph (nearest-K within cutoff; no gradient) ----------
+        idx, nbr_mask = dense_neighbors_rows(coords_ang.detach(), mask_all,
+                                             cfg.cutoff, K, i0, n)
     C = cfg.sphere_channels
     M = num_coeffs(cfg.lmax)
-    K = cfg.max_neighbors
     E = n * K
     nl0 = cfg.lmax + 1
-    atom_mask = system.atom_mask[i0:i0 + n].to(dt)
-    z_all = torch.clamp(system.numbers, 0, cfg.max_z)     # idx is global
+    atom_mask = mask_all[i0:i0 + n].to(dt)
+    z_all = torch.clamp(numbers, 0, cfg.max_z)            # idx is global
     z = z_all[i0:i0 + n]
 
     head = params["energy_head"][0]["w"]
@@ -498,10 +518,6 @@ def _setup(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
         # of alpha: the cotangents of alpha sum over the axis
         alpha = head.group.replicate_in(alpha)
 
-    # ---- radius graph (nearest-K within cutoff; no gradient) --------------
-    idx, nbr_mask = dense_neighbors_rows(coords_ang.detach(),
-                                         system.atom_mask, cfg.cutoff, K,
-                                         i0, n)
     nbr_mask = nbr_mask.to(dt)
     vec, dist = neighbor_vectors(
         coords_ang, idx, nbr_mask,
@@ -730,16 +746,9 @@ def first_layer_kernel_args(coords_ang, system, params, cfg: ESCNConfig,
             (rows.reshape(rows.shape[0], -1), s["src"], s["live"]))
 
 
-def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
-                shard=None):
-    """Total potential energy in eV of one padded system; coords [P, 3].
-
-    With ``shard`` (a ``parallel.SpatialGroup``) this runs spatially
-    partitioned, as the JAX package's ``escn_energy`` inside a
-    ``shard_map``: each rank owns P/n atom rows (its neighbour slab, edge
-    frames, messages and node features), all-gathers the normalised node
-    features once a layer and returns the energy summed over ranks, the
-    same on every rank."""
+def _atom_energies(coords_ang, system, params, cfg: ESCNConfig, shard):
+    """Every row's energy in eV [n] (padding rows zero): the blocks and
+    the energy head over ``_setup``'s rows."""
     params = _whole_model(params)
     s = _setup(coords_ang, system, params, cfg, shard)
     x = s["x"]
@@ -750,16 +759,63 @@ def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
         else:
             x = _block(s, blk, cfg, x)
     alpha, z, atom_mask = s["alpha"], s["z"], s["atom_mask"]
-    dt = cfg.dtype
-
-    # ---- energy head --------------------------------------------------------
     xn = _equi_rms_norm(x, params["energy_norm"], cfg)
     e = torch.nn.functional.silu(_mole(params["energy_head"][0], alpha,
                                        xn[:, 0, :]))
     e_atom = _mole(params["energy_head"][1], alpha, e)[..., 0]
-    e_ref = params["atom_ref"].to(dt)[z]
-    e = ((e_atom + e_ref) * atom_mask).sum()
+    e_ref = params["atom_ref"].to(cfg.dtype)[z]
+    return (e_atom + e_ref) * atom_mask
+
+
+def escn_energy(coords_ang, system: PaddedSystem, params, cfg: ESCNConfig,
+                shard=None):
+    """Total potential energy in eV of one padded system; coords [P, 3].
+
+    With ``shard`` (a ``parallel.SpatialGroup``) this runs spatially
+    partitioned, as the JAX package's ``escn_energy`` inside a
+    ``shard_map``: each rank owns P/n atom rows (its neighbour slab, edge
+    frames, messages and node features), all-gathers the normalised node
+    features once a layer and returns the energy summed over ranks, the
+    same on every rank."""
+    e = _atom_energies(coords_ang, system, params, cfg, shard).sum()
     return e if shard is None else shard.sum_out(e)
+
+
+def escn_energy_images(coords_ang, system: PaddedSystem, params,
+                       cfg: ESCNConfig):
+    """The energies in eV [B] of B images of one system, coords [B, P, 3],
+    in one pass: the images stacked along the atom axis (B*P rows, B*P*K
+    edges, each image's radius graph its own), so every layer launches
+    each kernel of the route once for all of them, and the energies are
+    the per-image sums of the atom energies. The counterpart of the JAX
+    calculator's ``lax.map(batch_size=B)``, which vmaps each
+    ``pallas_call`` over a grid axis. A call holds at most
+    ``stack_limit(cfg, P)`` images."""
+    B, P = coords_ang.shape[:2]
+    if B > stack_limit(cfg, P):
+        raise ValueError(f"{B} stacked images of {P} atoms: at most "
+                         f"{stack_limit(cfg, P)} (32-bit kernel offsets)")
+    return _atom_energies(coords_ang, system, params, cfg,
+                          None).reshape(B, P).sum(1)
+
+
+_INT32_ELEMS = 2 ** 31 - 1
+
+
+def stack_limit(cfg: ESCNConfig, n_pad: int) -> int:
+    """Most images of ``n_pad`` atoms one stacked call may hold: the edge
+    and node-FFN kernels address their buffers with 32-bit offsets, so no
+    buffer of a launch may reach 2^31 elements. Per image the largest are
+    the edge rows [P*K, U*2C + Ce] and [P*K, U*max(H, C)], the gathered
+    [P*K, M*C] rows and K2's (node, grid point) rows [G*P, max(F, C)]."""
+    M = num_coeffs(cfg.lmax)
+    U = len(_used_indices(cfg.lmax, cfg.mmax))
+    C, H = cfg.sphere_channels, cfg.hidden_channels
+    E = n_pad * cfg.max_neighbors
+    nt, nph = cfg.grid
+    per = max(E * (U * 2 * C + cfg.edge_channels), E * U * max(H, C),
+              E * M * C, nt * nph * n_pad * max(cfg.ffn_hidden, C))
+    return max(1, _INT32_ELEMS // per)
 
 
 # named configs (same entries as the JAX package's registry)
@@ -792,4 +848,13 @@ def escn_energy_fn(cfg: ESCNConfig):
     """Calculator-protocol closure (coords, system, params) -> eV."""
     def fn(coords, system, params):
         return escn_energy(coords, system, params, cfg)
+    return fn
+
+
+def escn_energy_images_fn(cfg: ESCNConfig):
+    """The Calculator's stacked-images closure (coords [B, P, 3], system,
+    params) -> eV [B]; ``fn.max_images(P)`` is ``stack_limit``."""
+    def fn(coords, system, params):
+        return escn_energy_images(coords, system, params, cfg)
+    fn.max_images = lambda n_pad: stack_limit(cfg, n_pad)
     return fn

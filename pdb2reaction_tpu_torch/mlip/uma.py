@@ -9,11 +9,17 @@ across with ``from_jax.params_from_jax``); a fairchem-style ``.pt``
 checkpoint, given as ``checkpoint`` or else named by the
 ``PDB2R_TPU_UMA_PT`` variable, converted by ``mlip/convert.py`` with
 the eSCN configuration inferred from its tensor shapes (``model`` is
-then not read) and tagged ``converted:<path>``; else the deterministic
-seeded surrogate, announced by a loud warning because its energies mean
-nothing chemically. Orbax checkpoints (the JAX package's other
-checkpoint route) need a JAX library: carry them across with
-``from_jax`` instead. For eSCN the MoLE expert banks are merged once
+then not read) and tagged ``converted:<path>``; an Orbax tree of the JAX
+package (``save_checkpoint``), given as any other ``checkpoint`` (read
+with ``required=True``, tagged ``checkpoint:<path>``) or else found at
+``PDB2R_TPU_CKPT_DIR/<model>`` (read with ``required=False``, tagged
+``ckpt_dir:<path>``), carried across by ``from_jax.params_from_jax``
+with the requested charge and spin; else the deterministic seeded
+surrogate, announced by a loud warning because its energies mean
+nothing chemically. ``last_weights_source()`` gives the tag of the
+latest calculator built, as in the JAX package. Orbax trees are read
+and written through ``tensorstore`` (``mlip/orbax_io.py``); without it
+a tree raises ImportError. For eSCN the MoLE expert banks are merged once
 with the system's (task, charge, spin) routing (exact), and
 ``edge_kernel`` (else
 the ``PDB2R_TPU_ESCN_KERNEL`` variable, else "pallas-mega") picks the
@@ -63,6 +69,7 @@ import dataclasses
 import math
 import os
 import sys
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
@@ -71,12 +78,60 @@ from ..core.structure import Structure
 from ..parallel.distributed import current_group
 from ..parallel.spatial import (make_spatial_energy_fn,
                                 make_spatial_hessian_energy_fn)
+from . import orbax_io
 from .calculator import Calculator, resolve_device
 from .convert import convert_checkpoint
 from .escn import (ESCN_CONFIGS, check_edge_kernel, escn_energy_fn,
-                   init_escn_params, premerge_escn_params, tree_to)
+                   escn_energy_images_fn, init_escn_params,
+                   premerge_escn_params, tree_to)
+from .from_jax import params_from_jax
 from .model import (CONFIGS, init_params, make_energy_fn,
                     make_hessian_energy_fn)
+
+
+def load_checkpoint(path, *, required: bool = False) -> Optional[dict]:
+    """Restore a parameter tree written by the JAX package's (or this
+    module's) ``save_checkpoint``: nested dicts and lists of numpy arrays
+    and Python numbers, as stored.
+
+    ``required=True`` (an explicitly requested checkpoint) raises
+    RuntimeError on any restore failure: a corrupt, missing or unreadable
+    tree never silently degrades to surrogate weights. Otherwise the
+    failure is printed and None returned. Without ``tensorstore`` it
+    raises ImportError either way."""
+    path = Path(path).resolve()
+    orbax_io._tensorstore(path)
+    try:
+        return orbax_io.read_tree(path)
+    except (FileNotFoundError, ValueError, KeyError, TypeError, OSError) as e:
+        if required:
+            raise RuntimeError(
+                f"Failed to restore requested checkpoint {path}: {e}") from e
+        print(f"[uma] WARNING: checkpoint {path} could not be restored "
+              f"({e}); falling back to surrogate weights")
+        return None
+
+
+def save_checkpoint(path, params) -> None:
+    """Write ``params`` (tensors, arrays, numbers in nested dicts and
+    lists; for example a calculator's ``params`` or a train step's) as an
+    Orbax tree at ``path``, replacing it, which the JAX package's
+    ``load_checkpoint`` restores."""
+    orbax_io.write_tree(path, params)
+
+
+_LAST_WEIGHTS_SOURCE: Optional[str] = None
+
+
+def last_weights_source() -> Optional[str]:
+    """The weights-source tag of the latest UMA-class calculator built in
+    this process (None before the first)."""
+    return _LAST_WEIGHTS_SOURCE
+
+
+def _record_weights_source(tag: str) -> None:
+    global _LAST_WEIGHTS_SOURCE
+    _LAST_WEIGHTS_SOURCE = tag
 
 
 def _spatial_group(spatial: int, device):
@@ -134,24 +189,27 @@ def make_uma_calculator(
     hessian_double: bool = True,
     fd_step: float = 1.0e-3,
     mesh=None,
+    batch_chunk: Optional[int] = None,
 ) -> Calculator:
     """Calculator for a named configuration. ``dtype`` is the model's
     compute type (None: the configuration's own; the CUDA kernels take
     float32, and the PaiNN pallas mode computes in float32 whatever it
     is). ``params`` may be raw or premerged (eSCN). ``mp_mode`` picks the
     PaiNN-class layout (None: the configuration's own). ``task`` is the
-    eSCN task index of the routing (None: ``params["task"]``, else 0)."""
+    eSCN task index of the routing (None: ``params["task"]``, else 0).
+    ``batch_chunk`` is the images a chunk of an image batch holds (None:
+    ``PDB2R_TPU_BATCH_CHUNK``, else 1); an unsharded eSCN calculator
+    stacks a chunk's images into one pass (``escn_energy_images``), its
+    FD displacements too."""
     spatial = int(spatial or 1)
-    if checkpoint is not None and not str(checkpoint).endswith(".pt"):
-        raise NotImplementedError(
-            f"checkpoint={checkpoint!r}: the port reads fairchem-style .pt "
-            "checkpoints; an orbax checkpoint of the JAX package needs a "
-            "JAX library, so carry its tree across with "
-            "from_jax.params_from_jax and pass it as params=")
-    pt_path = checkpoint or (None if params is not None
-                             else os.environ.get("PDB2R_TPU_UMA_PT"))
-    if pt_path and params is not None:
+    if checkpoint is not None and params is not None:
         raise ValueError("give params= or a checkpoint, not both")
+    if checkpoint is not None and not str(checkpoint).endswith(".pt"):
+        orbax_path, pt_path = checkpoint, None
+    else:
+        orbax_path = None
+        pt_path = checkpoint or (None if params is not None
+                                 else os.environ.get("PDB2R_TPU_UMA_PT"))
     escn = bool(pt_path) or model.startswith("escn")
     if escn and mp_mode:
         raise ValueError("mp_mode picks a PaiNN-class layout; eSCN models "
@@ -176,6 +234,19 @@ def make_uma_calculator(
     else:
         raise KeyError(f"unknown model {model!r}: one of "
                        f"{sorted(CONFIGS) + sorted(ESCN_CONFIGS)}")
+    root = os.environ.get("PDB2R_TPU_CKPT_DIR")
+    tree = None
+    # an Orbax tree: the explicit one (fatal when unreadable), else
+    # PDB2R_TPU_CKPT_DIR/<model> (unreadable: a warning and the surrogate)
+    if orbax_path:
+        tree = load_checkpoint(orbax_path, required=True)
+        weights_source = f"checkpoint:{orbax_path}"
+    elif not pt_path and params is None and root \
+            and (Path(root) / model).exists():
+        tree = load_checkpoint(Path(root) / model)
+        weights_source = f"ckpt_dir:{Path(root) / model}"
+    if tree is not None:
+        params = params_from_jax(tree)
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
     if mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=str(mp_mode))
@@ -197,11 +268,12 @@ def make_uma_calculator(
         source = _warn_surrogate(model, seed)
     else:
         source = weights_source or "given"
+    _record_weights_source(source)
     params = tree_to(dict(params), device=dev)
     params = tree_to(params, dtype=cfg.dtype)
     params["charge"] = torch.as_tensor(float(charge))
     params["spin"] = torch.as_tensor(float(spin))
-    fn_h = None
+    fn_h = fn_images = None
     if escn:
         params["task"] = torch.as_tensor(float(
             task if task is not None else params.get("task", 0)))
@@ -211,6 +283,7 @@ def make_uma_calculator(
             fn_h = make_spatial_hessian_energy_fn(cfg, group)
         else:
             fn = escn_energy_fn(cfg)
+            fn_images = escn_energy_images_fn(cfg)
             if cfg.edge_kernel != "xla":
                 fn_h = escn_energy_fn(dataclasses.replace(
                     cfg, edge_kernel="xla"))
@@ -235,7 +308,8 @@ def make_uma_calculator(
                       hessian_double=hessian_double, fd_step=fd_step,
                       pad_multiple=pad_multiple, device=dev,
                       weights_source=source, energy_fn_hessian=fn_h,
-                      mesh=mesh)
+                      mesh=mesh, batch_chunk=batch_chunk,
+                      energy_fn_images=fn_images)
     calc.cfg = cfg
     calc.spatial = spatial
     return calc

@@ -41,7 +41,8 @@ def make_spatial_energy_fn(cfg, group: SpatialGroup, plain: bool = False):
     (PaiNN-class) or an ``ESCNConfig``. The padded atom count must be
     divisible by the group size (``make_uma_calculator(spatial=n)`` pads
     to lcm(8, n)). ``plain`` runs the pallas mode on K6's plain
-    version."""
+    version. The closure is marked ``collective``: its collectives have
+    no batching rule, so a Calculator runs its chunks item by item."""
     kw = {}
     if not isinstance(cfg, ModelConfig):
         body = escn_energy
@@ -53,6 +54,7 @@ def make_spatial_energy_fn(cfg, group: SpatialGroup, plain: bool = False):
     def fn(coords, system, params):
         return body(coords, system, params, cfg, shard=group, **kw)
 
+    fn.collective = True
     return fn
 
 

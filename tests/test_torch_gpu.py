@@ -1624,3 +1624,58 @@ def test_train_steps_on_card_match_cpu_f64():
         T.make_escn_train_step(cfg, opt)(p, opt.init(p), T.TrainBatch(
             *(t.cuda() for t in batch)))
     assert ek.launches == n0
+
+
+@pytest.mark.parametrize("edge_kernel", list(EDGE_FN))
+def test_stacked_images_on_card_match_one_image(edge_kernel):
+    """Five escn-test images in one stacked pass (batch_chunk 5) through
+    K1 / K3 / K4 with K2 against the images one at a time: each kernel
+    launched once a layer for the chunk, not once an image, energies
+    within 1e-6 relative and forces within TOL of max|F|."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    st = Structure(rng.choice([1, 6, 8], size=10).astype(np.int32),
+                   rng.normal(scale=1.5, size=(10, 3)))
+    w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=3)
+    X = st.coords_bohr.reshape(1, -1) + 0.05 * rng.normal(size=(5, 30))
+    out = {}
+    for chunk in (1, 5):
+        calc = make_uma_calculator(st, model="escn-test", device="cuda",
+                                   params=w, edge_kernel=edge_kernel,
+                                   batch_chunk=chunk)
+        n0 = {**ek.launches, **fk.launches}
+        out[chunk] = calc.get_forces_batch(X)
+        moved = {k: v - n0[k] for k, v in {**ek.launches,
+                                            **fk.launches}.items()
+                 if v != n0[k]}
+        layers = ESCN_CONFIGS["escn-test"].num_layers
+        key = EDGE_FN[edge_kernel]
+        per = layers * (5 // chunk)
+        assert moved == {f"{key}_fwd": per, f"{key}_bwd": per,
+                         "fused_node_ffn_fwd": per,
+                         "fused_node_ffn_bwd": per}
+    e1, e5 = out[1]["energy"], out[5]["energy"]
+    assert np.abs(e5 - e1).max() <= 1e-6 * np.abs(e1).max()
+    f1, f5 = out[1]["forces"], out[5]["forces"]
+    assert np.abs(f5 - f1).max() <= TOL * np.abs(f1).max()
+
+
+def test_batched_hvp_on_card_matches_single_hvps():
+    """Eight HVP tangents of escn-md at 64 atoms in one batched backward of
+    the plain path (is_grads_batched) against eight single backwards on
+    the same graph, within 1e-5 of max|Hv|, no kernel launched."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    st = Structure(rng.choice([1, 6, 7, 8], size=64).astype(np.int32),
+                   rng.normal(scale=4.0, size=(64, 3)))
+    calc = make_uma_calculator(st, model="escn-md", device="cuda", seed=0)
+    c, g = calc._grad_graph(calc._to_pad_ang(st.coords_bohr), calc.system,
+                            calc.params)
+    V = torch.zeros((8, c.numel()), **F32)
+    V[torch.arange(8), torch.arange(8) * 11] = 1.0
+    V = V.view(8, *c.shape)
+    n0 = {**ek.launches, **fk.launches}
+    hb = calc._vjp(c, g, V, batched=True)
+    hs = torch.stack([calc._vjp(c, g, v) for v in V])
+    assert {**ek.launches, **fk.launches} == n0
+    assert float((hb - hs).abs().max()) <= 1e-5 * float(hs.abs().max())

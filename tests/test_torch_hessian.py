@@ -294,9 +294,11 @@ def test_analytic_hessian_takes_free_tangents_only():
     seen = []
     orig = Calculator._vjp
 
-    def spy(c, g, v):
-        seen.append(int(torch.nonzero(v.reshape(-1))[0]))
-        return orig(c, g, v)
+    def spy(c, g, v, batched=False):
+        # a chunk of tangents is one batched call
+        for t in (v if batched else v[None]):
+            seen.append(int(torch.nonzero(t.reshape(-1))[0]))
+        return orig(c, g, v, batched)
 
     Calculator._vjp = staticmethod(spy)
     try:

@@ -235,6 +235,47 @@ def test_hessian_tangents_over_data_ranks(run, mode):
         assert calls == one.force_calls
 
 
+def test_chunks_over_data_ranks(run):
+    """escn-test in f64 over four data ranks with chunks of 8 (a rank's
+    share 2): the analytic and FD Hessians and a batch of 5 images
+    stacked 2 a pass, against one process one item at a time, at 1e-12
+    of max|H| and of max|F|, the same bits on every rank, and the force
+    calls counted as one process counts them."""
+    ranks, _, d = run
+    st8 = io_xyz.read_xyz(d / "slice.xyz")
+    cb8 = st8.coords_bohr.reshape(-1)
+    with open(d / "in.pkl", "rb") as fh:
+        tp = params_from_jax(pickle.load(fh)["escn_weights"])
+    images = np.stack([cb8 + 0.02 * k for k in range(5)])
+    ref = {}
+    for mode in ("Analytical", "FiniteDifference"):
+        calc = make_uma_calculator(
+            st8, model="escn-test", device="cpu", dtype=torch.float64,
+            params=tp, batch_chunk=1, hessian_calc_mode=mode,
+            freeze_atoms=[4, 5, 6, 7])
+        os.environ.update(PDB2R_TPU_HVP_CHUNK="1", PDB2R_TPU_FD_CHUNK="1")
+        try:
+            ref[mode] = calc.get_hessian(cb8)["hessian"]
+        finally:
+            del os.environ["PDB2R_TPU_HVP_CHUNK"]
+            del os.environ["PDB2R_TPU_FD_CHUNK"]
+    rb = calc.get_forces_batch(images)
+    for res in ranks:
+        got = res["chunked"]
+        for mode in ("Analytical", "FiniteDifference"):
+            H = got[mode]
+            assert np.abs(H - ref[mode]).max() \
+                <= 1e-12 * np.abs(ref[mode]).max()
+            assert np.array_equal(H, ranks[0]["chunked"][mode])
+        r, calls = got["batch"]
+        assert calls == calc.force_calls
+        np.testing.assert_allclose(r["energy"], rb["energy"], rtol=1e-12)
+        assert np.abs(r["forces"] - rb["forces"]).max() \
+            <= 1e-12 * np.abs(rb["forces"]).max()
+        assert np.array_equal(r["forces"], ranks[0]["chunked"]["batch"][0][
+            "forces"])
+
+
 def test_sharded_calculator_batches(run):
     """Twin of tests/test_spatial.py:116: get_forces_batch through a
     calculator sharded over four model ranks, image by image."""

@@ -70,6 +70,25 @@ def _mesh_suite(inp, d):
                           mesh=mesh, hessian_calc_mode=mode)
         res[f"hess/{mode}"] = (calc.get_hessian(x0)["hessian"],
                                calc.force_calls)
+    # chunks over the data axis (escn-test, f64): every rank stacks its
+    # 2 images or displacements of a chunk of 8 and batches its tangents
+    st8 = Structure(*inp["slice"])
+    cb8 = st8.coords_bohr.reshape(-1)
+    chunked = {}
+    os.environ.update(PDB2R_TPU_HVP_CHUNK="8", PDB2R_TPU_FD_CHUNK="8")
+    try:
+        for mode in ("Analytical", "FiniteDifference"):
+            calc = make_uma_calculator(
+                st8, model="escn-test", device="cpu", dtype=torch.float64,
+                params=params_from_jax(inp["escn_weights"]), mesh=mesh,
+                batch_chunk=6, hessian_calc_mode=mode,
+                freeze_atoms=[4, 5, 6, 7])
+            chunked[mode] = calc.get_hessian(cb8)["hessian"]
+    finally:
+        del os.environ["PDB2R_TPU_HVP_CHUNK"], os.environ["PDB2R_TPU_FD_CHUNK"]
+    images = np.stack([cb8 + 0.02 * k for k in range(5)])
+    chunked["batch"] = (calc.get_forces_batch(images), calc.force_calls)
+    res["chunked"] = chunked
     # the path search resumes from rank 0's memo (the parent's run made
     # it): every rank restores the same segments with no MEP force call
     rp = run_path_search(inp["h3"], charge=0, calc_mode="morse",
