@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # device, build and kernel parity only
                                      # (phases 1-3, 6 and 10)
     python3 chip_smoke.py --chunks   # device, build and phase 22 alone
+    python3 chip_smoke.py --loops    # device, build and phase 23 alone
 
 Phases (any failure exits non-zero):
 1. device: name, count, power limit (nvidia-smi);
@@ -176,7 +177,7 @@ Phases (any failure exits non-zero):
    with no force call; (b) run_scan_nd, a 3 x 3 L-BFGS grid (15 cycles a
    relaxation, 9 energy calls, surface.csv of 9 rows), then one grid
    point in rfo mode (two biased Hessians); (c) the scan and scan3d
-   (2 x 2 x 2) CLIs as subprocesses; (d) run_all on phase 16's reactant
+   (2 x 2 x 2) CLIs as two subprocesses at once; (d) run_all on phase 16's reactant
    alone with scan_stages in full-structure indices (LIG C2-O1 to 2.40
    Angstrom, remapped onto the pocket; no preopt or endopt), max_depth
    0, max_nodes 6, 5 string cycles, stage 4 off: the scan product's
@@ -189,11 +190,11 @@ Phases (any failure exits non-zero):
    printed on [scan] lines;
 18. delocalized internals and Direct Max Flux on escn-md (phase 4's
    weights, P = 320): (a) run_opt(coord_type="dlc") on the 300-atom
-   cluster, 20 cycles, unconstrained and on phase 15's active region
+   cluster, 10 cycles, unconstrained and on phase 15's active region
    (the rest frozen, unmoved bit for bit): the primitives, n_dlc,
    cycles, force calls, E before and after (it must drop) and the host
    ms a cycle outside the force call; (b) run_tsopt(heavy,
-   coord_type="dlc") from phase 13's TS guess on that active region, 20
+   coord_type="dlc") from phase 13's TS guess on that active region, 10
    cycles, its two Hessians on the plain path; (c) run_mep_between
    (mep_mode="dmf") on phase 12's flagship pair, 12 images, the heavy
    ball (24 cycles) and the native C++ L-BFGS-B (12 cycles; the library
@@ -284,6 +285,28 @@ Phases (any failure exits non-zero):
    FD Hessian's own error against the analytic one); (c) HVP batches of
    phase 4's calculator at 300 atoms at C = 1, 8 and the default, ms a
    tangent and peak memory, against single HVPs.
+23. the GSM device loop ([loops] lines, each beside the card's name and
+   power limit): gsm_mep(loop="device"), growth and relaxation each a
+   captured CUDA graph replayed with a lagged stop flag, against the host
+   loop on the same inputs: equal cycles, force calls, convergence and
+   HEI, the images' max difference (within P23_IMG_TOL), the calculator
+   counting exactly the string's force calls, the graphs' captures and
+   replays (both non-zero), the launches each capture recorded, the
+   graphs' launches (capture x replays), the wall, ms a cycle, the
+   capture's ms and the reserved memory the graphs' pools took: (a)
+   phase 12's flagship string (escn-md pallas-mega, 300 atoms, climb
+   off; K1 and K2 48 + 48 a capture) against phase 12's host run; (b)
+   its climbing image on Lanczos tangents (the relaxation switching from
+   its no-Lanczos graph to its Lanczos one) against phase 12's; (c)
+   uma-s-1p1 dense at 300 atoms through run_mep_between with gs_kw
+   loop="auto" (the device loop) against loop="host", 12 cycles; (d)
+   uma-s-1p1 pallas at 1024 atoms through K5 (8 / 7 / 8 launches an
+   image a capture), 8 cycles, and K5's coordinate kernel and forward +
+   backward call on tile_plan_fixed (what the calls build) against
+   tile_plan, eager, at 1024 and 4096 atoms (ms, coordinate gradients
+   bit for bit); (e) the
+   path-opt CLI with --gsm-loop device and host as two subprocesses at
+   once (uma-s-1p1 dense): the same HEI within 2e-3 Angstrom and cycles.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -958,7 +981,8 @@ def gsm_flagship(calc, xA, xB, ms_force):
     from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
     fm = calc.system.free_mask
     eb = calc.au_energy_force_batch_fn()
-    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False)
+    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False,
+              loop="host")
     t0 = time.perf_counter()
     gsm_mep(eb, xA, xB, fm, max_cycles=8, stop_in_when_full=2, **kw)
     torch.cuda.synchronize()
@@ -1003,8 +1027,9 @@ def gsm_flagship(calc, xA, xB, ms_force):
 
 
 def gsm_climb(calc, xA, xB):
-    """The same string with the climbing image on Lanczos tangents; every
-    HVP counted and timed, and checked to launch no kernel."""
+    """The same string with the climbing image on Lanczos tangents, the
+    host loop; every HVP counted and timed, and checked to launch no
+    kernel. Returns the result and its wall."""
     import torch
     from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
     hvp = calc.au_hvp_fn()
@@ -1029,7 +1054,7 @@ def gsm_climb(calc, xA, xB):
                   calc.system.free_mask, max_nodes=10, climb=True,
                   climb_lanczos=True, climb_rms=GSM_CONV,
                   conv_perp_rms=GSM_CONV, lanczos_iters=10, max_cycles=30,
-                  stop_in_when_full=30, hvp_fn=counted)
+                  stop_in_when_full=30, hvp_fn=counted, loop="host")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1051,6 +1076,7 @@ def gsm_climb(calc, xA, xB):
     if calc.force_calls - n0 != res.force_calls \
             or res.force_calls != (res.cycles + 1) * 12:
         fail("climbing GSM force-call accounting is off")
+    return res, wall
 
 
 P12_FROZEN = [0, 1]
@@ -1258,14 +1284,14 @@ def phase_gsm(calc, ms_force, ref64, p12_cpu):
     xA = calc.pad_bohr(st.coords_bohr)
     xB = calc.pad_bohr(xyzB * ANG2BOHR)
     flagship = gsm_flagship(calc, xA, xB, ms_force)
-    gsm_climb(calc, xA, xB)
+    climb = gsm_climb(calc, xA, xB)
     hess = hessians_64(ref64, p12_cpu)
     path_opt_cli(st, xyzB)
     log(f"[gsm] phase 12 wall {time.perf_counter() - t0:.1f} s; device "
         f"memory held {held:.2f} GiB before, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after")
     return {"xA": xA.cpu().numpy(), "xB": xB.cpu().numpy(),
-            "gsm": flagship, "hess": hess}
+            "gsm": flagship, "climb": climb, "hess": hess}
 
 
 # ---------------------------------------------------------------------------
@@ -2516,8 +2542,8 @@ def phase_scans(calc, st, bond, smi_line):
 def scan_cli(out, path, freeze, bond, p2, p3, d0, d2, d3):
     """Phase 17c: ``scan`` (one stage, no preopt or endopt, --dump) and
     ``scan3d`` (a 2 x 2 x 2 grid: spans of 0.1 A at a 0.15 A maximum
-    step, 5 cycles a relaxation) as subprocesses
-    on the card: exit codes and outputs."""
+    step, 5 cycles a relaxation) as two subprocesses at once on the card:
+    exit codes and outputs."""
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     base = ["--model", "escn-md", "-q", "0", "--freeze-atoms",
@@ -2535,19 +2561,21 @@ def scan_cli(out, path, freeze, bond, p2, p3, d0, d2, d3):
                         "--scan", one_based(p3, round(d3 - 0.1, 4), 0.15),
                         "--preopt", "False", "--thresh", "gau_loose",
                         "--relax-max-cycles", "5"], ("surface.csv",), 8))
-    for cmd, extra, files, n_rows in runs:
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pdb2reaction_tpu_torch", cmd, "-i", path,
+         "--out-dir", os.path.join(out, f"cli_{cmd}")] + base + extra,
+        cwd=out, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for cmd, extra, _, _ in runs]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for (cmd, extra, files, n_rows), p, (so, se) in zip(runs, procs, outs):
         d = os.path.join(out, f"cli_{cmd}")
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "pdb2reaction_tpu_torch",
-                            cmd, "-i", path, "--out-dir", d] + base + extra,
-                           cwd=out, env=env, capture_output=True, text=True,
-                           timeout=600)
-        tail = [ln for ln in r.stdout.splitlines()
-                if ln.startswith(f"[{cmd}")][-2:]
-        log(f"[scan] (c) the {cmd} CLI as a subprocess: rc {r.returncode}, "
-            f"{time.perf_counter() - t0:.1f} s with start-up; {tail}")
-        if r.returncode != 0:
-            fail(f"the {cmd} CLI exited {r.returncode}: {r.stderr[-3000:]}")
+        tail = [ln for ln in so.splitlines() if ln.startswith(f"[{cmd}")][-2:]
+        log(f"[scan] (c) the {cmd} CLI as a subprocess (the two at once): rc "
+            f"{p.returncode}, done {time.perf_counter() - t0:.1f} s after "
+            f"their start; {tail}")
+        if p.returncode != 0:
+            fail(f"the {cmd} CLI exited {p.returncode}: {se[-3000:]}")
         missing = [f for f in files if not os.path.exists(
             os.path.join(d, f))]
         if missing:
@@ -2674,7 +2702,8 @@ def mini_dft_card(out):
 # phase 18: delocalized internals and Direct Max Flux on escn-md
 # ---------------------------------------------------------------------------
 
-DLC_CYCLES = 20         # phase 18a / 18b cycle caps
+DLC_CYCLES = 10         # phase 18a / 18b cycle caps (20 before the
+                        # script's limit took phase 23's room)
 DMF_IMAGES = 12         # phase 18c: the flagship string's 12 images
 # the DMF runs' depth, cut to keep the whole script inside its limit
 DMF_DEVICE_CYCLES = 24  # heavy-ball steps (8 per multiplier update)
@@ -4349,7 +4378,8 @@ def p20_gsm(mesh, inp):
     xB = torch.as_tensor(inp["xB"], device=dev)
     eb = calc.au_energy_force_batch_fn()
     fm = calc.system.free_mask
-    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False)
+    kw = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False,
+              loop="host")
     gsm_mep(eb, xA, xB, fm, max_cycles=2, stop_in_when_full=2, **kw)
     zero_escn_counts()
     n0 = calc.force_calls
@@ -5620,6 +5650,311 @@ def phase_chunks(calc, p12, st64, w64, rows, smi_line):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the GSM device loop (captured CUDA graphs) against the host loop
+# ---------------------------------------------------------------------------
+
+P23_IMG_TOL = 1e-4   # Bohr: device against host images (float32 forces;
+                     # the graphs replay the same kernels on the same
+                     # inputs, so the two agree far closer in practice)
+
+
+def p23_graphs(since):
+    """The device loop's cycles cached since ``since`` (a list of earlier
+    ones): their captures, replays, launches a capture recorded and
+    capture ms."""
+    from pdb2reaction_tpu_torch.runtime import device_loop
+    return [c.stats() for c in device_loop.cycles() if c not in since]
+
+
+def p23_pool_gib(cycles):
+    """GiB of the memory segments of the cycles' graph pools."""
+    import torch
+    pools = {tuple(c.pool()) for c in cycles}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools) / 2 ** 30
+
+
+def p23_graph_launches(stats):
+    """Launches the graphs ran: each capture's count times its replays."""
+    out = {}
+    for st in stats:
+        for k, v in st["launches"].items():
+            out[k] = out.get(k, 0) + v * st["replays"]
+    return out
+
+
+def p23_pair(tag, run, host, smi_line, want_launch=None):
+    """One device-loop run ``run()`` against the host loop's ``host``
+    result: equal cycles, force calls, convergence and HEI, the images'
+    max difference, the graphs' captures and replays (both non-zero), the
+    calculator's count (checked by ``run``), the wall, ms a cycle and the
+    reserved-memory growth (the graphs' pools). ``want_launch``: the
+    launches each capture must record (kernel -> count)."""
+    import torch
+    from pdb2reaction_tpu_torch.runtime import device_loop
+    since = device_loop.cycles()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool = p23_pool_gib([c for c in device_loop.cycles() if c not in since])
+    (hres, hwall) = host
+    stats = p23_graphs(since)
+    cap_ms = sum(s["capture_ms"] for s in stats)
+    replays = sum(s["replays"] for s in stats)
+    dimg = float(np.abs(res.images - hres.images).max())
+    log(f"[loops] ({tag}) {smi_line}; device loop: {wall:.2f} s wall "
+        f"({(wall - cap_ms / 1e3) / max(res.cycles, 1) * 1e3:.1f} ms a cycle "
+        f"after {cap_ms:.0f} ms of warm-up and capture), {res.cycles} "
+        f"cycles, {res.force_calls} force calls, converged {res.converged}, "
+        f"HEI {res.hei_idx}; host loop: {hwall:.2f} s "
+        f"({hwall / max(hres.cycles, 1) * 1e3:.1f} ms a cycle), "
+        f"{hres.cycles} cycles, {hres.force_calls} force calls, converged "
+        f"{hres.converged}, HEI {hres.hei_idx}; images max|d| {dimg:.3e} "
+        f"Bohr, bit for bit {np.array_equal(res.images, hres.images)}; "
+        f"graphs {len(stats)} captured, {replays} replays "
+        f"({[(s['replays'], s['effective']) for s in stats]} replays / "
+        f"cycles that took effect a graph), launches a capture "
+        f"{[s['launches'] for s in stats]}, graph launches (capture x "
+        f"replays) {p23_graph_launches(stats)}; the graphs' pools "
+        f"{pool:.2f} GiB")
+    if (res.cycles, res.force_calls, res.converged, res.hei_idx) != \
+            (hres.cycles, hres.force_calls, hres.converged, hres.hei_idx):
+        fail(f"({tag}) the device loop's cycles, force calls, convergence "
+             f"or HEI differ from the host loop's")
+    if not stats or not replays:
+        fail(f"({tag}) the device loop captured or replayed no graph")
+    if dimg > P23_IMG_TOL or not np.all(np.isfinite(res.images)):
+        fail(f"({tag}) device images {dimg:.3e} Bohr from the host loop's")
+    if want_launch is not None:
+        bad = [s["launches"] for s in stats if s["launches"] != want_launch]
+        if bad:
+            fail(f"({tag}) a capture recorded {bad}, expected {want_launch}")
+    return res, wall, stats
+
+
+def p23_counted(calc, run):
+    """``run()`` with the calculator's count checked against the
+    string's."""
+    def go():
+        n0 = calc.force_calls
+        res = run()
+        if calc.force_calls - n0 != res.force_calls:
+            fail(f"the calculator counted {calc.force_calls - n0} force "
+                 f"calls for the string's {res.force_calls}")
+        return res
+    return go
+
+
+def p23_timed(run):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def p23_cli(st, xyzB, smi_line):
+    """(e): the path-opt CLI with --gsm-loop device and host, two
+    subprocesses at once on the card (the default model, uma-s-1p1 dense,
+    whose "auto" is the device loop): rc, the HEI files within 2e-3
+    Angstrom (the JAX package's CLI bar), the same cycles."""
+    import shutil
+    from pdb2reaction_tpu_torch.core.io_xyz import read_xyz, write_xyz
+    out = os.path.join(HERE, "result_smoke", "loops")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    a, b = os.path.join(out, "A.xyz"), os.path.join(out, "B.xyz")
+    write_xyz(a, st)
+    write_xyz(b, st.copy(coords=xyzB))
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    t0 = time.perf_counter()
+    for loop in ("device", "host"):
+        cmd = [sys.executable, "-m", "pdb2reaction_tpu_torch", "path-opt",
+               "-i", a, "-i", b, "--max-nodes", "10", "--max-cycles", "8",
+               "--climb", "False", "-q", "0", "--gsm-loop", loop,
+               "--out-dir", os.path.join(out, loop)]
+        procs[loop] = subprocess.Popen(cmd, cwd=out, env=env,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    rcs = {k: p.returncode for k, p in procs.items()}
+    tails = {k: [ln for ln in o[0].splitlines()
+                 if ln.startswith("[path-opt] HEI")] for k, o in outs.items()}
+    if any(rc not in (0, 3) for rc in rcs.values()):
+        fail(f"path-opt --gsm-loop exited {rcs}: "
+             f"{[o[1][-2000:] for o in outs.values()]}")
+    hei = {k: read_xyz(os.path.join(out, k, "hei.xyz")).coords
+           for k in procs}
+    d = float(np.abs(hei["device"] - hei["host"]).max())
+    log(f"[loops] (e) {smi_line}; path-opt CLI, uma-s-1p1 dense (the "
+        f"default model), 300 atoms, max_nodes=10, 8 cycles, climb off, "
+        f"--gsm-loop device and host as two subprocesses at once: rc {rcs}, "
+        f"{wall:.1f} s with start-up; {tails}; HEI max|d| {d:.3e} Angstrom")
+    if d > 2e-3 or tails["device"][-1].split(";")[-1] \
+            != tails["host"][-1].split(";")[-1]:
+        fail("path-opt --gsm-loop device found another HEI or ran other "
+             "cycles than --gsm-loop host")
+
+
+def p23_plans(x, cfg, smi_line):
+    """(d): K5's coordinate kernel on the fixed-capacity plan
+    (``tile_plan_fixed``) against ``tile_plan``'s, eager, on coordinates
+    x [P, 3] (Angstrom, all real) at the first-layer stream's width
+    (launches timed in the order old, fixed, fixed, old, CUDA events), and
+    the forward + backward call both ways (the coordinate gradients bit
+    for bit)."""
+    import torch
+    from pdb2reaction_tpu_torch.mlip import radial_contract as rcm
+    from pdb2reaction_tpu_torch.mlip.cuda_build import (call, load, ptr,
+                                                        stream_ptr)
+    x = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    mask = torch.ones(x.shape[0], device="cuda")
+    P, F, R = x.shape[0], 4 * cfg.hidden, cfg.n_radial
+    g = torch.Generator(device="cuda").manual_seed(0)
+    feats = torch.randn(P, F, device="cuda", generator=g)
+    gout = torch.randn(P, R + 1, F, device="cuda", generator=g)
+    plans = {"old": rcm.tile_plan(x, mask, cfg.cutoff),
+             "fixed": rcm.tile_plan_fixed(x, mask, cfg.cutoff)}
+    lib = load("radial_contract")
+    dx = torch.empty(P, 3, device="cuda")
+
+    def coords(plan):
+        part = torch.empty(plan.cols.shape[0], rcm.TILE, 3, device="cuda")
+        return lambda: call(
+            lib, "rc_bwd_coords_launch", P, F, R, 0, float(cfg.cutoff),
+            plan.pairs.shape[0], ptr(getattr(plan, "n_upper", None)),
+            ptr(plan.xm), ptr(plan.perm), ptr(plan.row_ptr),
+            ptr(plan.pairs), ptr(feats), ptr(gout), ptr(part), ptr(dx),
+            stream_ptr())
+
+    ms = {"old": [], "fixed": []}
+    for k in ("old", "fixed", "fixed", "old"):
+        ms[k].append(cuda_ms(coords(plans[k]), reps=30))
+    call_ms, grads = {}, {}
+    for k, plan in plans.items():
+        xx = x.clone().requires_grad_(True)
+
+        def both():
+            y = rcm.radial_contract(xx, mask, feats, cfg.cutoff, R,
+                                    plan=plan)
+            return torch.autograd.grad(y, xx, gout)[0]
+        grads[k] = both()
+        call_ms[k] = cuda_ms(both, reps=10)
+    old, fixed = np.mean(ms["old"]), np.mean(ms["fixed"])
+    log(f"[loops] (d) {smi_line}; K5's coordinate kernel at {P} atoms "
+        f"(F = {F}), eager, old plan {ms['old']} ms, fixed plan "
+        f"{ms['fixed']} ms ({fixed / old:.3f}x; "
+        f"{plans['old'].stats()['listed_upper']} listed I <= J tile pairs "
+        f"of {plans['fixed'].pairs.shape[0]} slots); forward + backward "
+        f"call {call_ms['old']:.3f} / {call_ms['fixed']:.3f} ms; coordinate "
+        f"gradients bit for bit {torch.equal(grads['old'], grads['fixed'])}")
+    if not torch.equal(grads["old"], grads["fixed"]):
+        fail("K5's fixed plan gives other coordinate gradients")
+    return fixed / old
+
+
+def phase_loops(calc, p12, smi_line):
+    """Phase 23: the GSM device loop (module docstring)."""
+    import dataclasses
+
+    import torch
+    from pdb2reaction_tpu_torch.constants import ANG2BOHR
+    from pdb2reaction_tpu_torch.core.structure import Structure
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    from pdb2reaction_tpu_torch.mlip.model import CONFIGS, make_model
+    from pdb2reaction_tpu_torch.mlip.uma import make_uma_calculator
+    from pdb2reaction_tpu_torch.runtime import device_loop
+    from pdb2reaction_tpu_torch.workflows.path_opt import run_mep_between
+    t_phase = time.perf_counter()
+    st = calc.structure
+    free = calc.system.free_mask[: calc.n_atoms].cpu().numpy()
+    xyzB = endpoint_b(st.coords, free)
+    xA = calc.pad_bohr(st.coords_bohr)
+    xB = calc.pad_bohr(xyzB * ANG2BOHR)
+    eb, fm = calc.au_energy_force_batch_fn(), calc.system.free_mask
+    flag = dict(max_nodes=10, conv_perp_rms=GSM_CONV, climb=False,
+                max_cycles=60, stop_in_when_full=60)
+    clm = dict(max_nodes=10, climb=True, climb_lanczos=True,
+               climb_rms=GSM_CONV, conv_perp_rms=GSM_CONV, lanczos_iters=10,
+               max_cycles=30, stop_in_when_full=30)
+    if p12 is None:                  # --loops: the host references here
+        p12 = {"gsm": p23_timed(lambda: gsm_mep(eb, xA, xB, fm,
+                                                loop="host", **flag)),
+               "climb": p23_timed(lambda: gsm_mep(
+                   eb, xA, xB, fm, loop="host", hvp_fn=calc.au_hvp_fn(),
+                   **clm))}
+    host_flag = p12["gsm"][:2]
+    # (a) the flagship string
+    k12 = {k: 48 for k in MAIN_PATH}
+    p23_pair("a", p23_counted(calc, lambda: gsm_mep(
+        eb, xA, xB, fm, loop="device", **flag)), host_flag,
+        f"{smi_line}; escn-md pallas-mega, {calc.n_atoms} atoms "
+        f"(P={calc.n_pad}), max_nodes=10, climb off", want_launch=k12)
+    # (b) the climbing image on Lanczos tangents: the no-Lanczos cycle,
+    # then the Lanczos one (its HVPs on the plain path: no kernel)
+    res_b, _, stats_b = p23_pair("b", p23_counted(calc, lambda: gsm_mep(
+        eb, xA, xB, fm, loop="device", hvp_fn=calc.au_hvp_fn(), **clm)),
+        p12["climb"], f"{smi_line}; escn-md, climb and Lanczos on")
+    if len(stats_b) < 2 and res_b.cycles > 2:
+        fail("(b) the relaxation never switched to its Lanczos graph")
+    device_loop.clear_cache()
+    # (c) uma-s-1p1 dense at 300 atoms: "auto" is the device loop
+    dense = make_uma_calculator(st, device="cuda", seed=0)
+    if dense.gsm_loop_default != "device":
+        fail("uma-s-1p1's gsm_loop_default is not the device loop")
+    A, B = st, st.copy(coords=xyzB)
+    # perp_thresh 1 Ha/Bohr: the frontiers grow every cycle (4 growth
+    # cycles), so both graphs run
+    kw_c = dict(gs_kw={"max_nodes": 10, "climb": False, "perp_thresh": 1.0},
+                stopt_kw={"max_cycles": 16, "stop_in_when_full": 16},
+                verbose=False)
+    hc = p23_timed(lambda: run_mep_between(
+        A, B, dense, **{**kw_c, "gs_kw": {**kw_c["gs_kw"], "loop": "host"}}))
+    p23_pair("c", p23_counted(dense, lambda: run_mep_between(
+        A, B, dense, **{**kw_c, "gs_kw": {**kw_c["gs_kw"], "loop": "auto"}})),
+        hc, f"{smi_line}; uma-s-1p1 dense (no kernel), 300 atoms (P="
+        f"{dense.n_pad}), gs_kw loop='auto', max_nodes=10, perp_thresh 1, "
+        f"16 cycles, climb off")
+    del dense
+    device_loop.clear_cache()
+    # (d) uma-s-1p1 pallas at 1024 atoms through K5, its fixed plan
+    st4 = Structure(*cluster(1024, seed=0))
+    cfg = dataclasses.replace(CONFIGS["uma-s-1p1"], mp_mode="pallas")
+    _, w, _ = make_model(cfg, seed=0)
+    pc = pallas_calculator(st4, cfg, w)
+    xB4 = endpoint_b(st4.coords, np.ones(st4.n_atoms))
+    xA4, xB4 = pc.pad_bohr(st4.coords_bohr), pc.pad_bohr(xB4 * ANG2BOHR)
+    eb4, fm4 = pc.au_energy_force_batch_fn(), pc.system.free_mask
+    # max_nodes 6 (M = 8), perp_thresh 1: 2 growth cycles, then 6 of
+    # relaxation
+    kw_d = dict(max_nodes=6, conv_perp_rms=GSM_CONV, climb=False,
+                perp_thresh=1.0, max_cycles=8, stop_in_when_full=8)
+    hd = p23_timed(lambda: gsm_mep(eb4, xA4, xB4, fm4, loop="host", **kw_d))
+    L = cfg.n_layers
+    p23_pair("d", p23_counted(pc, lambda: gsm_mep(
+        eb4, xA4, xB4, fm4, loop="device", **kw_d)), hd,
+        f"{smi_line}; uma-s-1p1 pallas (K5), 1024 atoms, max_nodes=6, "
+        f"perp_thresh 1, 8 cycles, climb off",
+        want_launch={"radial_contract_fwd": 8 * 2 * L,
+                     "radial_contract_bwd_feats": 8 * (2 * L - 1),
+                     "radial_contract_bwd_coords": 8 * 2 * L})
+    for n in (1024, 4096):
+        p23_plans(cluster(n, seed=0)[1], cfg, smi_line)
+    del pc
+    device_loop.clear_cache()
+    torch.cuda.empty_cache()
+    # (e) the CLI
+    p23_cli(st, xyzB, smi_line)
+    log(f"[loops] phase 23 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -5633,6 +5968,9 @@ def main():
     ap.add_argument("--chunks", action="store_true",
                     help="device, build and phase 22 alone (images "
                          "interpolated between phase 12's endpoints)")
+    ap.add_argument("--loops", action="store_true",
+                    help="device, build and phase 23 alone (its host-loop "
+                         "references run there)")
     args = ap.parse_args()
     if args.p18_cpu:
         sys.path.insert(0, HERE)
@@ -5674,6 +6012,10 @@ def main():
         phase_chunks(calc, None, Structure(*cluster(64, seed=1)),
                      init_escn_params(ESCN_CONFIGS["escn-md"], seed=0),
                      {}, smi_line)
+        print(smi_line, flush=True)
+        return
+    if args.loops:
+        phase_loops(calc, None, smi_line)
         print(smi_line, flush=True)
         return
     # phase 12's CPU Hessian columns, in a child process from here on:
@@ -5765,6 +6107,9 @@ def main():
         for k, v in phase_chunks(calc, p12, ref64[0], ref64[1], rows,
                                  smi_line).items():
             launches[k] += v
+        # ---- the GSM device loop: captured graphs against phase 12's
+        # host loop (the graphs' launches are counted at their captures)
+        phase_loops(calc, p12, smi_line)
 
     kern = []
     for k, (err, t, tp, fl, nb) in rows.items():

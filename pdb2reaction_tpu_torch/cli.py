@@ -14,9 +14,12 @@ torch.profiler Chrome trace. ``opt`` / ``tsopt --coord-type dlc`` run
 in delocalized internals and ``--mep-mode dmf`` (``path-opt``,
 ``path-search``, ``all``) runs Direct Max Flux (``path-opt`` reads its
 keys from the ``dmf:`` section of ``--args-yaml``, as the JAX package
-does). Not ported, and refused: ``--gsm-loop device`` (left out on
-purpose) and ``--dump`` outside ``opt`` and ``scan`` (the other JAX
-commands write nothing with it).
+does). ``--gsm-loop`` (``path-opt``, ``path-search``, ``all``) picks the
+GSM loop: ``device`` (captured CUDA graphs on the card, eager masked
+cycles on the CPU), ``host``, or ``auto`` (the calculator's: device for
+the PaiNN-class models and the analytic potentials, host for eSCN).
+Refused: ``--dump`` outside ``opt`` and ``scan`` (the other JAX commands
+write nothing with it).
 ``--args-yaml`` is refused by ``scan2d``, ``scan3d`` and ``dft``, whose
 JAX commands read no YAML.
 
@@ -355,8 +358,9 @@ def _path_opt_parser(sub):
                    help="Keep endpoint images fixed during GSM.")
     p.add_argument("--gsm-loop", default="auto",
                    choices=["auto", "device", "host"],
-                   help="GSM loop: auto and host run the host loop; the "
-                        "device loop is not ported yet.")
+                   help="GSM loop: device (captured CUDA graphs a phase), "
+                        "host (a host read a cycle) or auto (the "
+                        "calculator's: device, host for eSCN).")
     _common_options(p)
     p.set_defaults(func=path_opt_cmd)
 
@@ -378,8 +382,9 @@ def _search_options(p) -> None:
     p.add_argument("--climb", type=_bool, default=True)
     p.add_argument("--gsm-loop", default="auto",
                    choices=["auto", "device", "host"],
-                   help="GSM loop: auto and host run the host loop; the "
-                        "device loop is not ported yet.")
+                   help="GSM loop: device (captured CUDA graphs a phase), "
+                        "host (a host read a cycle) or auto (the "
+                        "calculator's: device, host for eSCN).")
 
 
 def _path_search_parser(sub):
@@ -636,8 +641,6 @@ def _reject_unported(a, supported=()) -> None:
         "--dump-restart": ("--dump-restart" not in supported
                            and getattr(a, "dump_restart", 0) != 0),
         "--dump": "--dump" not in supported and a.dump,
-        "--gsm-loop device (the GSM device loop, left out on purpose: "
-        "ROADMAP.md queue 1)": getattr(a, "gsm_loop", "auto") == "device",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -837,7 +840,7 @@ def path_opt_cmd(a) -> int:
         preopt_max_cycles=a.preopt_max_cycles,
         stopt_kw={"max_cycles": a.max_cycles},
         gs_kw={"max_nodes": a.max_nodes, "climb": a.climb,
-               "fix_ends": a.fix_ends})
+               "fix_ends": a.fix_ends, "loop": a.gsm_loop})
     _yaml(a, cfg, [("gs",), ("sopt",), ("dmf",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
     with _ranks(a, "path-opt") as mesh:
@@ -867,7 +870,8 @@ def path_search_cmd(a) -> int:
     cfg: Dict[str, Any] = dict(
         mep_mode=a.mep_mode, full_template=ref_full, align=a.align,
         stopt_kw={"max_cycles": a.max_cycles},
-        gs_kw={"max_nodes": a.max_nodes, "climb": a.climb},
+        gs_kw={"max_nodes": a.max_nodes, "climb": a.climb,
+               "loop": a.gsm_loop},
         search_kw=skw)
     _yaml(a, cfg, [("search",), ("gs",), ("bond",)])
     cfg.setdefault("hessian_calc_mode", a.hessian_calc_mode)
@@ -964,7 +968,8 @@ def all_cmd(a) -> int:
             add_link_h=a.add_link_h,
             selected_resn=[t for t in a.selected_resn.split(",")
                            if t.strip()] or None),
-        gs_kw={"max_nodes": a.max_nodes, "climb": a.climb},
+        gs_kw={"max_nodes": a.max_nodes, "climb": a.climb,
+               "loop": a.gsm_loop},
         scan_kw={k: v for k, v in dict(
             bias_k=a.scan_bias_k, preopt=a.scan_preopt,
             endopt=a.scan_endopt, step_ang=a.scan_max_step_size,

@@ -774,6 +774,9 @@ struct PairArgs {
   const float* g;             // [Pr, R+1, F]
   float* part_r;              // the I side's slots (K5: both sides')
   float* part_c;              // the J side's slots
+  const int* n_live;          // K5's fixed-capacity plan: its listed pairs
+                              // (on the device); the blocks past them exit
+                              // at once. NULL: every block has a pair
 };
 
 template <int TJH, int FC, bool RECT>
@@ -805,6 +808,7 @@ __device__ __forceinline__ void coords_pairs(int F, int R, float rc,
   const int t = threadIdx.x, nt = blockDim.x;
   const int w = t >> 5, gq = (t & 31) >> 2, tq = t & 3;
   const int r = t / (4 * NJG), io = ((t / NJG) % 4) * 8, jo = (t % NJG) * 8;
+  if (pa.n_live != nullptr && (int)blockIdx.x >= *pa.n_live) return;
   const int4 pr = pa.pairs[blockIdx.x];
   const int i0 = pr.x * TILE;
   const bool diag = !RECT && pr.x == pr.y;
@@ -1223,15 +1227,19 @@ int rc_bwd_feats_launch(int P, int F, int R, int div_d, float rc,
 
 // the plan's Xp, perm, row_ptr and n_pairs pairs [n_pairs, 4]; g [P, R+1,
 // F], feats [P, F]; part [>= listed ordered pairs, 32, 3] scratch -> dx
-// [P, 3]. Up to R+1 = 32 full 32 x 32 pair tiles in chunks of 8 features
+// [P, 3]. n_live: NULL, or (a fixed-capacity plan, whose count a captured
+// graph cannot read on the host) the listed pairs on the device, the
+// first *n_live of the n_pairs slots; the grid stays n_pairs blocks. Up
+// to R+1 = 32 full 32 x 32 pair tiles in chunks of 8 features
 // (double-buffered, 203 KB of shared memory at R+1 = 32); above, two
 // column halves of 16 in chunks of 4, on CUDA cores (at R+1 = 64 the
 // 16-column stages pass the 227 KB a block may have). The 16-column tiling
 // exists for uma-m-1p1 (R+1 = 33) alone; uma-s-1p1 and small take the
 // 32-column one.
 int rc_bwd_coords_launch(int P, int F, int R, int div_d, float rc,
-                         int n_pairs, const float* Xp, const int* perm,
-                         const int* row_ptr, const int* pairs,
+                         int n_pairs, const int* n_live, const float* Xp,
+                         const int* perm, const int* row_ptr,
+                         const int* pairs,
                          const float* feats, const float* g, float* part,
                          float* dx, void* stream) {
   if (F % 8 != 0 || R + 1 > 63) return (int)cudaErrorInvalidValue;
@@ -1242,7 +1250,8 @@ int rc_bwd_coords_launch(int P, int F, int R, int div_d, float rc,
                     X4,    perm,
                     perm,  reinterpret_cast<const int4*>(pairs),
                     feats, g,
-                    part,  part};
+                    part,  part,
+                    n_live};
   if (n_pairs > 0) {
     const int err = launch_coords_any<false>(F, R, div_d, rc, n_pairs, pa, s);
     if (err) return err;

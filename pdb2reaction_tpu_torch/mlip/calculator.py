@@ -76,6 +76,7 @@ import torch
 from ..constants import BOHR2ANG, EV2AU, F_EVAA_2_AU, H_EVAA_2_AU
 from ..core.structure import Structure, pad_to
 from ..parallel.mesh import data_size, replicate, shard_batch
+from ..runtime.device_loop import per_cycle
 
 _SENTINEL = object()
 
@@ -168,6 +169,11 @@ class Calculator:
         self.weights_source = str(weights_source)
         self.force_calls = 0
         self.energy_calls = 0
+
+    # the GSM loop that ``gs_kw`` loop="auto" resolves to
+    # (``workflows/path_opt.py``): the device loop, as the JAX package's
+    # base calculator; eSCN calculators take the host loop (``mlip/uma.py``)
+    gsm_loop_default = "device"
 
     # -- helpers ------------------------------------------------------------
     def _to_pad_ang(self, coords_bohr) -> torch.Tensor:
@@ -444,7 +450,12 @@ class Calculator:
         stacked pass a chunk where the calculator has
         ``energy_fn_images``), with no host sync between them, over a
         data axis each rank its block; each image counts as a force call
-        on every rank. One closure per (calculator, params)."""
+        on every rank, through ``device_loop.per_cycle``: inside a
+        captured device loop once per cycle that took effect, never at
+        the warm-up or capture. ``collective`` marks a closure whose
+        ranks exchange data through gloo (atom-axis sharding,
+        tensor-parallel parameters, a data axis), which a CUDA graph
+        cannot capture. One closure per (calculator, params)."""
         cached = getattr(self, "_batch_closure", None)
         if cached is not None and cached[0] is self.params:
             return cached[1]
@@ -463,10 +474,17 @@ class Calculator:
 
         def fn(coords_batch):
             out = self._over_data(coords_batch, run, chunk)
-            self.force_calls += coords_batch.shape[0]
+            B = coords_batch.shape[0]
+
+            def count(n):
+                self.force_calls += B * n
+
+            # at once, or once per cycle a device loop's graph took effect
+            per_cycle(count)
             return (out[:, -1].contiguous(),
                     out[:, :-1].reshape(coords_batch.shape))
 
+        fn.collective = self._one_by_one() or data_size(self.mesh) > 1
         self._batch_closure = (self.params, fn)
         return fn
 
@@ -511,6 +529,7 @@ class Calculator:
         def fn(coords_pad, v_pad):
             return hvp_p(coords_pad, v_pad, packed)
 
+        fn.collective = self._one_by_one()
         self._hvp_closure = (self.params, fn)
         return fn
 

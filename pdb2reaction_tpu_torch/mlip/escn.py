@@ -275,15 +275,19 @@ def _mole(p, alpha, x):
 
 def _route_alpha(params, cfg: ESCNConfig):
     """Expert coefficients from the system's (task, charge, spin)."""
+    dev = params["task_embedding"].device
+
     def idx(v, lo, hi):
-        return int(min(max(int(v), lo), hi))
+        # clamped, read on the device: no host read in a force call
+        v = torch.as_tensor(v).to(dev)
+        return torch.clamp(v.to(torch.int64), lo, hi).reshape(1)
 
     q_idx = idx(params["charge"] + cfg.charge_range, 0, 2 * cfg.charge_range)
     s_idx = idx(params["spin"], 0, cfg.spin_range)
     t_idx = idx(params.get("task", 0), 0, cfg.num_tasks - 1)
     route_in = torch.cat([params["task_embedding"][t_idx],
                           params["charge_embedding"][q_idx],
-                          params["spin_embedding"][s_idx]], -1)
+                          params["spin_embedding"][s_idx]], -1)[0]
     return torch.softmax(_apply_linear_stack(params["router"], route_in), -1)
 
 

@@ -53,7 +53,7 @@ from .radial import bessel_basis, cosine_envelope
 from .radial_contract import (radial_contract, radial_contract_plain,
                               radial_contract_rect,
                               radial_contract_rect_plain, rect_tile_plan,
-                              tile_plan)
+                              tile_plan_fixed)
 
 
 @dataclass(frozen=True)
@@ -169,12 +169,13 @@ def _apply_mlp(layers, x):
 def _embed_z(z, params, cfg, atom_mask):
     """Initial scalar features for (already clipped) element rows ``z``."""
     s = _rows(params["embed_z"], z)
-    q_idx = int(torch.clamp(params["charge"].to(torch.int64)
-                            + cfg.charge_range, 0, 2 * cfg.charge_range))
-    m_idx = int(torch.clamp(params["spin"].to(torch.int64), 0,
-                            cfg.spin_range))
-    s = s + _rows(params["embed_q"], q_idx) + _rows(params["embed_s"],
-                                                    m_idx)
+    # clamped indices read on the device: no host read in a force call
+    q_idx = torch.clamp(params["charge"].to(z.device, torch.int64)
+                        + cfg.charge_range, 0, 2 * cfg.charge_range)
+    m_idx = torch.clamp(params["spin"].to(z.device, torch.int64), 0,
+                        cfg.spin_range)
+    s = s + _rows(params["embed_q"], q_idx.reshape(1)) \
+        + _rows(params["embed_s"], m_idx.reshape(1))
     return s * atom_mask[:, None]
 
 
@@ -364,7 +365,8 @@ def energy_fn_pallas(coords_ang, system, params, cfg,
     # calls: the optimizer moves the atoms)
     plan = None
     if x_full.is_cuda and not plain:
-        plan = (tile_plan(x_full, mask_full, cfg.cutoff) if shard is None
+        plan = (tile_plan_fixed(x_full, mask_full, cfg.cutoff)
+                if shard is None
                 else rect_tile_plan(x, atom_mask, i0, x_full, mask_full,
                                     cfg.cutoff))
 

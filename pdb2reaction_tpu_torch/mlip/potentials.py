@@ -15,6 +15,7 @@ import torch
 from .. import elements
 from ..core.neighbors import pairwise_distances
 from ..core.structure import PaddedSystem
+from .so3 import _const
 
 
 def _pair_mask(system: PaddedSystem, dtype):
@@ -39,8 +40,8 @@ def morse(coords, system: PaddedSystem, De: float = 4.0, a: float = 2.0,
           re_scale: float = 1.0) -> torch.Tensor:
     """Pairwise Morse with equilibrium distance from covalent radii sums:
     bonded wells at r_cov_i + r_cov_j. De in eV, a in 1/Angstrom."""
-    radii = torch.as_tensor(elements.COVALENT_RADII_ANG, dtype=coords.dtype,
-                            device=coords.device)[system.numbers]
+    radii = _const("covalent_radii", lambda: elements.COVALENT_RADII_ANG,
+                   coords.dtype, coords.device)[system.numbers]
     re = (radii[:, None] + radii[None, :]) * re_scale
     d = pairwise_distances(coords)
     pair = _pair_mask(system, coords.dtype)

@@ -18,13 +18,18 @@ autograd); CUDA tensors the hand-written kernels of
 ``csrc/radial_contract.cu`` behind a ``torch.autograd.Function``: the
 forward, the feats gradient (the transposed contraction; A is symmetric)
 and the fused coordinate gradient, none of which stores the adjacency.
-The kernels take float32 only. All three run on one ``tile_plan`` of the
+The kernels take float32 only. All three run on one tile plan of the
 call's coordinates: atoms in a spatial order, cut into tiles of 32, and
 the tile pairs whose boxes lie within the cutoff; every other tile pair
-holds no pair inside it and is skipped. A caller that contracts several
-streams over the same coordinates builds the plan once and passes it to
-every call (``plan=``; the PaiNN pallas mode does so once per energy
-evaluation); without one, each call builds its own.
+holds no pair inside it and is skipped. The calls build
+``tile_plan_fixed``: its buffers' sizes depend on the tile count alone
+and its pair count stays on the device (the coordinate kernel's blocks
+past it exit), so a force call reads nothing on the host and a CUDA graph
+can hold it; ``tile_plan`` is its reference, the same pairs in the same
+slots through ``nonzero``. A caller that contracts several streams over
+the same coordinates builds the plan once and passes it to every call
+(``plan=``; the PaiNN pallas mode does so once per energy evaluation);
+without one, each call builds its own.
 
 K6 (``radial_contract_rect``) is the same contraction for one block of
 rows against all columns, the form atom-axis sharding runs: rows
@@ -97,16 +102,20 @@ class TilePlan(NamedTuple):
         every listed ordered tile pair, the coordinate gradient two S
         products per listed I <= J tile pair. Synchronises with the
         device."""
-        T = self.n_tiles
-        listed = int(self.row_ptr[-1])
-        out = {"tiles": T, "listed": listed,
-               "listed_upper": int(self.pairs.shape[0]),
-               "share": listed / max(T * T, 1)}
-        if R1 is not None:
-            per = 2 * TILE * TILE * R1 * F
-            out["fwd_flop"] = per * listed
-            out["coords_flop"] = 2 * per * out["listed_upper"]
-        return out
+        return _stats(self, self.pairs.shape[0], R1, F)
+
+
+def _stats(plan, n_upper, R1, F) -> dict:
+    """``TilePlan.stats`` of a plan with ``n_upper`` listed I <= J pairs."""
+    T = plan.n_tiles
+    listed = int(plan.row_ptr[-1])
+    out = {"tiles": T, "listed": listed, "listed_upper": int(n_upper),
+           "share": listed / max(T * T, 1)}
+    if R1 is not None:
+        per = 2 * TILE * TILE * R1 * F
+        out["fwd_flop"] = per * listed
+        out["coords_flop"] = 2 * per * out["listed_upper"]
+    return out
 
 
 _LEVELS: dict = {}
@@ -189,9 +198,11 @@ def _xm(xs, rs):
 def tile_plan(coords, mask, cutoff) -> TilePlan:
     """The tile plan of K5's forward and coordinate gradient, in tiles of
     ``TILE`` atoms (the kernels' tile; they take no other): the order and
-    boxes of ``_plan_tiles``, the reach relation of ``_reach``. Plain
-    PyTorch on the coordinates' device; the upper-triangle ``nonzero`` is
-    the one host synchronisation of a call.
+    boxes of ``_plan_tiles``, the reach relation of ``_reach``, the listed
+    pairs by ``nonzero`` (a host synchronisation). Plain PyTorch on the
+    coordinates' device. The calls build ``tile_plan_fixed``, which lists
+    the same pairs in the same slots with no host read; this is its
+    reference.
     """
     plans["built"] += 1
     dev = coords.device
@@ -214,6 +225,79 @@ def tile_plan(coords, mask, cutoff) -> TilePlan:
     pairs = torch.stack([pI, pJ, e_ij, e_ji], 1).to(torch.int32)
     return TilePlan(order.to(torch.int32), _xm(xs, rs), lo, hi, row_ptr,
                     cols, pairs.contiguous())
+
+
+class FixedTilePlan(NamedTuple):
+    """``tile_plan``'s plan at a capacity fixed by the tile count alone,
+    built with no host read (``tile_plan_fixed``): what a captured CUDA
+    graph can hold, and what every call builds. The fields are
+    ``TilePlan``'s, with
+
+    cols     int32 [T * T]: the listed ordered pairs first, as in ``TilePlan``
+    pairs    int32 [T (T + 1) / 2, 4]: the listed I <= J pairs first, in
+             ``TilePlan``'s order; the empty slots after them hold -1
+    n_upper  int32 [1]: the listed I <= J pairs, on the device; the
+             coordinate kernel's blocks past it exit at once
+    """
+    perm: torch.Tensor
+    xm: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    row_ptr: torch.Tensor
+    cols: torch.Tensor
+    pairs: torch.Tensor
+    n_upper: torch.Tensor
+
+    @property
+    def n_tiles(self) -> int:
+        return self.lo.shape[0]
+
+    def stats(self, R1=None, F=None) -> dict:
+        """``TilePlan.stats`` of the listed pairs. Synchronises with the
+        device."""
+        return _stats(self, self.n_upper[0], R1, F)
+
+
+_UPPER: dict = {}
+
+
+def tile_plan_fixed(coords, mask, cutoff) -> FixedTilePlan:
+    """``tile_plan`` with no host read, the plan every call builds (a
+    captured CUDA graph can hold it): the same order, boxes, reach
+    relation and listed pairs in the same order (the kernels sum the same
+    terms in the same order, bit for bit), in buffers whose sizes depend
+    on the tile count T alone: every I <= J tile pair is ranked among the
+    listed ones by a prefix sum instead of ``nonzero``, and the count
+    stays on the device."""
+    plans["built"] += 1
+    dev = coords.device
+    order, xs, rs, lo, hi = _plan_tiles(coords, mask)
+    T = lo.shape[0]
+    key = (T, str(dev))
+    if key not in _UPPER:
+        _UPPER[key] = torch.triu_indices(T, T).to(dev)
+    uI, uJ = _UPPER[key]
+    cap = uI.shape[0]
+    reach = _reach(lo, hi, lo, hi, cutoff)
+    cnt = reach.sum(1, dtype=torch.int32)
+    row_ptr = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    row_ptr[1:] = torch.cumsum(cnt, 0)
+    rank = torch.cumsum(reach, 1, dtype=torch.int32) - reach.int()
+    listed = reach[uI, uJ]
+    e_ij = row_ptr[uI] + rank[uI, uJ]
+    e_ji = row_ptr[uJ] + rank[uJ, uI]
+    # unlisted pairs write to one scratch slot past the end, then dropped
+    cols = torch.zeros(T * T + 1, dtype=torch.int32, device=dev)
+    cols.scatter_(0, torch.where(listed, e_ij, T * T).long(), uJ.int())
+    cols.scatter_(0, torch.where(listed, e_ji, T * T).long(), uI.int())
+    slot = torch.where(listed, torch.cumsum(listed, 0) - 1, cap)
+    pairs = torch.full((cap + 1, 4), -1, dtype=torch.int32, device=dev)
+    pairs.index_copy_(0, slot, torch.stack([uI, uJ, e_ij, e_ji],
+                                           1).to(torch.int32))
+    n_upper = listed.sum(dtype=torch.int32).reshape(1)
+    return FixedTilePlan(order.to(torch.int32), _xm(xs, rs), lo, hi,
+                         row_ptr, cols[:T * T].contiguous(),
+                         pairs[:cap].contiguous(), n_upper)
 
 
 class RectTilePlan(NamedTuple):
@@ -389,7 +473,7 @@ class _RadialContractFn(torch.autograd.Function):
     def forward(ctx, coords, mask, feats, cutoff, n_radial, div_d, plan):
         feats = _aligned(feats)
         if plan is None:
-            plan = tile_plan(coords, mask, cutoff)
+            plan = tile_plan_fixed(coords, mask, cutoff)
         out = contract_on_plan(plan, feats, cutoff, n_radial, div_d)
         # the backward reads the coordinates and mask from the plan
         ctx.save_for_backward(feats)
@@ -420,9 +504,10 @@ class _RadialContractFn(torch.autograd.Function):
             part = torch.empty(plan.cols.shape[0], TILE, 3,
                                device=g.device, dtype=torch.float32)
             call(lib, "rc_bwd_coords_launch", P, F, n_radial, int(div_d),
-                 cutoff, plan.pairs.shape[0], ptr(plan.xm), ptr(plan.perm),
-                 ptr(plan.row_ptr), ptr(plan.pairs), ptr(feats), ptr(g),
-                 ptr(part), ptr(dcoords), stream_ptr())
+                 cutoff, plan.pairs.shape[0],
+                 ptr(getattr(plan, "n_upper", None)), ptr(plan.xm),
+                 ptr(plan.perm), ptr(plan.row_ptr), ptr(plan.pairs),
+                 ptr(feats), ptr(g), ptr(part), ptr(dcoords), stream_ptr())
             launches["radial_contract_bwd_coords"] += 1
         return dcoords, None, dfeats, None, None, None, None
 
@@ -447,9 +532,10 @@ def _check(name, tensors, F, n_radial):
 def radial_contract(coords, mask, feats, cutoff, n_radial, div_d=False,
                     plan=None):
     """K5 on coords [P, 3], mask [P], feats [P, F]; returns [P, R+1, F].
-    On CUDA tensors ``plan``, a ``tile_plan`` of these coordinates, mask and
-    cutoff, serves all three kernels (None: the call builds its own); on
-    the CPU it is ignored."""
+    On CUDA tensors ``plan``, a ``tile_plan_fixed`` (or ``tile_plan``) of
+    these coordinates, mask and cutoff, serves all three kernels (None:
+    the call builds its own ``tile_plan_fixed``); on the CPU it is
+    ignored."""
     if not coords.is_cuda:
         return radial_contract_plain(coords, mask, feats, cutoff, n_radial,
                                      div_d)

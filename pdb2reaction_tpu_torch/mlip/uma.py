@@ -271,12 +271,15 @@ def make_uma_calculator(
     _record_weights_source(source)
     params = tree_to(dict(params), device=dev)
     params = tree_to(params, dtype=cfg.dtype)
-    params["charge"] = torch.as_tensor(float(charge))
-    params["spin"] = torch.as_tensor(float(spin))
+    # the routing scalars on the device: a force call indexes with them
+    # there, with no host read (a captured device loop holds none)
+    params["charge"] = torch.as_tensor(float(charge), device=dev)
+    params["spin"] = torch.as_tensor(float(spin), device=dev)
     fn_h = fn_images = None
     if escn:
         params["task"] = torch.as_tensor(float(
-            task if task is not None else params.get("task", 0)))
+            task if task is not None else params.get("task", 0)),
+            device=dev)
         params = premerge_escn_params(params, cfg)
         if group:
             fn = make_spatial_energy_fn(cfg, group)
@@ -312,4 +315,8 @@ def make_uma_calculator(
                       energy_fn_images=fn_images)
     calc.cfg = cfg
     calc.spatial = spatial
+    if escn:
+        # the GSM's loop="auto": the host loop for eSCN, as in the JAX
+        # package (its device loop compiled for tens of minutes there)
+        calc.gsm_loop_default = "host"
     return calc

@@ -166,8 +166,9 @@ def run_all(
     the baker threshold) drives the stage-4 TS mode and endpoint
     minimizations (its ``max_cycles`` caps the latter); ``tsopt_kw``'s
     ``max_cycles_total`` caps tsopt; ``irc_kw`` goes to the IRC engine,
-    ``dft_kw`` to ``run_dft``. Search and string keys may also come flat
-    in ``calc_kw``."""
+    ``dft_kw`` to ``run_dft``; ``gs_kw`` (its GSM ``loop`` included)
+    reaches path-search's strings. Search and string keys may also come
+    flat in ``calc_kw``."""
     t0 = time.time()
     mep_mode = normalize_choice(mep_mode, choices=("gsm", "dmf"))
     search_kw = dict(search_kw or {})

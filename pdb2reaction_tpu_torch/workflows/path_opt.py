@@ -43,7 +43,11 @@ def run_mep_between(
     ``mep_mode="dmf"``). The calculator's batched closure counts every
     image evaluation itself, so its ``force_calls`` rises by exactly
     ``res.force_calls`` here (the JAX package adds the engine's count
-    afterwards instead)."""
+    afterwards instead). ``gs_kw``'s ``loop`` picks the GSM loop:
+    ``"device"``, ``"host"`` or ``"auto"`` (the default), the calculator's
+    ``gsm_loop_default``, as in the JAX package; on CUDA ``"auto"`` takes
+    the host loop where the calculator's closures are collective (the
+    device loop cannot capture them), and says so."""
     if mep_mode == "dmf":
         return dmf_mep(calc, calc.pad_bohr(structA.coords_bohr),
                        calc.pad_bohr(structB.coords_bohr),
@@ -51,6 +55,20 @@ def run_mep_between(
     kw = {**GS_KW, **(gs_kw or {})}
     skw = {**STOPT_KW, **(stopt_kw or {})}
     lanczos = bool(kw["climb"]) and bool(kw.get("climb_lanczos", True))
+    eb = calc.au_energy_force_batch_fn()
+    hvp = calc.au_hvp_fn() if lanczos else None
+    loop = kw.get("loop", "auto")
+    if loop == "auto":
+        loop = getattr(calc, "gsm_loop_default", "device")
+        if loop == "device" and str(getattr(calc, "device", "cpu")) \
+                .startswith("cuda") and any(
+                getattr(f, "collective", False) for f in (eb, hvp)):
+            loop = "host"
+            if verbose:
+                print("[gsm] loop='auto': the host loop, as this "
+                      "calculator's collectives (sharding, tensor-parallel "
+                      "parameters or a data axis) cannot be captured in a "
+                      "CUDA graph")
 
     def cb(cyc, E, rms, grown, climb):
         if verbose:
@@ -58,7 +76,7 @@ def run_mep_between(
                   f"{rms:.2e}, climb = {climb}")
 
     return gsm_mep(
-        calc.au_energy_force_batch_fn(),
+        eb,
         calc.pad_bohr(structA.coords_bohr),
         calc.pad_bohr(structB.coords_bohr),
         calc.system.free_mask,
@@ -71,12 +89,13 @@ def run_mep_between(
         fix_ends=bool(kw.get("fix_ends",
                              kw.get("fix_first", True)
                              and kw.get("fix_last", True))),
-        hvp_fn=calc.au_hvp_fn() if lanczos else None,
+        hvp_fn=hvp,
         reparam_every=kw["reparam_every"],
         reparam_every_full=kw["reparam_every_full"],
         max_micro_cycles=kw.get("max_micro_cycles", 10),
         callback=cb if verbose else None,
         print_every=skw.get("print_every", 10),
+        loop=loop,
     )
 
 

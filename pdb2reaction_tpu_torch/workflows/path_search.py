@@ -327,9 +327,11 @@ def run_path_search(
     """The recursive search over ``input_paths`` (two or more files of
     one system, in reaction order); writes the output tree under
     ``out_dir``. Engine and search keys may also come flat in
-    ``calc_kw``. ``auto_freeze_links`` freezes the parents of a PDB
-    input's link hydrogens; atoms to freeze may be indices or 'RES SEQ
-    NAME' selectors."""
+    ``calc_kw``. ``gs_kw`` reaches every segment's string as it is, its
+    ``loop`` ("device", "host" or "auto") included
+    (``path_opt.run_mep_between``). ``auto_freeze_links`` freezes the
+    parents of a PDB input's link hydrogens; atoms to freeze may be
+    indices or 'RES SEQ NAME' selectors."""
     t0 = time.time()
     if len(input_paths) < 2:
         raise ValueError("path-search needs >= 2 structures")

@@ -1000,9 +1000,9 @@ def test_morse_gsm_on_card_matches_cpu():
 
 
 def test_flagship_gsm_accounting_on_card():
-    """escn-md on the 300-atom cluster, max_nodes=10, 8 cycles: (cycles +
-    1) x 12 force calls, counted once on the calculator, and K1 and K2
-    launched 4 times each (fwd and bwd) per force call."""
+    """escn-md on the 300-atom cluster, max_nodes=10, 8 cycles, the host
+    loop: (cycles + 1) x 12 force calls, counted once on the calculator,
+    and K1 and K2 launched 4 times each (fwd and bwd) per force call."""
     from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
     _need_card()
     st = _lattice(300, seed=0)
@@ -1014,7 +1014,7 @@ def test_flagship_gsm_accounting_on_card():
                   calc.pad_bohr(st.coords_bohr),
                   calc.pad_bohr(xB * ANG2BOHR), calc.system.free_mask,
                   max_nodes=10, max_cycles=8, stop_in_when_full=2,
-                  conv_perp_rms=2e-2, climb=False)
+                  conv_perp_rms=2e-2, climb=False, loop="host")
     fc = res.force_calls
     assert fc == (res.cycles + 1) * 12 and calc.force_calls - n0 == fc
     assert _moved(before) == {k: 4 * fc for k in MAIN_PATH}
@@ -1679,3 +1679,131 @@ def test_batched_hvp_on_card_matches_single_hvps():
     hs = torch.stack([calc._vjp(c, g, v) for v in V])
     assert {**ek.launches, **fk.launches} == n0
     assert float((hb - hs).abs().max()) <= 1e-5 * float(hs.abs().max())
+
+
+# ---- the GSM device loop: captured CUDA graphs -----------------------------
+
+def _replay_closure(calc, x):
+    """The calculator's batched closure captured in one device-loop cycle
+    (``runtime.device_loop.Cycle``) and replayed: (E, F, the cycle)."""
+    from pdb2reaction_tpu_torch.runtime import device_loop
+    eb = calc.au_energy_force_batch_fn()
+    n = x.shape[0]
+
+    def body(s):
+        e, f = eb(s[0])
+        return s[0], e, f, s[3] + 1
+
+    st = (x.clone(), x.new_zeros(n), torch.zeros_like(x),
+          torch.zeros((), dtype=torch.int64, device=x.device))
+    cyc = device_loop.Cycle(lambda s: s[3] < 1, body, st)
+    n0 = calc.force_calls
+    assert cyc.run() == (1, [False])
+    assert calc.force_calls == n0 + n        # the cycle that took effect
+    return cyc.state[1], cyc.state[2], cyc
+
+
+@pytest.mark.parametrize("edge_kernel", list(EDGE_FN))
+def test_captured_escn_closure_replays_eager_bit_for_bit(edge_kernel):
+    """escn-test's batched force closure in each edge-kernel layout,
+    captured into a CUDA graph: its replay gives the eager call's
+    energies and forces bit for bit, and the capture recorded the layout's
+    edge kernel and K2, forward and backward, once an image a layer."""
+    _need_card()
+    st = _lattice(24, seed=4)
+    w = init_escn_params(ESCN_CONFIGS["escn-test"], seed=1)
+    calc = make_uma_calculator(st, model="escn-test", params=w,
+                               edge_kernel=edge_kernel)
+    rng = np.random.default_rng(3)
+    x = torch.stack([calc.pad_bohr(st.coords_bohr + rng.normal(
+        scale=0.05, size=st.coords.shape)) for _ in range(3)])
+    e0, f0 = calc.au_energy_force_batch_fn()(x)
+    e, f, cyc = _replay_closure(calc, x)
+    assert torch.equal(e, e0) and torch.equal(f, f0)
+    base = EDGE_FN[edge_kernel]
+    L = ESCN_CONFIGS["escn-test"].num_layers
+    assert cyc.stats()["launches"] == {
+        f"{base}_fwd": 3 * L, f"{base}_bwd": 3 * L,
+        "fused_node_ffn_fwd": 3 * L, "fused_node_ffn_bwd": 3 * L}
+    assert cyc.stats()["replays"] == 2       # the stop, then one no-op
+
+
+def test_captured_pallas_closure_replays_eager_bit_for_bit():
+    """The small PaiNN model in mp_mode="pallas": K5 on its tile plan
+    (``tile_plan_fixed``, no host read) inside the graph gives the eager
+    call's bits; 2L / 2L - 1 / 2L K5 launches an image recorded at the
+    capture."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    st = Structure(rng.choice([1, 6, 8], size=96).astype(np.int32),
+                   rng.normal(scale=3.0, size=(96, 3)))
+    cfg = dataclasses.replace(CONFIGS["small"], mp_mode="pallas")
+    calc = make_uma_calculator(st, model="small", mp_mode="pallas", seed=2)
+    x = torch.stack([calc.pad_bohr(st.coords_bohr + rng.normal(
+        scale=0.05, size=st.coords.shape)) for _ in range(2)])
+    e0, f0 = calc.au_energy_force_batch_fn()(x)
+    e, f, cyc = _replay_closure(calc, x)
+    assert torch.equal(e, e0) and torch.equal(f, f0)
+    L = cfg.n_layers
+    got = cyc.stats()["launches"]
+    assert got == {"radial_contract_fwd": 2 * 2 * L,
+                   "radial_contract_bwd_feats": 2 * (2 * L - 1),
+                   "radial_contract_bwd_coords": 2 * 2 * L}, got
+
+
+@pytest.mark.parametrize("model", ["escn-test", "small"])
+def test_gsm_device_loop_on_card_matches_host(model):
+    """A 20-atom string through loop="device" (captured graphs) and
+    loop="host" on the card, the climbing image and its Lanczos tangent
+    on: the same cycles, force calls, HEI and convergence, and the
+    calculator counting exactly the string's force calls; images within
+    1e-6 Bohr (float32 forces: the graphs run the same kernels on the
+    same inputs)."""
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    from pdb2reaction_tpu_torch.runtime import device_loop
+    _need_card()
+    st = _lattice(20, seed=5)
+    rng = np.random.default_rng(7)
+    xB = st.coords + rng.normal(scale=0.1, size=st.coords.shape)
+    out = {}
+    for loop in ("device", "host"):
+        calc = make_uma_calculator(st, model=model, seed=3,
+                                   **({"mp_mode": "pallas"}
+                                      if model == "small" else {}))
+        n0 = calc.force_calls
+        out[loop] = gsm_mep(calc.au_energy_force_batch_fn(),
+                            calc.pad_bohr(st.coords_bohr),
+                            calc.pad_bohr(xB * ANG2BOHR),
+                            calc.system.free_mask, max_nodes=6,
+                            max_cycles=14, conv_perp_rms=2e-2,
+                            climb_rms=3e-2, hvp_fn=calc.au_hvp_fn(),
+                            loop=loop)
+        assert calc.force_calls - n0 == out[loop].force_calls
+    d, h = out["device"], out["host"]
+    assert (d.cycles, d.force_calls, d.hei_idx, d.converged) == \
+        (h.cycles, h.force_calls, h.hei_idx, h.converged)
+    assert np.abs(d.images - h.images).max() <= 1e-6
+    replays = sum(c.replays for c in device_loop.cycles())
+    assert replays > 0
+    device_loop.clear_cache()
+
+
+def test_device_loop_refuses_collective_closures_on_card():
+    """A closure marked collective (a data axis, sharding) is refused by
+    loop="device" on CUDA before any launch."""
+    from pdb2reaction_tpu_torch.engines.gsm import gsm_mep
+    _need_card()
+    st = _lattice(8, seed=1)
+    calc = make_uma_calculator(st, model="small", seed=0)
+    eb = calc.au_energy_force_batch_fn()
+
+    def shared(x):
+        return eb(x)
+
+    shared.collective = True
+    before = _all_counts()
+    with pytest.raises(ValueError, match="loop='host'"):
+        gsm_mep(shared, calc.pad_bohr(st.coords_bohr),
+                calc.pad_bohr(st.coords_bohr + 0.1), calc.system.free_mask,
+                max_nodes=4, loop="device")
+    assert _moved(before) == {}

@@ -18,10 +18,11 @@
 - the Mueller-Brown curved valley: the port's string converges, its
   climbing image lies within 0.02 Angstrom of the analytic saddle and the
   relaxed string within 0.06 Angstrom of a dense steepest-descent MEP
-  (the grown-only half of the JAX test needs its device growth loop,
-  which the port does not have);
+  (the grown-only half of the JAX test, through the device growth loop,
+  is in ``tests/test_torch_gsm_device.py``);
 - a short escn-test string whose climbing image and Lanczos tangent
-  switch on within the run, against JAX's host loop."""
+  switch on within the run, the port's default (device) loop against
+  JAX's host loop."""
 
 import numpy as np
 import pytest
@@ -284,10 +285,12 @@ def test_gsm_curved_valley_saddle_and_mep():
 
 
 def test_gsm_escn_string_climbs_like_jax():
-    """escn-test, 6 atoms, one frozen, max_nodes=4: the climbing image
-    switches on after the string has relaxed a while, and from then on
-    every cycle runs a 10-step Lanczos tangent; the JAX host loop on the
-    same weights takes the same path."""
+    """escn-test, 6 atoms, one frozen, max_nodes=4, through the port's
+    default loop (the device loop: its relaxation switches from the cycle
+    without Lanczos to the one with it): the climbing image switches on
+    after the string has relaxed a while, and from then on every cycle
+    runs a 10-step Lanczos tangent; the JAX host loop on the same weights
+    takes the same path."""
     jc, tc, cb = _pair(freeze=[0], seed=7, n=6)
     rng = np.random.default_rng(2)
     xA = cb.reshape(-1, 3)

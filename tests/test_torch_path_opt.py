@@ -223,12 +223,10 @@ def test_path_opt_cli_writes_outputs(tmp_path):
 
 @pytest.mark.parametrize("flags,said", [
     (["--spatial", "2"], "torchrun --nproc-per-node 2"),
-    (["--gsm-loop", "device"], "--gsm-loop device"),
 ])
 def test_path_opt_cli_refuses_unported(tmp_path, flags, said):
-    """``--spatial`` above 1 in one process (the ranks are torchrun's) and
-    the device GSM loop are refused up front, with no process group and
-    no output."""
+    """``--spatial`` above 1 in one process (the ranks are torchrun's) is
+    refused up front, with no process group and no output."""
     paths = _h3_endpoints(tmp_path)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run(

@@ -194,7 +194,6 @@ def test_path_search_matches_jax(tmp_path, inputs, max_nodes, kinds):
 @pytest.mark.parametrize("flags,said", [
     (["--dump", "True"], "--dump"),
     (["--spatial", "2"], "torchrun --nproc-per-node 2"),
-    (["--gsm-loop", "device"], "left out on purpose"),
 ])
 def test_path_search_cli_refuses_unported(tmp_path, capsys, flags, said):
     a = _write(tmp_path, "A.xyz", H3A)
